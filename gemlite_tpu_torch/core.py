@@ -1,0 +1,315 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Layer API and functional forward (counterpart of ``gemlite_tpu/core.py``).
+
+``GemLiteLinear`` is an ``nn.Module`` holding the packed weights and group
+metadata as registered buffers, plus the reference 12-int metadata vector.
+The port always packs the reference LSB-first layout (``w_layout=0``); layers
+packed by the JAX package in its plane-folded layout are unfolded on load.
+"""
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .bitpack import (fold_plane_count, pack_weights_over_cols,
+                      unfold_codes_for_planes, unpack_over_rows)
+from .dtypes import DType, TORCH_TO_DTYPE, is_mx_dtype
+from .ops.dispatch import fused_matmul
+
+__all__ = ["GemLiteLinear", "LayerMeta", "forward_functional", "get_matmul_type",
+           "resolve_device", "tensor_from_numpy"]
+
+GEMLITE_ACC_DTYPE = {DType.FP16: DType.FP32, DType.BF16: DType.FP32,
+                     DType.FP32: DType.FP32}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Raises when no card is present and the caller
+    did not ask for the CPU: the plain versions are never a silent fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return dev
+
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """numpy array (bfloat16 arrays from ml_dtypes included) or tensor -> tensor.
+
+    A bfloat16 numpy array is read through its uint16 bit view, so no
+    ml_dtypes import is needed here."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device) if device is not None else a
+    a = np.asarray(a)
+    if not a.flags.writeable:      # e.g. the buffer of a JAX array
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device) if device is not None else t
+
+
+def get_matmul_type(batch_size: int, W_nbits: int, mx_dtype: bool = False) -> str:
+    """Kernel family name by flattened batch size (reference API parity)."""
+    if batch_size > 64:
+        return "GEMM"
+    if batch_size > 1:
+        return "GEMM_SPLITK"
+    if mx_dtype:
+        return "GEMM_SPLITK"
+    return "GEMV_REVSPLITK" if W_nbits < 8 else "GEMV_SPLITK"
+
+
+class LayerMeta(NamedTuple):
+    """Static layer configuration: fields [0:12] are the reference metadata
+    vector in the reference order; the rest are shapes and the zero form."""
+
+    scaled_activations: int
+    W_nbits: int
+    group_size: int
+    unpack_mask: int
+    elements_per_sample: int
+    input_dtype: int
+    output_dtype: int
+    acc_dtype: int
+    meta_dtype: int
+    channel_scale_mode: int
+    W_group_mode: int
+    data_contiguous: int
+    in_features: int = 0
+    out_features: int = 0
+    zero_is_scalar: int = 0
+
+    @property
+    def meta_args(self):
+        return list(self[:12])
+
+
+def forward_functional(x: torch.Tensor, bias, tensor_args, meta: LayerMeta) -> torch.Tensor:
+    """Fused forward: x (..., K) -> (..., N) through the regime router."""
+    if meta.scaled_activations:
+        raise NotImplementedError("queued: dynamically quantized activations (A8 processors)")
+    W_q, scales, zeros = tensor_args
+    out_shape = x.shape[:-1] + (meta.out_features,)
+    out = fused_matmul(x.reshape(-1, x.shape[-1]), W_q, scales, zeros, meta)
+    out = out.reshape(out_shape)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def _as_tensor(a, device):
+    return None if a is None else tensor_from_numpy(a).to(device)
+
+
+class GemLiteLinear(nn.Module):
+    """Quantized linear layer: ``pack()`` once, then call it like a module.
+
+    Packs float-activation layers over W1/W2/W4/W8 codes: W_group_mode 0-4,
+    channel_scale_mode 0/1, the fma fold of mode 4 (``zeros := -z*s`` computed
+    in float32 and stored in the zeros' dtype)."""
+
+    SUPPORTED_BITS = (1, 2, 4, 8)
+    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32)
+    MIN_SIZE = 32
+
+    def __init__(self, W_nbits: int = 4, group_size: Optional[int] = 64,
+                 in_features: Optional[int] = None, out_features: Optional[int] = None,
+                 input_dtype: DType = DType.BF16, output_dtype: DType = DType.BF16,
+                 acc_dtype: Optional[DType] = None, scaled_activations: bool = False,
+                 device=None):
+        super().__init__()
+        if W_nbits not in self.SUPPORTED_BITS:
+            raise NotImplementedError(f"only W_nbits in {self.SUPPORTED_BITS} are ported")
+        if input_dtype not in self.SUPPORTED_DTYPES:
+            raise NotImplementedError(f"queued: input dtype {input_dtype}")
+        if in_features is not None and out_features is not None:
+            if in_features % self.MIN_SIZE or (group_size is not None and in_features % group_size):
+                raise NotImplementedError(
+                    f"Invalid input shapes {in_features}, {out_features}: in_features must be "
+                    f"divisible by {self.MIN_SIZE} and by group_size.")
+        if group_size is not None and group_size < 16:
+            raise NotImplementedError("Only group_size >= 16 is supported.")
+        self.device = resolve_device(device)
+        self.W_nbits = W_nbits
+        self.group_size = 1 if group_size is None else group_size
+        self.in_features = in_features
+        self.out_features = out_features
+        self.unpack_mask = 2 ** W_nbits - 1
+        self.elements_per_sample = None
+        self.input_dtype = input_dtype
+        self.output_dtype = output_dtype
+        self.meta_dtype = input_dtype
+        self.acc_dtype = GEMLITE_ACC_DTYPE[input_dtype] if acc_dtype is None else acc_dtype
+        # float activations are never dynamically quantized
+        self.scaled_activations = False
+        self.channel_scale_mode = 0
+        self.W_group_mode = -1
+        self.data_contiguous = True
+        self.zero_is_scalar = False
+        for name in ("W_q", "scales", "zeros", "bias"):
+            self.register_buffer(name, None)
+
+    def pack(self, W_q, scales=None, zeros=None, bias=None, fma_mode: bool = True,
+             contiguous: Optional[bool] = None):
+        """Pack (N, K) uint8 codes and (G, 1)-shaped group metadata.
+
+        Follows the decision tree of ``gemlite_tpu/core.py:pack`` for float
+        activations; the words stay in the LSB-first layout (w_layout=0)."""
+        dev = self.device
+        W_q = tensor_from_numpy(W_q).to(dev)
+        if W_q.dtype != torch.uint8:
+            raise NotImplementedError(f"queued: non-packed {W_q.dtype} weights")
+        if self.out_features is None or self.in_features is None:
+            self.out_features, self.in_features = W_q.shape
+        N = self.out_features
+        self.W_q, self.elements_per_sample = pack_weights_over_cols(
+            W_q.reshape(N, self.in_features), self.W_nbits, 32, transpose=True)
+        self.data_contiguous = True if contiguous is None else bool(contiguous)
+        self.bias = _as_tensor(bias, dev)
+        scales = _as_tensor(scales, dev)
+
+        self.W_group_mode = -1
+        self.channel_scale_mode = 0
+        if scales is None and zeros is None:
+            self.W_group_mode = 0
+        self.scales = None if scales is None else scales.reshape(N, -1).T.contiguous()
+        channelwise = self.scales is not None and self.scales.numel() == N
+
+        self.zero_is_scalar = zeros is not None and np.ndim(zeros) == 0
+        if zeros is None:
+            self.zeros = None
+            if self.W_group_mode == -1:
+                self.W_group_mode = 2 if self.scales is not None else 0
+        elif self.zero_is_scalar:
+            self.zeros = torch.tensor(int(zeros), dtype=torch.int32, device=dev)
+            self.W_group_mode = 3 if self.scales is not None else 1
+        else:
+            z = _as_tensor(zeros, dev)
+            if fma_mode and not channelwise:
+                zf = -z.to(torch.float32) * scales.to(torch.float32)
+                self.zeros = zf.to(z.dtype).reshape(N, -1).T.contiguous()
+                self.W_group_mode = 4
+            else:
+                self.zeros = z.reshape(N, -1).T.contiguous()
+                self.W_group_mode = 3
+
+        if channelwise:
+            self.channel_scale_mode = 1
+            self.W_group_mode = 1 if self.zeros is not None else 0
+
+        if self.scales is not None and self.scales.dtype in TORCH_TO_DTYPE:
+            self.meta_dtype = TORCH_TO_DTYPE[self.scales.dtype]
+        return self
+
+    @property
+    def meta(self) -> LayerMeta:
+        return LayerMeta(
+            scaled_activations=int(self.scaled_activations),
+            W_nbits=self.W_nbits,
+            group_size=self.group_size,
+            unpack_mask=self.unpack_mask,
+            elements_per_sample=self.elements_per_sample,
+            input_dtype=self.input_dtype.value,
+            output_dtype=self.output_dtype.value,
+            acc_dtype=self.acc_dtype.value,
+            meta_dtype=self.meta_dtype.value,
+            channel_scale_mode=self.channel_scale_mode,
+            W_group_mode=self.W_group_mode,
+            data_contiguous=int(self.data_contiguous),
+            in_features=self.in_features,
+            out_features=self.out_features,
+            zero_is_scalar=int(self.zero_is_scalar),
+        )
+
+    def get_meta_args(self):
+        """The reference 12-int metadata vector."""
+        return self.meta.meta_args
+
+    def get_tensor_args(self):
+        return [self.W_q, self.scales, self.zeros]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return forward_functional(x, self.bias, self.get_tensor_args(), self.meta)
+
+    # ------------------------------------------------------------------
+    # Serialization in the JAX package's format: the metadata vector, the
+    # original shape and the arrays.
+    # ------------------------------------------------------------------
+    def state_dict(self, *args, **kwargs):
+        """The layer in the JAX package's format. Called with arguments, as a
+        parent module's state_dict calls it, it is nn.Module's (buffers only)."""
+        if args or kwargs:
+            return super().state_dict(*args, **kwargs)
+        sd = {
+            "metadata": torch.tensor(self.get_meta_args(), dtype=torch.int32),
+            "orig_shape": torch.tensor([self.out_features, self.in_features], dtype=torch.int32),
+            "W_q": self.W_q,
+        }
+        for name in ("scales", "zeros", "bias"):
+            if getattr(self, name) is not None:
+                sd[name] = getattr(self, name)
+        return sd
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """Load a state dict of this package or of the JAX package (numpy
+        arrays). A plane-folded JAX layer (``w_layout`` 1 or 2) is unfolded to
+        w_layout=0, with the logic of ``GemLiteLinear.to_reference_layout``."""
+        sd = dict(state_dict)
+        for key in ("w_code_dtype", "fp8_nosub", "mx_flat", "mx_x2"):
+            if int(np.asarray(sd.get(key, 0))):
+                raise NotImplementedError(f"queued: layers with {key} (fp8/MX codecs)")
+        meta = [int(v) for v in np.asarray(sd["metadata"])]
+        (scaled_activations, self.W_nbits, self.group_size, self.unpack_mask,
+         self.elements_per_sample, input_dtype, output_dtype, acc_dtype, meta_dtype,
+         self.channel_scale_mode, self.W_group_mode, data_contiguous) = meta
+        if scaled_activations or is_mx_dtype(input_dtype) or DType(input_dtype) not in \
+                self.SUPPORTED_DTYPES or self.elements_per_sample == 1:
+            raise NotImplementedError(f"queued: layer metadata {meta}")
+        self.scaled_activations = False
+        self.data_contiguous = bool(data_contiguous)
+        self.input_dtype = DType(input_dtype)
+        self.output_dtype = DType(output_dtype)
+        self.acc_dtype = DType(acc_dtype)
+        self.meta_dtype = DType(meta_dtype)
+        self.out_features, self.in_features = (int(v) for v in np.asarray(sd["orig_shape"]))
+        dev = self.device
+        W_q = tensor_from_numpy(sd["W_q"]).to(dev)
+        w_layout = int(np.asarray(sd.get("w_layout", 0)))
+        if w_layout:
+            W_q = self._unfold(W_q, w_layout)
+        self.W_q = W_q
+        self.scales = _as_tensor(sd.get("scales"), dev)
+        self.zeros = _as_tensor(sd.get("zeros"), dev)
+        self.zero_is_scalar = self.zeros is not None and self.zeros.ndim == 0
+        self.bias = _as_tensor(sd.get("bias"), dev)
+        return self
+
+    def _unfold(self, W_q: torch.Tensor, w_layout: int) -> torch.Tensor:
+        K = self.in_features
+        fold_gs = self.group_size if 1 < self.group_size < K else 512
+        codes = unpack_over_rows(W_q, self.W_nbits, K).T
+        codes = unfold_codes_for_planes(codes, fold_plane_count(self.W_nbits, w_layout), fold_gs)
+        return pack_weights_over_cols(codes, self.W_nbits, 32, transpose=True)[0]
+
+    @classmethod
+    def from_state_dict(cls, state_dict, device=None) -> "GemLiteLinear":
+        meta = [int(v) for v in np.asarray(state_dict["metadata"])]
+        out_f, in_f = (int(v) for v in np.asarray(state_dict["orig_shape"]))
+        layer = cls(meta[1], meta[2], in_f, out_f, input_dtype=DType(meta[5]),
+                    output_dtype=DType(meta[6]), device=device)
+        return layer.load_state_dict(state_dict)
+
+    def _apply(self, fn, recurse=True):
+        out = super()._apply(fn, recurse)
+        if self.W_q is not None:
+            self.device = self.W_q.device
+        return out
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.out_features}, "
+                f"W_nbits={self.W_nbits}, group_size={self.group_size}")

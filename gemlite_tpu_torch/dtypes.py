@@ -1,0 +1,87 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Dtype identity for the PyTorch port.
+
+``DType`` keeps the exact integer values of ``gemlite_tpu.dtypes.DType``: the
+values travel inside the 12-int layer metadata vector, so a layer packed by
+either package reads the same in the other.
+"""
+
+from enum import Enum
+
+import torch
+
+__all__ = ["DType", "DTYPE_TO_TORCH", "TORCH_TO_DTYPE", "to_torch_dtype", "is_mx_dtype"]
+
+
+class DType(Enum):
+    """Logical dtype ids (values identical to the JAX package's enum)."""
+
+    FP32 = 0
+    FP16 = 1
+    BF16 = 2
+    FP8 = 3
+    FP8e4 = 3  # alias for FP8
+    INT8 = 4
+    UINT8 = 5
+    INT32 = 6
+    UINT32 = 7
+    FP8e5 = 8
+    INT16 = 9
+    UINT16 = 10
+    INT64 = 11
+    FP8e4nuz = 12
+    FP8e5nuz = 13
+    MXFP16 = 14
+    MXBF16 = 15
+    MXFP8 = 16
+    MXFP4 = 17
+    NVFP4 = 18
+    E8M0 = 19
+
+
+# enum value -> torch storage dtype, for the types torch has
+DTYPE_TO_TORCH = {
+    0: torch.float32,
+    1: torch.float16,
+    2: torch.bfloat16,
+    3: torch.float8_e4m3fn,
+    4: torch.int8,
+    5: torch.uint8,
+    6: torch.int32,
+    8: torch.float8_e5m2,
+    9: torch.int16,
+    11: torch.int64,
+    12: torch.float8_e4m3fnuz,
+    13: torch.float8_e5m2fnuz,
+}
+
+TORCH_TO_DTYPE = {
+    torch.float32: DType.FP32,
+    torch.float16: DType.FP16,
+    torch.bfloat16: DType.BF16,
+    torch.int8: DType.INT8,
+    torch.uint8: DType.UINT8,
+    torch.int32: DType.INT32,
+    torch.int16: DType.INT16,
+    torch.float8_e4m3fn: DType.FP8,
+    torch.float8_e5m2: DType.FP8e5,
+    torch.float8_e4m3fnuz: DType.FP8e4nuz,
+    torch.float8_e5m2fnuz: DType.FP8e5nuz,
+}
+
+MX_DTYPES = (DType.MXFP16, DType.MXBF16, DType.MXFP8, DType.MXFP4, DType.NVFP4)
+
+
+def to_torch_dtype(dtype) -> torch.dtype:
+    """DType | int | torch.dtype -> torch.dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    value = dtype.value if isinstance(dtype, DType) else int(dtype)
+    if value not in DTYPE_TO_TORCH:
+        raise NotImplementedError(f"no torch storage dtype for {DType(value)}")
+    return DTYPE_TO_TORCH[value]
+
+
+def is_mx_dtype(dtype) -> bool:
+    value = dtype.value if isinstance(dtype, DType) else int(dtype)
+    return value in {d.value for d in MX_DTYPES}

@@ -1,0 +1,259 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Llama-3-style transformer on quantized GemLite linears (counterpart of
+``gemlite_tpu/models/llama.py``).
+
+Parameters are a plain dict with the JAX package's structure, so a JAX tree
+maps onto it key for key (see ``interop.params_from_jax_numpy``). The KV cache
+is one dense tensor (L, 2, B, T, Hkv, D), written in place.
+
+In this slice: the dense-cache and no-cache forward, prefill, decode and verify
+steps. Not yet ported: tensor-parallel sharding, the flash and paged attention
+branches, and the training step.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..core import GemLiteLinear, resolve_device
+from ..helper import A16Wn_HQQ_INT, _warmup_quantize
+
+__all__ = [
+    "LlamaConfig", "init_llama", "quantize_llama", "init_kv_cache",
+    "llama_forward", "llama_prefill", "llama_decode_step",
+    "llama_decode_step_batched", "llama_verify_step",
+]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    max_seq_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def llama3_8b(**kw):
+        return LlamaConfig(**kw)
+
+    @staticmethod
+    def tiny(**kw):
+        base = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                    num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                    max_seq_len=128)
+        base.update(kw)
+        return LlamaConfig(**base)
+
+
+_LINEAR_KEYS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+                ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+
+
+def init_llama(cfg: LlamaConfig, seed: int = 0, generator: Optional[torch.Generator] = None,
+               device=None) -> Dict:
+    """Random dense params.
+
+    Without ``generator`` the draws come from ``numpy.random.default_rng(seed)``
+    in the JAX package's order, so a model equals the JAX ``init_llama(cfg,
+    seed)`` bit for bit. With a ``torch.Generator`` (for model-sized widths) the
+    draws are made on the generator's device instead."""
+    dev = resolve_device(device)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    QD = cfg.num_heads * cfg.head_dim
+    KD = cfg.num_kv_heads * cfg.head_dim
+    rng = np.random.default_rng(seed) if generator is None else None
+
+    def mat(n, k, std=0.02):
+        if rng is not None:
+            a = (rng.normal(size=(n, k)) * std).astype(np.float32)
+            return torch.from_numpy(a).to(cfg.dtype).to(dev)
+        a = torch.randn((n, k), generator=generator, device=generator.device,
+                        dtype=torch.float32)
+        return a.mul_(std).to(cfg.dtype).to(dev)
+
+    def ones():
+        return torch.ones(H, dtype=cfg.dtype, device=dev)
+
+    blocks = []
+    for _ in range(cfg.num_layers):
+        blocks.append({
+            "attn": {"wq": mat(QD, H), "wk": mat(KD, H), "wv": mat(KD, H), "wo": mat(H, QD)},
+            "mlp": {"gate": mat(I, H), "up": mat(I, H), "down": mat(H, I)},
+            "ln_attn": ones(),
+            "ln_mlp": ones(),
+        })
+    return {"embed": mat(cfg.vocab_size, H, std=0.01), "blocks": blocks,
+            "ln_f": ones(), "lm_head": mat(cfg.vocab_size, H, std=0.01)}
+
+
+def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: int = 128,
+                   quantize_lm_head: bool = False, dtype: torch.dtype = torch.bfloat16,
+                   device=None, **quant_kwargs) -> Dict:
+    """Replace every block linear (and optionally lm_head) with a packed
+    GemLiteLinear. The default processor is ``A16Wn_HQQ_INT(W_nbits,
+    dtype=bf16)``: scales and zeros are stored in bf16, as the JAX package's
+    default does, which makes every layer a W_group_mode 4 bf16 layer that the
+    decode, prefill and dequantize kernels serve."""
+    if processor is None:
+        processor = A16Wn_HQQ_INT(device=device, dtype=dtype, W_nbits=W_nbits)
+
+    def q(w):
+        return _warmup_quantize(processor, w.to(torch.float32), group_size, **quant_kwargs)
+
+    out = dict(params)
+    out["blocks"] = []
+    for blk in params["blocks"]:
+        nb = {"attn": dict(blk["attn"]), "mlp": dict(blk["mlp"]),
+              "ln_attn": blk["ln_attn"], "ln_mlp": blk["ln_mlp"]}
+        for grp, name in _LINEAR_KEYS:
+            nb[grp][name] = q(blk[grp][name])
+        out["blocks"].append(nb)
+    if quantize_lm_head:
+        out["lm_head"] = q(params["lm_head"])
+    return out
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, device=None) -> torch.Tensor:
+    shape = (cfg.num_layers, 2, batch, cfg.max_seq_len, cfg.num_kv_heads, cfg.head_dim)
+    return torch.zeros(shape, dtype=cfg.dtype, device=resolve_device(device))
+
+
+def _rms_norm(x, w, eps):
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _apply(layer, x):
+    """Quantized layer or dense (N, K) matrix."""
+    if isinstance(layer, GemLiteLinear):
+        return layer(x)
+    return x @ layer.T.to(x.dtype)
+
+
+def _rope(x, positions, theta):
+    """x: (B, S, H, D); positions: (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _attention(q, k, v, mask):
+    """q: (B, S, Hq, D); k/v: (B, T, Hkv, D); GQA by head-group repeat."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    q = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bshrd,bthd->bhrst", q.to(torch.float32),
+                          k.to(torch.float32)) / np.sqrt(D)
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
+    return out.reshape(B, S, Hq, D).to(v.dtype)
+
+
+def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=None):
+    """x: (B, S, H). kv: the whole cache (L, 2, B, T, Hkv, D), updated in place,
+    or None. cache_len: valid cache length before this call, an int or a (B,)
+    tensor of per-slot offsets. t_active: bound on the live cache length that
+    attention reads."""
+    B, S, _ = x.shape
+    h = _rms_norm(x, blk["ln_attn"], cfg.norm_eps)
+    q = _apply(blk["attn"]["wq"], h).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = _apply(blk["attn"]["wk"], h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = _apply(blk["attn"]["wv"], h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+
+    if kv is not None:
+        T = kv.shape[3]
+        steps = torch.arange(S, device=x.device)
+        if isinstance(cache_len, torch.Tensor):
+            # per-slot offsets (continuous-batching decode, speculative verify)
+            bidx = torch.arange(B, device=x.device)[:, None]
+            pos = cache_len.to(torch.long)[:, None] + steps[None, :]
+            kv[layer_idx, 0].index_put_((bidx, pos), k.to(kv.dtype))
+            kv[layer_idx, 1].index_put_((bidx, pos), v.to(kv.dtype))
+            s_idx = pos[:, :, None]
+        else:
+            if not 0 <= cache_len <= T - S:
+                raise ValueError(f"cache write [{cache_len}, {cache_len + S}) "
+                                 f"outside the cache of {T} rows")
+            kv[layer_idx, 0, :, cache_len:cache_len + S] = k.to(kv.dtype)
+            kv[layer_idx, 1, :, cache_len:cache_len + S] = v.to(kv.dtype)
+            s_idx = (cache_len + steps)[None, :, None]
+        k_all, v_all = kv[layer_idx, 0], kv[layer_idx, 1]
+        if t_active is not None and t_active < T:
+            k_all, v_all = k_all[:, :t_active], v_all[:, :t_active]
+        t_idx = torch.arange(k_all.shape[1], device=x.device)[None, None, :]
+        mask = (t_idx <= s_idx).expand(B, S, k_all.shape[1])
+    else:
+        k_all, v_all = k, v
+        t_idx = torch.arange(S, device=x.device)
+        mask = (t_idx[None, :] <= t_idx[:, None])[None].expand(B, S, S)
+
+    attn = _attention(q, k_all, v_all, mask).reshape(B, S, -1)
+    x = x + _apply(blk["attn"]["wo"], attn)
+
+    h = _rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
+    g = _apply(blk["mlp"]["gate"], h)
+    u = _apply(blk["mlp"]["up"], h)
+    h = (torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
+    return x + _apply(blk["mlp"]["down"], h)
+
+
+def llama_forward(params, cfg: LlamaConfig, tokens, kv=None, cache_len=0, positions=None,
+                  t_active=None):
+    """tokens (B, S) -> logits (B, S, V). With kv, writes the cache at
+    cache_len (in place) and attends over it; returns (logits, kv)."""
+    B, S = tokens.shape
+    if positions is None:
+        off = cache_len[:, None] if isinstance(cache_len, torch.Tensor) else cache_len
+        positions = (off + torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :])
+        positions = positions.expand(B, S)
+    x = params["embed"][tokens]
+    for i, blk in enumerate(params["blocks"]):
+        x = _block_forward(blk, cfg, x, positions, kv, i, cache_len, t_active=t_active)
+    x = _rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = _apply(params["lm_head"], x)
+    return (logits, kv) if kv is not None else logits
+
+
+def llama_prefill(params, cfg, tokens, kv):
+    return llama_forward(params, cfg, tokens, kv=kv, cache_len=0)
+
+
+def llama_decode_step(params, cfg, token, kv, cache_len: int):
+    """token (B, 1) at one shared cache offset -> (logits (B, 1, V), kv)."""
+    return llama_forward(params, cfg, token, kv=kv, cache_len=cache_len)
+
+
+def llama_verify_step(params, cfg, tokens, kv, cache_lens, t_active=None):
+    """tokens (B, S) decoded in one forward at per-slot offsets cache_lens (B,)."""
+    S = tokens.shape[1]
+    positions = cache_lens[:, None].to(torch.int32) + torch.arange(
+        S, dtype=torch.int32, device=tokens.device)[None, :]
+    return llama_forward(params, cfg, tokens, kv=kv, cache_len=cache_lens,
+                         positions=positions, t_active=t_active)
+
+
+def llama_decode_step_batched(params, cfg, token, kv, cache_lens, t_active=None):
+    """Continuous-batching decode: token (B, 1), cache_lens (B,) — every slot
+    advances one token at its own offset; attention reads t_active rows."""
+    positions = cache_lens[:, None].to(torch.int32)
+    return llama_forward(params, cfg, token, kv=kv, cache_len=cache_lens,
+                         positions=positions, t_active=t_active)

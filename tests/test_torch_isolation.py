@@ -1,0 +1,88 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The port stands alone: no JAX, nothing of the JAX package, no silent CPU
+fallback."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "gemlite_tpu", "gemlite", "ml_dtypes"}
+
+
+def _port_sources():
+    return sorted((ROOT / "gemlite_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, gemlite_tpu_torch, gemlite_tpu_torch.ops.dispatch\n"
+            "bad = [m for m in ('jax', 'gemlite_tpu', 'gemlite', 'triton', 'ml_dtypes') "
+            "if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _entry_points():
+    from gemlite_tpu_torch import (A16W4_HQQ_INT, ContinuousBatchingEngine, DType,
+                                   GemLiteLinear, LlamaConfig, init_kv_cache, init_llama,
+                                   params_from_jax_numpy, quantize_llama)
+    cfg = LlamaConfig.tiny(num_layers=1)
+    cpu_params = init_llama(cfg, device="cpu")
+    return {
+        "GemLiteLinear": lambda **kw: GemLiteLinear(4, 64, 128, 128, DType.BF16, DType.BF16,
+                                                     **kw),
+        "A16W4_HQQ_INT": lambda **kw: A16W4_HQQ_INT(**kw),
+        "init_llama": lambda **kw: init_llama(cfg, **kw),
+        "init_kv_cache": lambda **kw: init_kv_cache(cfg, 1, **kw),
+        "quantize_llama": lambda **kw: quantize_llama(cpu_params, group_size=64, **kw),
+        "params_from_jax_numpy": lambda **kw: params_from_jax_numpy({}, **kw),
+        "ContinuousBatchingEngine": lambda **kw: ContinuousBatchingEngine(
+            quantize_llama(cpu_params, group_size=64, device="cpu"), cfg, **kw),
+    }
+
+
+ENTRY_POINTS = ("A16W4_HQQ_INT", "ContinuousBatchingEngine", "GemLiteLinear", "init_kv_cache",
+                "init_llama", "params_from_jax_numpy", "quantize_llama")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_need_the_card_or_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None is valid here")
+    make = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    make(device="cpu")
+
+
+def test_build_without_nvcc_raises():
+    """A build failure raises; nothing falls back to the plain versions."""
+    from gemlite_tpu_torch.ops import build
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists() or \
+            os.environ.get("CUDA_HOME"):
+        pytest.skip("nvcc is present here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
