@@ -6,7 +6,7 @@
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the three CUDA kernels from gemlite_tpu_torch/csrc;
+  build    compile the five CUDA kernels from gemlite_tpu_torch/csrc;
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes:
            relative error max|a-b| / max|b| <= 5e-3 against the plain
            version's float32 result, median CUDA-event device times with the
@@ -18,7 +18,20 @@ Phases, each printing one JSON line:
            ContinuousBatchingEngine(max_batch=8) on 8 greedy requests; tokens
            must equal a bare prefill/decode loop, and the first step must
            match the plain path on the CPU stage by stage (first_step_check);
-  profile  device time by kernel over a short serving run.
+  profile  device time by kernel over a short serving run;
+  kernels_a8   the int8 decode kernel (every weight form) and the general
+           fused kernel (int path over int8 weights and over packed W2 / W4
+           codes, four float forms) against their plain versions at the 8B
+           shapes: bit for bit where the sum is integer, else max|a-b| /
+           max|b| <= 5e-3; times, bounds and torch._int_mm;
+  layer_a8w8   A8W8_INT8_dynamic(bf16) 4096x4096 at M in {1, 64, 65, 128,
+           4096}, routed to int8_exact, int8_exact, general_fused,
+           general_fused, dense_fallback;
+  serve_a8w8   the same 4-layer model quantized with A8W8_INT8_dynamic(bf16),
+           served as in "serve": tokens equal the bare loop, the linears run
+           only on int8_exact and general_fused, launches equal the schedule,
+           and the first step matches the plain path on the CPU;
+  profile_a8w8 device time by kernel over a short A8W8 serving run.
 Then a "kernels" line and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and the script exits non-zero without that last line. It needs
 one CUDA card and refuses to run without one.
@@ -36,9 +49,9 @@ import torch
 REL_TOL = 5e-3          # the bound the JAX kernel tests use
 SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))   # (N, K)
 GROUP = 128
-# published dense peaks: (HBM bytes/s, bf16 tensor-core flop/s)
-PEAKS = {"H100 SXM": (3.35e12, 989e12), "H100 PCIe": (2.0e12, 756e12),
-         "H200": (4.8e12, 989e12)}
+# published dense peaks: (HBM bytes/s, bf16 tensor-core flop/s, int8 tensor-core op/s)
+PEAKS = {"H100 SXM": (3.35e12, 989e12, 1979e12), "H100 PCIe": (2.0e12, 756e12, 1513e12),
+         "H200": (4.8e12, 989e12, 1979e12)}
 
 
 def emit(obj) -> None:
@@ -128,8 +141,10 @@ def phase_build():
           "compiled_now": sorted(reports), "ptxas": ptxas})
 
 
-def kernel_bound(bytes_moved: float, flops: float, peak):
-    bw, fl = peak
+def kernel_bound(bytes_moved: float, flops: float, peak, ops_rate=None):
+    """(ms, "bytes" | "operations"): the larger of bytes over the memory rate
+    and operations over ``ops_rate`` (default: the bf16 tensor-core rate)."""
+    bw, fl = peak[0], peak[1] if ops_rate is None else ops_rate
     t_bytes, t_ops = bytes_moved / bw * 1e3, flops / fl * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -191,9 +206,12 @@ def phase_kernels(card: str, peak, timer: Timer) -> dict:
 def counters():
     from gemlite_tpu_torch.ops.decode import decode_matmul
     from gemlite_tpu_torch.ops.dequantize import dequantize_weights
+    from gemlite_tpu_torch.ops.fused import fused_gemm
+    from gemlite_tpu_torch.ops.int8_decode import int8_decode
     from gemlite_tpu_torch.ops.prefill import prefill_matmul
     return {"decode": decode_matmul, "prefill": prefill_matmul,
-            "dequantize": dequantize_weights}
+            "dequantize": dequantize_weights, "int8_decode": int8_decode,
+            "fused_gemm": fused_gemm}
 
 
 def reset_counts():
@@ -231,7 +249,8 @@ def phase_layer(card: str) -> dict:
         else:
             want = forward_meta(x, *args, None, with_f32_out(layer.meta))
         errs[M] = rel_err(outs[M], want)
-    ok = all(e <= REL_TOL for e in errs.values()) and min(counts.values()) >= 1
+    ok = all(e <= REL_TOL for e in errs.values()) and \
+        min(counts[k] for k in ("decode", "prefill", "dequantize")) >= 1
     emit({"phase": "layer", "ok": ok, "routes": routes, "rel_err": errs,
           "launches": counts, "card": card})
     if not ok:
@@ -289,7 +308,7 @@ def _mean_max(a: torch.Tensor, b: torch.Tensor) -> dict:
             "max_rel": float((a - b).abs().max() / b.abs().max())}
 
 
-def first_step_check(params, cfg, prompt) -> dict:
+def first_step_check(params, cfg, prompt, route="decode") -> dict:
     """The first prefill step on the card's kernels against the plain path on
     the CPU, stage by stage from the same input: each block, then the final
     norm and lm_head, gets the CPU's output of the stage before. Each stage is
@@ -317,14 +336,18 @@ def first_step_check(params, cfg, prompt) -> dict:
     out["head"] = _mean_max(L._apply(params["lm_head"], h.cuda())[0, -1],
                             L._apply(cpu["lm_head"], h)[0, -1])
     routes = sorted(set(dispatch.KERNEL_TRACE))
-    if routes != ["decode", "plain_decode"]:
+    if routes != sorted([route, f"plain_{route}"]):
         raise RuntimeError(f"first step ran {routes}")
     out["end_to_end"] = _mean_max(L.llama_forward(params, cfg, tok.cuda())[0, -1],
                                   L.llama_forward(cpu, cfg, tok)[0, -1])
     return out
 
 
-def profile_serve(params, cfg, prompts, card: str):
+W4_GROUPS = {"decode_kernel": ("decode_w4", "splitk_reduce"), "prefill_kernel": ("prefill_w4",)}
+
+
+def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GROUPS,
+                  what="8 requests x 8 new tokens, 4 of 32 layers"):
     """Where the device time goes in a short serving run: kernel times from
     torch.profiler (CUDA activity only, so no operator is counted twice), and
     the device's busy share against the wall time of the same run made
@@ -346,42 +369,53 @@ def profile_serve(params, cfg, prompts, card: str):
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
                    if ev.self_device_time_total > 0), reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
-    groups = {"decode_kernel": 0.0, "prefill_kernel": 0.0, "other": 0.0}
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for us, key, _ in rows:
-        k = "decode_kernel" if ("decode_w4" in key or "splitk_reduce" in key) else \
-            "prefill_kernel" if "prefill_w4" in key else "other"
-        groups[k] += us / 1e3
-    emit({"phase": "profile", "ok": True, "what": "8 requests x 8 new tokens, 4 of 32 layers",
+        g = next((g for g, subs in groups.items() if any(sub in key for sub in subs)), "other")
+        by_group[g] += us / 1e3
+    emit({"phase": phase, "ok": True, "what": what,
           "wall_ms_unprofiled": wall_ms, "device_ms": total_ms,
-          "device_busy_share": total_ms / wall_ms, "device_ms_by_group": groups,
+          "device_busy_share": total_ms / wall_ms, "device_ms_by_group": by_group,
           "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:12]],
           "card": card})
 
 
-def phase_serve(card: str) -> dict:
-    from gemlite_tpu_torch import (ContinuousBatchingEngine, LlamaConfig, Request, init_llama,
-                                   quantize_llama)
+SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
 
-    cfg = LlamaConfig.llama3_8b(num_layers=4, max_seq_len=512)
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = quantize_llama(init_llama(cfg, generator=gen, device="cuda"),
-                            W_nbits=4, group_size=128, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+
+def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
+                    long_route: str, profile_phase: str, profile_groups) -> dict:
+    """8 greedy requests through ContinuousBatchingEngine(max_batch=8). Tokens
+    must equal the bare loop; launches must equal the schedule (prompts of up
+    to 64 tokens and every decode step on ``short_route``'s kernel, longer
+    prompts on ``long_route``'s); the quantized linears must take no other
+    route; the first step must match the plain path on the CPU."""
+    from gemlite_tpu_torch import ContinuousBatchingEngine, Request
+    from gemlite_tpu_torch.ops import dispatch
+
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
-               for n in (17, 31, 48, 64, 80, 96, 112, 128)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_PROMPT_LENS]
     n_new = 32
+
+    routes_seen = set()
+    note = dispatch._note
+
+    def noting(name):
+        routes_seen.add(name)
+        note(name)
 
     eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda")
     reset_counts()
+    dispatch._note = noting
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for p in prompts:
-        eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
-    results = eng.run()
-    torch.cuda.synchronize()
+    try:
+        for p in prompts:
+            eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+        results = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        dispatch._note = note
     wall_s = time.perf_counter() - t0
     counts = read_counts()
     stats = eng.stats()
@@ -389,36 +423,253 @@ def phase_serve(card: str) -> dict:
     got = [by_prompt[tuple(p)].output_tokens for p in prompts]
 
     # launches the path must make: 7 linears per layer per forward; prompts of
-    # up to 64 tokens prefill on the decode kernel (buckets 32/64), the rest on
-    # the prefill kernel (bucket 128); every decode step runs the decode kernel
+    # up to 64 tokens prefill at M <= 64 (buckets 32/64), the rest at M = 128
+    # (bucket 128); every decode step runs at M = 8
+    kernel_of = {"decode": "decode", "prefill": "prefill", "int8_exact": "int8_decode",
+                 "general_fused": "fused_gemm"}
     per_fwd = 7 * cfg.num_layers
     short = sum(len(p) <= 64 for p in prompts)
-    expect = {"decode": per_fwd * (short + stats["decode_steps"]),
-              "prefill": per_fwd * (len(prompts) - short), "dequantize": 0}
+    expect = {k: 0 for k in counts}
+    expect[kernel_of[short_route]] += per_fwd * (short + stats["decode_steps"])
+    expect[kernel_of[long_route]] += per_fwd * (len(prompts) - short)
+    routes_ok = routes_seen == {short_route, long_route}
 
     want = bare_loop(params, cfg, prompts, n_new, eng.buckets, eng.decode_buckets)
     same = got == want
 
-    first_step = first_step_check(params, cfg, prompts[0])
+    first_step = first_step_check(params, cfg, prompts[0], route=short_route)
     first_ok = all(v["mean_rel"] <= REL_TOL for k, v in first_step.items() if k != "end_to_end")
-    ok = same and counts == expect and first_ok
+    ok = same and counts == expect and first_ok and routes_ok
     ttft = [r.ttft_s for r in results]
-    emit({"phase": "serve", "ok": ok, "model": "Llama-3-8B widths, 4 of 32 layers (depth cut)",
+    emit({"phase": phase, "ok": ok, "model": "Llama-3-8B widths, 4 of 32 layers (depth cut)",
           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
           "new_tokens": n_new, "setup_s": setup_s, "wall_s": wall_s,
           "tokens_out": stats["tokens_out"], "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
           "ttft_s": {"median": statistics.median(ttft), "max": max(ttft)},
           "stats_4_of_32_layers": stats, "launches": counts, "launches_expected": expect,
+          "routes": sorted(routes_seen),
           "engine_equals_bare_loop": same, "first_step_kernel_vs_plain": first_step,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
     if not same:
         raise RuntimeError(f"engine tokens differ from the bare loop:\n{got}\n{want}")
     if counts != expect:
         raise RuntimeError(f"kernel launches {counts}, expected {expect}")
+    if not routes_ok:
+        raise RuntimeError(f"quantized linears took routes {sorted(routes_seen)}")
     if not first_ok:
         raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
-    profile_serve(params, cfg, prompts, card)
+    profile_serve(params, cfg, prompts, card, phase=profile_phase, groups=profile_groups)
     return counts
+
+
+def phase_serve(card: str, cfg, dense) -> dict:
+    from gemlite_tpu_torch import quantize_llama
+
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, W_nbits=4, group_size=128, device="cuda")
+    torch.cuda.synchronize()
+    return serve_and_check("serve", params, cfg, card, time.perf_counter() - t0,
+                           "decode", "prefill", "profile", W4_GROUPS)
+
+
+def dense_llama():
+    """Llama-3-8B widths cut to 4 of 32 layers, random bf16 weights from a
+    seeded generator on the card; both serve phases quantize this one init."""
+    from gemlite_tpu_torch import LlamaConfig, init_llama
+    cfg = LlamaConfig.llama3_8b(num_layers=4, max_seq_len=512)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, init_llama(cfg, generator=gen, device="cuda")
+
+
+A8_GROUPS = {"int8_decode_kernel": ("int8_decode", "int8_epilogue"),
+             "fused_gemm_kernel": ("fused_gemm", "int_gemm", "int_epilogue")}
+INT8_FORMS = ("u8_scalar_zero", "u8_channel_zeros", "u8_group_zeros", "w4_group_zeros",
+              "w2_bitnet_cw")
+# packed codes on the general fused kernel's int path: BitNet's scalar-zero
+# shift (W2, mode 1) and W4 codes without a zero (mode 0)
+INT_PATH_PACKED_FORMS = ("w2_bitnet_cw", "w4_cw_mode0")
+FLOAT_FORMS = ("a16w8_post_scale_bf16", "w4_mode3_bf16", "bitnet_w2_bf16", "a16w8_in_loop_fp16")
+
+
+def a8w8_layer(N: int, K: int, gen: torch.Generator):
+    from gemlite_tpu_torch.helper import A8W8_INT8_dynamic
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    return A8W8_INT8_dynamic(device="cuda", dtype=torch.bfloat16).from_weights(w)
+
+
+def int8_form_layer(name: str, N: int, K: int, gen: torch.Generator):
+    """An INT8-activation layer of one weight form of the int8 decode kernel."""
+    from gemlite_tpu_torch import DType, GemLiteLinear
+    from gemlite_tpu_torch.helper import A8W158_INT_dynamic
+    if name == "w2_bitnet_cw":
+        w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
+        return A8W158_INT_dynamic(device="cuda", dtype=torch.bfloat16).from_weights(w, 0.01)
+    if name == "w4_cw_mode0":
+        codes = torch.randint(0, 16, (N, K), generator=gen, device="cuda").to(torch.uint8)
+        scales = torch.rand((N, 1), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
+        return GemLiteLinear(4, None, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+                             device="cuda").pack(codes, scales, None)
+    nbits, gs, zk = {"u8_scalar_zero": (8, None, "scalar"), "u8_channel_zeros": (8, None, "channel"),
+                     "u8_group_zeros": (8, GROUP, "group"), "w4_group_zeros": (4, GROUP, "group")}[name]
+    codes = torch.randint(0, 2 ** nbits, (N, K), generator=gen, device="cuda").to(torch.uint8)
+    G = 1 if gs is None else K // gs
+    scales = torch.rand((N, G), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
+    z = {"scalar": 128,
+         "channel": torch.randint(0, 256, (N, 1), generator=gen, device="cuda").float(),
+         "group": torch.randint(0, 2 ** nbits, (N, G), generator=gen, device="cuda").float()}[zk]
+    return GemLiteLinear(nbits, gs, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+                         device="cuda").pack(codes, scales, z, fma_mode=False)
+
+
+def float_form_layer(name: str, N: int, K: int, gen: torch.Generator):
+    """A float-activation layer that the W4 kernels do not take."""
+    from gemlite_tpu_torch.helper import A16W158_INT, A16W8_INT8
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    if name == "a16w8_post_scale_bf16":        # mode 0, csm 1
+        return A16W8_INT8(device="cuda", dtype=torch.bfloat16, post_scale=True).from_weights(w)
+    if name == "a16w8_in_loop_fp16":           # mode 2, fp16
+        return A16W8_INT8(device="cuda", dtype=torch.float16).from_weights(w)
+    if name == "bitnet_w2_bf16":               # W2, mode 1 with scalar zero 1, csm 1
+        t = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
+        return A16W158_INT(device="cuda", dtype=torch.bfloat16).from_weights(t, 0.01)
+    from gemlite_tpu_torch import DType, GemLiteLinear   # W4 gs=128 mode 3 (fma_mode=False)
+    W_q = torch.randint(0, 16, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
+    scales = (torch.rand((N * K // GROUP, 1), generator=gen, device="cuda") * 2e-3 + 1e-3)
+    zeros = torch.randint(0, 16, (N * K // GROUP, 1), generator=gen, device="cuda").float()
+    return GemLiteLinear(4, GROUP, K, N, DType.BF16, DType.BF16, device="cuda").pack(
+        W_q, scales.to(torch.bfloat16), zeros.to(torch.bfloat16), fma_mode=False)
+
+
+def layer_bytes(layer) -> int:
+    return sum(t.numel() * t.element_size() for t in (layer.W_q, layer.scales, layer.zeros)
+               if t is not None)
+
+
+def int8_x(M: int, K: int, gen: torch.Generator):
+    """int8 activation codes and their per-token scales."""
+    x = torch.randint(-128, 128, (M, K), generator=gen, device="cuda").to(torch.int8)
+    sx = torch.rand((M, 1), generator=gen, device="cuda") * 2.0 ** -7 + 2.0 ** -8
+    return x, sx
+
+
+def int_mm_ms(timer: Timer, M: int, N: int, K: int, w: torch.Tensor, gen) -> float:
+    """torch._int_mm at the same shape, the library yardstick for the int rows.
+    It needs more than 16 rows in multiples of 8, so M is padded to
+    max(32, M rounded up to 8); it has no scale epilogue (csm 3)."""
+    Mp = max(32, -(-M // 8) * 8)
+    a = torch.randint(-128, 128, (Mp, K), generator=gen, device="cuda").to(torch.int8)
+    b = w.t().contiguous().t()               # (K, N), column-major
+    return timer.ms(lambda: torch._int_mm(a, b))
+
+
+def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
+    """The int8 decode kernel and the general fused kernel against their plain
+    versions; returns the rows the kernels line reports."""
+    from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain
+    from gemlite_tpu_torch.ops.int8_decode import form, int8_decode, int8_decode_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+
+    def check(name, form_name, M, layer, kern, plain, args, exact, ops_rate, library=None):
+        meta = layer.meta
+        N, K = meta.out_features, meta.in_features
+        got = kern(*args, meta)
+        want = plain(*args, meta if exact else with_f32_out(meta))
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        x_bytes = args[0].numel() * args[0].element_size()
+        bound, by = kernel_bound(layer_bytes(layer) + x_bytes + 4 * M + M * N * got.element_size(),
+                                 2.0 * M * N * K, peak, ops_rate)
+        row = {"kernel": name, "form": form_name, "M": M, "N": N, "K": K,
+               "bit_exact": bool(torch.equal(got, want)) if exact else None, "rel_err": err,
+               "max_abs_err": max_abs(got, want),
+               "ms": timer.ms(lambda: kern(*args, meta)),
+               "plain_ms": timer.ms(lambda: plain(*args, meta), iters=3),
+               "bound_ms": bound, "bound_by": by, "library_ms": library, "card": card}
+        emit(row)
+        if (exact and not row["bit_exact"]) or not err <= REL_TOL:
+            raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
+        rows.append(row)
+
+    for N, K in SHAPES:
+        layer = a8w8_layer(N, K, gen)
+        for name, Ms, kern, plain in (("int8_decode", (1, 8, 64), int8_decode, int8_decode_plain),
+                                      ("fused_gemm", (128, 1024), fused_gemm, fused_matmul_plain)):
+            for M in Ms:
+                x, sx = int8_x(M, K, gen)
+                check(name, "i8_dense", M, layer, kern, plain,
+                      (x, layer.W_q, layer.scales, None, sx), True, peak[2],
+                      int_mm_ms(timer, M, N, K, layer.W_q, gen))
+        del layer
+    N, K = 4096, 4096
+    for name in INT8_FORMS:
+        layer = int8_form_layer(name, N, K, gen)
+        x, sx = int8_x(8, K, gen)
+        exact = not form(layer.meta, layer.scales, layer.zeros).float_groups
+        check("int8_decode", name, 8, layer, int8_decode, int8_decode_plain,
+              (x, layer.W_q, layer.scales, layer.zeros, sx), exact, peak[2])
+    N, K = 14336, 4096
+    for name in INT_PATH_PACKED_FORMS:
+        layer = int8_form_layer(name, N, K, gen)
+        x, sx = int8_x(128, K, gen)
+        check("fused_gemm", name, 128, layer, fused_gemm, fused_matmul_plain,
+              (x, layer.W_q, layer.scales, layer.zeros, sx), True, peak[2])
+    for name in FLOAT_FORMS:
+        layer = float_form_layer(name, N, K, gen)
+        dtype = torch.float16 if "fp16" in name else torch.bfloat16
+        x = (torch.randn((128, K), generator=gen, device="cuda") * 0.5).to(dtype)
+        check("fused_gemm", name, 128, layer, fused_gemm, fused_matmul_plain,
+              (x, layer.W_q, layer.scales, layer.zeros, None), False, peak[1])
+    emit({"phase": "kernels_a8", "ok": True, "checked": len(rows), "card": card})
+    pick = {"int8_decode": (8, 14336, 4096), "fused_gemm": (128, 14336, 4096)}
+    return {r["kernel"]: r for r in rows
+            if r["form"] == "i8_dense" and (r["M"], r["N"], r["K"]) == pick[r["kernel"]]}
+
+
+def phase_layer_a8w8(card: str) -> dict:
+    """An A8W8 GemLiteLinear through its routes; M <= 128 must equal the plain
+    path on the CPU bit for bit, M = 4096 the float32 product within 5e-3."""
+    from gemlite_tpu_torch import GemLiteLinear
+    from gemlite_tpu_torch.ops import dispatch
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    layer = a8w8_layer(4096, 4096, gen)
+    cpu_layer = GemLiteLinear.from_state_dict({k: v.cpu() for k, v in layer.state_dict().items()},
+                                              device="cpu")
+    xs = {M: (torch.randn((M, 4096), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+          for M in (1, 64, 65, 128, 4096)}
+    reset_counts()
+    dispatch.KERNEL_TRACE.clear()
+    outs = {M: layer(x) for M, x in xs.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    routes = list(dispatch.KERNEL_TRACE)
+    want_routes = ["int8_exact", "int8_exact", "general_fused", "general_fused", "dense_fallback"]
+    exact = {M: bool(torch.equal(outs[M].cpu(), cpu_layer(xs[M].cpu()))) for M in xs if M <= 128}
+    xq, sx = scale_activations_per_token(xs[4096])
+    ref = (xq.float() @ layer.W_q.float()) * sx * layer.scales.reshape(1, -1).float()
+    err_4096 = rel_err(outs[4096], ref)
+    ok = (routes == want_routes and all(exact.values()) and err_4096 <= REL_TOL
+          and counts["int8_decode"] == 2 and counts["fused_gemm"] == 2)
+    emit({"phase": "layer_a8w8", "ok": ok, "routes": routes, "bit_exact_vs_cpu": exact,
+          "rel_err_4096": err_4096, "launches": counts, "card": card})
+    if not ok:
+        raise RuntimeError("layer_a8w8 phase failed")
+    return counts
+
+
+def phase_serve_a8w8(card: str, cfg, dense) -> dict:
+    from gemlite_tpu_torch import quantize_llama
+    from gemlite_tpu_torch.helper import A8W8_INT8_dynamic
+
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, processor=A8W8_INT8_dynamic(device="cuda",
+                                                               dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    return serve_and_check("serve_a8w8", params, cfg, card, time.perf_counter() - t0,
+                           "int8_exact", "general_fused", "profile_a8w8", A8_GROUPS)
 
 
 def main() -> int:
@@ -440,23 +691,32 @@ def main() -> int:
     timer = Timer()
     picked = phase_kernels(card, peak, timer)
     layer_counts = phase_layer(card)
-    serve_counts = phase_serve(card)
+    cfg, dense = dense_llama()
+    serve_counts = phase_serve(card, cfg, dense)
+    picked.update(phase_kernels_a8(card, peak, timer))
+    phase_layer_a8w8(card)
+    a8_counts = phase_serve_a8w8(card, cfg, dense)
 
     sources = {"decode": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
                           "gemlite_tpu/ops/pallas_decode.py:619", serve_counts),
                "prefill": ("gemlite_tpu_torch/csrc/prefill_gemm.cu",
                            "gemlite_tpu/ops/pallas_prefill.py:570", serve_counts),
                "dequantize": ("gemlite_tpu_torch/csrc/dequantize.cu",
-                              "gemlite_tpu/ops/pallas_prefill.py:353", layer_counts)}
+                              "gemlite_tpu/ops/pallas_prefill.py:353", layer_counts),
+               "int8_decode": ("gemlite_tpu_torch/csrc/int8_decode.cu",
+                               "gemlite_tpu/ops/pallas_int8.py:286", a8_counts),
+               "fused_gemm": ("gemlite_tpu_torch/csrc/fused_gemm.cu",
+                              "gemlite_tpu/ops/pallas_gemm.py:294", a8_counts)}
     kernels = []
     for name_k, (src, replaces, counts) in sources.items():
         r = picked[name_k]
         kernels.append({"name": name_k, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": counts[name_k],
-                        "launches_path": "serve" if counts is serve_counts else "layer",
+                        "launches_path": ("serve" if counts is serve_counts else
+                                          "serve_a8w8" if counts is a8_counts else "layer"),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         "shape": {"M": r["M"], "N": r["N"], "K": r["K"]}})
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel of the path never launched: {kernels}")

@@ -5,6 +5,8 @@
 metadata as registered buffers, plus the reference 12-int metadata vector.
 The port always packs the reference LSB-first layout (``w_layout=0``); layers
 packed by the JAX package in its plane-folded layout are unfolded on load.
+INT8-activation layers (``scaled_activations``) quantize x per token in the
+forward and hand its scales to the router.
 """
 
 from typing import NamedTuple, Optional
@@ -17,12 +19,13 @@ from .bitpack import (fold_plane_count, pack_weights_over_cols,
                       unfold_codes_for_planes, unpack_over_rows)
 from .dtypes import DType, TORCH_TO_DTYPE, is_mx_dtype
 from .ops.dispatch import fused_matmul
+from .quant import scale_activations_per_token
 
 __all__ = ["GemLiteLinear", "LayerMeta", "forward_functional", "get_matmul_type",
            "resolve_device", "tensor_from_numpy"]
 
 GEMLITE_ACC_DTYPE = {DType.FP16: DType.FP32, DType.BF16: DType.FP32,
-                     DType.FP32: DType.FP32}
+                     DType.FP32: DType.FP32, DType.INT8: DType.INT32}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,11 +48,12 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     a = np.asarray(a)
     if not a.flags.writeable:      # e.g. the buffer of a JAX array
         a = a.copy()
+    shape = a.shape                # np.ascontiguousarray makes a 0-d array 1-d
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
-        t = t.view(torch.bfloat16)
+        t = t.view(torch.bfloat16).reshape(shape)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(np.ascontiguousarray(a)).reshape(shape)
     return t.to(device) if device is not None else t
 
 
@@ -90,16 +94,23 @@ class LayerMeta(NamedTuple):
 
 
 def forward_functional(x: torch.Tensor, bias, tensor_args, meta: LayerMeta) -> torch.Tensor:
-    """Fused forward: x (..., K) -> (..., N) through the regime router."""
-    if meta.scaled_activations:
-        raise NotImplementedError("queued: dynamically quantized activations (A8 processors)")
+    """Fused forward: x (..., K) -> (..., N) through the regime router. An
+    INT8 layer with ``scaled_activations`` quantizes x per token first
+    (``gemlite_tpu/core.py:forward_functional``)."""
     W_q, scales, zeros = tensor_args
     out_shape = x.shape[:-1] + (meta.out_features,)
-    out = fused_matmul(x.reshape(-1, x.shape[-1]), W_q, scales, zeros, meta)
+    scales_x = None
+    if meta.scaled_activations and meta.input_dtype == DType.INT8.value:
+        x, scales_x = scale_activations_per_token(x, torch.int8)
+    out = fused_matmul(x.reshape(-1, x.shape[-1]), W_q, scales, zeros, meta, scales_x)
     out = out.reshape(out_shape)
     if bias is not None:
         out = out + bias
     return out
+
+
+# non-packed weight dtype -> the W_nbits it stands for
+_NON_PACKED_BITS = {torch.int8: 8, torch.float16: 16, torch.bfloat16: 16}
 
 
 def _as_tensor(a, device):
@@ -109,12 +120,13 @@ def _as_tensor(a, device):
 class GemLiteLinear(nn.Module):
     """Quantized linear layer: ``pack()`` once, then call it like a module.
 
-    Packs float-activation layers over W1/W2/W4/W8 codes: W_group_mode 0-4,
-    channel_scale_mode 0/1, the fma fold of mode 4 (``zeros := -z*s`` computed
-    in float32 and stored in the zeros' dtype)."""
+    Packs float- and INT8-activation layers over W1/W2/W4/W8 codes or
+    non-packed int8 / fp16 / bf16 weights: W_group_mode 0-4,
+    channel_scale_mode 0-3, the fma fold of mode 4 (``zeros := -z*s``
+    computed in float32 and stored in the zeros' dtype)."""
 
-    SUPPORTED_BITS = (1, 2, 4, 8)
-    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32)
+    SUPPORTED_BITS = (1, 2, 4, 8, 16)
+    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32, DType.INT8)
     MIN_SIZE = 32
 
     def __init__(self, W_nbits: int = 4, group_size: Optional[int] = 64,
@@ -146,7 +158,7 @@ class GemLiteLinear(nn.Module):
         self.meta_dtype = input_dtype
         self.acc_dtype = GEMLITE_ACC_DTYPE[input_dtype] if acc_dtype is None else acc_dtype
         # float activations are never dynamically quantized
-        self.scaled_activations = False
+        self.scaled_activations = bool(scaled_activations) and input_dtype == DType.INT8
         self.channel_scale_mode = 0
         self.W_group_mode = -1
         self.data_contiguous = True
@@ -156,20 +168,35 @@ class GemLiteLinear(nn.Module):
 
     def pack(self, W_q, scales=None, zeros=None, bias=None, fma_mode: bool = True,
              contiguous: Optional[bool] = None):
-        """Pack (N, K) uint8 codes and (G, 1)-shaped group metadata.
+        """Pack (N, K) uint8 codes, or non-packed (N, K) int8 / fp16 / bf16
+        weights, and (G, 1)-shaped group metadata.
 
-        Follows the decision tree of ``gemlite_tpu/core.py:pack`` for float
-        activations; the words stay in the LSB-first layout (w_layout=0)."""
+        Follows the decision tree of ``gemlite_tpu/core.py:pack``; packed
+        words stay in the LSB-first layout (w_layout=0), non-packed weights
+        are stored transposed (K, N) with ``elements_per_sample=1``."""
         dev = self.device
         W_q = tensor_from_numpy(W_q).to(dev)
-        if W_q.dtype != torch.uint8:
-            raise NotImplementedError(f"queued: non-packed {W_q.dtype} weights")
+        if zeros is not None and self.input_dtype == DType.INT8:
+            zf = tensor_from_numpy(zeros)
+            if zf.is_floating_point() and bool((zf != torch.round(zf)).any()):
+                raise ValueError("INT8 inputs are not compatible with floating-point zeros.")
         if self.out_features is None or self.in_features is None:
             self.out_features, self.in_features = W_q.shape
         N = self.out_features
-        self.W_q, self.elements_per_sample = pack_weights_over_cols(
-            W_q.reshape(N, self.in_features), self.W_nbits, 32, transpose=True)
-        self.data_contiguous = True if contiguous is None else bool(contiguous)
+        if W_q.dtype == torch.uint8:
+            self.W_q, self.elements_per_sample = pack_weights_over_cols(
+                W_q.reshape(N, self.in_features), self.W_nbits, 32, transpose=True)
+            contiguous = True if contiguous is None else contiguous
+        elif W_q.dtype in _NON_PACKED_BITS:
+            if _NON_PACKED_BITS[W_q.dtype] != self.W_nbits:
+                raise ValueError(f"{W_q.dtype} weights require W_nbits="
+                                 f"{_NON_PACKED_BITS[W_q.dtype]}")
+            self.W_q = W_q.reshape(N, self.in_features).T.contiguous()
+            self.elements_per_sample = 1
+            contiguous = False if contiguous is None else contiguous
+        else:
+            raise ValueError(f"Cannot pack W_q with dtype {W_q.dtype}")
+        self.data_contiguous = bool(contiguous)
         self.bias = _as_tensor(bias, dev)
         scales = _as_tensor(scales, dev)
 
@@ -198,9 +225,12 @@ class GemLiteLinear(nn.Module):
                 self.zeros = z.reshape(N, -1).T.contiguous()
                 self.W_group_mode = 3
 
+        # post-accumulation channel scaling overrides
         if channelwise:
-            self.channel_scale_mode = 1
+            self.channel_scale_mode = 3 if self.scaled_activations else 1
             self.W_group_mode = 1 if self.zeros is not None else 0
+        elif self.scaled_activations:
+            self.channel_scale_mode = 2
 
         if self.scales is not None and self.scales.dtype in TORCH_TO_DTYPE:
             self.meta_dtype = TORCH_TO_DTYPE[self.scales.dtype]
@@ -267,10 +297,9 @@ class GemLiteLinear(nn.Module):
         (scaled_activations, self.W_nbits, self.group_size, self.unpack_mask,
          self.elements_per_sample, input_dtype, output_dtype, acc_dtype, meta_dtype,
          self.channel_scale_mode, self.W_group_mode, data_contiguous) = meta
-        if scaled_activations or is_mx_dtype(input_dtype) or DType(input_dtype) not in \
-                self.SUPPORTED_DTYPES or self.elements_per_sample == 1:
-            raise NotImplementedError(f"queued: layer metadata {meta}")
-        self.scaled_activations = False
+        if is_mx_dtype(input_dtype) or DType(input_dtype) not in self.SUPPORTED_DTYPES:
+            raise NotImplementedError(f"queued: layer metadata {meta} (MX / fp8 inputs)")
+        self.scaled_activations = bool(scaled_activations)
         self.data_contiguous = bool(data_contiguous)
         self.input_dtype = DType(input_dtype)
         self.output_dtype = DType(output_dtype)
@@ -300,8 +329,10 @@ class GemLiteLinear(nn.Module):
     def from_state_dict(cls, state_dict, device=None) -> "GemLiteLinear":
         meta = [int(v) for v in np.asarray(state_dict["metadata"])]
         out_f, in_f = (int(v) for v in np.asarray(state_dict["orig_shape"]))
-        layer = cls(meta[1], meta[2], in_f, out_f, input_dtype=DType(meta[5]),
-                    output_dtype=DType(meta[6]), device=device)
+        group_size = meta[2] if meta[2] > 1 else None      # 1: packed without groups
+        layer = cls(meta[1], group_size, in_f, out_f, input_dtype=DType(meta[5]),
+                    output_dtype=DType(meta[6]), scaled_activations=bool(meta[0]),
+                    device=device)
         return layer.load_state_dict(state_dict)
 
     def _apply(self, fn, recurse=True):

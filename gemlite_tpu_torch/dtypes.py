@@ -10,7 +10,8 @@ from enum import Enum
 
 import torch
 
-__all__ = ["DType", "DTYPE_TO_TORCH", "TORCH_TO_DTYPE", "to_torch_dtype", "is_mx_dtype"]
+__all__ = ["DType", "DTYPE_TO_TORCH", "TORCH_TO_DTYPE", "to_torch_dtype", "is_mx_dtype",
+           "get_dtype_range"]
 
 
 class DType(Enum):
@@ -85,3 +86,11 @@ def to_torch_dtype(dtype) -> torch.dtype:
 def is_mx_dtype(dtype) -> bool:
     value = dtype.value if isinstance(dtype, DType) else int(dtype)
     return value in {d.value for d in MX_DTYPES}
+
+
+def get_dtype_range(dtype):
+    """(min, max) of a torch dtype (or DType) as Python floats: for int8,
+    (-128.0, 127.0), the range dynamic activation quantization clips to."""
+    d = to_torch_dtype(dtype)
+    info = torch.finfo(d) if d.is_floating_point else torch.iinfo(d)
+    return float(info.min), float(info.max)

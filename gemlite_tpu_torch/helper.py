@@ -2,8 +2,10 @@
 """Processors that turn quantized or float weights into a packed
 ``GemLiteLinear`` (counterpart of ``gemlite_tpu/helper.py``).
 
-In this slice: the weight-only grouped INT processors ``A16Wn`` /
-``A16Wn_HQQ_INT`` and their W8/W4/W2/W1 presets.
+Ported: the weight-only grouped INT processors ``A16Wn`` / ``A16Wn_HQQ_INT``
+and their W8/W4/W2/W1 presets; the channel-wise 8-bit ``A16W8_INT8``; the
+dynamic INT8 ``A8W8_INT8_dynamic``; BitNet ``A16W158_INT`` and
+``A8W158_INT_dynamic``. The fp8 and MX processors are not ported yet.
 """
 
 from typing import Optional
@@ -11,11 +13,12 @@ from typing import Optional
 import torch
 
 from .core import GemLiteLinear, resolve_device, tensor_from_numpy
-from .dtypes import TORCH_TO_DTYPE
+from .dtypes import DType, TORCH_TO_DTYPE
 from .quant import quantize_int_weights
 
 __all__ = ["A16Wn", "A16Wn_HQQ_INT", "A16W8_HQQ_INT", "A16W4_HQQ_INT",
-           "A16W2_HQQ_INT", "A16W1_HQQ_INT"]
+           "A16W2_HQQ_INT", "A16W1_HQQ_INT", "A16W8", "A16W8_INT8", "A8W8_dynamic",
+           "A8W8_INT8_dynamic", "A16W158_INT", "A8W158_INT_dynamic"]
 
 _FLOAT_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
 
@@ -24,6 +27,18 @@ def _float_dtype_of(t: torch.Tensor, override=None) -> torch.dtype:
     if override is not None:
         return override
     return t.dtype if t.dtype in _FLOAT_DTYPES else torch.bfloat16
+
+
+def _channelwise_quant_8bit(weight: torch.Tensor):
+    """Symmetric per-output-channel int8 quantization (absmax / 127), in
+    float32: (W_q int8 (N, K), scales float32 (N, 1)); the INT8 branch of
+    ``gemlite_tpu/helper.py:_channelwise_quant_8bit``."""
+    w = weight.to(torch.float32)
+    amax = w.abs().amax(dim=1, keepdim=True)
+    # a tensor divisor: CUDA divides by a Python scalar through its reciprocal
+    scales = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-6)
+    W_q = torch.round(torch.clamp(w / scales, -128.0, 127.0)).to(torch.int8)
+    return W_q, scales
 
 
 class A16Wn:
@@ -108,3 +123,119 @@ def _warmup_quantize(processor, w, group_size: int, **quant_kwargs) -> GemLiteLi
     gs = group_size if nb <= 4 else w.shape[1]
     W_q, scales, zeros = quantize_int_weights(w, nb, gs, **quant_kwargs)
     return processor.from_weights(W_q, scales, zeros, bias=None)
+
+
+class A16W8:
+    """16-bit activations x int8 weights, float32 channel-wise scales: scaled
+    inside the K loop (W_group_mode 2) or, with ``post_scale``, after it
+    (csm 1). The fp8 weights of the JAX package's ``A16W8`` wait for the FP8
+    slice."""
+
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
+                 post_scale: bool = False):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.post_scale = post_scale
+
+    def from_weights(self, weight, bias=None, scales=None) -> GemLiteLinear:
+        weight = tensor_from_numpy(weight).to(self.device)
+        if scales is None:
+            dtype = _float_dtype_of(weight, self.dtype)
+            W_q, scales = _channelwise_quant_8bit(weight)
+        else:
+            if weight.element_size() != 1:
+                raise ValueError("pre-quantized weight must be 8-bit")
+            scales = tensor_from_numpy(scales).to(self.device)
+            dtype = _float_dtype_of(scales, self.dtype)
+            W_q = weight
+        out_features, in_features = W_q.shape
+        gem_dtype = TORCH_TO_DTYPE[dtype]
+        layer = GemLiteLinear(8, group_size=in_features, in_features=in_features,
+                              out_features=out_features, input_dtype=gem_dtype,
+                              output_dtype=gem_dtype, device=self.device)
+        if bias is not None:
+            bias = tensor_from_numpy(bias).to(dtype)
+        layer.pack(W_q, scales.to(torch.float32), zeros=None, bias=bias)
+        if self.post_scale:
+            layer.W_group_mode, layer.channel_scale_mode = 0, 1
+        else:
+            layer.W_group_mode, layer.channel_scale_mode = 2, 0
+        return layer
+
+
+A16W8_INT8 = A16W8
+
+
+class A8W8_dynamic:
+    """Dynamic int8 activations (per-token scales, computed in the forward)
+    x int8 weights with float32 channel-wise scales: W_group_mode 0, csm 3,
+    an exact int32 K sum scaled after it. ``dtype`` is the output dtype. The
+    fp8 flavour of the JAX package's ``A8W8_dynamic`` waits for the FP8
+    slice."""
+
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def from_weights(self, weight, bias=None, scales=None) -> GemLiteLinear:
+        weight = tensor_from_numpy(weight).to(self.device)
+        if scales is None:
+            dtype = _float_dtype_of(weight, self.dtype)
+            W_q, scales = _channelwise_quant_8bit(weight)
+        else:
+            if weight.element_size() != 1:
+                raise ValueError("pre-quantized weight must be 8-bit")
+            scales = tensor_from_numpy(scales).to(self.device)
+            dtype = _float_dtype_of(scales, self.dtype)
+            W_q = weight
+        out_features, in_features = W_q.shape
+        layer = GemLiteLinear(8, group_size=in_features, in_features=in_features,
+                              out_features=out_features, input_dtype=DType.INT8,
+                              output_dtype=TORCH_TO_DTYPE[dtype], scaled_activations=True,
+                              device=self.device)
+        if bias is not None:
+            bias = tensor_from_numpy(bias).to(dtype)
+        layer.pack(W_q, scales.to(torch.float32), zeros=None, bias=bias)
+        layer.W_group_mode, layer.channel_scale_mode = 0, 3
+        return layer
+
+
+A8W8_INT8_dynamic = A8W8_dynamic
+
+
+class A16W158_INT:
+    """BitNet b1.58: ternary weights {-1, 0, +1} stored as 2-bit codes
+    ``w + 1`` with the scalar zero 1 (W_group_mode 1), one weight scale
+    broadcast to a float32 channel scale column."""
+
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def _build(self, weight, weight_scale, bias, input_dtype, channel_scale_mode,
+               scaled_activations) -> GemLiteLinear:
+        weight = tensor_from_numpy(weight).to(self.device)
+        dtype = _float_dtype_of(weight, self.dtype)
+        gem_dtype = TORCH_TO_DTYPE[dtype]
+        out_features, in_features = weight.shape
+        W_q = (weight + 1).to(torch.uint8)
+        ws = float(torch.as_tensor(weight_scale).reshape(-1)[0])
+        scales = torch.full((out_features, 1), ws, device=self.device, dtype=torch.float32)
+        if bias is not None:
+            bias = tensor_from_numpy(bias).to(dtype)
+        layer = GemLiteLinear(2, group_size=in_features, in_features=in_features,
+                              out_features=out_features,
+                              input_dtype=input_dtype if input_dtype is not None else gem_dtype,
+                              output_dtype=gem_dtype, scaled_activations=scaled_activations,
+                              device=self.device)
+        layer.pack(W_q, scales=scales, zeros=1, bias=bias)
+        layer.W_group_mode, layer.channel_scale_mode = 1, channel_scale_mode
+        return layer
+
+    def from_weights(self, weight, weight_scale, bias=None) -> GemLiteLinear:
+        return self._build(weight, weight_scale, bias, None, 1, False)
+
+
+class A8W158_INT_dynamic(A16W158_INT):
+    def from_weights(self, weight, weight_scale, bias=None) -> GemLiteLinear:
+        return self._build(weight, weight_scale, bias, DType.INT8, 3, True)

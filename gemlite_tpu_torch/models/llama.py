@@ -6,8 +6,8 @@ Parameters are a plain dict with the JAX package's structure, so a JAX tree
 maps onto it key for key (see ``interop.params_from_jax_numpy``). The KV cache
 is one dense tensor (L, 2, B, T, Hkv, D), written in place.
 
-In this slice: the dense-cache and no-cache forward, prefill, decode and verify
-steps. Not yet ported: tensor-parallel sharding, the flash and paged attention
+Ported: the dense-cache and no-cache forward, prefill, decode and verify steps,
+over layers from any ported processor (``quantize_llama``). Not yet ported: tensor-parallel sharding, the flash and paged attention
 branches, and the training step.
 """
 
@@ -102,12 +102,16 @@ def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: i
     GemLiteLinear. The default processor is ``A16Wn_HQQ_INT(W_nbits,
     dtype=bf16)``: scales and zeros are stored in bf16, as the JAX package's
     default does, which makes every layer a W_group_mode 4 bf16 layer that the
-    decode, prefill and dequantize kernels serve."""
+    decode, prefill and dequantize kernels serve. A processor without
+    ``W_nbits`` (``A8W8_INT8_dynamic``) quantizes the float weight itself
+    through ``from_weights``."""
     if processor is None:
         processor = A16Wn_HQQ_INT(device=device, dtype=dtype, W_nbits=W_nbits)
 
     def q(w):
-        return _warmup_quantize(processor, w.to(torch.float32), group_size, **quant_kwargs)
+        if getattr(processor, "W_nbits", None) is not None:
+            return _warmup_quantize(processor, w.to(torch.float32), group_size, **quant_kwargs)
+        return processor.from_weights(w.to(torch.float32), None)
 
     out = dict(params)
     out["blocks"] = []

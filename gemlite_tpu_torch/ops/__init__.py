@@ -1,4 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
 """Kernels and their router: ``dispatch`` routes each linear by batch size to
-``decode``, ``prefill`` or ``dequantize``; ``build`` compiles ``csrc/``;
-``reference`` holds the plain versions."""
+``int8_decode``, ``decode``, ``prefill``, ``fused`` (the general kernel) or
+``dequantize``; ``build`` compiles ``csrc/``; ``reference`` holds the plain
+oracle."""

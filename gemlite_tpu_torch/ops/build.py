@@ -1,5 +1,6 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+"""Build the hand-written CUDA kernels at first use, load them with ctypes,
+and plan their split-K grids.
 
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take raw device
 pointers, sizes and a ``cudaStream_t`` and return the ``cudaError_t`` of the
@@ -18,14 +19,16 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "build", "load", "check"]
+__all__ = ["KERNEL_SOURCES", "TARGET_BLOCKS", "build", "load", "check", "split_k"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "dequantize")
+KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "dequantize", "int8_decode", "fused_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -95,3 +98,13 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
     if err:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def split_k(blocks: int, K: int, unit: int, target: int = TARGET_BLOCKS):
+    """(splits, k_per_split): K cut in ranges of whole ``unit``s (the last
+    range may be shorter) so that a grid of ``blocks`` output tiles, times
+    the splits, holds about ``target`` blocks."""
+    units = -(-K // unit)
+    splits = min(units, max(1, -(-target // blocks)))
+    per = -(-units // splits)
+    return -(-units // per), per * unit

@@ -16,7 +16,6 @@ from .reference import forward_meta
 __all__ = ["can_use_decode", "decode_matmul", "decode_matmul_plain", "split_plan"]
 
 MAX_M = 64
-_TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
 _COLS_PER_BLOCK = 128
 
 
@@ -28,11 +27,7 @@ def split_plan(N: int, K: int, gs: int):
     """(splits, k_per_split): K cut on group boundaries so that the grid holds
     about two blocks per SM. Depends on N and K only, never on M, so a row's
     sum is the same whatever the batch."""
-    groups = K // gs
-    blocks_n = -(-N // _COLS_PER_BLOCK)
-    splits = min(groups, max(1, -(-_TARGET_BLOCKS // blocks_n)))
-    per = -(-groups // splits)
-    return -(-groups // per), per * gs
+    return build.split_k(-(-N // _COLS_PER_BLOCK), K, gs)
 
 
 def decode_matmul_plain(x, W_q, scales, zeros, meta):

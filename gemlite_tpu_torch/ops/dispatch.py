@@ -1,23 +1,31 @@
 # SPDX-License-Identifier: Apache-2.0
 """Regime router (counterpart of ``gemlite_tpu/ops/dispatch.py:128-240``).
 
-By the flattened batch size M:
-    M <= 64          decode kernel
-    64 < M < 4096    prefill kernel
-    M >= 4096        dequantize kernel, then a dense ``torch.matmul``
+By the flattened batch size M, in the JAX router's order:
+    M <= 64          int8_exact (INT8 layers), decode, prefill, general_fused
+    64 < M < 4096    prefill, general_fused
+    M >= 4096        dequantize kernel, then a dense ``torch.matmul``; else
+                     general_fused; else (``dense_fallback``) the plain
+                     ``dequantize_full`` and a dense ``torch.matmul``
 
-On the card a layer that none of the three kernels serves raises
-``NotImplementedError`` naming the kernel queued for it: no plain version ever
-runs there. On the CPU the same routes run the kernels' plain versions and are
-noted as ``plain_<route>``; a layer the kernels would refuse is noted
-``plain_oracle``.
+A float layer that the JAX package sends to its decode or dequantize kernel
+but whose form the port's kernel does not cover yet (A16W8, W1/2/8, modes
+1-3, channel-wise) runs on the general fused kernel here. ``dense_fallback``
+is kept for the layers that the JAX package itself dequantizes without a
+Pallas kernel (``_xla_dequantized``). On the card a layer that no kernel
+serves (the MX codecs, csm 4) raises ``NotImplementedError``: no plain
+version of a kernel ever runs there. On the CPU the same routes run the
+kernels' plain versions and are noted as ``plain_<route>``; a layer no
+kernel would take is noted ``plain_oracle``.
 """
 
 import torch
 
 from ..dtypes import DType, to_torch_dtype
 from .decode import can_use_decode, decode_matmul
-from .dequantize import can_use_dequantize, dequantize_weights
+from .dequantize import can_use_dequantize, dequantize_full, dequantize_weights
+from .fused import can_use_fused, fused_gemm
+from .int8_decode import can_use_int8_decode, int8_decode
 from .prefill import can_use_prefill, prefill_matmul
 from .reference import forward_meta
 
@@ -26,7 +34,8 @@ __all__ = ["KERNEL_TRACE", "KERNEL_ROUTES", "last_kernel", "fused_matmul"]
 # Route of every dispatch, in order; callers clear it around the calls they
 # check. Bounded so that an unchecked caller cannot grow it without limit.
 KERNEL_TRACE: list = []
-KERNEL_ROUTES = ("decode", "prefill", "dequantize")
+# the routes that run a hand-written kernel for the matmul
+KERNEL_ROUTES = ("decode", "prefill", "dequantize", "int8_exact", "general_fused")
 _TRACE_LIMIT = 4096
 
 
@@ -39,33 +48,67 @@ def last_kernel() -> str:
     return KERNEL_TRACE[-1] if KERNEL_TRACE else ""
 
 
+def _xla_dequantized(meta) -> bool:
+    """True for the layers that the JAX package keeps in the reference layout
+    (``gemlite_tpu/core.py:_plane_fold_unit`` is None), which its Pallas
+    dequantize kernel refuses (``pallas_prefill.py:can_use_dequantize``): at
+    M >= 4096 it dequantizes them with plain XLA (``dispatch.py:105-108``)."""
+    K, N, nbits, gs = meta.in_features, meta.out_features, meta.W_nbits, meta.group_size
+    if (meta.input_dtype == DType.INT8.value or meta.W_group_mode not in (1, 2, 3, 4)
+            or nbits not in (1, 2, 4, 8) or meta.elements_per_sample != 32 // nbits):
+        return True
+    F = gs if 1 < gs < K else 512          # the fold unit
+    planes = 4 if nbits == 8 else 16 // nbits
+    return bool(F > 512 or K % F or F % planes or (F // planes) % 8 or N % 128 or K % 128)
+
+
 def _route(meta, M: int):
+    if M >= 4096:
+        if can_use_dequantize(meta):
+            return "dequantize"
+        if meta.channel_scale_mode != 4 and _xla_dequantized(meta):
+            return "dense_fallback"
+        return "general_fused" if can_use_fused(meta) else None
     if M <= 64:
-        return "decode" if can_use_decode(meta, M) else None
-    if M < 4096:
-        return "prefill" if can_use_prefill(meta, M) else None
-    return "dequantize" if can_use_dequantize(meta) else None
+        if meta.input_dtype == DType.INT8.value and can_use_int8_decode(meta, M):
+            return "int8_exact"
+        if can_use_decode(meta, M):
+            return "decode"
+    if can_use_prefill(meta, M):
+        return "prefill"
+    return "general_fused" if can_use_fused(meta) else None
 
 
-def _dense(x, w, meta):
+def _dense(x, w, meta, scales_x):
+    """x @ w in bf16 on the tensor cores, then the per-token scale (csm 2/3)
+    in float32 (``gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul``)."""
     out = torch.matmul(x.to(torch.bfloat16), w)
+    if meta.channel_scale_mode in (2, 3) and scales_x is not None:
+        out = out.to(torch.float32) * scales_x.reshape(-1, 1).to(torch.float32)
     return out.to(to_torch_dtype(DType(meta.output_dtype)))
 
 
-def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
-    """out (M, N) = x (M, K) @ dequant(W_q) through the kernel of M's regime."""
+def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> torch.Tensor:
+    """out (M, N) = x (M, K) @ dequant(W_q) through the kernel of M's regime.
+    ``scales_x`` (M, 1) are the per-token scales of a dynamically quantized x."""
     route = _route(meta, x.shape[0])
     on_cpu = x.device.type == "cpu"
     if route is None:
         if not on_cpu:
             raise NotImplementedError(
-                f"no kernel serves M={x.shape[0]} with {meta}: queued are the general "
-                "fused kernel (pallas_fused_matmul) and the exact int8 decode kernel")
+                f"no kernel serves M={x.shape[0]} with {meta}: the MX codecs and csm 4 "
+                "wait for the MX slice")
         _note("plain_oracle")
-        return forward_meta(x, W_q, scales, zeros, None, meta)
+        return forward_meta(x, W_q, scales, zeros, scales_x, meta)
     _note(f"plain_{route}" if on_cpu else route)
+    if route == "int8_exact":
+        return int8_decode(x, W_q, scales, zeros, scales_x, meta)
     if route == "decode":
         return decode_matmul(x, W_q, scales, zeros, meta)
     if route == "prefill":
         return prefill_matmul(x, W_q, scales, zeros, meta)
-    return _dense(x, dequantize_weights(W_q, scales, zeros, meta), meta)
+    if route == "general_fused":
+        return fused_gemm(x, W_q, scales, zeros, scales_x, meta)
+    if route == "dequantize":
+        return _dense(x, dequantize_weights(W_q, scales, zeros, meta), meta, scales_x)
+    return _dense(x, dequantize_full(W_q, scales, zeros, meta), meta, scales_x)

@@ -21,7 +21,16 @@ import torch
 from ..bitpack import unpack_over_rows
 from ..dtypes import DType, to_torch_dtype
 
-__all__ = ["unpack_rows_ref", "dequantize_ref", "forward_ref", "forward_meta"]
+__all__ = ["unpack_rows_ref", "dequantize_ref", "int_matmul", "forward_ref", "forward_meta"]
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of two integer matrices, as a float64 matmul cast
+    to int32. Exact wherever every partial sum stays below 2^53: with int8 x
+    and codes below 2^8 each term is below 2^15, so any K below 2^38 is
+    exact. The CPU runs a float64 matmul fast, where an int64 matmul at 8B
+    widths takes minutes."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
 
 
 def unpack_rows_ref(W_q_packed: torch.Tensor, W_nbits: int, elements_per_sample: int,
@@ -73,15 +82,15 @@ def forward_ref(x: torch.Tensor, W_q_packed: torch.Tensor, scales, zeros, scales
                 W_group_mode: int, channel_scale_mode: int, input_dtype: int,
                 output_dtype: int, acc_dtype: int, meta_dtype: int,
                 zero_is_scalar: bool = False) -> torch.Tensor:
-    """out = channel_scale(x @ dequant(unpack(W_q))) for float activations.
+    """out = channel_scale(x @ dequant(unpack(W_q))).
 
     x (M, K); W_q_packed (K // elements_per_sample, N) w_layout=0 words, or
     (K, N) raw weights when elements_per_sample == 1; scales/zeros (G, N);
     scales_x (M, 1) or None. The dequantized weight is cast to float32 and the
-    dot runs in float32 (the JAX oracle's order); the epilogue runs in
+    dot runs in float32 (the JAX oracle's order), or exactly in int32 for int8
+    x against integer weights with an INT32 accumulator
+    (``gemlite_tpu/ops/reference.py:157-169``); the epilogue runs in
     meta_dtype. Returns (M, N) in output_dtype."""
-    if DType(input_dtype) == DType.INT8:
-        raise NotImplementedError("queued: the exact int8 path (pallas_int8)")
     out_dtype = to_torch_dtype(output_dtype)
     meta_t = to_torch_dtype(meta_dtype)
     K = x.shape[-1]
@@ -89,7 +98,11 @@ def forward_ref(x: torch.Tensor, W_q_packed: torch.Tensor, scales, zeros, scales
     b = dequantize_ref(b, scales, zeros, W_group_mode=W_group_mode,
                        meta_dtype=meta_dtype if W_group_mode > 0 else DType.FP32,
                        zero_is_scalar=zero_is_scalar)
-    acc = x.to(torch.float32) @ b.to(torch.float32)
+    if (DType(acc_dtype) == DType.INT32 and not b.is_floating_point()
+            and not x.is_floating_point()):
+        acc = int_matmul(x.to(torch.int8), b.to(torch.int8))
+    else:
+        acc = x.to(torch.float32) @ b.to(torch.float32)
     if not meta_t.is_floating_point:
         meta_t = torch.float32
     if channel_scale_mode == 1:

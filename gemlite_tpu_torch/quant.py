@@ -1,14 +1,36 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Grouped INT weight quantizer (counterpart of
-``gemlite_tpu/quant.py:quantize_int_weights``).
+"""Grouped INT weight quantizer and dynamic activation quantizer
+(counterparts of ``gemlite_tpu/quant.py``).
 
-Runs on torch tensors on any device, in float32, with the JAX package's steps
-and its "keep the best iterate per group" rule, so the codes agree with it.
+Both run on torch tensors on any device, in float32, with the JAX package's
+steps, so the codes agree with it.
 """
 
 import torch
 
-__all__ = ["quantize_int_weights"]
+from .dtypes import get_dtype_range
+
+__all__ = ["quantize_int_weights", "scale_activations_per_token"]
+
+
+def scale_activations_per_token(x: torch.Tensor, w_dtype=torch.int8):
+    """Per-token (per-row) symmetric dynamic quantization.
+
+    x (..., K) float -> (x_q (..., K) in ``w_dtype``, scales (M, 1) float32):
+    scale = row absmax / max_val in float32, clamped to >= 1e-6; the codes are
+    x / scale clipped to the type's range and, for an integer type, rounded
+    half to even. Plain PyTorch on every device, as the JAX package computes
+    it with plain jnp."""
+    min_val, max_val = get_dtype_range(w_dtype)
+    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    # divide by a tensor on the same device: CUDA divides by a Python scalar
+    # as a multiply by its reciprocal, which can land one ulp off
+    scales = (amax / torch.full_like(amax, max_val)).clamp_min(1e-6)
+    q = torch.clamp(xf / scales, min_val, max_val)
+    if not w_dtype.is_floating_point:
+        q = torch.round(q)
+    return q.to(w_dtype).reshape(x.shape), scales
 
 
 def quantize_int_weights(weight, W_nbits: int = 4, group_size: int = 128, iters: int = 12,

@@ -12,7 +12,8 @@
 * Between admissions and finishes the per-slot decode state (tokens, lengths,
   temperatures, active mask) stays on the device.
 * On the card the engine checks after every prefill and decode step that each
-  quantized linear ran on the decode, prefill or dequantize kernel.
+  quantized linear ran on a hand-written kernel (``KERNEL_ROUTES``: decode,
+  prefill, dequantize, int8_exact or general_fused).
 
 Unlike the JAX engine, the default is ``paged=False``: the paged cache, the
 speculative draft, scan-over-layers decode and mesh sharding are not ported
@@ -122,7 +123,7 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------------
     def _checked(self, fn, *args, **kw):
         """Run one model call; on the card, raise unless every quantized
-        linear in it ran on one of the three kernels."""
+        linear in it ran on one of the kernels of ``KERNEL_ROUTES``."""
         KERNEL_TRACE.clear()
         out = fn(*args, **kw)
         if self._check_kernels:

@@ -49,12 +49,18 @@ def _entry_points():
     from gemlite_tpu_torch import (A16W4_HQQ_INT, ContinuousBatchingEngine, DType,
                                    GemLiteLinear, LlamaConfig, init_kv_cache, init_llama,
                                    params_from_jax_numpy, quantize_llama)
+    from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynamic,
+                                          A8W8_INT8_dynamic)
     cfg = LlamaConfig.tiny(num_layers=1)
     cpu_params = init_llama(cfg, device="cpu")
     return {
         "GemLiteLinear": lambda **kw: GemLiteLinear(4, 64, 128, 128, DType.BF16, DType.BF16,
                                                      **kw),
         "A16W4_HQQ_INT": lambda **kw: A16W4_HQQ_INT(**kw),
+        "A16W8_INT8": lambda **kw: A16W8_INT8(**kw),
+        "A8W8_INT8_dynamic": lambda **kw: A8W8_INT8_dynamic(**kw),
+        "A16W158_INT": lambda **kw: A16W158_INT(**kw),
+        "A8W158_INT_dynamic": lambda **kw: A8W158_INT_dynamic(**kw),
         "init_llama": lambda **kw: init_llama(cfg, **kw),
         "init_kv_cache": lambda **kw: init_kv_cache(cfg, 1, **kw),
         "quantize_llama": lambda **kw: quantize_llama(cpu_params, group_size=64, **kw),
@@ -64,7 +70,8 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ("A16W4_HQQ_INT", "ContinuousBatchingEngine", "GemLiteLinear", "init_kv_cache",
+ENTRY_POINTS = ("A16W4_HQQ_INT", "A16W8_INT8", "A8W8_INT8_dynamic", "A16W158_INT",
+                "A8W158_INT_dynamic", "ContinuousBatchingEngine", "GemLiteLinear", "init_kv_cache",
                 "init_llama", "params_from_jax_numpy", "quantize_llama")
 
 

@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""The three CUDA kernels against their plain versions, on the card.
+"""The five CUDA kernels against their plain versions, on the card.
 
 Card-only: each test skips where no CUDA device is present. On the card:
 
@@ -7,7 +7,8 @@ Card-only: each test skips where no CUDA device is present. On the card:
 
 (``--noconftest``: the suite's conftest sets JAX up, which the card's machine
 does not need.) Tolerance: max|a-b| / max|b| <= 5e-3 against the plain
-version's float32 result, the JAX kernel tests' bound.
+version's float32 result, the JAX kernel tests' bound; the int8 decode kernel
+and the general fused kernel's int path equal their plain versions bit for bit.
 """
 
 import pytest
@@ -15,9 +16,13 @@ import torch
 
 from gemlite_tpu_torch import (ContinuousBatchingEngine, DType, GemLiteLinear, LlamaConfig,
                                init_llama, quantize_llama)
+from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynamic,
+                                      A8W8_INT8_dynamic)
 from gemlite_tpu_torch.ops import dispatch
 from gemlite_tpu_torch.ops.decode import decode_matmul
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
+from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path
+from gemlite_tpu_torch.ops.int8_decode import int8_decode, int8_decode_plain
 from gemlite_tpu_torch.ops.prefill import prefill_matmul
 from gemlite_tpu_torch.ops.reference import forward_meta
 
@@ -100,7 +105,12 @@ def test_routes_and_no_fallback(gen):
         layer(_x(gen, M, 512))
     assert dispatch.KERNEL_TRACE == ["decode", "decode", "prefill", "dequantize"]
     mode3 = _layer(gen, 256, 512, fma=False)
-    with pytest.raises(NotImplementedError, match="queued"):
+    dispatch.KERNEL_TRACE.clear()
+    mode3(_x(gen, 4, 512))
+    mode3(_x(gen, 4096, 512))
+    assert dispatch.KERNEL_TRACE == ["general_fused"] * 2
+    mode3.channel_scale_mode = 4          # MX activation scales: no kernel yet
+    with pytest.raises(NotImplementedError, match="MX slice"):
         mode3(_x(gen, 4, 512))
 
 
@@ -116,3 +126,124 @@ def test_engine_runs_on_the_kernels(gen):
     out = eng.generate([[1, 2, 3, 4, 5], list(range(7, 77))], max_new_tokens=4)
     assert [len(o) for o in out] == [4, 4]
     assert decode_matmul.launches > before[0] and prefill_matmul.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the int8 decode kernel and the general fused kernel
+# ---------------------------------------------------------------------------
+
+def _int8_layer(gen, name, N, K):
+    """An INT8-activation layer of one weight form, packed on the card."""
+    if name == "i8_dense":
+        w = torch.randn((N, K), generator=gen, device="cuda") * 0.05
+        return A8W8_INT8_dynamic(device="cuda", dtype=torch.bfloat16).from_weights(w)
+    if name == "w2_bitnet_cw":
+        w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
+        return A8W158_INT_dynamic(device="cuda", dtype=torch.bfloat16).from_weights(w, 0.01)
+    if name == "w4_cw_mode0":                            # W4 codes, no zero, channel scales
+        codes = torch.randint(0, 16, (N, K), generator=gen, device="cuda").to(torch.uint8)
+        scales = torch.rand((N, 1), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
+        return GemLiteLinear(4, None, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+                             device="cuda").pack(codes, scales, None)
+    nbits, gs, zk = {"u8_scalar_zero": (8, None, "scalar"), "u8_channel_zeros": (8, None, "channel"),
+                     "u8_group_zeros": (8, 128, "group"), "w4_group_zeros": (4, 128, "group")}[name]
+    codes = torch.randint(0, 2 ** nbits, (N, K), generator=gen, device="cuda").to(torch.uint8)
+    G = 1 if gs is None else K // gs
+    scales = torch.rand((N, G), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
+    z = {"scalar": 128,
+         "channel": torch.randint(0, 256, (N, 1), generator=gen, device="cuda").float(),
+         "group": torch.randint(0, 2 ** nbits, (N, G), generator=gen, device="cuda").float()}[zk]
+    return GemLiteLinear(nbits, gs, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+                         device="cuda").pack(codes, scales, z, fma_mode=False)
+
+
+INT8_FORMS = ("i8_dense", "u8_scalar_zero", "u8_channel_zeros", "u8_group_zeros",
+              "w4_group_zeros", "w2_bitnet_cw")
+
+
+def _xq(gen, M, K):
+    x = torch.randint(-128, 128, (M, K), generator=gen, device="cuda").to(torch.int8)
+    sx = torch.rand((M, 1), generator=gen, device="cuda") * 2.0 ** -7 + 2.0 ** -8
+    return x, sx
+
+
+@pytest.mark.parametrize("N,K", [(256, 512), (1024, 4096)])
+@pytest.mark.parametrize("M", [1, 3, 8, 33, 64])
+@pytest.mark.parametrize("name", INT8_FORMS)
+def test_int8_decode_kernel_is_bit_exact(gen, name, M, N, K):
+    """Integer sums, and float group sums in the plain version's order."""
+    layer = _int8_layer(gen, name, N, K)
+    x, sx = _xq(gen, M, K)
+    args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    got = int8_decode(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and torch.equal(got, int8_decode_plain(*args))
+
+
+def test_int8_decode_rows_do_not_depend_on_batch(gen):
+    layer = _int8_layer(gen, "w4_group_zeros", 512, 1024)
+    x, sx = _xq(gen, 8, 1024)
+    args = (layer.W_q, layer.scales, layer.zeros)
+    full = int8_decode(x, *args, sx, layer.meta)
+    assert torch.equal(int8_decode(x[:1], *args, sx[:1], layer.meta)[0], full[0])
+
+
+@pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (4096, 1024), (256, 96)])
+@pytest.mark.parametrize("M", [1, 65, 128, 200, 1000])
+@pytest.mark.parametrize("name", ["i8_dense", "w2_bitnet_cw", "w4_cw_mode0"])
+def test_fused_kernel_int_path_is_bit_exact(gen, name, M, N, K):
+    """Non-packed int8, and packed codes with and without the scalar-zero
+    shift; ragged N, and K not a multiple of the kernel's K step."""
+    layer = _int8_layer(gen, name, N, K)
+    assert int_path(layer.meta)
+    x, sx = _xq(gen, M, K)
+    args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    got = fused_gemm(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_matmul_plain(*args))
+
+
+def _float_layer(gen, name, N, K):
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.05
+    if name == "a16w8_post_scale":
+        return A16W8_INT8(device="cuda", dtype=torch.bfloat16, post_scale=True).from_weights(w)
+    if name == "a16w8_in_loop_fp16":
+        return A16W8_INT8(device="cuda", dtype=torch.float16).from_weights(w)
+    if name == "bitnet_bf16":
+        w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
+        return A16W158_INT(device="cuda", dtype=torch.bfloat16).from_weights(w, 0.01)
+    if name == "w4_fp32":
+        layer = _layer(gen, N, K)
+        return GemLiteLinear.from_state_dict(
+            {**layer.state_dict(), "metadata": torch.tensor(
+                [0, 4, 128, 15, 8, 0, 0, 0, 2, 0, 4, 1], dtype=torch.int32)}, device="cuda")
+    return _layer(gen, N, K, fma=False)                  # W4 mode 3, bf16
+
+
+@pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (1024, 4096)])
+@pytest.mark.parametrize("M", [1, 65, 300])
+@pytest.mark.parametrize("name", ["a16w8_post_scale", "a16w8_in_loop_fp16", "bitnet_bf16",
+                                  "w4_mode3", "w4_fp32"])
+def test_fused_kernel_float_path(gen, name, M, N, K):
+    layer = _float_layer(gen, name, N, K)
+    x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(
+        {0: torch.float32, 1: torch.float16, 2: torch.bfloat16}[layer.meta.input_dtype])
+    args = (layer.W_q, layer.scales, layer.zeros, None)
+    got = fused_gemm(x, *args, layer.meta)
+    torch.cuda.synchronize()
+    want = fused_matmul_plain(x, *args, layer.meta._replace(output_dtype=DType.FP32.value))
+    assert got.shape == (M, N) and _rel(got, want) <= REL
+
+
+def test_a8w8_engine_runs_on_the_kernels(gen):
+    """A tiny A8W8 model served on the card: short prompts and decode on the
+    int8 decode kernel, a 70-token prompt on the general fused kernel."""
+    cfg = LlamaConfig.tiny()
+    params = quantize_llama(init_llama(cfg, seed=0, device="cuda"),
+                            processor=A8W8_INT8_dynamic(device="cuda", dtype=torch.bfloat16))
+    before = (int8_decode.launches, fused_gemm.launches)
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, prefill_buckets=(32, 64, 128),
+                                   device="cuda")
+    out = eng.generate([[1, 2, 3, 4, 5], list(range(7, 77))], max_new_tokens=4)
+    assert [len(o) for o in out] == [4, 4]
+    assert int8_decode.launches > before[0] and fused_gemm.launches > before[1]

@@ -92,9 +92,26 @@ def test_forward_matches_jax_dispatch(M, route, fma):
     x = (rng.normal(size=(M, K)) * 0.2).astype(np.float32)
     want, _ = _jax_forward(jl, x)
     got, trace = _port_forward(tl, x)
-    # mode 4 is the kernels' format; mode 3 layers would need the general kernel
-    assert trace == [f"plain_{route}" if fma else "plain_oracle"]
+    # mode 4 is the W4 kernels' format; mode 3 layers run on the general fused
+    # kernel at every M (at M >= 4096 the JAX package dequantizes them with
+    # its Pallas kernel, which the port's dequantize kernel does not cover)
+    assert trace == [f"plain_{route}" if fma else "plain_general_fused"]
     assert _rel(got, want) < REL, _rel(got, want)
+
+
+@pytest.mark.parametrize("W_nbits,gs,N,K", [(4, 128, 256, 512), (2, 64, 128, 256),
+                                            (8, 128, 128, 256), (4, 1024, 128, 2048),
+                                            (4, 128, 192, 256), (4, 256, 128, 256),
+                                            (4, 1024, 128, 1024)])
+def test_dense_fallback_only_where_jax_dequantizes_without_pallas(W_nbits, gs, N, K):
+    """At M >= 4096 the port takes the plain dequantize (dense_fallback) only
+    for the layers the JAX package keeps in the reference layout, which its
+    Pallas dequantize kernel refuses; the rest run on the general fused kernel."""
+    rng = np.random.default_rng(W_nbits * 7 + gs)
+    jl, tl = _pair(*_hqq(rng, N, K, W_nbits, gs), W_nbits, gs, fma_mode=False)
+    assert dispatch._xla_dequantized(tl.meta) == (jl.w_layout == 0)
+    _, trace = _port_forward(tl, np.zeros((4096, K), np.float32))
+    assert trace == ["plain_dense_fallback" if jl.w_layout == 0 else "plain_general_fused"]
 
 
 @pytest.mark.parametrize("case", ["symmetric", "channelwise", "channelwise_zero",
