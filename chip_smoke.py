@@ -6,7 +6,7 @@
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the five CUDA kernels from gemlite_tpu_torch/csrc;
+  build    compile the seven CUDA kernels from gemlite_tpu_torch/csrc;
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes:
            relative error max|a-b| / max|b| <= 5e-3 against the plain
            version's float32 result, median CUDA-event device times with the
@@ -15,10 +15,24 @@ Phases, each printing one JSON line:
            routed to decode, decode, prefill, dequantize;
   serve    Llama-3-8B widths cut to 4 of 32 layers, random bf16 weights from a
            seeded generator, quantized to W4 gs=128 on the card, served by
-           ContinuousBatchingEngine(max_batch=8) on 8 greedy requests; tokens
-           must equal a bare prefill/decode loop, and the first step must
-           match the plain path on the CPU stage by stage (first_step_check);
+           ContinuousBatchingEngine(max_batch=8, paged=False) on 8 greedy
+           requests; tokens must equal a bare prefill/decode loop, and the
+           first step must match the plain path on the CPU stage by stage
+           (first_step_check);
   profile  device time by kernel over a short serving run;
+  kernels_attn  the causal flash kernel (B=1, S in {256, 1024, 2048}, 32/8
+           heads, D=128) and the paged decode kernel (8 slots of lengths 1 to
+           2047, page size 128, a shuffled table with the trash page) against
+           their plain versions within 5e-3 (max form, float32 plain result);
+           times, bounds and scaled_dot_product_attention as the yardstick;
+  serve_paged   the same W4 model at max_seq_len 2048 served by the default
+           engine (paged, prefix cache; page 128, 64 pages, max_batch 8) on
+           10 requests, two of which reuse a 640-token prefix: tokens of the
+           first 8 equal a bare paged loop, 10 prefix-cache page hits, the
+           cached requests' chunk matches a one-shot prefill stage by stage,
+           launches equal the schedule, and the first step of the 300-token
+           prompt (bucket 512, on the flash kernel) matches the plain path;
+  profile_paged device time by kernel over a short paged serving run;
   kernels_a8   the int8 decode kernel (every weight form) and the general
            fused kernel (int path over int8 weights and over packed W2 / W4
            codes, four float forms) against their plain versions at the 8B
@@ -204,6 +218,8 @@ def phase_kernels(card: str, peak, timer: Timer) -> dict:
 
 
 def counters():
+    from gemlite_tpu_torch.ops.attention import (flash_attention_causal,
+                                                 paged_decode_attention_kernel)
     from gemlite_tpu_torch.ops.decode import decode_matmul
     from gemlite_tpu_torch.ops.dequantize import dequantize_weights
     from gemlite_tpu_torch.ops.fused import fused_gemm
@@ -211,7 +227,8 @@ def counters():
     from gemlite_tpu_torch.ops.prefill import prefill_matmul
     return {"decode": decode_matmul, "prefill": prefill_matmul,
             "dequantize": dequantize_weights, "int8_decode": int8_decode,
-            "fused_gemm": fused_gemm}
+            "fused_gemm": fused_gemm, "flash": flash_attention_causal,
+            "paged_decode": paged_decode_attention_kernel}
 
 
 def reset_counts():
@@ -308,7 +325,7 @@ def _mean_max(a: torch.Tensor, b: torch.Tensor) -> dict:
             "max_rel": float((a - b).abs().max() / b.abs().max())}
 
 
-def first_step_check(params, cfg, prompt, route="decode") -> dict:
+def first_step_check(params, cfg, prompt, route="decode", bucket=None) -> dict:
     """The first prefill step on the card's kernels against the plain path on
     the CPU, stage by stage from the same input: each block, then the final
     norm and lm_head, gets the CPU's output of the stage before. Each stage is
@@ -317,29 +334,38 @@ def first_step_check(params, cfg, prompt, route="decode") -> dict:
     summation orders round some elements one bf16 step apart, which the max
     form would count as a relative error of up to 2^-7. The end-to-end logits
     of the two paths are reported beside: the random-weight network carries
-    each stage's small difference on and magnifies it."""
+    each stage's small difference on and magnifies it. With ``bucket`` the
+    prompt is padded to the engine's bucket, and a bucket of 256 or more
+    attends on the flash kernel (its plain version on the CPU)."""
     from gemlite_tpu_torch.models import llama as L
-    from gemlite_tpu_torch.ops import dispatch
+    from gemlite_tpu_torch.ops import attention, dispatch
 
     cpu = _params_to_cpu(params)
-    tok = torch.tensor([prompt], dtype=torch.int32)
-    pos = torch.arange(len(prompt), dtype=torch.int32)[None]
+    S, last = bucket or len(prompt), len(prompt) - 1
+    tok = torch.zeros((1, S), dtype=torch.int32)
+    tok[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32)[None]
     out = {}
     x = cpu["embed"][tok]
     dispatch.KERNEL_TRACE.clear()
+    attention.ATTENTION_TRACE.clear()
     for i in range(cfg.num_layers):
         want = L._block_forward(cpu["blocks"][i], cfg, x, pos, None, i, 0)
         got = L._block_forward(params["blocks"][i], cfg, x.cuda(), pos.cuda(), None, i, 0)
         out[f"block{i}"] = _mean_max(got, want)
         x = want
     h = L._rms_norm(x, cpu["ln_f"], cfg.norm_eps)
-    out["head"] = _mean_max(L._apply(params["lm_head"], h.cuda())[0, -1],
-                            L._apply(cpu["lm_head"], h)[0, -1])
+    out["head"] = _mean_max(L._apply(params["lm_head"], h.cuda())[0, last],
+                            L._apply(cpu["lm_head"], h)[0, last])
     routes = sorted(set(dispatch.KERNEL_TRACE))
     if routes != sorted([route, f"plain_{route}"]):
         raise RuntimeError(f"first step ran {routes}")
-    out["end_to_end"] = _mean_max(L.llama_forward(params, cfg, tok.cuda())[0, -1],
-                                  L.llama_forward(cpu, cfg, tok)[0, -1])
+    flash = L._can_use_flash(torch.empty((1, S, cfg.num_heads, cfg.head_dim), device="meta"))
+    attn = sorted(set(attention.ATTENTION_TRACE))
+    if attn != (["flash", "plain_flash"] if flash else ["xla"]):
+        raise RuntimeError(f"first step attended by {attn}")
+    out["end_to_end"] = _mean_max(L.llama_forward(params, cfg, tok.cuda())[0, last],
+                                  L.llama_forward(cpu, cfg, tok)[0, last])
     return out
 
 
@@ -347,7 +373,7 @@ W4_GROUPS = {"decode_kernel": ("decode_w4", "splitk_reduce"), "prefill_kernel": 
 
 
 def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GROUPS,
-                  what="8 requests x 8 new tokens, 4 of 32 layers"):
+                  what="8 requests x 8 new tokens, 4 of 32 layers", engine_kw=None):
     """Where the device time goes in a short serving run: kernel times from
     torch.profiler (CUDA activity only, so no operator is counted twice), and
     the device's busy share against the wall time of the same run made
@@ -356,7 +382,8 @@ def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GR
     from gemlite_tpu_torch import ContinuousBatchingEngine
 
     def serve():
-        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda")
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda",
+                                       **(engine_kw or {"paged": False}))
         eng.generate(prompts, max_new_tokens=8)
         torch.cuda.synchronize()
 
@@ -385,7 +412,8 @@ SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
 
 def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
                     long_route: str, profile_phase: str, profile_groups) -> dict:
-    """8 greedy requests through ContinuousBatchingEngine(max_batch=8). Tokens
+    """8 greedy requests through ContinuousBatchingEngine(max_batch=8) on the
+    dense cache (paged=False). Tokens
     must equal the bare loop; launches must equal the schedule (prompts of up
     to 64 tokens and every decode step on ``short_route``'s kernel, longer
     prompts on ``long_route``'s); the quantized linears must take no other
@@ -404,7 +432,7 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
         routes_seen.add(name)
         note(name)
 
-    eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda")
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=8, paged=False, device="cuda")
     reset_counts()
     dispatch._note = noting
     torch.cuda.synchronize()
@@ -462,14 +490,15 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     return counts
 
 
-def phase_serve(card: str, cfg, dense) -> dict:
+def phase_serve(card: str, cfg, dense):
+    """Returns the launch counts and the W4 params, which serve_paged reuses."""
     from gemlite_tpu_torch import quantize_llama
 
     t0 = time.perf_counter()
     params = quantize_llama(dense, W_nbits=4, group_size=128, device="cuda")
     torch.cuda.synchronize()
     return serve_and_check("serve", params, cfg, card, time.perf_counter() - t0,
-                           "decode", "prefill", "profile", W4_GROUPS)
+                           "decode", "prefill", "profile", W4_GROUPS), params
 
 
 def dense_llama():
@@ -671,6 +700,261 @@ def phase_serve_a8w8(card: str, cfg, dense) -> dict:
     return serve_and_check("serve_a8w8", params, cfg, card, time.perf_counter() - t0,
                            "int8_exact", "general_fused", "profile_a8w8", A8_GROUPS)
 
+ATTN_GROUPS = {"flash_kernel": ("flash_attn",),
+               "paged_decode_kernel": ("paged_decode", "paged_combine"), **W4_GROUPS}
+FLASH_SEQS = (256, 1024, 2048)
+PAGED_LENGTHS = (1, 127, 128, 129, 500, 1000, 1500, 2047)
+
+
+def phase_kernels_attn(card: str, peak, timer: Timer) -> dict:
+    """The flash and paged decode kernels against their plain versions at the
+    8B attention shapes (32 q heads, 8 kv heads, D 128); returns the rows the
+    kernels line reports. The yardstick is one scaled_dot_product_attention
+    call: over (B, H, S, D) copies of q/k/v for flash, and for paged decode
+    over a contiguous copy of each slot's cache padded to the longest slot,
+    with a mask (no single PyTorch call reads pages)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from gemlite_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    Hq, Hkv, D = 32, 8, 128
+    rows = {}
+
+    def bf16(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def check(name, shape, kern, plain, plain_f32, library, bytes_moved, flops):
+        got, want = kern(), plain_f32()
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        bound, by = kernel_bound(bytes_moved, flops, peak)
+        row = {"kernel": name, "shape": shape, "rel_err": err, "max_abs_err": max_abs(got, want),
+               "ms": timer.ms(kern), "plain_ms": timer.ms(plain, iters=5),
+               "library_ms": timer.ms(library), "bound_ms": bound, "bound_by": by, "card": card}
+        emit(row)
+        if not err <= REL_TOL:
+            raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
+        rows[name] = row
+
+    for S in FLASH_SEQS:
+        q, k, v = bf16((1, S, Hq, D)), bf16((1, S, Hkv, D)), bf16((1, S, Hkv, D))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        check("flash", {"B": 1, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D},
+              lambda: A.flash_attention_causal(q, k, v),
+              lambda: A.causal_attention_plain(q, k, v),
+              lambda: A.causal_attention_plain(q.float(), k.float(), v.float()),
+              lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+              2 * S * (2 * Hq + 2 * Hkv) * D, 2.0 * Hq * S * S * D)
+
+    ps, pps, B = 128, 16, len(PAGED_LENGTHS)
+    P = B * pps + 1                                   # page 0 is the trash page
+    k_pages, v_pages, q = bf16((Hkv, P, ps, D)), bf16((Hkv, P, ps, D)), bf16((B, Hq, D))
+    table = (torch.randperm(B * pps, generator=gen, device="cuda") + 1).reshape(B, pps)
+    table = table.to(torch.int32)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
+    T = max(PAGED_LENGTHS)
+    kc, vc = (A.gather_pages(p, table)[:, :T].transpose(1, 2).contiguous()
+              for p in (k_pages, v_pages))
+    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    live = sum(PAGED_LENGTHS)
+    check("paged_decode", {"B": B, "lengths": list(PAGED_LENGTHS), "page_size": ps,
+                           "pages": P, "Hq": Hq, "Hkv": Hkv, "D": D},
+          lambda: A.paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table),
+          lambda: A.paged_decode_attention_plain(q, k_pages, v_pages, lengths, table),
+          lambda: A.paged_decode_attention_plain(q.float(), k_pages.float(), v_pages.float(),
+                                                 lengths, table),
+          lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+          live * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2, 4.0 * live * Hq * D)
+    emit({"phase": "kernels_attn", "ok": True, "checked": len(FLASH_SEQS) + 1, "card": card})
+    return rows
+
+
+def bare_paged_loop(params, cfg, prompts, n_new, buckets, page_size):
+    """Greedy generation with the model API on the paged cache, in the
+    engine's shapes: each prompt one-shot prefilled in its bucket through its
+    own table row, then all slots decoded together (paged decode kernel)."""
+    from gemlite_tpu_torch.models.llama import llama_decode_step_batched, llama_forward
+    from gemlite_tpu_torch.models.paged_kv import init_paged_kv
+    from gemlite_tpu_torch.serving import _next_bucket
+    kv = init_paged_kv(cfg, len(prompts), page_size, device="cuda")   # slot b: its own pages
+    out = []
+    for i, p in enumerate(prompts):
+        padded = torch.zeros((1, _next_bucket(len(p), buckets)), dtype=torch.int32, device="cuda")
+        padded[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        logits, _ = llama_forward(params, cfg, padded, kv=kv.with_table(kv.table[i:i + 1]),
+                                  cache_len=0)
+        out.append([int(torch.argmax(logits[0, len(p) - 1]))])
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    for _ in range(n_new - 1):
+        tok = torch.tensor([[o[-1]] for o in out], dtype=torch.int32, device="cuda")
+        logits, _ = llama_decode_step_batched(params, cfg, tok, kv, lens)
+        for o, t in zip(out, torch.argmax(logits[:, 0].float(), dim=-1).cpu().tolist()):
+            o.append(int(t))
+        lens = lens + 1
+    return out
+
+
+def cached_stage_check(params, cfg, prompt, matched: int, buckets) -> dict:
+    """A cached request's chunk against a one-shot prefill of the same
+    prompt, stage by stage from the same input, both on the card. At each
+    block the one-shot path (its bucket, flash) writes the block's k/v into
+    a fresh paged cache; the chunk path then prefills the tail at the runtime
+    offset ``matched`` over those pages, as the engine does over attached
+    pages, and the two outputs at the tail are held to mean rel 5e-3. The
+    one-shot output feeds the next block on both paths, as in
+    first_step_check: end to end the random-weight network magnifies each
+    stage's difference."""
+    from gemlite_tpu_torch.models import llama as L
+    from gemlite_tpu_torch.models.paged_kv import init_paged_kv
+    from gemlite_tpu_torch.serving import _next_bucket
+
+    S, n = _next_bucket(len(prompt), buckets), len(prompt)
+    C = _next_bucket(n - matched, buckets)
+    tok = torch.zeros((1, S), dtype=torch.int32, device="cuda")
+    tok[0, :n] = torch.tensor(prompt, dtype=torch.int32)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+    kv = init_paged_kv(cfg, 1, 128, device="cuda")
+    offset = torch.tensor(matched, dtype=torch.int32)
+    x, out = params["embed"][tok], {}
+    for i, blk in enumerate(params["blocks"]):
+        full = L._block_forward(blk, cfg, x, pos, kv, i, 0)
+        part = L._block_forward(blk, cfg, x[:, matched:matched + C], pos[:, matched:matched + C],
+                                kv, i, offset)
+        out[f"block{i}"] = _mean_max(part[:, :n - matched], full[:, matched:n])
+        x = full
+    h = L._rms_norm(x, params["ln_f"], cfg.norm_eps)
+    out["head"] = _mean_max(L._apply(params["lm_head"], h[:, matched:matched + C])[0, n - 1 - matched],
+                            L._apply(params["lm_head"], h)[0, n - 1])
+    return out
+
+
+PAGED_PROMPT_LENS = (40, 100, 200, 256, 300, 520, 700, 1000)
+PAGED_TAILS = (30, 200)          # after the 700-token prompt's first 640 tokens (5 pages)
+
+
+def phase_serve_paged(card: str, cfg, params) -> dict:
+    """The W4 model at max_seq_len 2048 on the default engine: paged, prefix
+    cache, page 128, 64 pages (the worst case is 8 x 16 + 1 = 129). Gates:
+    (a) requests 1-8 equal the bare paged loop token for token; (b) requests
+    9-10 attach 5 cached pages each (10 hits), and their chunk over the
+    attached pages matches a one-shot prefill of the same prompt stage by
+    stage within mean rel 5e-3 (cached_stage_check; the engine's first-token
+    logits against the one-shot's are reported beside); (c) the launches of all seven kernels and the
+    prefill pieces equal the schedule; (d) the first step of the 300-token
+    prompt in its bucket of 512 (flash) matches the plain path on the CPU."""
+    import dataclasses
+    from gemlite_tpu_torch import ContinuousBatchingEngine, Request
+    from gemlite_tpu_torch.models.llama import llama_forward
+    from gemlite_tpu_torch.ops import attention, dispatch
+    from gemlite_tpu_torch.serving import _next_bucket
+
+    cfg = dataclasses.replace(cfg, max_seq_len=2048)
+    rng = np.random.default_rng(7)
+    firsts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in PAGED_PROMPT_LENS]
+    repeats = [firsts[6][:640] + rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in PAGED_TAILS]
+    n_new = 32
+    engine_kw = dict(paged=True, page_size=128, total_pages=64, prefix_cache=True)
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda", **engine_kw)
+
+    first_logits, schedule = {}, []
+    prefill = eng._prefill
+
+    def recording(tokens, slot, cache_len, true_len):
+        logits = prefill(tokens, slot, cache_len, true_len)
+        first_logits[eng.slot_req[slot].request_id] = logits   # the last piece's are kept
+        schedule.append([int(tokens.shape[1]), "one_shot" if isinstance(cache_len, int)
+                         else "chunk"])
+        return logits
+
+    eng._prefill = recording
+    seen = {"linears": set(), "attention": set()}
+    notes = (dispatch._note, attention._note)
+    dispatch._note = lambda n: (seen["linears"].add(n), notes[0](n))
+    attention._note = lambda n: (seen["attention"].add(n), notes[1](n))
+    reqs = [Request(prompt_tokens=p, max_new_tokens=n_new) for p in firsts + repeats]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for r in reqs:
+            eng.submit(r)
+        results = eng.run()
+        torch.cuda.synchronize()
+    finally:
+        dispatch._note, attention._note = notes
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    stats = eng.stats()
+    by_id = {r.request_id: r for r in results}
+    got = [by_id[r.request_id].output_tokens for r in reqs]
+
+    # (c) the schedule: one-shot pieces in their buckets, the two remainders as chunks
+    one_shot = [_next_bucket(len(p), eng.buckets) for p in firsts]
+    chunks = [_next_bucket(n, eng.buckets) for n in PAGED_TAILS]
+    want_schedule = [[w, "one_shot"] for w in one_shot] + [[w, "chunk"] for w in chunks]
+    per_fwd = 7 * cfg.num_layers
+    widths = one_shot + chunks
+    expect = {k: 0 for k in counts}
+    expect["decode"] = per_fwd * (sum(w <= 64 for w in widths) + stats["decode_steps"])
+    expect["prefill"] = per_fwd * sum(w > 64 for w in widths)
+    expect["flash"] = cfg.num_layers * sum(w >= 256 for w in one_shot)
+    expect["paged_decode"] = cfg.num_layers * stats["decode_steps"]
+    routes_ok = seen == {"linears": {"decode", "prefill"},
+                         "attention": {"flash", "paged_decode", "xla"}}
+
+    # (a) requests 1-8 against the bare paged loop
+    same = got[:8] == bare_paged_loop(params, cfg, firsts, n_new, eng.buckets, 128)
+    # (b) prefix hits, and the cached requests' first-token logits
+    hits = eng.prefix_cache_stats()["hit_pages"]
+    cached, cached_e2e = {}, {}
+    for r, p in zip(reqs[8:], repeats):
+        cached[len(p)] = cached_stage_check(params, cfg, p, 640, eng.buckets)
+        padded = torch.zeros((1, _next_bucket(len(p), eng.buckets)), dtype=torch.int32,
+                             device="cuda")
+        padded[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        one = llama_forward(params, cfg, padded)[0, len(p) - 1]
+        cached_e2e[len(p)] = _mean_max(first_logits[r.request_id][0], one)
+    cached_ok = all(v["mean_rel"] <= REL_TOL for st in cached.values() for v in st.values())
+    again = bare_paged_loop(params, cfg, repeats + firsts[:6], n_new, eng.buckets, 128)[:2]
+    # (d) the first step of the 300-token prompt, bucket 512, on the flash kernel
+    first_step = first_step_check(params, cfg, firsts[4], route="prefill",
+                                  bucket=_next_bucket(len(firsts[4]), eng.buckets))
+    first_ok = all(v["mean_rel"] <= REL_TOL for k, v in first_step.items() if k != "end_to_end")
+    ok = (same and hits == 10 and cached_ok and counts == expect and schedule == want_schedule
+          and routes_ok and first_ok)
+    ttft = [r.ttft_s for r in results]
+    emit({"phase": "serve_paged", "ok": ok,
+          "model": "Llama-3-8B widths, 4 of 32 layers (depth cut), max_seq_len 2048",
+          "engine": engine_kw, "requests": len(reqs), "prompt_lens": [len(r.prompt_tokens)
+                                                                     for r in reqs],
+          "new_tokens": n_new, "wall_s": wall_s, "tokens_out": stats["tokens_out"],
+          "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
+          "ttft_s": {"median": statistics.median(ttft), "max": max(ttft)},
+          "stats_4_of_32_layers": stats, "prefill_schedule": schedule,
+          "launches": counts, "launches_expected": expect,
+          "routes": {k: sorted(v) for k, v in seen.items()},
+          "engine_equals_bare_paged_loop": same, "prefix_hit_pages": hits,
+          "cached_chunk_vs_one_shot_stages": cached,
+          "cached_first_token_logits_vs_one_shot": cached_e2e,
+          "cached_tokens_equal_one_shot_loop": got[8:] == again,
+          "first_step_kernel_vs_plain": first_step,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    if not same:
+        raise RuntimeError("paged engine tokens differ from the bare paged loop")
+    if hits != 10 or not cached_ok:
+        raise RuntimeError(f"prefix cache: {hits} hit pages, chunk stages {cached}")
+    if counts != expect or schedule != want_schedule:
+        raise RuntimeError(f"launches {counts} (expected {expect}), prefill pieces {schedule}")
+    if not routes_ok:
+        raise RuntimeError(f"routes {seen}")
+    if not first_ok:
+        raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
+    profile_serve(params, cfg, firsts + repeats, card, phase="profile_paged", groups=ATTN_GROUPS,
+                  what="10 requests (two reuse a 640-token prefix) x 8 new tokens, paged, "
+                       "4 of 32 layers", engine_kw=engine_kw)
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -692,7 +976,10 @@ def main() -> int:
     picked = phase_kernels(card, peak, timer)
     layer_counts = phase_layer(card)
     cfg, dense = dense_llama()
-    serve_counts = phase_serve(card, cfg, dense)
+    serve_counts, w4_params = phase_serve(card, cfg, dense)
+    picked.update(phase_kernels_attn(card, peak, timer))
+    paged_counts = phase_serve_paged(card, cfg, w4_params)
+    del w4_params
     picked.update(phase_kernels_a8(card, peak, timer))
     phase_layer_a8w8(card)
     a8_counts = phase_serve_a8w8(card, cfg, dense)
@@ -706,18 +993,23 @@ def main() -> int:
                "int8_decode": ("gemlite_tpu_torch/csrc/int8_decode.cu",
                                "gemlite_tpu/ops/pallas_int8.py:286", a8_counts),
                "fused_gemm": ("gemlite_tpu_torch/csrc/fused_gemm.cu",
-                              "gemlite_tpu/ops/pallas_gemm.py:294", a8_counts)}
+                              "gemlite_tpu/ops/pallas_gemm.py:294", a8_counts),
+               "flash": ("gemlite_tpu_torch/csrc/flash_attention.cu",
+                         "gemlite_tpu/models/llama.py:292", paged_counts),
+               "paged_decode": ("gemlite_tpu_torch/csrc/paged_attention.cu",
+                                "gemlite_tpu/models/paged_kv.py:124", paged_counts)}
     kernels = []
     for name_k, (src, replaces, counts) in sources.items():
         r = picked[name_k]
         kernels.append({"name": name_k, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": counts[name_k],
                         "launches_path": ("serve" if counts is serve_counts else
-                                          "serve_a8w8" if counts is a8_counts else "layer"),
+                                          "serve_a8w8" if counts is a8_counts else
+                                          "serve_paged" if counts is paged_counts else "layer"),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        "shape": {"M": r["M"], "N": r["N"], "K": r["K"]}})
+                        "shape": r.get("shape") or {"M": r["M"], "N": r["N"], "K": r["K"]}})
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel of the path never launched: {kernels}")
     emit({"seconds": time.perf_counter() - t_start, "card": card})

@@ -17,7 +17,7 @@ from .dtypes import DType
 from .helper import (A16Wn, A16Wn_HQQ_INT, A16W8_HQQ_INT, A16W4_HQQ_INT, A16W2_HQQ_INT,
                      A16W1_HQQ_INT, A16W8, A16W8_INT8, A8W8_dynamic, A8W8_INT8_dynamic,
                      A16W158_INT, A8W158_INT_dynamic)
-from .interop import params_from_jax_numpy
+from .interop import paged_kv_from_jax_numpy, params_from_jax_numpy
 from .models import (LlamaConfig, init_kv_cache, init_llama, llama_decode_step,
                      llama_decode_step_batched, llama_forward, llama_prefill,
                      llama_verify_step, quantize_llama)

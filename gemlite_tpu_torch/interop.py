@@ -7,6 +7,7 @@ returns the port's param dict. Quantized layers are recognised by their
 attributes (``W_q``, ``scales``, ``zeros``, ``bias`` and a ``meta`` named
 tuple), so this module imports nothing of the JAX package. Plane-folded
 layers (``w_layout`` 1/2) are unfolded to the port's w_layout=0.
+``paged_kv_from_jax_numpy`` carries a JAX ``PagedKV``'s pages and table.
 """
 
 from typing import Any
@@ -14,8 +15,9 @@ from typing import Any
 import numpy as np
 
 from .core import GemLiteLinear, resolve_device, tensor_from_numpy
+from .models.paged_kv import PagedKV
 
-__all__ = ["params_from_jax_numpy"]
+__all__ = ["params_from_jax_numpy", "paged_kv_from_jax_numpy"]
 
 
 def _is_jax_layer(node) -> bool:
@@ -55,3 +57,11 @@ def params_from_jax_numpy(tree: Any, device=None) -> Any:
         return tensor_from_numpy(node, dev)
 
     return convert(tree)
+
+
+def paged_kv_from_jax_numpy(pages, table, page_size: int, device=None) -> PagedKV:
+    """A JAX ``PagedKV``'s ``pages`` (L, 2, Hkv, P, ps, D) and ``table`` (B,
+    pps), as numpy arrays, -> the port's ``PagedKV`` on ``device``."""
+    dev = resolve_device(device)
+    return PagedKV(tensor_from_numpy(np.asarray(pages), dev),
+                   tensor_from_numpy(np.asarray(table, np.int32), dev), int(page_size))

@@ -4,11 +4,19 @@
 
 Parameters are a plain dict with the JAX package's structure, so a JAX tree
 maps onto it key for key (see ``interop.params_from_jax_numpy``). The KV cache
-is one dense tensor (L, 2, B, T, Hkv, D), written in place.
+is one dense tensor (L, 2, B, T, Hkv, D) or a ``PagedKV``
+(``models/paged_kv.py``); both are written in place.
 
-Ported: the dense-cache and no-cache forward, prefill, decode and verify steps,
-over layers from any ported processor (``quantize_llama``). Not yet ported: tensor-parallel sharding, the flash and paged attention
-branches, and the training step.
+Ported: the no-cache, dense-cache and paged-cache forward, prefill, decode and
+verify steps, over layers from any ported processor (``quantize_llama``). A
+one-shot prefill of 256 tokens or more attends on the causal flash kernel, a
+paged decode step on the paged decode kernel (``ops/attention.py``). Not yet
+ported: tensor-parallel sharding and the training step.
+
+``cache_len`` tells the attention paths apart as the JAX package's static and
+traced offsets do: a Python int is a static offset, and only offset 0 takes
+the flash kernel; a 0-d tensor is a runtime offset (a prompt chunk), which
+never does; a (B,) tensor holds per-slot offsets (decode, verify).
 """
 
 from dataclasses import dataclass
@@ -19,6 +27,9 @@ import torch
 
 from ..core import GemLiteLinear, resolve_device
 from ..helper import A16Wn_HQQ_INT, _warmup_quantize
+from ..ops.attention import flash_attention_causal as _attention_flash_causal
+from ..ops.attention import xla_attention
+from .paged_kv import PagedKV, paged_decode_attention, paged_gather, paged_write
 
 __all__ = [
     "LlamaConfig", "init_llama", "quantize_llama", "init_kv_cache",
@@ -156,25 +167,30 @@ def _rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _attention(q, k, v, mask):
-    """q: (B, S, Hq, D); k/v: (B, T, Hkv, D); GQA by head-group repeat."""
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    q = q.reshape(B, S, Hkv, Hq // Hkv, D)
-    scores = torch.einsum("bshrd,bthd->bhrst", q.to(torch.float32),
-                          k.to(torch.float32)) / np.sqrt(D)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
-    return out.reshape(B, S, Hq, D).to(v.dtype)
+def _can_use_flash(q) -> bool:
+    """Prefill flash-attention gate of the JAX package without its backend
+    test: S >= 256, S % 128 == 0, D in (64, 128, 256). The kernel takes D 64
+    and 128; D 256 raises on the card (ROADMAP Queue B)."""
+    _, S, _, D = q.shape
+    return S >= 256 and S % 128 == 0 and D in (64, 128, 256)
+
+
+def _masked_over(k_all, v_all, q, pos):
+    """Attention of q at cache positions pos (B, S) over the gathered or
+    dense cache k_all/v_all (B, T, Hkv, D), causal by position."""
+    B, S = pos.shape
+    T = k_all.shape[1]
+    t_idx = torch.arange(T, device=q.device)[None, None, :]
+    mask = (t_idx <= pos[:, :, None]).expand(B, S, T)
+    return xla_attention(q, k_all, v_all, mask)
 
 
 def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=None):
-    """x: (B, S, H). kv: the whole cache (L, 2, B, T, Hkv, D), updated in place,
-    or None. cache_len: valid cache length before this call, an int or a (B,)
-    tensor of per-slot offsets. t_active: bound on the live cache length that
-    attention reads."""
+    """x: (B, S, H). kv: the dense cache (L, 2, B, T, Hkv, D) or a PagedKV,
+    either written in place, or None. cache_len: valid cache length before
+    this call, an int (static), a 0-d tensor (a prompt chunk's offset) or a
+    (B,) tensor of per-slot offsets. t_active: bound on the live cache length
+    that masked attention reads."""
     B, S, _ = x.shape
     h = _rms_norm(x, blk["ln_attn"], cfg.norm_eps)
     q = _apply(blk["attn"]["wq"], h).reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -183,35 +199,54 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
 
-    if kv is not None:
+    per_slot = isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1
+    # flash only for a prefill at the static offset 0 (JAX llama.py:352, :402)
+    one_shot = S > 1 and isinstance(cache_len, int) and cache_len == 0
+    steps = torch.arange(S, device=x.device)
+    if per_slot:
+        pos = cache_len.to(torch.long)[:, None] + steps[None, :]
+    else:
+        pos = (int(cache_len) + steps)[None, :].expand(B, S)
+
+    if isinstance(kv, PagedKV):
+        paged_write(kv, layer_idx, k, v, pos)
+        if one_shot and _can_use_flash(q):
+            attn = _attention_flash_causal(q, k, v)
+        elif S == 1 and per_slot:
+            attn = paged_decode_attention(q[:, 0], kv, layer_idx,
+                                          (cache_len + 1).to(torch.int32))[:, None]
+        else:
+            # prompt chunk or verify: masked attention over the gathered pages
+            k_all, v_all = paged_gather(kv, layer_idx, t_active or 0)
+            attn = _masked_over(k_all, v_all, q, pos)
+    elif kv is not None:
         T = kv.shape[3]
-        steps = torch.arange(S, device=x.device)
-        if isinstance(cache_len, torch.Tensor):
+        if per_slot:
             # per-slot offsets (continuous-batching decode, speculative verify)
             bidx = torch.arange(B, device=x.device)[:, None]
-            pos = cache_len.to(torch.long)[:, None] + steps[None, :]
             kv[layer_idx, 0].index_put_((bidx, pos), k.to(kv.dtype))
             kv[layer_idx, 1].index_put_((bidx, pos), v.to(kv.dtype))
-            s_idx = pos[:, :, None]
         else:
-            if not 0 <= cache_len <= T - S:
-                raise ValueError(f"cache write [{cache_len}, {cache_len + S}) "
+            start = int(cache_len)
+            if not 0 <= start <= T - S:
+                raise ValueError(f"cache write [{start}, {start + S}) "
                                  f"outside the cache of {T} rows")
-            kv[layer_idx, 0, :, cache_len:cache_len + S] = k.to(kv.dtype)
-            kv[layer_idx, 1, :, cache_len:cache_len + S] = v.to(kv.dtype)
-            s_idx = (cache_len + steps)[None, :, None]
-        k_all, v_all = kv[layer_idx, 0], kv[layer_idx, 1]
-        if t_active is not None and t_active < T:
-            k_all, v_all = k_all[:, :t_active], v_all[:, :t_active]
-        t_idx = torch.arange(k_all.shape[1], device=x.device)[None, None, :]
-        mask = (t_idx <= s_idx).expand(B, S, k_all.shape[1])
+            kv[layer_idx, 0, :, start:start + S] = k.to(kv.dtype)
+            kv[layer_idx, 1, :, start:start + S] = v.to(kv.dtype)
+        if one_shot and _can_use_flash(q):
+            # offset 0: causal over the first S rows is causal over k/v
+            attn = _attention_flash_causal(q, k, v)
+        else:
+            k_all, v_all = kv[layer_idx, 0], kv[layer_idx, 1]
+            if t_active is not None and t_active < T:
+                k_all, v_all = k_all[:, :t_active], v_all[:, :t_active]
+            attn = _masked_over(k_all, v_all, q, pos)
+    elif _can_use_flash(q):
+        attn = _attention_flash_causal(q, k, v)
     else:
-        k_all, v_all = k, v
-        t_idx = torch.arange(S, device=x.device)
-        mask = (t_idx[None, :] <= t_idx[:, None])[None].expand(B, S, S)
+        attn = _masked_over(k, v, q, pos)
 
-    attn = _attention(q, k_all, v_all, mask).reshape(B, S, -1)
-    x = x + _apply(blk["attn"]["wo"], attn)
+    x = x + _apply(blk["attn"]["wo"], attn.reshape(B, S, -1))
 
     h = _rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
     g = _apply(blk["mlp"]["gate"], h)
@@ -222,11 +257,13 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
 
 def llama_forward(params, cfg: LlamaConfig, tokens, kv=None, cache_len=0, positions=None,
                   t_active=None):
-    """tokens (B, S) -> logits (B, S, V). With kv, writes the cache at
-    cache_len (in place) and attends over it; returns (logits, kv)."""
+    """tokens (B, S) -> logits (B, S, V). With kv (dense or PagedKV), writes
+    the cache at cache_len (in place) and attends over it; returns (logits,
+    kv). cache_len: an int, a 0-d tensor (a prompt chunk) or (B,) offsets."""
     B, S = tokens.shape
     if positions is None:
-        off = cache_len[:, None] if isinstance(cache_len, torch.Tensor) else cache_len
+        per_slot = isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1
+        off = cache_len[:, None] if per_slot else int(cache_len)
         positions = (off + torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :])
         positions = positions.expand(B, S)
     x = params["embed"][tokens]

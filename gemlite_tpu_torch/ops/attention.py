@@ -1,0 +1,195 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Attention kernels: causal flash prefill (``csrc/flash_attention.cu``) and
+single-token paged decode (``csrc/paged_attention.cu``).
+
+The JAX package borrows both from jax: ``flash_attention``
+(``gemlite_tpu/models/llama.py:_attention_flash_causal``) and
+``paged_attention`` (``gemlite_tpu/models/paged_kv.py:paged_decode_attention``).
+Beside each kernel stands its plain PyTorch version: the causal masked
+attention, and the gather through the block table followed by a masked
+softmax (the counterpart of ``paged_kv.py:_decode_attention_ref``). On a CPU
+tensor a wrapper runs the plain version; on a CUDA tensor it launches the
+kernel or raises.
+
+``ATTENTION_TRACE`` records how each attention ran, apart from the linears'
+``KERNEL_TRACE``: ``flash`` and ``paged_decode`` on the card,
+``plain_flash`` and ``plain_paged_decode`` on the CPU, and ``xla`` where the
+JAX package itself attends in plain XLA (short prefills, prompt chunks,
+speculative verify, dense-cache decode).
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import build
+
+__all__ = ["ATTENTION_TRACE", "attention", "xla_attention",
+           "causal_attention_plain", "flash_attention_causal", "gather_pages",
+           "paged_decode_attention_plain", "paged_decode_attention_kernel", "paged_split_plan"]
+
+ATTENTION_TRACE: list = []
+_TRACE_LIMIT = 4096
+FLASH_TILE = 64          # query rows of a block and key rows of a tile
+HEAD_DIMS = (64, 128)    # the kernels' template instances
+_MAX_SPLITS = 16
+
+
+def _note(name: str) -> None:
+    if len(ATTENTION_TRACE) < _TRACE_LIMIT:
+        ATTENTION_TRACE.append(name)
+
+
+def attention(q, k, v, mask):
+    """q: (B, S, Hq, D); k/v: (B, T, Hkv, D); mask (B, S, T) bool. GQA by
+    head-group repeat; float32 scores and softmax; out in v's dtype."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    q = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bshrd,bthd->bhrst", q.to(torch.float32),
+                          k.to(torch.float32)) / np.sqrt(D)
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
+    return out.reshape(B, S, Hq, D).to(v.dtype)
+
+
+def xla_attention(q, k, v, mask):
+    """``attention`` where the JAX package attends in plain XLA; noted ``xla``."""
+    _note("xla")
+    return attention(q, k, v, mask)
+
+
+def causal_attention_plain(q, k, v):
+    """Plain version of the flash kernel: q (B, S, Hq, D), k/v (B, S, Hkv, D)."""
+    B, S = q.shape[:2]
+    t = torch.arange(S, device=q.device)
+    return attention(q, k, v, (t[None, :] <= t[:, None])[None].expand(B, S, S))
+
+
+def _flash_lib():
+    fn = build.load("flash_attention").gl_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bf16_cuda(name, t, ndim):
+    if not t.is_cuda or t.dtype != torch.bfloat16 or t.ndim != ndim:
+        raise ValueError(f"{name}: want a CUDA bf16 tensor of {ndim} dims, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _head_dim(D: int) -> None:
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"head_dim {D}: the attention kernels take {HEAD_DIMS}; "
+                                  "head_dim 256 is queued (ROADMAP Queue B)")
+
+
+def flash_attention_causal(q, k, v):
+    """Causal softmax(q kᵀ / √D) v for a prefill from cache offset 0.
+
+    q (B, S, Hq, D), k/v (B, S, Hkv, D), the layout the model holds; GQA by
+    kv head = q head // (Hq / Hkv), without copying k/v per q head. Returns
+    (B, S, Hq, D) in v's dtype (bf16 on the card)."""
+    if q.device.type == "cpu":
+        _note("plain_flash")
+        return causal_attention_plain(q, k, v)
+    q, k, v = (_bf16_cuda(n, t, 4) for n, t in (("q", q), ("k", k), ("v", v)))
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    _head_dim(D)
+    if k.shape != (B, S, Hkv, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"flash attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if S % FLASH_TILE:
+        raise ValueError(f"flash attention: S={S} is not a multiple of {FLASH_TILE}")
+    _note("flash")
+    out = torch.empty_like(q)
+    err = _flash_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       B, S, Hq, Hkv, D, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention_causal.launches += 1
+    return out
+
+
+flash_attention_causal.launches = 0
+
+
+def gather_pages(pages, table):
+    """pages (Hkv, P, ps, D) of one layer and side, table (B, n) -> the
+    (B, n * ps, Hkv, D) rows the table names, in order."""
+    Hkv, _, ps, D = pages.shape
+    B, n = table.shape
+    return pages[:, table.long()].reshape(Hkv, B, n * ps, D).movedim(0, 2)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, lengths, table):
+    """Plain version of the paged decode kernel: q (B, Hq, D), k/v pages
+    (Hkv, P, ps, D), lengths (B,) valid tokens per slot, table (B, pps)."""
+    k, v = gather_pages(k_pages, table), gather_pages(v_pages, table)
+    T = k.shape[1]
+    mask = (torch.arange(T, device=q.device)[None, :] < lengths.to(q.device)[:, None])[:, None, :]
+    return attention(q[:, None], k, v, mask)[:, 0].to(q.dtype)
+
+
+def paged_split_plan(pages_per_seq: int):
+    """(splits, pages_per_split): a slot's page range cut in at most 16
+    splits. It depends on the table's width only, never on the batch or the
+    lengths, so a slot's result does not depend on its neighbours."""
+    per = -(-pages_per_seq // _MAX_SPLITS)
+    return -(-pages_per_seq // per), per
+
+
+def _paged_lib():
+    fn = build.load("paged_attention").gl_paged_decode
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table):
+    """One-token attention of each slot over its pages up to ``lengths[b]``
+    (which counts the token just written; at least 1).
+
+    q (B, Hq, D) bf16; k/v pages (Hkv, P, ps, D) bf16; lengths (B,) int32;
+    table (B, pps) int32 of page ids. Returns (B, Hq, D) in q's dtype. The
+    kernel reads only the ceil(lengths[b] / ps) pages of each slot."""
+    if q.device.type == "cpu":
+        _note("plain_paged_decode")
+        return paged_decode_attention_plain(q, k_pages, v_pages, lengths, table)
+    q = _bf16_cuda("q", q, 3)
+    k_pages, v_pages = _bf16_cuda("k_pages", k_pages, 4), _bf16_cuda("v_pages", v_pages, 4)
+    B, Hq, D = q.shape
+    Hkv, P, ps, _ = k_pages.shape
+    _head_dim(D)
+    if (k_pages.shape[3] != D or v_pages.shape != k_pages.shape or Hq % Hkv
+            or Hq // Hkv > 8):
+        raise ValueError(f"paged decode: q {tuple(q.shape)}, pages {tuple(k_pages.shape)} "
+                         "(up to 8 q heads per kv head)")
+    for name, t, shape in (("lengths", lengths, (B,)), ("table", table, (B, table.shape[-1]))):
+        if not t.is_cuda or t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want a CUDA int32 tensor of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    lengths, table = lengths.contiguous(), table.contiguous()
+    pps = table.shape[1]
+    splits, per_split = paged_split_plan(pps)
+    _note("paged_decode")
+    acc = torch.empty((B, Hq, splits, D), dtype=torch.float32, device=q.device)
+    ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    err = _paged_lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+                       table.data_ptr(), acc.data_ptr(), ml.data_ptr(), out.data_ptr(),
+                       B, Hq, Hkv, D, P, ps, pps, splits, per_split,
+                       torch.cuda.current_stream().cuda_stream)
+    build.check(err, "paged_attention")
+    paged_decode_attention_kernel.launches += 1
+    return out
+
+
+paged_decode_attention_kernel.launches = 0

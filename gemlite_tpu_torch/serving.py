@@ -1,28 +1,44 @@
 # SPDX-License-Identifier: Apache-2.0
 """Continuous-batching serving engine (counterpart of ``gemlite_tpu/serving.py``).
 
-* A fixed pool of ``max_batch`` slots, each owning a stripe of one dense KV
-  cache (B = max_batch, T = max_seq_len), written in place.
+* A fixed pool of ``max_batch`` slots. By default (``paged=True``, as in the
+  JAX engine) the KV cache lives in fixed-size pages named by a block table
+  (``models/paged_kv.py``): pages come from a free list as sequences grow and
+  go back when a slot finishes, and ``total_pages`` may be smaller than the
+  worst case. Page 0 is a trash page: a finished slot's table row points at
+  it, so the stale writes of inactive slots never reach a live page. With
+  ``paged=False`` each slot owns a stripe of one dense cache.
+* Prefix caching (``prefix_cache=True``, paged only): a prompt's full pages
+  are registered under a hash chain of their tokens, and a later prompt with
+  the same prefix attaches them read-only and prefills only the remainder.
+  Writes land only at positions past the matched prefix, so sharing needs no
+  copy. Pages are refcounted; cached pages no slot uses are reclaimed, least
+  recently used first, when the free list runs dry.
 * Prompts are prefilled slot-locally, padded to power-of-two buckets; prompts
-  longer than ``prefill_chunk`` (or than the largest bucket) are prefilled one
-  chunk per engine step, interleaved with decode of the other slots.
-* Every engine step runs one batched decode over all slots. Inactive slots
-  write their k/v at a stale row of their own stripe, which is overwritten on
-  readmission and never attended. Attention reads only the live-KV bucket.
+  longer than ``prefill_chunk`` (or than the largest bucket), and the
+  remainders of cached prefixes, are prefilled one chunk per engine step at a
+  runtime offset, interleaved with decode of the other slots. A one-shot
+  prefill of 256 tokens or more attends on the flash kernel; chunks never do,
+  as in the JAX engine.
+* Every engine step runs one batched decode over all slots. Paged decode
+  reads each slot's own pages up to its length on the paged decode kernel;
+  the dense cache reads the live-KV bucket. Inactive slots write their k/v to
+  the trash page (paged) or a stale row of their stripe (dense).
 * Between admissions and finishes the per-slot decode state (tokens, lengths,
   temperatures, active mask) stays on the device.
 * On the card the engine checks after every prefill and decode step that each
   quantized linear ran on a hand-written kernel (``KERNEL_ROUTES``: decode,
-  prefill, dequantize, int8_exact or general_fused).
+  prefill, dequantize, int8_exact or general_fused) and that no attention ran
+  a plain version (``ATTENTION_TRACE``).
 
-Unlike the JAX engine, the default is ``paged=False``: the paged cache, the
-speculative draft, scan-over-layers decode and mesh sharding are not ported
-yet and raise. Sampling is greedy, or temperature sampling from a
+The speculative draft, scan-over-layers decode and mesh sharding are not
+ported yet and raise. Sampling is greedy, or temperature sampling from a
 ``torch.Generator`` seeded with ``seed`` (it does not reproduce JAX's stream).
 """
 
 import itertools
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -31,6 +47,8 @@ import torch
 
 from .core import resolve_device
 from .models.llama import init_kv_cache, llama_decode_step_batched, llama_forward
+from .models.paged_kv import init_paged_kv
+from .ops.attention import ATTENTION_TRACE
 from .ops.dispatch import KERNEL_ROUTES, KERNEL_TRACE
 
 __all__ = ["Request", "ContinuousBatchingEngine", "GenerationResult"]
@@ -67,10 +85,10 @@ class ContinuousBatchingEngine:
 
     def __init__(self, params, cfg, max_batch: int = 8, eos_id: Optional[int] = None,
                  prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048), seed: int = 0,
-                 prefill_chunk: Optional[int] = None, draft=None, paged: bool = False,
-                 mesh=None, scan_layers: bool = False, device=None):
-        if paged:
-            raise NotImplementedError("queued: the paged KV cache (paged=True)")
+                 prefill_chunk: Optional[int] = None, draft=None, paged: bool = True,
+                 page_size: int = 128, total_pages: Optional[int] = None,
+                 prefix_cache: bool = True, mesh=None, scan_layers: bool = False,
+                 device=None):
         if draft is not None:
             raise NotImplementedError("queued: speculative decoding (draft=)")
         if scan_layers:
@@ -90,7 +108,34 @@ class ContinuousBatchingEngine:
             raise ValueError(f"no prefill bucket fits max_seq_len={cfg.max_seq_len}; "
                              "pass prefill_buckets with at least one value <= it")
         self.prefill_chunk = prefill_chunk
-        self.kv = init_kv_cache(cfg, max_batch, device=self.device)
+        self.paged = paged
+        if paged:
+            # the largest power-of-two divisor of max_seq_len <= page_size
+            page_size = min(page_size, cfg.max_seq_len)
+            while cfg.max_seq_len % page_size:
+                page_size //= 2
+            self.page_size = page_size
+            self.pages_per_seq = cfg.max_seq_len // page_size
+            n_pages = (total_pages if total_pages is not None
+                       else max_batch * self.pages_per_seq + 1)
+            if n_pages < 2:
+                raise ValueError("total_pages: need the trash page and at least one page")
+            self.kv = init_paged_kv(cfg, max_batch, page_size, total_pages=n_pages,
+                                    device=self.device)
+            self.page_table = np.zeros((max_batch, self.pages_per_seq), np.int32)  # all trash
+            self.kv = self.kv.with_table(torch.tensor(self.page_table, device=self.device))
+            self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
+            self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
+            self._table_dirty = False
+        else:
+            self.kv = init_kv_cache(cfg, max_batch, device=self.device)
+        self.use_prefix = bool(prefix_cache) and paged
+        # hash -> (page id, page tokens): the tokens are compared on a match,
+        # so a hash collision never attaches another prompt's KV
+        self.prefix_cache: "OrderedDict[int, tuple]" = OrderedDict()
+        self.page_refs: Dict[int, int] = {}                  # page id -> live slots
+        self.slot_shared: List[set] = [set() for _ in range(max_batch)]
+        self.prefix_stats = {"hit_pages": 0, "new_pages": 0}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._check_kernels = self.device.type == "cuda"
@@ -119,25 +164,150 @@ class ContinuousBatchingEngine:
         self.decode_buckets.append(cfg.max_seq_len)
 
     # ------------------------------------------------------------------
+    # paged-KV page allocator and prefix cache (host side)
+    # ------------------------------------------------------------------
+    def _evict_prefix_pages(self) -> bool:
+        """Reclaim the least recently used cached page no slot uses."""
+        for h, (pid, _) in list(self.prefix_cache.items()):
+            if self.page_refs.get(pid, 0) == 0:
+                del self.prefix_cache[h]
+                self.page_refs.pop(pid, None)
+                self.free_pages.append(pid)
+                return True
+        return False
+
+    def _ensure_pages(self, slot: int, n_tokens: int):
+        """Grow the slot's page set to cover ``n_tokens`` cache positions."""
+        if not self.paged:
+            return
+        need = -(-int(n_tokens) // self.page_size)
+        own = self.slot_pages[slot]
+        while len(own) < need:
+            if not self.free_pages and not self._evict_prefix_pages():
+                raise RuntimeError("paged KV pool exhausted: raise total_pages (the pool "
+                                   "is oversubscribed below the worst-case footprint)")
+            p = self.free_pages.pop()
+            self.page_table[slot, len(own)] = p
+            own.append(p)
+            self._table_dirty = True
+
+    def _free_slot_pages(self, slot: int):
+        if not self.paged or not self.slot_pages[slot]:
+            return
+        shared = self.slot_shared[slot]
+        for pid in self.slot_pages[slot]:
+            if pid in shared:
+                # cached page: other slots, or the cache at refcount 0, keep it
+                self.page_refs[pid] = max(0, self.page_refs.get(pid, 1) - 1)
+            else:
+                self.free_pages.append(pid)
+        self.slot_pages[slot] = []
+        self.slot_shared[slot] = set()
+        self.page_table[slot, :] = 0              # stale writes land in the trash page
+        self._table_dirty = True
+
+    @staticmethod
+    def _chain_hashes(prompt, ps: int, n_pages: int):
+        h, out = 0, []
+        for i in range(n_pages):
+            h = hash((h, tuple(int(t) for t in prompt[i * ps:(i + 1) * ps])))
+            out.append(h)
+        return out
+
+    def _match_prefix(self, slot: int, prompt) -> int:
+        """Attach the cached pages of the longest token-exact prompt prefix
+        (full pages, at least one token left to prefill), capped so that the
+        remainder's padded chunks stay inside max_seq_len. Returns the number
+        of matched tokens."""
+        ps = self.page_size
+        own = self.slot_pages[slot]
+        if own:
+            raise RuntimeError(f"prefix attach on slot {slot}, which holds pages")
+        for i, h in enumerate(self._chain_hashes(prompt, ps, (len(prompt) - 1) // ps)):
+            entry = self.prefix_cache.get(h)
+            if entry is None:
+                break
+            pid, page_toks = entry
+            if page_toks != tuple(int(t) for t in prompt[i * ps:(i + 1) * ps]):
+                break                                # hash collision: do not attach
+            self.prefix_cache.move_to_end(h)         # LRU touch
+            self.page_refs[pid] = self.page_refs.get(pid, 0) + 1
+            self.page_table[slot, i] = pid
+            own.append(pid)
+            self.slot_shared[slot].add(pid)
+            self._table_dirty = True
+            self.prefix_stats["hit_pages"] += 1
+        # every chunk writes its full padded width from a page-aligned offset:
+        # matched + ceil(rem / C) * C must not pass max_seq_len
+        while own:
+            matched = len(own) * ps
+            rem = len(prompt) - matched
+            C = self._remainder_chunk(rem)
+            if matched + (-(-rem // C)) * C <= self.cfg.max_seq_len:
+                break
+            pid = own.pop()
+            self.page_table[slot, len(own)] = 0
+            self.slot_shared[slot].discard(pid)
+            self.page_refs[pid] = max(0, self.page_refs.get(pid, 1) - 1)
+            self.prefix_stats["hit_pages"] -= 1
+        return len(own) * ps
+
+    def _register_prefix(self, slot: int, prompt):
+        """Publish the full pages of a prefilled prompt for reuse; pages it
+        attached from the cache are already there."""
+        if not self.use_prefix:
+            return
+        ps = self.page_size
+        own = self.slot_pages[slot]
+        for i, h in enumerate(self._chain_hashes(prompt, ps, len(prompt) // ps)):
+            if i >= len(own):
+                break
+            pid = own[i]
+            if h in self.prefix_cache or pid in self.slot_shared[slot]:
+                continue
+            self.prefix_cache[h] = (pid, tuple(int(t) for t in prompt[i * ps:(i + 1) * ps]))
+            self.page_refs[pid] = self.page_refs.get(pid, 0) + 1
+            self.slot_shared[slot].add(pid)
+            self.prefix_stats["new_pages"] += 1
+
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        """{'hit_pages', 'new_pages', 'cached_pages'} since the engine started."""
+        return dict(self.prefix_stats, cached_pages=len(self.prefix_cache))
+
+    def _sync_table(self):
+        if self.paged and self._table_dirty:
+            self.kv = self.kv.with_table(torch.tensor(self.page_table, device=self.device))
+            self._table_dirty = False
+
+    # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
     def _checked(self, fn, *args, **kw):
         """Run one model call; on the card, raise unless every quantized
-        linear in it ran on one of the kernels of ``KERNEL_ROUTES``."""
+        linear in it ran on one of the kernels of ``KERNEL_ROUTES`` and no
+        attention ran a plain version."""
         KERNEL_TRACE.clear()
+        ATTENTION_TRACE.clear()
         out = fn(*args, **kw)
         if self._check_kernels:
             bad = sorted(set(KERNEL_TRACE) - set(KERNEL_ROUTES))
             if bad:
                 raise RuntimeError(f"linears ran off the kernels: routes {bad}")
+            plain = sorted({n for n in ATTENTION_TRACE if n.startswith("plain_")})
+            if plain:
+                raise RuntimeError(f"attention ran its plain version on the card: {plain}")
         return out
 
-    def _prefill(self, tokens: np.ndarray, slot: int, cache_len: int, true_len: int):
-        """One padded prompt piece (1, C) into the slot's stripe at cache_len;
-        returns the logits (1, V) at its last valid position."""
+    def _prefill(self, tokens: np.ndarray, slot: int, cache_len, true_len: int):
+        """One padded prompt piece (1, C) into the slot's cache at cache_len
+        (0 for a one-shot prefill, a 0-d tensor for a chunk); returns the
+        logits (1, V) at its last valid position."""
         t = torch.as_tensor(tokens, device=self.device)
-        kv_slot = self.kv[:, :, slot:slot + 1]           # a view: written in place
-        logits, _ = self._checked(llama_forward, self.params, self.cfg, t, kv=kv_slot,
+        if self.paged:
+            kv = self.kv.with_table(self.kv.table[slot:slot + 1])
+        else:
+            kv = self.kv[:, :, slot:slot + 1]            # a view: written in place
+        logits, _ = self._checked(llama_forward, self.params, self.cfg, t, kv=kv,
                                   cache_len=cache_len)
         return logits[:, true_len - 1, :]
 
@@ -182,7 +352,15 @@ class ContinuousBatchingEngine:
         self.slot_last[slot] = tok
         self._mark_first_token(req)
         self._counters["tokens_out"] += 1
+        self._register_prefix(slot, np.asarray(req.prompt_tokens, np.int32).reshape(-1))
         self._maybe_finish(slot, tok)
+
+    def _claim(self, slot: int, req: Request, cache_len: int, pending):
+        """Give the slot to req; ``pending`` tokens wait for chunked prefill."""
+        self.slot_req[slot] = req
+        self.slot_len[slot] = cache_len
+        self.slot_out[slot] = []
+        self.slot_pending[slot] = pending
 
     def _admit(self):
         """Fill free slots from the queue with slot-local prefill."""
@@ -193,20 +371,31 @@ class ContinuousBatchingEngine:
                 continue
             req = self.queue.pop(0)
             prompt = np.asarray(req.prompt_tokens, np.int32).reshape(-1)
-            self.slot_req[slot] = req
-            self.slot_len[slot] = 0
-            self.slot_out[slot] = []
+            if self.use_prefix and len(prompt) > self.page_size:
+                matched = self._match_prefix(slot, prompt)
+                if matched:
+                    # cached prefix attached read-only: chunk-prefill the rest
+                    self._claim(slot, req, matched, prompt[matched:])
+                    continue
             if len(prompt) > self.buckets[-1] or (
                     self.prefill_chunk and len(prompt) > self.prefill_chunk):
-                # chunked admission: chunks advance in step()
-                self.slot_pending[slot] = prompt
+                self._claim(slot, req, 0, prompt)      # chunks advance in step()
                 continue
             Lb = _next_bucket(len(prompt), self.buckets)
+            try:
+                self._ensure_pages(slot, Lb)           # the pad rows are written too
+            except RuntimeError:
+                self._free_slot_pages(slot)            # readmission starts empty
+                if self.num_active == 0:
+                    raise                              # nothing running can free pages
+                self.queue.insert(0, req)              # retry once running slots finish
+                break
+            self._sync_table()
             padded = np.zeros((1, Lb), np.int32)
             padded[0, :len(prompt)] = prompt
+            self._claim(slot, req, len(prompt), None)
             logits = self._prefill(padded, slot, 0, len(prompt))
             self._counters["prefills"] += 1
-            self.slot_len[slot] = len(prompt)
             self._first_token(slot, logits)
 
     def _remainder_chunk(self, rem: int) -> int:
@@ -227,7 +416,10 @@ class ContinuousBatchingEngine:
             chunk, rest = pend[:C], pend[C:]
             padded = np.zeros((1, C), np.int32)
             padded[0, :len(chunk)] = chunk
-            logits = self._prefill(padded, slot, int(self.slot_len[slot]), len(chunk))
+            self._ensure_pages(slot, int(self.slot_len[slot]) + C)
+            self._sync_table()
+            offset = torch.tensor(int(self.slot_len[slot]), dtype=torch.int32)   # a runtime offset
+            logits = self._prefill(padded, slot, offset, len(chunk))
             self._counters["prefill_chunks"] += 1
             self.slot_len[slot] += len(chunk)
             if len(rest):
@@ -268,6 +460,7 @@ class ContinuousBatchingEngine:
             self.slot_out[slot] = []
             self.slot_pending[slot] = None
             self._dev_dirty = True
+            self._free_slot_pages(slot)
 
     def step(self):
         """Admit pending requests, advance prompt chunks, then advance every
@@ -281,8 +474,14 @@ class ContinuousBatchingEngine:
             return
         # position of the token being decoded: prompt_len + generated - 1
         lens = self.slot_len + np.array([max(len(o) - 1, 0) for o in self.slot_out], np.int32)
-        max_len = int(lens[active].max())
-        t_act = _next_bucket(max_len + 1, self.decode_buckets)
+        for slot in range(self.max_batch):
+            if active[slot]:
+                self._ensure_pages(slot, int(lens[slot]) + 1)
+        self._sync_table()
+        # paged decode reads each slot's own pages up to its length; the dense
+        # cache reads the live-KV bucket
+        t_act = (None if self.paged
+                 else _next_bucket(int(lens[active].max()) + 1, self.decode_buckets))
         if self._dev is not None and not self._dev_dirty:
             tokens, lens_d = self._dev["tokens"], self._dev["lens"]
             temps_d, act_d = self._dev["temps"], self._dev["active"]
@@ -314,6 +513,8 @@ class ContinuousBatchingEngine:
         elapsed = time.monotonic() - c.pop("start")
         c["elapsed_s"] = elapsed
         c["tokens_per_s"] = c["tokens_out"] / elapsed if elapsed > 0 else 0.0
+        if self.use_prefix:
+            c["prefix_cache"] = self.prefix_cache_stats()
         return c
 
     def run(self, max_steps: int = 10_000) -> List[GenerationResult]:

@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""The five CUDA kernels against their plain versions, on the card.
+"""The seven CUDA kernels against their plain versions, on the card.
 
 Card-only: each test skips where no CUDA device is present. On the card:
 
@@ -18,7 +18,7 @@ from gemlite_tpu_torch import (ContinuousBatchingEngine, DType, GemLiteLinear, L
                                init_llama, quantize_llama)
 from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynamic,
                                       A8W8_INT8_dynamic)
-from gemlite_tpu_torch.ops import dispatch
+from gemlite_tpu_torch.ops import attention, dispatch
 from gemlite_tpu_torch.ops.decode import decode_matmul
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
 from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path
@@ -247,3 +247,91 @@ def test_a8w8_engine_runs_on_the_kernels(gen):
     out = eng.generate([[1, 2, 3, 4, 5], list(range(7, 77))], max_new_tokens=4)
     assert [len(o) for o in out] == [4, 4]
     assert int8_decode.launches > before[0] and fused_gemm.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the attention kernels: causal flash prefill and paged decode
+# ---------------------------------------------------------------------------
+
+def _attn_in(gen, shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,S,Hq,Hkv", [(1, 256, 4, 2), (1, 1024, 4, 1), (2, 2048, 2, 2),
+                                        (1, 64, 8, 2)])
+def test_flash_kernel(gen, B, S, Hq, Hkv, D):
+    q, k, v = (_attn_in(gen, (B, S, h, D)) for h in (Hq, Hkv, Hkv))
+    got = attention.flash_attention_causal(q, k, v)
+    torch.cuda.synchronize()
+    want = attention.causal_attention_plain(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, Hq, D)
+    assert _rel(got, want) <= REL
+
+
+def test_flash_kernel_is_deterministic(gen):
+    q, k, v = (_attn_in(gen, (1, 1024, h, 128)) for h in (8, 2, 2))
+    a = attention.flash_attention_causal(q, k, v)
+    assert torch.equal(attention.flash_attention_causal(q, k, v), a)
+
+
+def _paged_case(gen, lengths, ps, Hq, Hkv, D, pps):
+    """Pages with a trash page 0 and each slot's pages at shuffled ids."""
+    B = len(lengths)
+    P = B * pps + 1
+    k_pages, v_pages = (_attn_in(gen, (Hkv, P, ps, D)) for _ in range(2))
+    perm = torch.randperm(B * pps, generator=gen, device="cuda") + 1
+    table = perm.reshape(B, pps).to(torch.int32)
+    q = _attn_in(gen, (B, Hq, D))
+    return q, k_pages, v_pages, torch.tensor(lengths, dtype=torch.int32, device="cuda"), table
+
+
+PAGED_LENGTHS = [1, 127, 128, 129, 500, 1000, 1500, 2047]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("ps,pps,Hq,Hkv", [(128, 16, 8, 2), (16, 128, 4, 4), (128, 16, 8, 1)])
+def test_paged_decode_kernel(gen, ps, pps, Hq, Hkv, D):
+    args = _paged_case(gen, PAGED_LENGTHS, ps, Hq, Hkv, D, pps)
+    got = attention.paged_decode_attention_kernel(*args)
+    torch.cuda.synchronize()
+    q, k_pages, v_pages, lengths, table = args
+    want = attention.paged_decode_attention_plain(q.float(), k_pages.float(), v_pages.float(),
+                                                  lengths, table)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, want) <= REL
+
+
+def test_paged_decode_rows_do_not_depend_on_batch_or_page_ids(gen):
+    """A slot's result is the same bits alone, in a batch, and with its
+    pages moved to other ids."""
+    q, k_pages, v_pages, lengths, table = _paged_case(gen, PAGED_LENGTHS, 128, 8, 2, 128, 16)
+    full = attention.paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table)
+    b = 6
+    moved = table[b:b + 1].flip(1).contiguous()          # the same pages, other ids
+    k2, v2 = k_pages.clone(), v_pages.clone()
+    k2[:, moved[0].long()] = k_pages[:, table[b].long()]
+    v2[:, moved[0].long()] = v_pages[:, table[b].long()]
+    alone = attention.paged_decode_attention_kernel(q[b:b + 1], k2, v2, lengths[b:b + 1], moved)
+    assert torch.equal(alone[0], full[b])
+    assert torch.equal(attention.paged_decode_attention_kernel(q, k_pages, v_pages, lengths,
+                                                               table), full)
+
+
+def test_paged_engine_runs_the_attention_kernels(gen):
+    """The default (paged, prefix-cached) engine on the card: a 300-token
+    prompt prefills on the flash kernel, every decode step on the paged
+    decode kernel, and the repeated prompt hits the prefix cache and
+    prefills its remainder as a chunk, which takes no flash launch."""
+    cfg = LlamaConfig.tiny(max_seq_len=512)
+    params = quantize_llama(init_llama(cfg, seed=0, device="cuda"), group_size=64,
+                            device="cuda")
+    before = (attention.flash_attention_causal.launches,
+              attention.paged_decode_attention_kernel.launches)
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, page_size=16, device="cuda")
+    prompt = list(range(1, 301))
+    assert [len(o) for o in eng.generate([prompt, [5, 6, 7]], max_new_tokens=4)] == [4, 4]
+    assert len(eng.generate([prompt], max_new_tokens=4)[0]) == 4
+    assert eng.prefix_cache_stats()["hit_pages"] == 18
+    assert attention.flash_attention_causal.launches == before[0] + cfg.num_layers
+    assert attention.paged_decode_attention_kernel.launches > before[1]

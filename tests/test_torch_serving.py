@@ -1,5 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
-"""The port's ContinuousBatchingEngine on a tiny quantized Llama (CPU).
+"""The port's ContinuousBatchingEngine on the dense KV cache (``paged=False``)
+on a tiny quantized Llama (CPU); tests/test_torch_paged_kv.py covers the
+paged cache and prefix caching.
 
 * engine output == the port's bare greedy prefill/decode loop, through slot
   recycling and chunked prefill;
@@ -68,7 +70,7 @@ def test_engine_matches_bare_loop_and_jax(model):
     prompts = _prompts(0, (5, 9, 17), cfg.vocab_size)
     want = [reference_generate(params, cfg, p, 6) for p in prompts]
     eng = ContinuousBatchingEngine(params, cfg, max_batch=4, prefill_buckets=(8, 16, 32),
-                                   device="cpu")
+                                   paged=False, device="cpu")
     assert eng.generate(prompts, max_new_tokens=6) == want
     assert [jax_reference_generate(jq, jcfg, p, 6) for p in prompts] == want
 
@@ -78,7 +80,7 @@ def test_slot_recycling_more_requests_than_slots(model):
     prompts = _prompts(1, [4 + i for i in range(7)], cfg.vocab_size)
     reqs = [Request(prompt_tokens=p, max_new_tokens=3 + (i % 3)) for i, p in enumerate(prompts)]
     eng = ContinuousBatchingEngine(params, cfg, max_batch=2, prefill_buckets=(8, 16),
-                                   device="cpu")
+                                   paged=False, device="cpu")
     for r in reqs:
         eng.submit(r)
     by_id = {r.request_id: r for r in eng.run()}
@@ -93,7 +95,7 @@ def test_chunked_prefill_matches_bare_loop(model):
     params, cfg, _, _ = model
     long_p, short_p = _prompts(4, (21, 5), cfg.vocab_size)
     eng = ContinuousBatchingEngine(params, cfg, max_batch=4, prefill_buckets=(8, 16, 32),
-                                   prefill_chunk=8, device="cpu")
+                                   prefill_chunk=8, paged=False, device="cpu")
     eng.submit(Request(prompt_tokens=short_p, max_new_tokens=6))
     eng.step()                     # the short prompt decodes while the long one chunks in
     eng.submit(Request(prompt_tokens=long_p, max_new_tokens=6))
@@ -109,7 +111,7 @@ def test_chunk_width_clamped_near_the_cache_end(model):
     params, cfg, _, _ = model
     (p,) = _prompts(5, (62,), cfg.vocab_size)
     eng = ContinuousBatchingEngine(params, cfg, max_batch=1, prefill_buckets=(8, 16, 32),
-                                   prefill_chunk=24, device="cpu")
+                                   prefill_chunk=24, paged=False, device="cpu")
     (r,) = eng.generate([p], max_new_tokens=4)
     assert r == reference_generate(params, cfg, p, 1)      # the cache is full after one
     assert eng.stats()["prefill_chunks"] == 3
@@ -119,7 +121,7 @@ def test_late_arrival_and_eos(model):
     params, cfg, _, _ = model
     p1, p2 = _prompts(2, (6, 7), cfg.vocab_size)
     eng = ContinuousBatchingEngine(params, cfg, max_batch=4, prefill_buckets=(8, 16),
-                                   device="cpu")
+                                   paged=False, device="cpu")
     eng.submit(Request(prompt_tokens=p1, max_new_tokens=8))
     for _ in range(3):
         eng.step()
@@ -130,7 +132,7 @@ def test_late_arrival_and_eos(model):
     full = reference_generate(params, cfg, p1, 8)
     eos = full[2]
     eng = ContinuousBatchingEngine(params, cfg, max_batch=2, eos_id=eos, prefill_buckets=(8,),
-                                   device="cpu")
+                                   paged=False, device="cpu")
     eng.submit(Request(prompt_tokens=p1, max_new_tokens=8))
     r = eng.run()[0]
     assert r.finish_reason == "eos" and r.output_tokens == full[:full.index(eos) + 1]
@@ -142,14 +144,14 @@ def test_sampling_is_deterministic_per_seed(model):
 
     def run(seed):
         eng = ContinuousBatchingEngine(params, cfg, max_batch=2, prefill_buckets=(16,),
-                                       seed=seed, device="cpu")
+                                       seed=seed, paged=False, device="cpu")
         return eng.generate(prompts, max_new_tokens=8, temperature=1.0)
 
     assert run(5) == run(5)
     assert all(0 <= t < cfg.vocab_size for out in run(6) for t in out)
 
 
-@pytest.mark.parametrize("kwargs", [{"paged": True}, {"draft": ("p", "c")},
+@pytest.mark.parametrize("kwargs", [{"draft": ("p", "c")},
                                     {"scan_layers": True}, {"mesh": object()}])
 def test_queued_options_raise(model, kwargs):
     params, cfg, _, _ = model
