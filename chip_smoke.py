@@ -6,7 +6,8 @@
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the seven CUDA kernels from gemlite_tpu_torch/csrc;
+  build    compile the seven CUDA sources from gemlite_tpu_torch/csrc (eight
+           kernels: decode_gemv.cu holds the per-layer and stacked decode);
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes:
            relative error max|a-b| / max|b| <= 5e-3 against the plain
            version's float32 result, median CUDA-event device times with the
@@ -45,7 +46,22 @@ Phases, each printing one JSON line:
            served as in "serve": tokens equal the bare loop, the linears run
            only on int8_exact and general_fused, launches equal the schedule,
            and the first step matches the plain path on the CPU;
-  profile_a8w8 device time by kernel over a short A8W8 serving run.
+  profile_a8w8 device time by kernel over a short A8W8 serving run;
+  kernels_scan the stacked decode kernel over stacks of 32 random layers: W4
+           at the four 8B shapes, M in {1, 8, 64}, and W2 / W1 (gs 128) at
+           4096x4096 and 14336x4096, M = 8; layers 0, 17 and 31 each equal the
+           per-layer decode kernel on that layer bit for bit and the plain
+           version within 5e-3 (max form, float32 plain result); no host sync
+           under torch.cuda.set_sync_debug_mode("error"); times and bounds
+           (one layer's bytes), and the per-layer decode kernel at W1/W2;
+  serve_scan    Llama-3-8B at full widths and its full 32 layers, random
+           weights drawn and quantized (W4 gs=128) one block at a time on the
+           card, the serve phase's 8 requests served twice on the dense cache:
+           unrolled, then with scan_layers=True. Tokens and the first decode
+           step's logits must be equal, launches equal the schedule (the
+           stacked kernel 7 x 32 per decode step), routes only decode, prefill
+           and decode_stacked; host-clock throughput, TTFT, peak memory and a
+           torch.profiler window of 8 decode steps per engine.
 Then a "kernels" line and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and the script exits non-zero without that last line. It needs
 one CUDA card and refuses to run without one.
@@ -225,7 +241,9 @@ def counters():
     from gemlite_tpu_torch.ops.fused import fused_gemm
     from gemlite_tpu_torch.ops.int8_decode import int8_decode
     from gemlite_tpu_torch.ops.prefill import prefill_matmul
+    from gemlite_tpu_torch.ops.scan import decode_matmul_stacked
     return {"decode": decode_matmul, "prefill": prefill_matmul,
+            "decode_stacked": decode_matmul_stacked,
             "dequantize": dequantize_weights, "int8_decode": int8_decode,
             "fused_gemm": fused_gemm, "flash": flash_attention_causal,
             "paged_decode": paged_decode_attention_kernel}
@@ -369,7 +387,22 @@ def first_step_check(params, cfg, prompt, route="decode", bucket=None) -> dict:
     return out
 
 
-W4_GROUPS = {"decode_kernel": ("decode_w4", "splitk_reduce"), "prefill_kernel": ("prefill_w4",)}
+W4_GROUPS = {"decode_kernel": ("gemv_decode", "splitk_reduce"), "prefill_kernel": ("prefill_w4",)}
+
+
+def device_times(prof, groups) -> dict:
+    """Device time of a profiler window: in all, by kernel group (a group
+    takes the kernels whose names hold one of its substrings), and the top
+    kernels. CUDA activity only, so no operator is counted twice."""
+    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
+                   if ev.self_device_time_total > 0), reverse=True)
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    for us, key, _ in rows:
+        g = next((g for g, subs in groups.items() if any(sub in key for sub in subs)), "other")
+        by_group[g] += us / 1e3
+    return {"device_ms": sum(r[0] for r in rows) / 1e3, "device_ms_by_group": by_group,
+            "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": n}
+                    for us, k, n in rows[:12]]}
 
 
 def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GROUPS,
@@ -393,18 +426,9 @@ def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GR
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve()
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-                   if ev.self_device_time_total > 0), reverse=True)
-    total_ms = sum(r[0] for r in rows) / 1e3
-    by_group = {g: 0.0 for g in list(groups) + ["other"]}
-    for us, key, _ in rows:
-        g = next((g for g, subs in groups.items() if any(sub in key for sub in subs)), "other")
-        by_group[g] += us / 1e3
-    emit({"phase": phase, "ok": True, "what": what,
-          "wall_ms_unprofiled": wall_ms, "device_ms": total_ms,
-          "device_busy_share": total_ms / wall_ms, "device_ms_by_group": by_group,
-          "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": n} for us, k, n in rows[:12]],
-          "card": card})
+    times = device_times(prof, groups)
+    emit({"phase": phase, "ok": True, "what": what, "wall_ms_unprofiled": wall_ms,
+          "device_busy_share": times["device_ms"] / wall_ms, **times, "card": card})
 
 
 SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
@@ -956,6 +980,240 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     return counts
 
 
+SCAN_LAYERS = 32
+SCAN_CHECKED = (0, 17, 31)
+SCAN_GROUPS = {"stacked_decode_kernel": ("gemv_stacked",), "decode_kernel": ("gemv_decode",),
+               "splitk_reduce": ("splitk_reduce",), "prefill_kernel": ("prefill_w4",)}
+
+
+def random_stack(L: int, N: int, K: int, bits: int, gen: torch.Generator):
+    """L random mode-4 layers stacked: (L, K / epw, N) words of random codes,
+    (L, K / gs, N) bf16 scales and pre-folded zeros -z * s, and their meta."""
+    from gemlite_tpu_torch import DType, LayerMeta
+    epw = 32 // bits
+    W_q = torch.empty((L, K // epw, N), dtype=torch.int32, device="cuda")
+    for l in range(L):
+        W_q[l] = torch.randint(-2 ** 31, 2 ** 31, (K // epw, N), generator=gen, device="cuda",
+                               dtype=torch.int64).to(torch.int32)
+    s = torch.rand((L, K // GROUP, N), generator=gen, device="cuda") * 2e-3 + 1e-3
+    z = torch.randint(0, 2 ** bits, (L, K // GROUP, N), generator=gen, device="cuda").float()
+    meta = LayerMeta(scaled_activations=0, W_nbits=bits, group_size=GROUP,
+                     unpack_mask=2 ** bits - 1, elements_per_sample=epw,
+                     input_dtype=DType.BF16.value, output_dtype=DType.BF16.value,
+                     acc_dtype=DType.FP32.value, meta_dtype=DType.BF16.value,
+                     channel_scale_mode=0, W_group_mode=4, data_contiguous=1,
+                     in_features=K, out_features=N, zero_is_scalar=0)
+    scales = s.to(torch.bfloat16)
+    return W_q, scales, (-z * scales.float()).to(torch.bfloat16), meta
+
+
+def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
+    """The stacked decode kernel over 32-layer stacks: at each checked layer
+    it must equal the per-layer decode kernel on that layer bit for bit and
+    its plain version within 5e-3, with no host sync around its launches.
+    Returns the rows the kernels line reports."""
+    from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain
+    from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_matmul_stacked_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    ids = torch.arange(SCAN_LAYERS, dtype=torch.int32, device="cuda")
+    timed = SCAN_CHECKED[1]
+    rows = []
+    cases = [(4, N, K, (1, 8, 64)) for N, K in SHAPES]
+    cases += [(bits, N, K, (8,)) for bits in (2, 1) for N, K in ((4096, 4096), (14336, 4096))]
+    for bits, N, K, Ms in cases:
+        W_q, scales, zeros, meta = random_stack(SCAN_LAYERS, N, K, bits, gen)
+        stack = (W_q, scales, zeros)
+        layer = {l: (W_q[l], scales[l], zeros[l]) for l in SCAN_CHECKED}
+        for M in Ms:
+            x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = {l: decode_matmul_stacked(x, *stack, meta, ids[l]) for l in SCAN_CHECKED}
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            per = {l: decode_matmul(x, *layer[l], meta) for l in SCAN_CHECKED}
+            want = {l: decode_matmul_plain(x, *layer[l], with_f32_out(meta)) for l in SCAN_CHECKED}
+            torch.cuda.synchronize()
+            equal = all(torch.equal(got[l], per[l]) for l in SCAN_CHECKED)
+            err = max(rel_err(got[l], want[l]) for l in SCAN_CHECKED)
+            layer_bytes_ = K * N * bits / 8 + 2 * 2 * (K // GROUP) * N
+            bound, by = kernel_bound(layer_bytes_ + 2 * M * K + 2 * M * N, 2.0 * M * N * K, peak)
+            row = {"kernel": "decode_stacked", "bits": bits, "M": M, "N": N, "K": K,
+                   "layers": SCAN_LAYERS, "layers_checked": list(SCAN_CHECKED),
+                   "equals_per_layer_kernel": equal, "rel_err": err,
+                   "max_abs_err": max(max_abs(got[l], want[l]) for l in SCAN_CHECKED),
+                   "ms": timer.ms(lambda: decode_matmul_stacked(x, *stack, meta, ids[timed])),
+                   "plain_ms": timer.ms(lambda: decode_matmul_stacked_plain(
+                       x, *stack, meta, timed), iters=5),
+                   "bound_ms": bound, "bound_by": by, "library_ms": None, "card": card}
+            if bits != 4:
+                row["per_layer_ms"] = timer.ms(lambda: decode_matmul(x, *layer[timed], meta))
+                row["per_layer_plain_ms"] = timer.ms(
+                    lambda: decode_matmul_plain(x, *layer[timed], meta), iters=5)
+                row["per_layer_rel_err"] = max(rel_err(per[l], want[l]) for l in SCAN_CHECKED)
+            emit(row)
+            if not equal or not err <= REL_TOL or not row.get("per_layer_rel_err", 0) <= REL_TOL:
+                raise RuntimeError(f"stacked decode kernel check failed: {row}")
+            rows.append(row)
+        del W_q, scales, zeros, stack, layer
+    emit({"phase": "kernels_scan", "ok": True, "checked": len(rows), "card": card})
+    return {"decode_stacked": next(r for r in rows if (r["bits"], r["M"], r["N"], r["K"])
+                                   == (4, 8, 14336, 4096))}
+
+
+def full_depth_llama():
+    """Llama-3-8B at its published widths and its 32 layers: random bf16
+    weights from a seeded generator on the card, drawn and quantized to W4
+    gs=128 one block at a time, so that no more than one dense block is
+    alive beside the packed model."""
+    import dataclasses
+    from gemlite_tpu_torch import LlamaConfig, init_llama, quantize_llama
+    cfg = LlamaConfig.llama3_8b(num_layers=SCAN_LAYERS, max_seq_len=512)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    one = dataclasses.replace(cfg, num_layers=1, vocab_size=8)
+    blocks = []
+    for _ in range(cfg.num_layers):
+        dense = {"blocks": init_llama(one, generator=gen, device="cuda")["blocks"]}
+        blocks.append(quantize_llama(dense, W_nbits=4, group_size=GROUP, device="cuda")["blocks"][0])
+        del dense
+    params = init_llama(dataclasses.replace(cfg, num_layers=0), generator=gen, device="cuda")
+    params["blocks"] = blocks
+    return cfg, params
+
+
+def profile_steps(eng, card: str, phase: str, n_steps: int = 8) -> None:
+    """Device time by kernel over ``n_steps`` decode steps of an engine whose
+    slots are all decoding, and the busy share against the wall time of as
+    many steps run without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+    times = device_times(prof, SCAN_GROUPS)
+    emit({"phase": phase, "ok": True, "decode_steps": n_steps, "batch": eng.max_batch,
+          "layers": eng.cfg.num_layers, "wall_ms_unprofiled": wall_ms,
+          "wall_ms_per_step": wall_ms / n_steps,
+          "device_busy_share": times["device_ms"] / wall_ms, **times, "card": card})
+
+
+def phase_serve_scan(card: str) -> dict:
+    """The serve phase's traffic on the 32-layer 8B model, served by the
+    unrolled engine and by the scan engine on the same params: equal tokens,
+    bit-equal first decode logits, launches and routes as scheduled.
+    Returns the scan run's launch counts."""
+    from gemlite_tpu_torch import ContinuousBatchingEngine, Request
+    from gemlite_tpu_torch.ops import dispatch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = full_depth_llama()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_PROMPT_LENS]
+    n_new = 32
+    runs = {}
+    for name, scan in (("unrolled", False), ("scan", True)):
+        t0 = time.perf_counter()
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, paged=False, scan_layers=scan,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        first, routes = {}, set()
+        checked, note = eng._checked, dispatch._note
+
+        def recording(fn, *args, **kw):
+            out = checked(fn, *args, **kw)
+            if fn.__name__.startswith("llama_decode_step") and "logits" not in first:
+                first["logits"] = out[0].clone()
+            return out
+
+        eng._checked = recording
+        dispatch._note = lambda n: (routes.add(n), note(n))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for p in prompts:
+                eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+            results = eng.run()
+            torch.cuda.synchronize()
+        finally:
+            dispatch._note = note
+            del eng._checked
+        wall_s = time.perf_counter() - t0
+        by_prompt = {tuple(r.prompt_tokens): r for r in results}
+        runs[name] = {"tokens": [by_prompt[tuple(p)].output_tokens for p in prompts],
+                      "logits": first["logits"], "counts": read_counts(), "routes": routes,
+                      "stats": eng.stats(), "wall_s": wall_s, "init_s": init_s,
+                      "ttft": [r.ttft_s for r in results]}
+        del eng
+    scan, unrolled = runs["scan"], runs["unrolled"]
+    per_fwd = 7 * cfg.num_layers
+    short = sum(len(p) <= 64 for p in prompts)
+    expect = {}
+    for name, r in runs.items():
+        steps = r["stats"]["decode_steps"]
+        e = {k: 0 for k in r["counts"]}
+        e["prefill"] = per_fwd * (len(prompts) - short)
+        if name == "scan":
+            e["decode"], e["decode_stacked"] = per_fwd * short, per_fwd * steps
+        else:
+            e["decode"] = per_fwd * (short + steps)
+        expect[name] = e
+    same = scan["tokens"] == unrolled["tokens"]
+    logits_equal = bool(torch.equal(scan["logits"], unrolled["logits"]))
+    counts_ok = all(runs[n]["counts"] == expect[n] for n in runs)
+    routes_ok = (scan["routes"] == {"decode", "prefill", "decode_stacked"}
+                 and unrolled["routes"] == {"decode", "prefill"})
+    ok = same and logits_equal and counts_ok and routes_ok
+    emit({"phase": "serve_scan", "ok": ok,
+          "model": "Llama-3-8B, published widths and all 32 layers, W4 gs=128",
+          "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": n_new, "max_batch": 8, "paged": False, "setup_s": setup_s,
+          "model_gb": model_gb, "tokens_equal": same, "first_decode_logits_equal": logits_equal,
+          "first_decode_logits_max_abs_diff": max_abs(scan["logits"], unrolled["logits"]),
+          **{name: {"wall_s": r["wall_s"], "engine_init_s": r["init_s"],
+                    "tokens_out": r["stats"]["tokens_out"],
+                    "tokens_per_s_host_clock": r["stats"]["tokens_out"] / r["wall_s"],
+                    "ttft_s": {"median": statistics.median(r["ttft"]), "max": max(r["ttft"])},
+                    "decode_steps": r["stats"]["decode_steps"], "launches": r["counts"],
+                    "launches_expected": expect[name], "routes": sorted(r["routes"])}
+             for name, r in runs.items()},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    if not same:
+        raise RuntimeError("the scan engine's tokens differ from the unrolled engine's")
+    if not logits_equal:
+        raise RuntimeError("the first decode step's logits differ between the engines")
+    if not counts_ok:
+        raise RuntimeError(f"launches {[runs[n]['counts'] for n in runs]}, expected {expect}")
+    if not routes_ok:
+        raise RuntimeError(f"routes {[sorted(runs[n]['routes']) for n in runs]}")
+    for name, scan_layers in (("unrolled", False), ("scan", True)):
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, paged=False,
+                                       scan_layers=scan_layers, device="cuda")
+        for p in prompts:
+            eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+        eng.step()                              # admits and prefills all 8, then one decode
+        profile_steps(eng, card, f"profile_scan_{name}")
+        del eng
+    return scan["counts"]
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -983,6 +1241,9 @@ def main() -> int:
     picked.update(phase_kernels_a8(card, peak, timer))
     phase_layer_a8w8(card)
     a8_counts = phase_serve_a8w8(card, cfg, dense)
+    del dense
+    picked.update(phase_kernels_scan(card, peak, timer))
+    scan_counts = phase_serve_scan(card)
 
     sources = {"decode": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
                           "gemlite_tpu/ops/pallas_decode.py:619", serve_counts),
@@ -997,7 +1258,9 @@ def main() -> int:
                "flash": ("gemlite_tpu_torch/csrc/flash_attention.cu",
                          "gemlite_tpu/models/llama.py:292", paged_counts),
                "paged_decode": ("gemlite_tpu_torch/csrc/paged_attention.cu",
-                                "gemlite_tpu/models/paged_kv.py:124", paged_counts)}
+                                "gemlite_tpu/models/paged_kv.py:124", paged_counts),
+               "decode_stacked": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+                                  "gemlite_tpu/ops/pallas_scan.py:70", scan_counts)}
     kernels = []
     for name_k, (src, replaces, counts) in sources.items():
         r = picked[name_k]
@@ -1005,11 +1268,13 @@ def main() -> int:
                         "launches": counts[name_k],
                         "launches_path": ("serve" if counts is serve_counts else
                                           "serve_a8w8" if counts is a8_counts else
-                                          "serve_paged" if counts is paged_counts else "layer"),
+                                          "serve_paged" if counts is paged_counts else
+                                          "serve_scan" if counts is scan_counts else "layer"),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        "shape": r.get("shape") or {"M": r["M"], "N": r["N"], "K": r["K"]}})
+                        "shape": r.get("shape") or {k: r[k] for k in ("bits", "M", "N", "K")
+                                                    if k in r}})
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel of the path never launched: {kernels}")
     emit({"seconds": time.perf_counter() - t_start, "card": card})

@@ -1,9 +1,12 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Decode kernel: W4 GEMV / split-K for M <= 64 (``csrc/decode_gemv.cu``).
+"""Decode kernel: W1/W2/W4 GEMV / split-K for M <= 64 (``csrc/decode_gemv.cu``,
+entry ``gl_decode``).
 
-Replaces ``gemlite_tpu/ops/pallas_decode.py:pallas_decode_matmul``. The plain
+Replaces ``gemlite_tpu/ops/pallas_decode.py:pallas_decode_matmul`` on the
+mode-4 bf16 layers that ``A16Wn_HQQ_INT(dtype=bf16)`` makes. The plain
 version is ``ops/reference.forward_meta``. On a CPU tensor the wrapper runs the
-plain version; on a CUDA tensor it launches the kernel or raises.
+plain version; on a CUDA tensor it launches the kernel or raises. The stacked
+entry over (L, ...) weights is ``ops/scan.py``.
 """
 
 import ctypes
@@ -13,14 +16,16 @@ import torch
 from . import build, w4
 from .reference import forward_meta
 
-__all__ = ["can_use_decode", "decode_matmul", "decode_matmul_plain", "split_plan"]
+__all__ = ["DECODE_BITS", "can_use_decode", "decode_matmul", "decode_matmul_plain",
+           "split_plan"]
 
 MAX_M = 64
+DECODE_BITS = (1, 2, 4)
 _COLS_PER_BLOCK = 128
 
 
 def can_use_decode(meta, M: int) -> bool:
-    return 0 < M <= MAX_M and w4.serves(meta)
+    return 0 < M <= MAX_M and w4.serves(meta, bits=DECODE_BITS)
 
 
 def split_plan(N: int, K: int, gs: int):
@@ -35,10 +40,9 @@ def decode_matmul_plain(x, W_q, scales, zeros, meta):
 
 
 def _lib():
-    lib = build.load("decode_gemv")
-    fn = lib.gl_decode_w4
+    fn = build.load("decode_gemv").gl_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -59,7 +63,7 @@ def decode_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
                if splits > 1 else None)
     err = _lib()(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
                  partial.data_ptr() if partial is not None else None, out.data_ptr(),
-                 M, N, K, gs, splits, k_per_split, w4.stream())
+                 M, N, K, gs, meta.W_nbits, splits, k_per_split, w4.stream())
     build.check(err, "decode_gemv")
     decode_matmul.launches += 1
     return out

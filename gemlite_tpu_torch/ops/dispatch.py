@@ -8,15 +8,18 @@ By the flattened batch size M, in the JAX router's order:
                      general_fused; else (``dense_fallback``) the plain
                      ``dequantize_full`` and a dense ``torch.matmul``
 
-A float layer that the JAX package sends to its decode or dequantize kernel
-but whose form the port's kernel does not cover yet (A16W8, W1/2/8, modes
-1-3, channel-wise) runs on the general fused kernel here. ``dense_fallback``
+The decode kernel takes mode-4 bf16 layers of W1, W2 and W4 codes, as the
+JAX decode kernel does; the prefill and dequantize kernels take W4. A float
+layer that the JAX package sends to one of its kernels but whose form the
+port's kernel does not cover yet (A16W8, W8 codes, modes 1-3, channel-wise;
+W1/W2 at M > 64) runs on the general fused kernel here. ``dense_fallback``
 is kept for the layers that the JAX package itself dequantizes without a
 Pallas kernel (``_xla_dequantized``). On the card a layer that no kernel
 serves (the MX codecs, csm 4) raises ``NotImplementedError``: no plain
 version of a kernel ever runs there. On the CPU the same routes run the
 kernels' plain versions and are noted as ``plain_<route>``; a layer no
-kernel would take is noted ``plain_oracle``.
+kernel would take is noted ``plain_oracle``. The scan path's stacked linears
+(``models/scan_llama.py``) note ``decode_stacked`` or ``plain_decode_stacked``.
 """
 
 import torch
@@ -35,7 +38,8 @@ __all__ = ["KERNEL_TRACE", "KERNEL_ROUTES", "last_kernel", "fused_matmul"]
 # check. Bounded so that an unchecked caller cannot grow it without limit.
 KERNEL_TRACE: list = []
 # the routes that run a hand-written kernel for the matmul
-KERNEL_ROUTES = ("decode", "prefill", "dequantize", "int8_exact", "general_fused")
+KERNEL_ROUTES = ("decode", "prefill", "dequantize", "int8_exact", "general_fused",
+                 "decode_stacked")
 _TRACE_LIMIT = 4096
 
 

@@ -1,0 +1,109 @@
+# SPDX-License-Identifier: Apache-2.0
+"""Stacked decode kernel: layer ``l`` of an L-layer stack of W1/W2/W4 mode-4
+layers for M <= 64 (``csrc/decode_gemv.cu``, entry ``gl_decode_stacked``).
+
+Replaces ``gemlite_tpu/ops/pallas_scan.py:pallas_decode_matmul_stacked``. The
+TPU kernel takes the layer index as a scalar-prefetch operand read by its
+index maps; here the index is a 0-d int32 tensor on the card, and each block
+of the kernel reads it and offsets its weight, scale and zero pointers, so the
+host never reads it and one launch entry serves every layer. The body is the
+per-layer decode kernel's, with the same split plan, so at layer ``l`` the two
+agree bit for bit.
+
+The plain version is ``forward_meta`` on ``W_q[l]``, ``scales[l]`` and
+``zeros[l]``. On a CPU tensor the wrapper runs it; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..dtypes import DType
+from . import build, w4
+from .decode import can_use_decode, split_plan
+from .reference import forward_meta
+
+__all__ = ["can_use_stacked_decode", "stacked_decode_refusal", "decode_matmul_stacked",
+           "decode_matmul_stacked_plain"]
+
+
+def stacked_decode_refusal(meta, M: int) -> Optional[str]:
+    """Why the stacked kernel does not take ``meta`` at M rows, or None.
+
+    The decode kernel's gate minus scalar zeros and minus every layer whose
+    activations are quantized per token (INT8 input, csm 2/3): the stacked
+    path carries no per-token scales. The JAX gate
+    (``pallas_scan.py:can_use_stacked_decode``) admits the latter and then
+    fails at trace time."""
+    if meta.scaled_activations or meta.input_dtype == DType.INT8.value \
+            or meta.channel_scale_mode in (2, 3):
+        return "its activations are quantized per token, and the stacked path has no scales_x"
+    if meta.zero_is_scalar:
+        return "its zero is a scalar"
+    if not can_use_decode(meta, M):
+        return (f"the decode kernel takes M <= 64 rows of mode-4 bf16 W1/W2/W4 layers, "
+                f"not M={M} with W_nbits={meta.W_nbits}, W_group_mode={meta.W_group_mode}, "
+                f"group_size={meta.group_size}")
+    return None
+
+
+def can_use_stacked_decode(meta, M: int) -> bool:
+    return stacked_decode_refusal(meta, M) is None
+
+
+def _index(layer_idx, L: int) -> int:
+    l = int(layer_idx)
+    if not 0 <= l < L:
+        raise IndexError(f"layer_idx {l} outside the stack of {L} layers")
+    return l
+
+
+def decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx):
+    l = _index(layer_idx, W_q.shape[0])
+    return forward_meta(x, W_q[l], scales[l], zeros[l], None, meta)
+
+
+def _lib():
+    fn = build.load("decode_gemv").gl_decode_stacked
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_matmul_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) -> torch.Tensor:
+    """out (M, N) bf16 = x (M, K) @ dequant(W_q[layer_idx]) for M <= 64.
+
+    ``W_q`` (L, K / epw, N) int32, ``scales`` and ``zeros`` (L, K / gs, N)
+    bf16; ``layer_idx`` a 0-d int32 tensor on x's device (an int on the
+    CPU too). On the card the index is never read by the host."""
+    if x.device.type == "cpu":
+        return decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx)
+    M = x.shape[0]
+    why = stacked_decode_refusal(meta, M)
+    if why is not None:
+        raise NotImplementedError(f"stacked decode kernel does not take this layer: {why}")
+    if not (isinstance(layer_idx, torch.Tensor) and layer_idx.device == x.device
+            and layer_idx.dtype == torch.int32 and layer_idx.numel() == 1):
+        raise ValueError("layer_idx: want a one-element int32 tensor on the card, got "
+                         f"{layer_idx!r}")
+    N, K, gs = meta.out_features, meta.in_features, meta.group_size
+    L = W_q.shape[0]
+    x = w4.activations(x, K)
+    w4.check_operands(W_q, scales, zeros, meta, layers=L)
+    splits, k_per_split = split_plan(N, K, gs)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    err = _lib()(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+                 layer_idx.data_ptr(), partial.data_ptr() if partial is not None else None,
+                 out.data_ptr(), L, M, N, K, gs, meta.W_nbits, splits, k_per_split,
+                 w4.stream())
+    build.check(err, "decode_gemv (stacked)")
+    decode_matmul_stacked.launches += 1
+    return out
+
+
+decode_matmul_stacked.launches = 0

@@ -26,14 +26,21 @@
   the trash page (paged) or a stale row of their stripe (dense).
 * Between admissions and finishes the per-slot decode state (tokens, lengths,
   temperatures, active mask) stays on the device.
+* ``scan_layers=True`` (dense cache only, as in the JAX engine) stacks the
+  block linears once at construction (``models/scan_llama.stack_blocks``) and
+  runs every decode step over the stacks: each linear kind through one launch
+  entry, the stacked decode kernel, which reads the layer index on the device.
+  Prefill stays unrolled. Every stacked linear must be one the stacked kernel
+  takes at ``max_batch`` rows; the engine checks that at construction and
+  raises ``ValueError`` otherwise (an A8W8 model, for one).
 * On the card the engine checks after every prefill and decode step that each
   quantized linear ran on a hand-written kernel (``KERNEL_ROUTES``: decode,
-  prefill, dequantize, int8_exact or general_fused) and that no attention ran
-  a plain version (``ATTENTION_TRACE``).
+  prefill, dequantize, int8_exact, general_fused or decode_stacked) and that
+  no attention ran a plain version (``ATTENTION_TRACE``).
 
-The speculative draft, scan-over-layers decode and mesh sharding are not
-ported yet and raise. Sampling is greedy, or temperature sampling from a
-``torch.Generator`` seeded with ``seed`` (it does not reproduce JAX's stream).
+The speculative draft and mesh sharding are not ported yet and raise.
+Sampling is greedy, or temperature sampling from a ``torch.Generator`` seeded
+with ``seed`` (it does not reproduce JAX's stream).
 """
 
 import itertools
@@ -48,8 +55,10 @@ import torch
 from .core import resolve_device
 from .models.llama import init_kv_cache, llama_decode_step_batched, llama_forward
 from .models.paged_kv import init_paged_kv
+from .models.scan_llama import llama_decode_step_scan, stack_blocks
 from .ops.attention import ATTENTION_TRACE
 from .ops.dispatch import KERNEL_ROUTES, KERNEL_TRACE
+from .ops.scan import stacked_decode_refusal
 
 __all__ = ["Request", "ContinuousBatchingEngine", "GenerationResult"]
 
@@ -91,14 +100,23 @@ class ContinuousBatchingEngine:
                  device=None):
         if draft is not None:
             raise NotImplementedError("queued: speculative decoding (draft=)")
-        if scan_layers:
-            raise NotImplementedError("queued: scan-over-layers decode (scan_layers=True)")
         if mesh is not None:
             raise NotImplementedError("queued: mesh-sharded serving (mesh=)")
+        if scan_layers and paged:
+            raise ValueError("scan_layers requires paged=False (the paged decode kernel "
+                             "takes no layer index)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the engine on "
                              f"{self.device}")
+        self._stacked = stack_blocks(params) if scan_layers else None
+        if self._stacked is not None:
+            for grp in ("attn", "mlp"):
+                for name, stk in self._stacked[grp].items():
+                    why = stacked_decode_refusal(stk.meta, max_batch)
+                    if why is not None:
+                        raise ValueError(f"scan_layers: the stacked decode kernel does not take "
+                                         f"{grp}.{name} at max_batch={max_batch}: {why}")
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -312,8 +330,12 @@ class ContinuousBatchingEngine:
         return logits[:, true_len - 1, :]
 
     def _decode(self, tokens, cache_lens, temps, active, t_active):
-        logits, _ = self._checked(llama_decode_step_batched, self.params, self.cfg, tokens,
-                                  self.kv, cache_lens, t_active=t_active)
+        if self._stacked is not None:
+            logits, _ = self._checked(llama_decode_step_scan, self._stacked, self.params,
+                                      self.cfg, tokens, self.kv, cache_lens, t_active=t_active)
+        else:
+            logits, _ = self._checked(llama_decode_step_batched, self.params, self.cfg, tokens,
+                                      self.kv, cache_lens, t_active=t_active)
         nxt = self._sample(logits[:, 0, :], temps)
         return nxt, cache_lens + active
 

@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""The seven CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Card-only: each test skips where no CUDA device is present. On the card:
 
@@ -25,6 +25,7 @@ from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path
 from gemlite_tpu_torch.ops.int8_decode import int8_decode, int8_decode_plain
 from gemlite_tpu_torch.ops.prefill import prefill_matmul
 from gemlite_tpu_torch.ops.reference import forward_meta
+from gemlite_tpu_torch.ops.scan import decode_matmul_stacked
 
 pytestmark = pytest.mark.requires_cuda
 REL = 5e-3
@@ -37,12 +38,12 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _layer(gen, N, K, gs=128, fma=True):
-    W_q = torch.randint(0, 16, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
+def _layer(gen, N, K, gs=128, fma=True, bits=4):
+    W_q = torch.randint(0, 2 ** bits, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
     G = N * K // gs
     scales = (torch.rand((G, 1), generator=gen, device="cuda") * 2e-2 + 1e-2).to(torch.bfloat16)
-    zeros = torch.randint(0, 16, (G, 1), generator=gen, device="cuda").to(torch.bfloat16)
-    return GemLiteLinear(4, gs, K, N, DType.BF16, DType.BF16, device="cuda").pack(
+    zeros = torch.randint(0, 2 ** bits, (G, 1), generator=gen, device="cuda").to(torch.bfloat16)
+    return GemLiteLinear(bits, gs, K, N, DType.BF16, DType.BF16, device="cuda").pack(
         W_q, scales, zeros, fma_mode=fma)
 
 
@@ -78,6 +79,56 @@ def test_decode_rows_do_not_depend_on_batch(gen):
     full = decode_matmul(x, *args)
     assert torch.equal(decode_matmul(x[:1], *args)[0], full[0])
     assert torch.equal(decode_matmul(x, *args), full)
+
+
+@pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (1024, 4096)])
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("bits", [1, 2])
+def test_decode_kernel_w1_w2(gen, bits, M, N, K):
+    layer = _layer(gen, N, K, bits=bits)
+    x = _x(gen, M, K)
+    got = decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+def _stack(gen, L, N, K, bits):
+    layers = [_layer(gen, N, K, bits=bits) for _ in range(L)]
+    return layers, tuple(torch.stack([getattr(l, a) for l in layers])
+                         for a in ("W_q", "scales", "zeros"))
+
+
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_stacked_decode_kernel(gen, bits, M):
+    """Layer l of the stack equals the per-layer kernel on layer l bit for
+    bit, and its plain version within the bound."""
+    L, N, K = 4, 1024, 4096
+    layers, stacks = _stack(gen, L, N, K, bits)
+    x = _x(gen, M, K)
+    ids = torch.arange(L, dtype=torch.int32, device="cuda")
+    for l, layer in enumerate(layers):
+        got = decode_matmul_stacked(x, *stacks, layer.meta, ids[l])
+        per_layer = decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+        torch.cuda.synchronize()
+        assert got.shape == (M, N) and torch.equal(got, per_layer), l
+        assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+def test_stacked_decode_reads_no_index_on_the_host(gen):
+    layers, stacks = _stack(gen, 3, 512, 1024, 4)
+    x = _x(gen, 8, 1024)
+    ids = torch.arange(3, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [decode_matmul_stacked(x, *stacks, layers[0].meta, ids[l]) for l in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for layer, out in zip(layers, outs):
+        assert torch.equal(out, decode_matmul(x, layer.W_q, layer.scales, layer.zeros,
+                                              layer.meta))
 
 
 @pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (4096, 1024)])
@@ -126,6 +177,22 @@ def test_engine_runs_on_the_kernels(gen):
     out = eng.generate([[1, 2, 3, 4, 5], list(range(7, 77))], max_new_tokens=4)
     assert [len(o) for o in out] == [4, 4]
     assert decode_matmul.launches > before[0] and prefill_matmul.launches > before[1]
+
+
+def test_scan_engine_runs_on_the_stacked_kernel(gen):
+    """scan_layers=True on the card: every decode step on the stacked kernel,
+    the tokens those of the unrolled engine."""
+    cfg = LlamaConfig.tiny()
+    params = quantize_llama(init_llama(cfg, seed=0, device="cuda"), group_size=64,
+                            device="cuda")
+    prompts = [[1, 2, 3, 4, 5], list(range(7, 40))]
+    kw = dict(max_batch=2, paged=False, prefill_buckets=(32, 64, 128), device="cuda")
+    want = ContinuousBatchingEngine(params, cfg, **kw).generate(prompts, max_new_tokens=4)
+    before = decode_matmul_stacked.launches
+    eng = ContinuousBatchingEngine(params, cfg, scan_layers=True, **kw)
+    assert eng.generate(prompts, max_new_tokens=4) == want
+    assert decode_matmul_stacked.launches == before + 7 * cfg.num_layers * \
+        eng.stats()["decode_steps"]
 
 
 # ---------------------------------------------------------------------------

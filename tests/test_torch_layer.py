@@ -82,20 +82,27 @@ def _rel(got, want):
     return float(np.mean(np.abs(got - want)) / (np.mean(np.abs(want)) + 1e-6))
 
 
+@pytest.mark.parametrize("W_nbits", [4, 2, 1])
 @pytest.mark.parametrize("fma", [True, False])
 @pytest.mark.parametrize("M,route", [(1, "decode"), (8, "decode"), (128, "prefill"),
                                      (4096, "dequantize")])
-def test_forward_matches_jax_dispatch(M, route, fma):
-    rng = np.random.default_rng(M)
+def test_forward_matches_jax_dispatch(M, route, fma, W_nbits):
+    rng = np.random.default_rng(M + 10 * (4 - W_nbits))
     N, K, gs = 256, 512, 128
-    jl, tl = _pair(*_hqq(rng, N, K, 4, gs), 4, gs, fma_mode=fma)
+    jl, tl = _pair(*_hqq(rng, N, K, W_nbits, gs), W_nbits, gs, fma_mode=fma)
     x = (rng.normal(size=(M, K)) * 0.2).astype(np.float32)
-    want, _ = _jax_forward(jl, x)
+    want, jtrace = _jax_forward(jl, x)
     got, trace = _port_forward(tl, x)
-    # mode 4 is the W4 kernels' format; mode 3 layers run on the general fused
-    # kernel at every M (at M >= 4096 the JAX package dequantizes them with
+    # mode 4 is the format of the decode kernel (W1/W2/W4, as the JAX decode
+    # kernel) and of the prefill and dequantize kernels (W4); the rest runs on
+    # the general fused kernel (at M >= 4096 the JAX package dequantizes with
     # its Pallas kernel, which the port's dequantize kernel does not cover)
-    assert trace == [f"plain_{route}" if fma else "plain_general_fused"]
+    if fma and (route == "decode" or W_nbits == 4):
+        assert trace == [f"plain_{route}"]
+    else:
+        assert trace == ["plain_general_fused"]
+    if fma and route == "decode":
+        assert jtrace == ["decode_plane"]
     assert _rel(got, want) < REL, _rel(got, want)
 
 

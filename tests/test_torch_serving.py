@@ -154,7 +154,14 @@ def test_sampling_is_deterministic_per_seed(model):
 @pytest.mark.parametrize("kwargs", [{"draft": ("p", "c")},
                                     {"scan_layers": True}, {"mesh": object()}])
 def test_queued_options_raise(model, kwargs):
+    """draft= and mesh= are queued; scan_layers=True is ported for the dense
+    cache only (tests/test_torch_scan.py), so with the default paged=True it
+    raises as the JAX engine does."""
     params, cfg, _, _ = model
+    if "scan_layers" in kwargs:
+        with pytest.raises(ValueError, match="paged=False"):
+            ContinuousBatchingEngine(params, cfg, device="cpu", **kwargs)
+        return
     with pytest.raises(NotImplementedError, match="queued"):
         ContinuousBatchingEngine(params, cfg, device="cpu", **kwargs)
 
