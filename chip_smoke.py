@@ -35,10 +35,11 @@ Phases, each printing one JSON line:
            prompt (bucket 512, on the flash kernel) matches the plain path;
   profile_paged device time by kernel over a short paged serving run;
   kernels_a8   the int8 decode kernel (every weight form) and the general
-           fused kernel (int path over int8 weights and over packed W2 / W4
-           codes, four float forms) against their plain versions at the 8B
-           shapes: bit for bit where the sum is integer, else max|a-b| /
-           max|b| <= 5e-3; times, bounds and torch._int_mm;
+           fused kernel (int path over int8 weights at M 128 / 1024 on the
+           four 8B shapes and over packed W2 / W4 / W1 codes at M 128 / 1024,
+           with its plan and launches per call; four float forms) against
+           their plain versions: bit for bit where the sum is integer, else
+           max|a-b| / max|b| <= 5e-3; times, bounds and torch._int_mm;
   layer_a8w8   A8W8_INT8_dynamic(bf16) 4096x4096 at M in {1, 64, 65, 128,
            4096}, routed to int8_exact, int8_exact, general_fused,
            general_fused, dense_fallback;
@@ -535,12 +536,12 @@ def dense_llama():
 
 
 A8_GROUPS = {"int8_decode_kernel": ("int8_decode", "int8_epilogue"),
-             "fused_gemm_kernel": ("fused_gemm", "int_gemm", "int_epilogue")}
+             "fused_gemm_kernel": ("fused_gemm", "int_mma")}
 INT8_FORMS = ("u8_scalar_zero", "u8_channel_zeros", "u8_group_zeros", "w4_group_zeros",
               "w2_bitnet_cw")
 # packed codes on the general fused kernel's int path: BitNet's scalar-zero
-# shift (W2, mode 1) and W4 codes without a zero (mode 0)
-INT_PATH_PACKED_FORMS = ("w2_bitnet_cw", "w4_cw_mode0")
+# shift (W2, mode 1) and W4 / W1 codes without a zero (mode 0)
+INT_PATH_PACKED_FORMS = ("w2_bitnet_cw", "w4_cw_mode0", "w1_cw_mode0")
 FLOAT_FORMS = ("a16w8_post_scale_bf16", "w4_mode3_bf16", "bitnet_w2_bf16", "a16w8_in_loop_fp16")
 
 
@@ -557,10 +558,11 @@ def int8_form_layer(name: str, N: int, K: int, gen: torch.Generator):
     if name == "w2_bitnet_cw":
         w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
         return A8W158_INT_dynamic(device="cuda", dtype=torch.bfloat16).from_weights(w, 0.01)
-    if name == "w4_cw_mode0":
-        codes = torch.randint(0, 16, (N, K), generator=gen, device="cuda").to(torch.uint8)
+    if name in ("w4_cw_mode0", "w1_cw_mode0"):
+        bits = 4 if name == "w4_cw_mode0" else 1
+        codes = torch.randint(0, 2 ** bits, (N, K), generator=gen, device="cuda").to(torch.uint8)
         scales = torch.rand((N, 1), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
-        return GemLiteLinear(4, None, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+        return GemLiteLinear(bits, None, K, N, DType.INT8, DType.BF16, scaled_activations=True,
                              device="cuda").pack(codes, scales, None)
     nbits, gs, zk = {"u8_scalar_zero": (8, None, "scalar"), "u8_channel_zeros": (8, None, "channel"),
                      "u8_group_zeros": (8, GROUP, "group"), "w4_group_zeros": (4, GROUP, "group")}[name]
@@ -618,7 +620,7 @@ def int_mm_ms(timer: Timer, M: int, N: int, K: int, w: torch.Tensor, gen) -> flo
 def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
     """The int8 decode kernel and the general fused kernel against their plain
     versions; returns the rows the kernels line reports."""
-    from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain
+    from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path, int_plan
     from gemlite_tpu_torch.ops.int8_decode import form, int8_decode, int8_decode_plain
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -640,6 +642,8 @@ def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
                "ms": timer.ms(lambda: kern(*args, meta)),
                "plain_ms": timer.ms(lambda: plain(*args, meta), iters=3),
                "bound_ms": bound, "bound_by": by, "library_ms": library, "card": card}
+        if kern is fused_gemm and int_path(meta):
+            row["int_plan"] = int_plan(M, N, K)._asdict()      # launches per call, split
         emit(row)
         if (exact and not row["bit_exact"]) or not err <= REL_TOL:
             raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
@@ -665,9 +669,10 @@ def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
     N, K = 14336, 4096
     for name in INT_PATH_PACKED_FORMS:
         layer = int8_form_layer(name, N, K, gen)
-        x, sx = int8_x(128, K, gen)
-        check("fused_gemm", name, 128, layer, fused_gemm, fused_matmul_plain,
-              (x, layer.W_q, layer.scales, layer.zeros, sx), True, peak[2])
+        for M in (128, 1024):
+            x, sx = int8_x(M, K, gen)
+            check("fused_gemm", name, M, layer, fused_gemm, fused_matmul_plain,
+                  (x, layer.W_q, layer.scales, layer.zeros, sx), True, peak[2])
     for name in FLOAT_FORMS:
         layer = float_form_layer(name, N, K, gen)
         dtype = torch.float16 if "fp16" in name else torch.bfloat16

@@ -107,15 +107,21 @@ def init_llama(cfg: LlamaConfig, seed: int = 0, generator: Optional[torch.Genera
 
 
 def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: int = 128,
-                   quantize_lm_head: bool = False, dtype: torch.dtype = torch.bfloat16,
-                   device=None, **quant_kwargs) -> Dict:
+                   quantize_lm_head: bool = False, fuse: bool = False,
+                   dtype: torch.dtype = torch.bfloat16, device=None, **quant_kwargs) -> Dict:
     """Replace every block linear (and optionally lm_head) with a packed
     GemLiteLinear. The default processor is ``A16Wn_HQQ_INT(W_nbits,
     dtype=bf16)``: scales and zeros are stored in bf16, as the JAX package's
     default does, which makes every layer a W_group_mode 4 bf16 layer that the
     decode, prefill and dequantize kernels serve. A processor without
     ``W_nbits`` (``A8W8_INT8_dynamic``) quantizes the float weight itself
-    through ``from_weights``."""
+    through ``from_weights``.
+
+    ``fuse=True`` concatenates q/k/v into one ``wqkv`` layer and gate/up into
+    one ``gate_up`` layer in float32 before quantizing, as the JAX package
+    does: groups run along K within each output row, so the fused layer packs
+    the separate layers' bytes side by side, and a block runs four linears
+    instead of seven."""
     if processor is None:
         processor = A16Wn_HQQ_INT(device=device, dtype=dtype, W_nbits=W_nbits)
 
@@ -129,8 +135,16 @@ def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: i
     for blk in params["blocks"]:
         nb = {"attn": dict(blk["attn"]), "mlp": dict(blk["mlp"]),
               "ln_attn": blk["ln_attn"], "ln_mlp": blk["ln_mlp"]}
-        for grp, name in _LINEAR_KEYS:
-            nb[grp][name] = q(blk[grp][name])
+        if fuse:
+            a, m = blk["attn"], blk["mlp"]
+            wqkv = torch.cat([a["wq"].to(torch.float32), a["wk"].to(torch.float32),
+                              a["wv"].to(torch.float32)], dim=0)
+            gate_up = torch.cat([m["gate"].to(torch.float32), m["up"].to(torch.float32)], dim=0)
+            nb["attn"] = {"wqkv": q(wqkv), "wo": q(a["wo"])}
+            nb["mlp"] = {"gate_up": q(gate_up), "down": q(m["down"])}
+        else:
+            for grp, name in _LINEAR_KEYS:
+                nb[grp][name] = q(blk[grp][name])
         out["blocks"].append(nb)
     if quantize_lm_head:
         out["lm_head"] = q(params["lm_head"])
@@ -193,9 +207,15 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
     that masked attention reads."""
     B, S, _ = x.shape
     h = _rms_norm(x, blk["ln_attn"], cfg.norm_eps)
-    q = _apply(blk["attn"]["wq"], h).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = _apply(blk["attn"]["wk"], h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = _apply(blk["attn"]["wv"], h).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if "wqkv" in blk["attn"]:
+        QD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        qkv = _apply(blk["attn"]["wqkv"], h)
+        q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
+    else:
+        q, k, v = (_apply(blk["attn"][n], h) for n in ("wq", "wk", "wv"))
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
 
@@ -249,8 +269,11 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
     x = x + _apply(blk["attn"]["wo"], attn.reshape(B, S, -1))
 
     h = _rms_norm(x, blk["ln_mlp"], cfg.norm_eps)
-    g = _apply(blk["mlp"]["gate"], h)
-    u = _apply(blk["mlp"]["up"], h)
+    if "gate_up" in blk["mlp"]:
+        gu = _apply(blk["mlp"]["gate_up"], h)
+        g, u = gu[..., :gu.shape[-1] // 2], gu[..., gu.shape[-1] // 2:]
+    else:
+        g, u = _apply(blk["mlp"]["gate"], h), _apply(blk["mlp"]["up"], h)
     h = (torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
     return x + _apply(blk["mlp"]["down"], h)
 

@@ -75,8 +75,8 @@ def stack_blocks(params: Dict) -> Dict:
     for blk in blocks:
         fused = [k for k in _FUSED_KEYS if k in blk["attn"] or k in blk["mlp"]]
         if fused:
-            raise NotImplementedError(f"queued: fused {fused} layers (quantize_llama(fuse=True), "
-                                      "the fuse slice)")
+            raise NotImplementedError(f"queued: stacking fused {fused} layers for the scan path "
+                                      "(the rest of the fuse slice)")
         for grp, keys in (("attn", _ATTN_KEYS), ("mlp", _MLP_KEYS)):
             if not all(isinstance(blk[grp][k], GemLiteLinear) for k in keys):
                 raise ValueError("stack_blocks requires all-quantized blocks")

@@ -8,7 +8,8 @@ codes in LSB-first int32 words, or non-packed int8 / fp16 / bf16 weights;
 W_group_mode 0-4 with scalar or grouped zeros; channel_scale_mode 0-3.
 
     int path   int8 x, W_group_mode 0, or 1 with a scalar zero, codes that
-               fit int8 (not packed W8): int8 x int8 -> int32, exact
+               fit int8 (not packed W8): int8 x int8 -> int32, exact, in one
+               launch whose tiles and K split ``int_plan`` chooses
     else       the weight dequantized in the compute dtype (bf16 for int8 x;
                float32 for float32 x), rounded after every op as the JAX
                kernel's ``meta_f32=False`` arithmetic does, float32 sums
@@ -21,6 +22,7 @@ tensor the wrapper runs it; on a CUDA tensor it launches the kernel or raises.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +30,7 @@ from ..dtypes import DType, is_mx_dtype, to_torch_dtype
 from . import build
 from .reference import int_matmul, unpack_rows_ref
 
-__all__ = ["can_use_fused", "fused_gemm", "fused_matmul_plain", "int_path"]
+__all__ = ["IntPlan", "can_use_fused", "fused_gemm", "fused_matmul_plain", "int_path", "int_plan"]
 
 BK = 32                   # the kernel's K step
 _FLOAT_INPUTS = (DType.FP16.value, DType.BF16.value, DType.FP32.value)
@@ -125,20 +127,66 @@ def fused_matmul_plain(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
     return _epilogue(acc, scales, scales_x, meta)
 
 
-_INT_TILE, _INT_BK = 128, 64   # the int path's output tile and K step
+INT_TILE = 128            # the int path's output tile, 128 x 128
+INT_BK = 128              # its K step
+SMS = 132                 # H100 SXM streaming multiprocessors
+FILL = 3 * SMS // 4       # below this many tiles the int path splits K
 
 
-def int_splits(M: int, N: int, K: int):
-    """(splits, k_per_split) of the int path: K split so that the grid holds
-    about two blocks per SM; integer sums make the result the same at any
-    split."""
-    return build.split_k(-(-M // _INT_TILE) * -(-N // _INT_TILE), K, _INT_BK)
+class IntPlan(NamedTuple):
+    """The int path's grid for one call: ``tiles_m`` x ``tiles_n`` output
+    tiles of 128 x 128, each summed over ``splits`` K ranges of
+    ``k_per_split`` (the last may be shorter), all in ``launches`` kernel
+    launches. A split call adds its partial sums into ``acc_bytes`` of int32
+    accumulator, which the call leaves zero for the next."""
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    k_per_split: int
+    launches: int
+    acc_bytes: int
+
+
+def int_plan(M: int, N: int, K: int) -> IntPlan:
+    """Tiles and split of the int path, from M, N and K alone. With at least
+    ``FILL`` tiles each block streams its whole K range; with fewer, K is
+    cut in whole K steps so that about one block runs per SM: every split
+    adds its sums into the tile's accumulator, and the last to finish applies
+    the epilogue, in the same launch.
+    Integer sums are exact in any order, so the output bits never depend on
+    the plan."""
+    tm, tn = -(-M // INT_TILE), -(-N // INT_TILE)
+    tiles, units = tm * tn, -(-K // INT_BK)
+    splits = 1 if tiles >= FILL else max(1, min(units, SMS // tiles))
+    per = -(-units // splits)
+    splits = -(-units // per)
+    if splits == 1:
+        return IntPlan(tm, tn, 1, K, 1, 0)
+    return IntPlan(tm, tn, splits, per * INT_BK, 1, 4 * tiles * INT_TILE * INT_TILE)
+
+
+_SPLIT_STATE = {}
+
+
+def _split_state(device: torch.device, tiles: int):
+    """(accumulator, counters) of the split int path: int32 tiles of 128 x
+    128 and one arrival counter per output tile, zeroed once per device and
+    stream and grown on demand; every call leaves both 0, so a call writes
+    no scratch of its own."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    state = _SPLIT_STATE.get(key)
+    if state is None or state[1].numel() < tiles:
+        n = max(tiles, FILL)
+        state = (torch.zeros(n * INT_TILE * INT_TILE, dtype=torch.int32, device=device),
+                 torch.zeros(n, dtype=torch.int32, device=device))
+        _SPLIT_STATE[key] = state
+    return state
 
 
 def _lib():
     fn = build.load("fused_gemm").gl_fused_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -188,18 +236,20 @@ def fused_gemm(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Ten
     gs_z = K // (z.numel() // N) if z is not None else K
     out = torch.empty((M, N), dtype=to_torch_dtype(meta.output_dtype), device=x.device)
     ip = int_path(meta)
-    splits, k_per_split = int_splits(M, N, K) if ip else (1, K)
-    acc = torch.empty((M, N), dtype=torch.int32, device=x.device) if splits > 1 else None
+    plan = int_plan(M, N, K) if ip else IntPlan(0, 0, 1, K, 1, 0)
+    ws = cnt = None
+    if plan.splits > 1:
+        ws, cnt = _split_state(x.device, plan.tiles_m * plan.tiles_n)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _lib()(ptr(x), ptr(W_q), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(out), ptr(acc),
+    err = _lib()(ptr(x), ptr(W_q), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(out), ptr(ws), ptr(cnt),
                  M, N, K, meta.input_dtype, int(ip), meta.W_nbits, e,
                  _W_DTYPES[W_q.dtype], mode, csm, gs_s, gs_z,
                  _META_DTYPES[s.dtype] if s is not None else 0,
                  _META_DTYPES[z.dtype] if z is not None else 0, meta.output_dtype,
-                 splits, k_per_split, torch.cuda.current_stream().cuda_stream)
+                 plan.splits, plan.k_per_split, torch.cuda.current_stream().cuda_stream)
     build.check(err, "fused_gemm")
     fused_gemm.launches += 1
     return out

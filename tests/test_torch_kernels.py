@@ -11,6 +11,8 @@ version's float32 result, the JAX kernel tests' bound; the int8 decode kernel
 and the general fused kernel's int path equal their plain versions bit for bit.
 """
 
+from types import SimpleNamespace
+
 import pytest
 import torch
 
@@ -21,7 +23,8 @@ from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynami
 from gemlite_tpu_torch.ops import attention, dispatch
 from gemlite_tpu_torch.ops.decode import decode_matmul
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
-from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path
+from gemlite_tpu_torch.ops import fused
+from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path, int_plan
 from gemlite_tpu_torch.ops.int8_decode import int8_decode, int8_decode_plain
 from gemlite_tpu_torch.ops.prefill import prefill_matmul
 from gemlite_tpu_torch.ops.reference import forward_meta
@@ -255,19 +258,74 @@ def test_int8_decode_rows_do_not_depend_on_batch(gen):
     assert torch.equal(int8_decode(x[:1], *args, sx[:1], layer.meta)[0], full[0])
 
 
-@pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (4096, 1024), (256, 96)])
-@pytest.mark.parametrize("M", [1, 65, 128, 200, 1000])
-@pytest.mark.parametrize("name", ["i8_dense", "w2_bitnet_cw", "w4_cw_mode0"])
+INT_PATH_FORMS = ("i8_dense", "w2_bitnet_cw", "w4_cw_mode0", "w1_cw_mode0", "f16_whole",
+                  "bf16_whole")
+# the int path's plan edges (ops/fused.int_plan): 112 tiles and no split
+# (14336 x 4096), 16 splits (1024 x 4096), a K that is no multiple of the
+# 128-deep step, split into ranges whose last is short (352 = 2 x 128 + 96),
+# M = 4095 (32 row tiles), and N that leaves the weight rows 4-byte or
+# 1-byte aligned (200, 101)
+INT_PATH_CASES = ([(M, N, K) for N, K in ((256, 512), (200, 256), (4096, 1024), (256, 96))
+                   for M in (1, 65, 128, 200, 1000)]
+                  + [(128, 14336, 4096), (128, 1024, 4096), (65, 4096, 352), (300, 200, 4064),
+                     (4095, 1024, 4096), (70, 101, 256)])
+
+
+def _int_path_layer(gen, name, N, K):
+    """_int8_layer, plus W1 codes without a zero and non-packed fp16 / bf16
+    weights holding whole values (int8 x, int32 sums)."""
+    if name == "w1_cw_mode0":
+        codes = torch.randint(0, 2, (N, K), generator=gen, device="cuda").to(torch.uint8)
+        scales = torch.rand((N, 1), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
+        return GemLiteLinear(1, None, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+                             device="cuda").pack(codes, scales, None)
+    if name in ("f16_whole", "bf16_whole"):
+        layer = _int8_layer(gen, "i8_dense", N, K)
+        dtype = torch.float16 if name == "f16_whole" else torch.bfloat16
+        return SimpleNamespace(W_q=layer.W_q.to(dtype), scales=layer.scales, zeros=layer.zeros,
+                               meta=layer.meta._replace(W_nbits=16))
+    return _int8_layer(gen, name, N, K)
+
+
+@pytest.mark.parametrize("M,N,K", INT_PATH_CASES)
+@pytest.mark.parametrize("name", INT_PATH_FORMS)
 def test_fused_kernel_int_path_is_bit_exact(gen, name, M, N, K):
-    """Non-packed int8, and packed codes with and without the scalar-zero
-    shift; ragged N, and K not a multiple of the kernel's K step."""
-    layer = _int8_layer(gen, name, N, K)
+    """Non-packed int8, fp16 and bf16 weights, and packed W1/W2/W4 codes with
+    and without the scalar-zero shift; ragged M, N and K, and every kind of
+    plan: one launch whatever the split."""
+    layer = _int_path_layer(gen, name, N, K)
     assert int_path(layer.meta)
     x, sx = _xq(gen, M, K)
     args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
     got = fused_gemm(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, fused_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("M,N,K", [(128, 14336, 4096), (1024, 4096, 4096), (128, 1024, 4096),
+                                   (128, 4096, 14336)])
+def test_fused_kernel_int_path_launches_as_planned(gen, M, N, K):
+    """One call: the planned launches (one kernel, no memset, no second
+    pass), no allocation but the output, and the split accumulator and
+    arrival counters left at 0."""
+    from torch.profiler import ProfilerActivity, profile
+    layer = _int8_layer(gen, "i8_dense", N, K)
+    x, sx = _xq(gen, M, K)
+    args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    plan = int_plan(M, N, K)
+    want = fused_gemm(*args)                              # builds, allocates the split state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = fused_gemm(*args)
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == plan.launches == 1, device_ops
+    assert allocs == 1                                    # the output alone
+    assert torch.equal(got, want)
+    for state in fused._SPLIT_STATE.values():
+        assert all(int(t.abs().sum()) == 0 for t in state)
 
 
 def _float_layer(gen, name, N, K):
