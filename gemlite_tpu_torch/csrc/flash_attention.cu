@@ -1,224 +1,696 @@
 // SPDX-License-Identifier: Apache-2.0
-// Causal flash attention for a prefill from cache offset 0:
+// Causal flash attention for a prefill from cache offset 0, for Hopper:
 //   out = softmax(q kᵀ / √D, causal) v
-// q (B, S, Hq, D), k/v (B, S, Hkv, D), out (B, S, Hq, D), all bf16; D = 64 or 128.
+// q (B, S, Hq, D), k/v (B, S, Hkv, D), out (B, S, Hq, D), all bf16; D = 64 or
+// 128, S % 64 == 0; GQA reads kv head = q head / (Hq / Hkv), copying nothing.
 //
 // Replaces the jax-shipped Pallas TPU kernel `flash_attention`
 // (jax.experimental.pallas.ops.tpu.flash_attention), which the JAX package
 // borrows at gemlite_tpu/models/llama.py:_attention_flash_causal.
 //
-// What bounds it: each k/v row staged in shared memory feeds the 64 query
-// rows of the block, so at S >= 256 the causal products, 2·B·Hq·S²·D flops,
-// over the bf16 tensor-core rate bound it, not the bytes of q, k, v and out.
+// What bounds it: operations. Each k/v tile staged in shared memory feeds 128
+// query rows, so from S = 256 on the causal products, 2·B·Hq·S²·D flops over
+// the bf16 tensor-core rate, outweigh the bytes of q, k, v and out. Beside
+// the products each score takes one exp2 on the special-function units: at
+// D 128 that is one exp2 per 512 tensor-core flops, about half the products'
+// time unless the two overlap.
+//
 // Design:
-//   * one block per (64-row query tile, q head, batch row), four warps of 16
-//     query rows; the heaviest tiles (those nearest the end of the sequence)
-//     are launched first;
-//   * GQA: the block reads the k/v rows of kv head = q head / (Hq / Hkv);
-//     nothing is copied per q head;
-//   * the block walks 64-row key/value tiles in order, from key 0 to its
-//     diagonal tile, and masks only the diagonal tile;
-//   * Q Kᵀ and P V run on mma.sync m16n8k16 bf16 tensor cores with float32
-//     accumulators; each warp keeps its query fragments in registers, and the
-//     score fragment becomes the A operand of P V in registers, so scores
-//     never touch shared or device memory;
-//   * P is split into a bf16 high part and a bf16 low part (P - hi), and
-//     P V takes one product of each: P keeps about 16 bits. With P rounded
-//     once to bf16, the near-uniform softmax of a model's first layer came
-//     out 5.5e-3 (mean relative) from the float32 path after one block;
-//   * online softmax in float32, a running max and sum per row; the float32
-//     scores are scaled by 1/√D (folded with log2(e) for exp2);
-//   * each query tile belongs to one block and sums its key tiles in a fixed
-//     order, so the result is deterministic.
-// Left for later: wgmma, TMA and a cp.async double buffer; V is transposed
-// into shared memory with 2-byte stores instead of ldmatrix.trans.
+//   * one block per (128-row query tile, q head, batch row), the heaviest
+//     tiles (nearest the end of the sequence) launched first; each query tile
+//     belongs to one block and sums its key tiles in a fixed order, so the
+//     result is deterministic;
+//   * 384 threads: two consumer warpgroups of 64 query rows each and one
+//     producer warpgroup; setmaxnreg moves registers from the producer to
+//     the consumers;
+//   * the producer's one elected thread loads the query tile once and then
+//     128-row K and V tiles into a three-stage ring in dynamic shared memory
+//     (224 KB at D 128; faster than two stages on an H100, PERF.md §6), all
+//     with TMA: cp.async.bulk.tensor over 4-d maps (D, H, S, B),
+//     so the zero fill of a ragged last tile stays inside its batch row, each
+//     box 128 rows of 64 bf16 in the 128-byte swizzle; per stage a full
+//     mbarrier for K, one for V, and an empty one;
+//   * S = Q Kᵀ is wgmma m64n128k16 with Q and K both read from shared memory,
+//     K-major as stored; O += P V is wgmma with A from registers: the float32
+//     S accumulator fragment becomes the bf16 A fragment in place, and V is
+//     read as stored, MN-major, through the B descriptor's transpose bit, so
+//     nothing transposes V;
+//   * P enters P V as two bf16 parts, hi = P rounded and lo = what that
+//     rounding left (two register-A products over the same V), so P keeps
+//     about 16 bits. Rounded once to bf16, even with each row's sum taken
+//     over the rounded values, P came out about 2e-3 (mean relative) from
+//     the float32 attention, against 1.4e-3 with the split (the output's own
+//     bf16 rounding), but block 0 of the serve check's cached-prefix chunk
+//     then sat at 6.1e-3 against its 5e-3 gate (3.5e-3 with the split); what
+//     the split costs: PERF.md §6;
+//   * online softmax in float32 on exp2 of scores scaled by log2(e)/√D, row
+//     max and sum over four independent chains; only the diagonal tile is
+//     masked;
+//   * each warpgroup issues tile kt's Q Kᵀ together with tile kt - 1's P V,
+//     and runs tile kt's softmax while P V is still on the tensor cores; the
+//     two warpgroups, unsynchronised, fill each other's gaps (making them take
+//     turns through named barriers gained nothing on an H100, PERF.md §6);
+//   * every wgmma operand register is pinned before wgmma.fence and after
+//     wgmma.wait, and the warpgroup index is warp-uniform: otherwise ptxas
+//     serializes the wgmmas.
+// Left for later: head dim 256, a persistent grid, fp8.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kTile = 64;              // query rows per block, key rows per tile
-constexpr int kWarps = kTile / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;                // bf16 padding per shared-memory row
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBM = 128;                        // query rows per block
+constexpr int kBN = 128;                        // key rows per tile
+constexpr int kBoxCols = 64;                    // bf16 per box row: one 128-byte swizzle row
+constexpr int kBoxBytes = kBN * kBoxCols * 2;   // one TMA box, 16 KB
+constexpr int kStages = 3;
+constexpr int kConsumers = 256;                 // two warpgroups of 64 query rows
+constexpr int kThreads = kConsumers + 128;      // and one producer warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// Dynamic shared memory, from a 1024-byte aligned base: Q, the K ring, the V
+// ring, then the mbarriers.
+template <int D>
+struct Smem {
+    static constexpr int tile = D / kBoxCols * kBoxBytes;
+    static constexpr int q = 0, k = tile, v = k + kStages * tile, bar = v + kStages * tile;
+    static constexpr int bytes = bar + 8 * (1 + 3 * kStages) + 1024;   // slack to align the base
+};
+// mbarriers: the query tile landed; per stage, its K tile landed, its V tile
+// landed, and both consumer warpgroups are done with the stage
+enum Bar { kQFull = 0, kKFull = 1, kVFull = 1 + kStages, kEmpty = 1 + 2 * kStages };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// one box of a 4-d tensor map at element coordinates (c0 .. c3) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3) : "memory");
+}
+
+// the (D / 64) boxes of 128 rows from row `row` of head `h`, batch row `b`
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int h, int row, int b) {
+#pragma unroll
+    for (int j = 0; j < D / kBoxCols; ++j)
+        tma_load(dst + j * kBoxBytes, map, bar, j * kBoxCols, h, row, b);
+}
+
+// wgmma shared-memory descriptor in the 128-byte swizzle: start address,
+// leading and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16 |
+           static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: the compiler may
+// neither move their uses across a wgmma fence or wait nor reuse them between.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128) += A (64 x 16, shared, K-major) * B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+          "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// (a, b) as a bf16 pair `hi` and the pair of what rounding left over, `lo`
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 r = __bfloat1622float2(h);
-    __nv_bfloat162 l = __floats2bfloat162_rn(a - r.x, b - r.y);
-    hi = *reinterpret_cast<uint32_t*>(&h);
-    lo = *reinterpret_cast<uint32_t*>(&l);
+// S (this warpgroup's 64 rows x 128 keys) = Q Kᵀ, D / 16 k-steps: box kk / 4,
+// 32 bytes into each 128-byte swizzle row per step
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, uint64_t dk) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
+        wgmma_ss_n128(s, dq + off, dk + off, kk);
+    }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
+// O += P V over the tile's 128 keys, P one bf16 part (hi or lo); V MN-major,
+// 16 key rows of 128 bytes per k-step
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[kBN / 16][4],
+                                         uint64_t dv) {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t d = dv + ((kk * 16 * kBoxCols * 2) >> 4);
+        if constexpr (D == 128)
+            wgmma_rs_n128(o, p[kk], d, 1);
+        else
+            wgmma_rs_n64(o, p[kk], d, 1);
+    }
 }
 
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, float32 out
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Online softmax of one key tile for this thread's two rows, `rel` and
+// rel + 8 within the query tile (the accumulator fragment: element 4j + e
+// holds row rel + 8 (e / 2), key 8j + 2t + e % 2). Masks the diagonal tile,
+// updates the running max m and sum l, returns O's rescale factors in alpha
+// and leaves the probabilities P in s.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool diag, int rel, int t,
+                                             float sl2) {
+    if (diag) {
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (j * 8 + t * 2 + (e & 1) > rel + (e >> 1) * 8) s[4 * j + e] = -INFINITY;
+    }
+    // four independent chains per row: the row's 32 values in 8 dependent steps
+    float part[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        part[e >> 1][e & 1] = s[e];
+        part[e >> 1][2 + (e & 1)] = s[4 + e];
+    }
+#pragma unroll
+    for (int j = 2; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            part[e >> 1][(j & 1) * 2 + (e & 1)] = fmaxf(part[e >> 1][(j & 1) * 2 + (e & 1)],
+                                                        s[4 * j + e]);
+    float mx[2], ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {      // the four threads of a row share its max
+        mx[r] = fmaxf(fmaxf(fmaxf(part[r][0], part[r][1]), fmaxf(part[r][2], part[r][3])), m[r]);
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = ex2((m[r] - mx[r]) * sl2);
+        m[r] = mx[r];
+        ms[r] = mx[r] * sl2;
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+            s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, -ms[e >> 1]));
+            s[4 * j + e + 1] = ex2(fmaf(s[4 * j + e + 1], sl2, -ms[e >> 1]));
+        }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        part[e >> 1][e & 1] = s[e];
+        part[e >> 1][2 + (e & 1)] = s[4 + e];
+    }
+#pragma unroll
+    for (int j = 2; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[e >> 1][(j & 1) * 2 + (e & 1)] += s[4 * j + e];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+        l[r] = l[r] * alpha[r] + ((part[r][0] + part[r][1]) + (part[r][2] + part[r][3]));
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+    }
+}
+
+// P's accumulator fragment as the bf16 A fragments of P V, one per 16 keys:
+// key pairs 16kk + 2t (rows rel, rel + 8), then 16kk + 8 + 2t, as they lie;
+// hi is P rounded to bf16, lo what that rounding left, rounded to bf16.
+__device__ __forceinline__ void to_frag(const float (&s)[64], uint32_t (&hi)[kBN / 16][4],
+                                        uint32_t (&lo)[kBN / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float a = s[8 * kk + 2 * i], b = s[8 * kk + 2 * i + 1];
+            hi[kk][i] = pack_bf16(a, b);
+            lo[kk][i] = pack_bf16(a - __uint_as_float(hi[kk][i] << 16),
+                                  b - __uint_as_float(hi[kk][i] & 0xffff0000u));
+        }
+}
+
+// this thread's warpgroup, as a value the compiler knows to be warp-uniform
+// (a wgmma or setmaxnreg under a branch it cannot prove uniform is serialized
+// or ignored)
+__device__ __forceinline__ int warpgroup() {
+    return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+}
+
+__device__ __forceinline__ uint32_t bar_addr(uint32_t bars, int i) { return bars + 8 * i; }
+
+__device__ __forceinline__ uint32_t smem_base(uint8_t* raw) {
+    return (smem_addr(raw) + 1023) & ~1023u;
+}
+
+__device__ __forceinline__ void init_barriers(uint32_t bars) {
+    mbar_init(bar_addr(bars, kQFull), 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+        mbar_init(bar_addr(bars, kKFull + s), 1);
+        mbar_init(bar_addr(bars, kVFull + s), 1);
+        mbar_init(bar_addr(bars, kEmpty + s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The consumer warpgroups' side of flash_attn_fwd_kernel: 64 query rows each.
+// Per key tile kt, Q Kᵀ of tile kt and P V of tile kt - 1 are issued together;
+// the softmax of tile kt runs while P V is still on the tensor cores.
+template <int D>
+__device__ __forceinline__ void consume(uint32_t base, uint32_t bars, int wg, int qt, int S,
+                                        int Hq, int h, int b, __nv_bfloat16* __restrict__ out) {
+    using L = Smem<D>;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int n_kt = qt + 1;
+    const int lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int rel = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;   // row in the query tile
+    const float sl2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+    const uint64_t dq = sw128_desc(base + L::q + wg * 64 * kBoxCols * 2, 16, 1024);
+    auto dk = [&](int kt) { return sw128_desc(base + L::k + kt % kStages * L::tile, 16, 1024); };
+    auto dv = [&](int kt) {
+        return sw128_desc(base + L::v + kt % kStages * L::tile, kBoxBytes, 1024);
+    };
+    auto full = [&](int which, int kt) {
+        mbar_wait(bar_addr(bars, which + kt % kStages), (kt / kStages) & 1);
+    };
+    float o[D / 2], s[64], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    uint32_t hi[kBN / 16][4], lo[kBN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    mbar_wait(bar_addr(bars, kQFull), 0);
+
+    full(kKFull, 0);                              // tile 0: Q Kᵀ alone
+    pin(s);
+    wgmma_fence();
+    issue_qk<D>(s, dq, dk(0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    softmax_tile(s, m, l, alpha, qt == 0, rel, t, sl2);
+    to_frag(s, hi, lo);
+    for (int kt = 1; kt < n_kt; ++kt) {
+        full(kKFull, kt);
+        full(kVFull, kt - 1);
+        pin(s);
+        pin(o);
+        pin(hi);
+        pin(lo);
+        wgmma_fence();
+        issue_qk<D>(s, dq, dk(kt));
+        wgmma_commit();
+        issue_pv<D>(o, hi, dv(kt - 1));
+        issue_pv<D>(o, lo, dv(kt - 1));
+        wgmma_commit();
+        wgmma_wait<1>();                          // Q Kᵀ done, P V may still run
+        pin(s);
+        softmax_tile(s, m, l, alpha, kt == qt, rel, t, sl2);
+        wgmma_wait<0>();
+        pin(o);
+        pin(hi);
+        pin(lo);
+        mbar_arrive(bar_addr(bars, kEmpty + (kt - 1) % kStages));
+        rescale(o, alpha);
+        to_frag(s, hi, lo);
+    }
+    full(kVFull, n_kt - 1);                       // P V of the diagonal tile
+    pin(o);
+    pin(hi);
+    pin(lo);
+    wgmma_fence();
+    issue_pv<D>(o, hi, dv(n_kt - 1));
+    issue_pv<D>(o, lo, dv(n_kt - 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+    pin(hi);
+    pin(lo);
+    mbar_arrive(bar_addr(bars, kEmpty + (n_kt - 1) % kStages));
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+    const int row0 = qt * kBM + rel, row1 = row0 + 8;
+    const size_t stride = static_cast<size_t>(Hq) * D;
+    __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * stride + static_cast<size_t>(h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+        const int c = j * 8 + t * 2;
+        if (row0 < S)
+            *reinterpret_cast<uint32_t*>(ob + row0 * stride + c) =
+                pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+        if (row1 < S)
+            *reinterpret_cast<uint32_t*>(ob + row1 * stride + c) =
+                pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                       int S, int Hq, int Hkv) {
-    constexpr int KS = D / 16;   // k-steps of Q Kᵀ
-    constexpr int DN = D / 8;    // n-tiles of P V
-    constexpr int C8 = D / 8;    // 16-byte chunks of a row
-    __shared__ __align__(16) __nv_bfloat16 Ks[kTile][D + kPad];
-    __shared__ __align__(16) __nv_bfloat16 Vt[D][kTile + kPad];
-
-    const int qt = gridDim.x - 1 - blockIdx.x;
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int kvh = h / (Hq / Hkv);
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int g = lane / 4, t4 = lane % 4;
-    const int q0 = qt * kTile, wr = warp * 16;
-    const size_t q_row = (size_t)Hq * D, kv_row = (size_t)Hkv * D;
-    const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-    const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-    const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-
-    // the query tile goes through Ks once; each warp keeps its A fragments
-    for (int i = tid; i < kTile * C8; i += kThreads) {
-        const int r = i / C8, c = (i % C8) * 8;
-        *reinterpret_cast<uint4*>(&Ks[r][c]) =
-            *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * q_row + c);
-    }
+    using L = Smem<D>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = smem_base(smem_raw), bars = base + L::bar;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int qt = gridDim.z - 1 - blockIdx.z;    // heaviest query tiles first
+    const int n_kt = qt + 1;                      // key tiles 0 .. qt, the last the diagonal
+    if (threadIdx.x == 0) init_barriers(bars);
     __syncthreads();
-    uint32_t qa[KS][4];
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-        const int c = kk * 16 + t4 * 2;
-        qa[kk][0] = ld32(&Ks[wr + g][c]);
-        qa[kk][1] = ld32(&Ks[wr + g + 8][c]);
-        qa[kk][2] = ld32(&Ks[wr + g][c + 8]);
-        qa[kk][3] = ld32(&Ks[wr + g + 8][c + 8]);
+    const int wg = warpgroup();
+
+    if (wg == 2) {                                // the producer warpgroup
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+        if (threadIdx.x == kConsumers) {
+            const int kvh = h / (Hq / Hkv);
+            mbar_expect_tx(bar_addr(bars, kQFull), L::tile);
+            tma_tile<D>(base + L::q, &tq, bar_addr(bars, kQFull), h, qt * kBM, b);
+            for (int kt = 0; kt < n_kt; ++kt) {
+                const int st = kt % kStages;
+                if (kt >= kStages)                // the stage's previous tiles released
+                    mbar_wait(bar_addr(bars, kEmpty + st), ((kt / kStages) & 1) ^ 1);
+                mbar_expect_tx(bar_addr(bars, kKFull + st), L::tile);
+                tma_tile<D>(base + L::k + st * L::tile, &tk, bar_addr(bars, kKFull + st), kvh,
+                            kt * kBN, b);
+                mbar_expect_tx(bar_addr(bars, kVFull + st), L::tile);
+                tma_tile<D>(base + L::v + st * L::tile, &tv, bar_addr(bars, kVFull + st), kvh,
+                            kt * kBN, b);
+            }
+        }
+    } else {
+        consume<D>(base, bars, wg, qt, S, Hq, h, b, out);
     }
+}
+
+// Test entries: each product alone on one tile, through the same loads,
+// descriptors and fragments. S = Q Kᵀ of q, k (128, D); O = P V of p (128,
+// 128) float32, split into bf16 hi and lo parts as in the kernel, and v (128,
+// D); both float32 row-major.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_qk_tile_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk, float* __restrict__ s_out) {
+    using L = Smem<D>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = smem_base(smem_raw), bars = base + L::bar;
+    if (threadIdx.x == 0) init_barriers(bars);
     __syncthreads();
-
-    float o[DN][4];
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-    const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-    const int row0 = q0 + wr + g, row1 = row0 + 8;     // this thread's two query rows
-
-    for (int kt = 0; kt <= qt; ++kt) {
-        const int k0 = kt * kTile;
-        // K rows as they are; V transposed (Vt[d][key]) for the B operand of P V
-        for (int i = tid; i < kTile * C8; i += kThreads) {
-            const int r = i / C8, c = (i % C8) * 8;
-            *reinterpret_cast<uint4*>(&Ks[r][c]) =
-                *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kv_row + c);
+    const int wg = warpgroup();
+    if (wg == 2) {
+        if (threadIdx.x == kConsumers) {
+            mbar_expect_tx(bar_addr(bars, kQFull), L::tile);
+            tma_tile<D>(base + L::q, &tq, bar_addr(bars, kQFull), 0, 0, 0);
+            mbar_expect_tx(bar_addr(bars, kKFull), L::tile);
+            tma_tile<D>(base + L::k, &tk, bar_addr(bars, kKFull), 0, 0, 0);
         }
-        for (int i = tid; i < kTile * C8; i += kThreads) {
-            const int r = i % kTile, c = (i / kTile) * 8;
-            const uint4 w = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kv_row + c);
-            const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) Vt[c + j][r] = e[j];
-        }
-        __syncthreads();
-
-        // S = Q Kᵀ: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
-        float s[8][4];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-            s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < KS; ++kk) {
-                const int c = kk * 16 + t4 * 2;
-                mma_bf16(s[nt], qa[kk], ld32(&Ks[nt * 8 + g][c]), ld32(&Ks[nt * 8 + g][c + 8]));
-            }
-        }
-        // scale in float32 (log2 domain), mask the diagonal tile, row max
-        float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                float x = s[nt][e] * scale_log2;
-                if (kt == qt && k0 + nt * 8 + t4 * 2 + (e & 1) > (e < 2 ? row0 : row1))
-                    x = -INFINITY;
-                s[nt][e] = x;
-                mx[e >> 1] = fmaxf(mx[e >> 1], x);
-            }
-        }
-        float alpha[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {      // the four threads of a row share its max
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-            mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-            alpha[i] = exp2f(m_run[i] - mx[i]);
-            m_run[i] = mx[i];
-            l_run[i] *= alpha[i];
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[nt][e] = exp2f(s[nt][e] - m_run[e >> 1]);
-                l_run[e >> 1] += s[nt][e];
-            }
-        }
-#pragma unroll
-        for (int dn = 0; dn < DN; ++dn) {
-            o[dn][0] *= alpha[0];
-            o[dn][1] *= alpha[0];
-            o[dn][2] *= alpha[1];
-            o[dn][3] *= alpha[1];
-        }
-        // O += P V, P's accumulator fragments reused as A fragments (hi and lo)
-#pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-            uint32_t hi[4], lo[4];
-            split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-            split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-            split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-            split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
-            const int c = kk * 16 + t4 * 2;
-#pragma unroll
-            for (int dn = 0; dn < DN; ++dn) {
-                const uint32_t b0 = ld32(&Vt[dn * 8 + g][c]), b1 = ld32(&Vt[dn * 8 + g][c + 8]);
-                mma_bf16(o[dn], hi, b0, b1);
-                mma_bf16(o[dn], lo, b0, b1);
-            }
-        }
-        __syncthreads();
+        return;
     }
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int rel = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+    mbar_wait(bar_addr(bars, kQFull), 0);
+    mbar_wait(bar_addr(bars, kKFull), 0);
+    float s[64];
+    pin(s);
+    wgmma_fence();
+    issue_qk<D>(s, sw128_desc(base + L::q + wg * 64 * kBoxCols * 2, 16, 1024),
+                sw128_desc(base + L::k, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            s_out[(rel + (e >> 1) * 8) * kBN + j * 8 + t * 2 + (e & 1)] = s[4 * j + e];
+}
 
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        l_run[i] += __shfl_xor_sync(kFull, l_run[i], 1);
-        l_run[i] += __shfl_xor_sync(kFull, l_run[i], 2);
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_pv_tile_kernel(const __grid_constant__ CUtensorMap tv, const float* __restrict__ p,
+                     float* __restrict__ o_out) {
+    using L = Smem<D>;
+    extern __shared__ uint8_t smem_raw[];
+    const uint32_t base = smem_base(smem_raw), bars = base + L::bar;
+    if (threadIdx.x == 0) init_barriers(bars);
+    __syncthreads();
+    const int wg = warpgroup();
+    if (wg == 2) {
+        if (threadIdx.x == kConsumers) {
+            mbar_expect_tx(bar_addr(bars, kVFull), L::tile);
+            tma_tile<D>(base + L::v, &tv, bar_addr(bars, kVFull), 0, 0, 0);
+        }
+        return;
     }
-    const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-    __nv_bfloat16* ob = out + (size_t)b * S * q_row + (size_t)h * D;
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int rel = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+    float s[64], o[D / 2];
+    uint32_t hi[kBN / 16][4], lo[kBN / 16][4];
 #pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-        const int c = dn * 8 + t4 * 2;
-        *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * q_row + c) =
-            pack_bf16(o[dn][0] * inv0, o[dn][1] * inv0);
-        *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * q_row + c) =
-            pack_bf16(o[dn][2] * inv1, o[dn][3] * inv1);
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            s[4 * j + e] = p[(rel + (e >> 1) * 8) * kBN + j * 8 + t * 2 + (e & 1)];
+    to_frag(s, hi, lo);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    mbar_wait(bar_addr(bars, kVFull), 0);
+    pin(o);
+    pin(hi);
+    pin(lo);
+    wgmma_fence();
+    issue_pv<D>(o, hi, sw128_desc(base + L::v, kBoxBytes, 1024));
+    issue_pv<D>(o, lo, sw128_desc(base + L::v, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+    pin(hi);
+    pin(lo);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            o_out[(rel + (e >> 1) * 8) * D + j * 8 + t * 2 + (e & 1)] = o[4 * j + e];
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime: the build
+// links no libcuda
+EncodeTiled encode_tiled() {
+    static std::atomic<EncodeTiled> fn{nullptr};
+    EncodeTiled f = fn.load();
+    if (f == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+                cudaSuccess ||
+            found != cudaDriverEntryPointSuccess || p == nullptr)
+            return nullptr;
+        f = reinterpret_cast<EncodeTiled>(p);
+        fn.store(f);
     }
+    return f;
+}
+
+// 4-d map over a contiguous (B, S, H, D) bf16 tensor, dims innermost first
+// (D, H, S, B); a box is 64 columns of one head over 128 rows of one batch
+// row, in the 128-byte swizzle; rows past S read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t e = 2;
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {dims[0] * e, dims[1] * dims[0] * e,
+                                   dims[2] * dims[1] * dims[0] * e};
+    const cuuint32_t box[4] = {kBoxCols, 1, kBN, 1}, unit[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                  strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the dynamic shared memory of a kernel, set once per device
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, std::atomic<unsigned>& ready) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && !(ready.load() & (1u << dev))) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (err == cudaSuccess) ready.fetch_or(1u << dev);
+    }
+    return err;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
+                   int Hkv, cudaStream_t stream) {
+    static std::atomic<unsigned> ready{0};
+    CUtensorMap mq, mk, mv;
+    if (!make_map(&mq, q, D, Hq, S, B) || !make_map(&mk, k, D, Hkv, S, B) ||
+        !make_map(&mv, v, D, Hkv, S, B))
+        return cudaErrorInvalidValue;
+    const cudaError_t err = allow_smem(flash_attn_fwd_kernel<D>, Smem<D>::bytes, ready);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(Hq, B, (S + kBM - 1) / kBM);
+    flash_attn_fwd_kernel<D><<<grid, kThreads, Smem<D>::bytes, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, Hq, Hkv);
+    return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tile_test(const void* a, const void* b, void* out, bool qk,
+                             cudaStream_t stream) {
+    static std::atomic<unsigned> ready_qk{0}, ready_pv{0};
+    CUtensorMap ma, mb;
+    if (qk) {
+        if (!make_map(&ma, a, D, 1, kBN, 1) || !make_map(&mb, b, D, 1, kBN, 1))
+            return cudaErrorInvalidValue;
+        const cudaError_t err = allow_smem(flash_qk_tile_kernel<D>, Smem<D>::bytes, ready_qk);
+        if (err != cudaSuccess) return err;
+        flash_qk_tile_kernel<D><<<1, kThreads, Smem<D>::bytes, stream>>>(
+            ma, mb, static_cast<float*>(out));
+    } else {
+        if (!make_map(&mb, b, D, 1, kBN, 1)) return cudaErrorInvalidValue;
+        const cudaError_t err = allow_smem(flash_pv_tile_kernel<D>, Smem<D>::bytes, ready_pv);
+        if (err != cudaSuccess) return err;
+        flash_pv_tile_kernel<D><<<1, kThreads, Smem<D>::bytes, stream>>>(
+            mb, static_cast<const float*>(a), static_cast<float*>(out));
+    }
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -227,17 +699,25 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 // aligned contiguous tensors. Returns the cudaError_t.
 extern "C" int gl_flash_attention(const void* q, const void* k, const void* v, void* out,
                                   int B, int S, int Hq, int Hkv, int D, void* stream_ptr) {
-    const dim3 grid(S / kTile, Hq, B);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const auto* qp = static_cast<const __nv_bfloat16*>(q);
-    const auto* kp = static_cast<const __nv_bfloat16*>(k);
-    const auto* vp = static_cast<const __nv_bfloat16*>(v);
-    auto* op = static_cast<__nv_bfloat16*>(out);
-    if (D == 64)
-        flash_attn_fwd_kernel<64><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, S, Hq, Hkv);
-    else if (D == 128)
-        flash_attn_fwd_kernel<128><<<grid, kThreads, 0, stream>>>(qp, kp, vp, op, S, Hq, Hkv);
-    else
-        return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(cudaGetLastError());
+    if (S <= 0 || S % 64 || Hkv <= 0 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+    if (D == 64) return static_cast<int>(launch<64>(q, k, v, out, B, S, Hq, Hkv, stream));
+    if (D == 128) return static_cast<int>(launch<128>(q, k, v, out, B, S, Hq, Hkv, stream));
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Test entries on one tile: s (128, 128) = q kᵀ for q, k (128, D) bf16;
+// o (128, D) = p v for p (128, 128) float32 and v (128, D) bf16.
+extern "C" int gl_flash_qk_tile(const void* q, const void* k, void* s, int D, void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    if (D == 64) return static_cast<int>(launch_tile_test<64>(q, k, s, true, stream));
+    if (D == 128) return static_cast<int>(launch_tile_test<128>(q, k, s, true, stream));
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int gl_flash_pv_tile(const void* p, const void* v, void* o, int D, void* stream_ptr) {
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    if (D == 64) return static_cast<int>(launch_tile_test<64>(p, v, o, false, stream));
+    if (D == 128) return static_cast<int>(launch_tile_test<128>(p, v, o, false, stream));
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -384,14 +384,38 @@ def _attn_in(gen, shape):
 
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("B,S,Hq,Hkv", [(1, 256, 4, 2), (1, 1024, 4, 1), (2, 2048, 2, 2),
-                                        (1, 64, 8, 2)])
+                                        (1, 64, 8, 2), (1, 4096, 4, 2), (2, 384, 8, 1),
+                                        (1, 192, 4, 2)])
 def test_flash_kernel(gen, B, S, Hq, Hkv, D):
+    """S 64 and 192 end in a half tile of 64 query rows."""
     q, k, v = (_attn_in(gen, (B, S, h, D)) for h in (Hq, Hkv, Hkv))
     got = attention.flash_attention_causal(q, k, v)
     torch.cuda.synchronize()
     want = attention.causal_attention_plain(q.float(), k.float(), v.float())
     assert got.dtype == torch.bfloat16 and got.shape == (B, S, Hq, D)
     assert _rel(got, want) <= REL
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_qk_tile(gen, D):
+    """Q Kᵀ alone on one tile: TMA's 128-byte swizzle and the K-major wgmma
+    descriptors of Q and K (float32 sums of bf16 products, in another order)."""
+    q, k = _attn_in(gen, (128, D)), _attn_in(gen, (128, D))
+    got = attention.flash_qk_tile(q, k)
+    torch.cuda.synchronize()
+    assert _rel(got, q.float() @ k.float().T) <= 1e-5
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_pv_tile(gen, D):
+    """P V alone on one tile: P from the accumulator fragment in registers as
+    bf16 high and low parts, V read as stored through the MN-major
+    (transposed) B descriptor. The two parts keep about 16 bits of P."""
+    p = torch.rand((128, 128), generator=gen, device="cuda")
+    v = _attn_in(gen, (128, D))
+    got = attention.flash_pv_tile(p, v)
+    torch.cuda.synchronize()
+    assert _rel(got, p @ v.float()) <= 1e-4
 
 
 def test_flash_kernel_is_deterministic(gen):
