@@ -23,12 +23,14 @@ Phases, each printing one JSON line:
   profile  device time by kernel over a short serving run;
   kernels_attn  the causal flash kernel (B=1, S in {256, 1024, 2048, 4096,
            8192}, 32/8 heads, D=128; 8192 is Llama-3-8B's published context)
-           and the paged decode kernel (8 slots of lengths 1 to 2047, page
-           size 128, a shuffled table with the trash page) against their
-           plain versions within 5e-3 (max form, float32 plain result, flash
-           one kv-head group at a time); times, bounds and
-           scaled_dot_product_attention as the yardstick; the kernels line
-           reports flash at S 2048;
+           and the paged decode kernel (8 slots of lengths 1 to 2047 with 16
+           pages each, and 8 slots up to 8191 with 64 pages each; page size
+           128, a shuffled table with the trash page) against their plain
+           versions within 5e-3 (max form, float32 plain result, flash one
+           kv-head group at a time), paged decode in one device operation a
+           call; times, bounds and scaled_dot_product_attention as the
+           yardstick; the kernels line reports flash at S 2048 and paged
+           decode at lengths up to 2047;
   serve_paged   the same W4 model at max_seq_len 2048 served by the default
            engine (paged, prefix cache; page 128, 64 pages, max_batch 8) on
            10 requests, two of which reuse a 640-token prefix: tokens of the
@@ -37,7 +39,8 @@ Phases, each printing one JSON line:
            launches equal the schedule, and the first step of the 300-token
            prompt (bucket 512, on the flash kernel) matches the plain path;
   profile_paged device time by kernel over a short paged serving run;
-  kernels_a8   the int8 decode kernel (every weight form) and the general
+  kernels_a8   the int8 decode kernel (every weight form, its plan and one
+           device operation a call) and the general
            fused kernel (int path over int8 weights at M 128 / 1024 on the
            four 8B shapes and over packed W2 / W4 / W1 codes at M 128 / 1024,
            with its plan and launches per call; four float forms) against
@@ -538,7 +541,7 @@ def dense_llama():
     return cfg, init_llama(cfg, generator=gen, device="cuda")
 
 
-A8_GROUPS = {"int8_decode_kernel": ("int8_decode", "int8_epilogue"),
+A8_GROUPS = {"int8_decode_kernel": ("int8_decode",),
              "fused_gemm_kernel": ("fused_gemm", "int_mma")}
 INT8_FORMS = ("u8_scalar_zero", "u8_channel_zeros", "u8_group_zeros", "w4_group_zeros",
               "w2_bitnet_cw")
@@ -620,11 +623,29 @@ def int_mm_ms(timer: Timer, M: int, N: int, K: int, w: torch.Tensor, gen) -> flo
     return timer.ms(lambda: torch._int_mm(a, b))
 
 
+def device_ops_per_call(fn):
+    """The device operations of one fn() under torch.profiler (CUDA activity),
+    or None when three captures in a row recorded no device event at all
+    (the profiler's known flake on this card's machine)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)                  # let the tracer settle before the call
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            return ops
+    return None
+
+
 def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
     """The int8 decode kernel and the general fused kernel against their plain
     versions; returns the rows the kernels line reports."""
     from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path, int_plan
-    from gemlite_tpu_torch.ops.int8_decode import form, int8_decode, int8_decode_plain
+    from gemlite_tpu_torch.ops.int8_decode import form, int8_decode, int8_decode_plain, plan
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -647,9 +668,16 @@ def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
                "bound_ms": bound, "bound_by": by, "library_ms": library, "card": card}
         if kern is fused_gemm and int_path(meta):
             row["int_plan"] = int_plan(M, N, K)._asdict()      # launches per call, split
+        if kern is int8_decode:
+            f = form(meta, layer.scales, layer.zeros)
+            row["plan"] = plan(M, N, K, f.gs_loop, f.float_groups)._asdict()
+            ops = device_ops_per_call(lambda: kern(*args, meta))
+            row["device_ops_per_call"] = None if ops is None else len(ops)
         emit(row)
         if (exact and not row["bit_exact"]) or not err <= REL_TOL:
             raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
+        if row.get("device_ops_per_call") not in (None, 1):
+            raise RuntimeError(f"{name}: one call took several device operations: {row}")
         rows.append(row)
 
     for N, K in SHAPES:
@@ -733,10 +761,12 @@ def phase_serve_a8w8(card: str, cfg, dense) -> dict:
                            "int8_exact", "general_fused", "profile_a8w8", A8_GROUPS)
 
 ATTN_GROUPS = {"flash_kernel": ("flash_attn",),
-               "paged_decode_kernel": ("paged_decode", "paged_combine"), **W4_GROUPS}
+               "paged_decode_kernel": ("paged_decode",), **W4_GROUPS}
 FLASH_SEQS = (256, 1024, 2048, 4096, 8192)
 FLASH_REPORTED = 2048       # the flash row of the kernels line
-PAGED_LENGTHS = (1, 127, 128, 129, 500, 1000, 1500, 2047)
+PAGED_LENGTHS = (1, 127, 128, 129, 500, 1000, 1500, 2047)     # the kernels line's row
+# Llama-3-8B's published context: 8 slots up to 8191 tokens, 64 pages each
+PAGED_LONG_LENGTHS = (1, 1000, 2047, 3000, 4096, 5000, 6500, 8191)
 
 
 def phase_kernels_attn(card: str, peak, timer: Timer) -> dict:
@@ -792,27 +822,39 @@ def phase_kernels_attn(card: str, peak, timer: Timer) -> dict:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
-    ps, pps, B = 128, 16, len(PAGED_LENGTHS)
-    P = B * pps + 1                                   # page 0 is the trash page
-    k_pages, v_pages, q = bf16((Hkv, P, ps, D)), bf16((Hkv, P, ps, D)), bf16((B, Hq, D))
-    table = (torch.randperm(B * pps, generator=gen, device="cuda") + 1).reshape(B, pps)
-    table = table.to(torch.int32)
-    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
-    T = max(PAGED_LENGTHS)
-    kc, vc = (A.gather_pages(p, table)[:, :T].transpose(1, 2).contiguous()
-              for p in (k_pages, v_pages))
-    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    live = sum(PAGED_LENGTHS)
-    rows["paged_decode"] = check(
-        "paged_decode", {"B": B, "lengths": list(PAGED_LENGTHS), "page_size": ps,
-                         "pages": P, "Hq": Hq, "Hkv": Hkv, "D": D},
-        lambda: A.paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table),
-        lambda: A.paged_decode_attention_plain(q, k_pages, v_pages, lengths, table),
-        lambda: A.paged_decode_attention_plain(q.float(), k_pages.float(), v_pages.float(),
-                                               lengths, table),
-        lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
-        live * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2, 4.0 * live * Hq * D)
-    emit({"phase": "kernels_attn", "ok": True, "checked": len(FLASH_SEQS) + 1, "card": card})
+    for lengths_b, pps in ((PAGED_LENGTHS, 16), (PAGED_LONG_LENGTHS, 64)):
+        ps, B = 128, len(lengths_b)
+        P = B * pps + 1                               # page 0 is the trash page
+        k_pages, v_pages, q = bf16((Hkv, P, ps, D)), bf16((Hkv, P, ps, D)), bf16((B, Hq, D))
+        table = (torch.randperm(B * pps, generator=gen, device="cuda") + 1).reshape(B, pps)
+        table = table.to(torch.int32)
+        lengths = torch.tensor(lengths_b, dtype=torch.int32, device="cuda")
+        T = max(lengths_b)
+        kc, vc = (A.gather_pages(p, table)[:, :T].transpose(1, 2).contiguous()
+                  for p in (k_pages, v_pages))
+        mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        live = sum(lengths_b)
+        row = check(
+            "paged_decode", {"B": B, "lengths": list(lengths_b), "page_size": ps,
+                             "pages_per_seq": pps, "pages": P, "Hq": Hq, "Hkv": Hkv, "D": D},
+            lambda: A.paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table),
+            lambda: A.paged_decode_attention_plain(q, k_pages, v_pages, lengths, table),
+            lambda: A.paged_decode_attention_plain(q.float(), k_pages.float(), v_pages.float(),
+                                                   lengths, table),
+            lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+            live * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2, 4.0 * live * Hq * D)
+        ops = device_ops_per_call(
+            lambda: A.paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table))
+        row["device_ops_per_call"] = None if ops is None else len(ops)
+        emit({"kernel": "paged_decode", "lengths": list(lengths_b),
+              "device_ops_per_call": row["device_ops_per_call"]})
+        if ops is not None and len(ops) != 1:
+            raise RuntimeError(f"paged decode: one call took several device operations: {ops}")
+        if lengths_b == PAGED_LENGTHS:
+            rows["paged_decode"] = row
+        del k_pages, v_pages, kc, vc
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_attn", "ok": True, "checked": len(FLASH_SEQS) + 2, "card": card})
     return rows
 
 

@@ -305,30 +305,16 @@ template <int F> struct Raw {
     static constexpr int smem = WForm<F>::stages * (kTileBytes + bytes) + 2 * kTileBytes + 16;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// byte offset of 16-byte chunk c (k = 16c .. 16c + 15) of row r in a
-// 128-byte-row tile. x rows: c ^ (m & 7). Weight rows: c ^ ((n >> 2) & 7) ^
-// ((n & 3) << 1), distinct over any 8 consecutive n from a multiple of 8
-// (ldmatrix) and over n = 4q + j, q = 0..7 (the int8 transpose's stores).
-__device__ __forceinline__ int x_off(int m, int c) { return m * BK + ((c ^ (m & 7)) << 4); }
-__device__ __forceinline__ int w_off(int n, int c) {
-    return n * BK + ((c ^ ((n >> 2) & 7) ^ ((n & 3) << 1)) << 4);
-}
+using gl::cp_async16;
+using gl::cp_async4;
+using gl::cp_async_commit;
+using gl::cp_async_wait;
+using gl::ldsm_x4;
+using gl::mma_s8;
+using gl::smem_u32;
+using gl::transpose4;
+using gl::w_off;
+using gl::x_off;
 
 // one step's x tile and raw weight tile, rows k0 .. k0 + BK - 1 of the range
 // ending at k_end, issued by thread t of nt; wvec: the weight copy size in
@@ -368,17 +354,6 @@ __device__ __forceinline__ void load_step(const Params& p, unsigned char* xs, un
             raw[i] = (r < rows_valid && cb < cb_valid) ? W[r * stride + cb] : 0;
         }
     }
-}
-
-// [r0.bj, r1.bj, r2.bj, r3.bj] for j = 0..3: a 4 x 4 byte transpose
-__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
-                                           uint32_t (&o)[4]) {
-    const uint32_t a = __byte_perm(r0, r1, 0x5140), b = __byte_perm(r2, r3, 0x5140);
-    const uint32_t c = __byte_perm(r0, r1, 0x7362), d = __byte_perm(r2, r3, 0x7362);
-    o[0] = __byte_perm(a, b, 0x5410);
-    o[1] = __byte_perm(a, b, 0x7632);
-    o[2] = __byte_perm(c, d, 0x5410);
-    o[3] = __byte_perm(c, d, 0x7632);
 }
 
 __device__ __forceinline__ void store_chunk(unsigned char* bt, int n, int c, uint4 v, unsigned zrep) {
@@ -475,22 +450,6 @@ __device__ __forceinline__ void to_kmajor(const unsigned char* raw, unsigned cha
     }
 }
 
-__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-        "{%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// one step: the warp's 64 x 32 sub-tile over BK = 4 x k32
 // one step: the warp's 64 x 32 sub-tile over BK = 4 x k32
 __device__ __forceinline__ void mma_step(const unsigned char* xs, const unsigned char* bt,
                                          int (&acc)[4][4][4], int wm, int wn, int lane) {

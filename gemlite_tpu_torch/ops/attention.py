@@ -29,7 +29,7 @@ from . import build
 __all__ = ["ATTENTION_TRACE", "attention", "xla_attention", "causal_attention_plain",
            "flash_attention_emulated", "FlashPlan", "flash_plan", "flash_attention_causal",
            "flash_qk_tile", "flash_pv_tile", "gather_pages", "paged_decode_attention_plain",
-           "paged_decode_attention_kernel", "paged_split_plan"]
+           "paged_decode_attention_kernel", "paged_live_splits", "paged_split_plan"]
 
 ATTENTION_TRACE: list = []
 _TRACE_LIMIT = 4096
@@ -272,10 +272,19 @@ def paged_split_plan(pages_per_seq: int):
     return -(-pages_per_seq // per), per
 
 
+def paged_live_splits(length: int, page_size: int, pages_per_seq: int) -> int:
+    """The splits of ``paged_split_plan`` that hold tokens of a slot of this
+    length: the kernel runs and counts only these, and a slot with one live
+    split writes its output without a partial."""
+    splits, per = paged_split_plan(pages_per_seq)
+    length = min(length, pages_per_seq * page_size)
+    return min(splits, -(-length // (per * page_size)))
+
+
 def _paged_lib():
     fn = build.load("paged_attention").gl_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -307,11 +316,14 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table):
     pps = table.shape[1]
     splits, per_split = paged_split_plan(pps)
     _note("paged_decode")
-    acc = torch.empty((B, Hq, splits, D), dtype=torch.float32, device=q.device)
-    ml = torch.empty((B, Hq, splits, 2), dtype=torch.float32, device=q.device)
+    acc = ml = counters = None
+    if splits > 1:                  # partials (B, Hq, splits, D + 2), counters (B, Hkv)
+        ibuf, fbuf = build.split_state("paged_decode", q.device, B * Hkv, B * Hq * splits * (D + 2))
+        acc, ml, counters = (fbuf.data_ptr(), fbuf.data_ptr() + 4 * B * Hq * splits * D,
+                             ibuf.data_ptr())
     out = torch.empty_like(q)
     err = _paged_lib()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-                       table.data_ptr(), acc.data_ptr(), ml.data_ptr(), out.data_ptr(),
+                       table.data_ptr(), acc, ml, counters, out.data_ptr(),
                        B, Hq, Hkv, D, P, ps, pps, splits, per_split,
                        torch.cuda.current_stream().cuda_stream)
     build.check(err, "paged_attention")

@@ -19,7 +19,9 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "TARGET_BLOCKS", "build", "load", "check", "split_k"]
+import torch
+
+__all__ = ["KERNEL_SOURCES", "TARGET_BLOCKS", "build", "load", "check", "split_k", "split_state"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -33,6 +35,7 @@ TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
 
 _LOCK = threading.Lock()
 _LIBS = {}
+_SPLIT_STATE = {}
 
 
 def _nvcc() -> str:
@@ -109,3 +112,19 @@ def split_k(blocks: int, K: int, unit: int, target: int = TARGET_BLOCKS):
     splits = min(units, max(1, -(-target // blocks)))
     per = -(-units // splits)
     return -(-units // per), per * unit
+
+
+def split_state(owner: str, device: torch.device, ints: int, floats: int):
+    """(int32, float32) scratch of a kernel whose split blocks meet in one
+    launch, per owner, device and stream, grown on demand. The int32 part
+    (accumulators, arrival counters) is zeroed once and every call leaves it
+    0; the float32 part holds partials that each call writes before it reads
+    them. So a call allocates no scratch of its own."""
+    key = (owner, device.index, torch.cuda.current_stream(device).cuda_stream)
+    state = _SPLIT_STATE.get(key)
+    if state is None or state[0].numel() < ints or state[1].numel() < floats:
+        have = (state[0].numel(), state[1].numel()) if state is not None else (1, 1)
+        state = (torch.zeros(max(ints, have[0]), dtype=torch.int32, device=device),
+                 torch.empty(max(floats, have[1]), dtype=torch.float32, device=device))
+        _SPLIT_STATE[key] = state
+    return state

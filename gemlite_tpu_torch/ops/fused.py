@@ -165,22 +165,14 @@ def int_plan(M: int, N: int, K: int) -> IntPlan:
     return IntPlan(tm, tn, splits, per * INT_BK, 1, 4 * tiles * INT_TILE * INT_TILE)
 
 
-_SPLIT_STATE = {}
-
-
 def _split_state(device: torch.device, tiles: int):
-    """(accumulator, counters) of the split int path: int32 tiles of 128 x
-    128 and one arrival counter per output tile, zeroed once per device and
-    stream and grown on demand; every call leaves both 0, so a call writes
-    no scratch of its own."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    state = _SPLIT_STATE.get(key)
-    if state is None or state[1].numel() < tiles:
-        n = max(tiles, FILL)
-        state = (torch.zeros(n * INT_TILE * INT_TILE, dtype=torch.int32, device=device),
-                 torch.zeros(n, dtype=torch.int32, device=device))
-        _SPLIT_STATE[key] = state
-    return state
+    """(accumulator, counters) pointers of the split int path: int32 tiles of
+    128 x 128 and one arrival counter per output tile, in the zeroed int32
+    scratch of ``build.split_state``; every call leaves both 0, so a call
+    writes no scratch of its own."""
+    n = max(tiles, FILL)
+    ints, _ = build.split_state("fused_gemm", device, n * (INT_TILE * INT_TILE + 1), 0)
+    return ints.data_ptr(), ints.data_ptr() + 4 * n * INT_TILE * INT_TILE
 
 
 def _lib():
@@ -244,7 +236,7 @@ def fused_gemm(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Ten
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _lib()(ptr(x), ptr(W_q), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(out), ptr(ws), ptr(cnt),
+    err = _lib()(ptr(x), ptr(W_q), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(out), ws, cnt,
                  M, N, K, meta.input_dtype, int(ip), meta.W_nbits, e,
                  _W_DTYPES[W_q.dtype], mode, csm, gs_s, gs_z,
                  _META_DTYPES[s.dtype] if s is not None else 0,

@@ -21,6 +21,7 @@ kernel or raises.
 """
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -29,17 +30,22 @@ from ..dtypes import DType, to_torch_dtype
 from . import build
 from .reference import int_matmul, unpack_rows_ref
 
-__all__ = ["can_use_int8_decode", "int8_decode", "int8_decode_plain", "split_plan", "w_kind"]
+__all__ = ["DecodePlan", "can_use_int8_decode", "int8_decode", "int8_decode_plain",
+           "int8_mma_tile", "plan", "w_kind"]
 
 MAX_M = 64
 _KINDS = {"i8_dense": 0, "u8_packed": 1, "nibble4": 2, "nibble2": 3}
 _STEP_K = {"i8_dense": 4, "u8_packed": 4, "nibble4": 8, "nibble2": 16}
-_COLS_PER_BLOCK = 512      # 4 warps x 32 lanes x 4 columns
-# at M <= 8 four blocks per SM keep more loads in flight for few atomics
-# (M=8, 14336x4096 on the H100, chip_smoke.py: 93.1 us at two, 70.1 at four);
-# the atomics grow with M, so larger M keeps two
-_TARGET_BLOCKS_SMALL_M = 2 * build.TARGET_BLOCKS
-_SPLIT_UNIT = 32           # K step of a split when no group forces one
+_SPLIT_UNIT = 32           # K must be a multiple of this (the gate)
+BN = 128                   # the kernel's output columns per block
+BK = 128                   # its K step
+SMS = 132                  # H100 SXM streaming multiprocessors
+BLOCKS_PER_SM = 3          # blocks that share an SM (shared memory <= 74 KB each)
+FGROUP_BLOCKS_PER_SM = 2   # float-group instances take about 224 registers a thread
+# the last block of a column tile adds at most this many 4-byte partials (128 KB)
+PARTIAL_WORDS = 1 << 15
+_META_CODES = {torch.float32: DType.FP32.value, torch.float16: DType.FP16.value,
+               torch.bfloat16: DType.BF16.value, torch.int32: DType.INT32.value}
 
 
 def w_kind(meta):
@@ -113,11 +119,46 @@ def form(meta, scales, zeros) -> Form:
                 flat_scale=has_gscales and not grouped_scales)
 
 
-def split_plan(N: int, K: int, unit: int, target: int = build.TARGET_BLOCKS):
-    """(splits, k_per_split): K cut in multiples of ``unit``. Float group sums
-    take the default target at every M, so their order never depends on M;
-    integer sums are exact at any split."""
-    return build.split_k(-(-N // _COLS_PER_BLOCK), K, unit, target)
+class DecodePlan(NamedTuple):
+    """The kernel's grid for one call: ``tiles`` blocks of 128 output columns,
+    each summing all M rows over ``splits`` K ranges of ``k_per_split`` (the
+    last may be shorter), all in ``launches`` launches; ``sk`` is the K of
+    one sum step (32 or 16 on mma.sync, 4 on __dp4a)."""
+    tiles: int
+    splits: int
+    k_per_split: int
+    sk: int
+    launches: int
+
+
+def plan(M: int, N: int, K: int, gs_loop: int, float_groups: bool = False) -> DecodePlan:
+    """Tiles, K split and sum step, from the shape and the form. K is cut in
+    whole units of lcm(group, 128) (128 without groups) so that as many
+    blocks as share an SM (``BLOCKS_PER_SM``, ``FGROUP_BLOCKS_PER_SM`` for
+    float groups) run on every SM at once, all in one wave. Integer sums
+    split no further than the last block can add ``PARTIAL_WORDS`` partials
+    of its M rows; float groups ignore M, so their float32 order never
+    depends on the batch."""
+    tiles = -(-N // BN)
+    unit = math.lcm(gs_loop, BK) if gs_loop else BK
+    units = -(-K // unit)
+    per_sm = FGROUP_BLOCKS_PER_SM if float_groups else BLOCKS_PER_SM
+    splits = max(1, min(units, per_sm * SMS // tiles))
+    if not float_groups:
+        splits = min(splits, max(1, PARTIAL_WORDS // (-(-M // 8) * 8 * BN)))
+    per = -(-units // splits)
+    splits = -(-units // per)
+    sk = 32 if gs_loop % 32 == 0 else (16 if gs_loop % 16 == 0 else 4)
+    return DecodePlan(tiles, splits, min(K, per * unit), sk, 1)
+
+
+def workspace(M: int, N: int, p: DecodePlan):
+    """(partials, arrival counters) that a call needs, in 4-byte elements: a
+    split call writes each split's (M, N) int32 sums, or float32 group sums,
+    and counts arrivals per column tile. The counters are 0 between calls."""
+    if p.splits == 1:
+        return 0, 0
+    return p.splits * M * N, p.tiles
 
 
 def _epilogue(v, scales, scales_x, meta, f: Form):
@@ -162,8 +203,8 @@ def int8_decode_plain(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
     if not f.float_groups:
         return _epilogue(corr.sum(dim=0).to(torch.float32), scales, scales_x, meta, f)
     contrib = corr.to(torch.float32) * scales.reshape(G, 1, N).to(torch.float32)
-    splits, k_per_split = split_plan(N, K, gs)
-    per = k_per_split // gs
+    pl = plan(M, N, K, gs, float_groups=True)
+    splits, per = pl.splits, pl.k_per_split // gs
     v = None
     for sp in range(splits):
         part = torch.zeros((M, N), dtype=torch.float32, device=x.device)
@@ -173,16 +214,24 @@ def int8_decode_plain(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
     return _epilogue(v, scales, scales_x, meta, f)
 
 
-def _lib():
-    fn = build.load("int8_decode").gl_int8_decode
+def _lib(name="gl_int8_decode"):
+    fn = getattr(build.load("int8_decode"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+                       if name == "gl_int8_decode" else
+                       [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _f32(t):
-    return None if t is None else t.to(torch.float32).contiguous()
+def _meta_arg(t):
+    """A metadata tensor the kernel reads as stored (float32, fp16, bf16 or
+    int32), else converted to float32; contiguous."""
+    if t is None:
+        return None
+    if t.dtype not in _META_CODES:
+        t = t.to(torch.float32)
+    return t.contiguous()
 
 
 def int8_decode(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
@@ -202,32 +251,31 @@ def int8_decode(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Te
     want_w = (torch.int8, (K, N)) if f.kind == "i8_dense" else \
         (torch.int32, (K // meta.elements_per_sample, N))
     if not (W_q.is_cuda and W_q.dtype == want_w[0] and tuple(W_q.shape) == want_w[1]
-            and W_q.is_contiguous()):
+            and W_q.is_contiguous() and W_q.data_ptr() % 4 == 0):
         raise ValueError(f"W_q: want a contiguous CUDA {want_w[0]} tensor of shape {want_w[1]}")
     csm = meta.channel_scale_mode
-    scales32 = _f32(scales) if (f.float_groups or f.flat_scale or csm in (1, 3)) else None
-    zeros32 = _f32(zeros) if f.zero_mode >= 2 else None
-    zero_scalar = zeros.to(torch.int32).reshape(()) if f.zero_mode == 1 else None
-    sx = _f32(scales_x) if csm in (2, 3) else None
+    s = _meta_arg(scales) if (f.float_groups or f.flat_scale or csm in (1, 3)) else None
+    z = _meta_arg(zeros) if f.zero_mode else None
+    sx = scales_x.to(torch.float32).contiguous() if csm in (2, 3) else None
     if (csm in (2, 3) and (sx is None or sx.numel() != M)) or \
-            (scales32 is None and (f.float_groups or f.flat_scale or csm in (1, 3))):
+            (s is None and (f.float_groups or f.flat_scale or csm in (1, 3))):
         raise ValueError(f"missing scales for {meta}")
-    unit = f.gs_loop or _SPLIT_UNIT
-    target = _TARGET_BLOCKS_SMALL_M if (M <= 8 and not f.float_groups) else build.TARGET_BLOCKS
-    splits, k_per_split = split_plan(N, K, unit, target)
+    p = plan(M, N, K, f.gs_loop, f.float_groups)
+    words, counters = workspace(M, N, p)
+    part = cnt = None
+    if p.splits > 1:
+        ibuf, fbuf = build.split_state("int8_decode", x.device, counters, words)
+        part, cnt = fbuf.data_ptr(), ibuf.data_ptr()
     out = torch.empty((M, N), dtype=to_torch_dtype(meta.output_dtype), device=x.device)
-    if f.float_groups:
-        acc_i, part_f = None, torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-    else:
-        acc_i, part_f = torch.empty((M, N), dtype=torch.int32, device=x.device), None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _lib()(ptr(x), ptr(W_q), ptr(zeros32), ptr(zero_scalar), ptr(scales32), ptr(sx),
-                 ptr(acc_i), ptr(part_f), ptr(out),
-                 M, N, K, _KINDS[f.kind], f.gs_loop, splits, k_per_split, f.zero_mode,
-                 f.off8, int(f.float_groups), int(f.flat_scale), csm, meta.output_dtype,
+    err = _lib()(ptr(x), ptr(W_q), ptr(z), ptr(s), ptr(sx), part, cnt,
+                 ptr(out), M, N, K, _KINDS[f.kind], f.gs_loop, p.splits, p.k_per_split,
+                 f.zero_mode, f.off8, int(f.float_groups), int(f.flat_scale), csm,
+                 _META_CODES[s.dtype] if s is not None else 0,
+                 _META_CODES[z.dtype] if z is not None else 0, meta.output_dtype,
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "int8_decode")
     int8_decode.launches += 1
@@ -235,3 +283,18 @@ def int8_decode(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Te
 
 
 int8_decode.launches = 0
+
+
+def int8_mma_tile(w: torch.Tensor, x: torch.Tensor, sk: int = 32) -> torch.Tensor:
+    """The kernel's sum step alone on one tile: (8, 16) int32 = x (8, 32) int8
+    @ w (32, 16) int8, through its staging, ldmatrix, ``sk``-deep step (32 or
+    16 on mma.sync, 4 on __dp4a) and fragment mapping (a test entry)."""
+    if w.shape != (32, 16) or x.shape != (8, 32) or w.dtype != torch.int8 or x.dtype != torch.int8:
+        raise ValueError("want w (32, 16) and x (8, 32) int8")
+    if x.device.type == "cpu":
+        return int_matmul(x, w).to(torch.int32)
+    out = torch.empty((8, 16), dtype=torch.int32, device=x.device)
+    err = _lib("gl_int8_mma_tile")(w.contiguous().data_ptr(), x.contiguous().data_ptr(),
+                                   out.data_ptr(), sk, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "int8_mma_tile")
+    return out

@@ -7,7 +7,7 @@ itself is checked on the card (tests/test_torch_kernels.py)."""
 
 import pytest
 
-from gemlite_tpu_torch.ops import fused
+from gemlite_tpu_torch.ops import build, fused
 from gemlite_tpu_torch.ops.fused import INT_BK, INT_TILE, IntPlan, int_plan
 
 SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))   # (N, K)
@@ -58,7 +58,7 @@ def test_int_plan_launches_and_scratch(M, N, K):
 def test_int_plan_depends_on_shape_only(M, N, K, monkeypatch):
     """The same plan at any call, whatever state the module holds."""
     first = int_plan(M, N, K)
-    monkeypatch.setattr(fused, "_SPLIT_STATE", {"stale": None})
+    monkeypatch.setattr(build, "_SPLIT_STATE", {"stale": None})
     assert isinstance(first, IntPlan) and int_plan(M, N, K) == first
     assert int_plan(M, N, K)._asdict() == first._asdict()
 

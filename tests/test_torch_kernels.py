@@ -11,6 +11,7 @@ version's float32 result, the JAX kernel tests' bound; the int8 decode kernel
 and the general fused kernel's int path equal their plain versions bit for bit.
 """
 
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -25,9 +26,10 @@ from gemlite_tpu_torch.ops.decode import decode_matmul
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
 from gemlite_tpu_torch.ops import fused
 from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path, int_plan
-from gemlite_tpu_torch.ops.int8_decode import int8_decode, int8_decode_plain
+from gemlite_tpu_torch.ops import int8_decode as int8_mod
+from gemlite_tpu_torch.ops.int8_decode import int8_decode, int8_decode_plain, int8_mma_tile
 from gemlite_tpu_torch.ops.prefill import prefill_matmul
-from gemlite_tpu_torch.ops.reference import forward_meta
+from gemlite_tpu_torch.ops.reference import forward_meta, int_matmul
 from gemlite_tpu_torch.ops.scan import decode_matmul_stacked
 
 pytestmark = pytest.mark.requires_cuda
@@ -61,6 +63,32 @@ def _plain_f32(layer, x):
 
 def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _split_state_is_zero(owner):
+    """The int32 split state (accumulators, counters) a kernel leaves 0."""
+    from gemlite_tpu_torch.ops import build
+    states = [ints for key, (ints, _) in build._SPLIT_STATE.items() if key[0] == owner]
+    assert all(int(t.abs().sum()) == 0 for t in states)
+
+
+def _device_ops(fn):
+    """The names of the device operations of one ``fn()`` under
+    torch.profiler, after a device synchronize. A capture that recorded no
+    device event at all is taken again, up to three times in all; three
+    empty captures fail."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)                  # let the tracer settle before the call
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            return ops
+    pytest.fail("torch.profiler recorded no device event in three captures")
 
 
 @pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (1024, 4096)])
@@ -237,8 +265,8 @@ def _xq(gen, M, K):
     return x, sx
 
 
-@pytest.mark.parametrize("N,K", [(256, 512), (1024, 4096)])
-@pytest.mark.parametrize("M", [1, 3, 8, 33, 64])
+@pytest.mark.parametrize("N,K", [(256, 512), (1024, 4096), (4096, 14336)])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 33, 48, 64])
 @pytest.mark.parametrize("name", INT8_FORMS)
 def test_int8_decode_kernel_is_bit_exact(gen, name, M, N, K):
     """Integer sums, and float group sums in the plain version's order."""
@@ -248,6 +276,66 @@ def test_int8_decode_kernel_is_bit_exact(gen, name, M, N, K):
     got = int8_decode(*args)
     torch.cuda.synchronize()
     assert got.shape == (M, N) and torch.equal(got, int8_decode_plain(*args))
+
+
+# groups that are not whole 32-deep mma steps: 16 and 48 take m16n8k16, 20
+# and 24 the __dp4a step (ops/int8_decode.plan's sk)
+ODD_GROUPS = [(8, 16, 512), (4, 16, 512), (2, 16, 512), (8, 48, 768), (8, 20, 640), (4, 24, 768)]
+
+
+@pytest.mark.parametrize("nbits,gs,K", ODD_GROUPS)
+@pytest.mark.parametrize("M", [1, 8, 17, 64])
+def test_int8_decode_kernel_odd_groups_are_bit_exact(gen, nbits, gs, K, M):
+    N = 256
+    codes = torch.randint(0, 2 ** nbits, (N, K), generator=gen, device="cuda").to(torch.uint8)
+    scales = torch.rand((N, K // gs), generator=gen, device="cuda") * 2.0 ** -9 + 2.0 ** -10
+    z = torch.randint(0, 2 ** nbits, (N, K // gs), generator=gen, device="cuda").float()
+    layer = GemLiteLinear(nbits, gs, K, N, DType.INT8, DType.BF16, scaled_activations=True,
+                          device="cuda").pack(codes, scales, z, fma_mode=False)
+    f = int8_mod.form(layer.meta, layer.scales, layer.zeros)
+    assert f.gs_loop == gs and int8_mod.can_use_int8_decode(layer.meta, M)
+    assert int8_mod.plan(M, N, K, gs, f.float_groups).sk == (16 if gs % 16 == 0 else 4)
+    x, sx = _xq(gen, M, K)
+    args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    got = int8_decode(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_decode_plain(*args))
+
+
+@pytest.mark.parametrize("sk", [32, 16, 4])
+def test_int8_mma_tile(gen, sk):
+    """The swapped operands on one tile: A a 16-column x 32-k tile of W
+    (turned K-major in shared memory), B an 8-row x 32-k tile of x, and the
+    fragment's (column, row) mapping, against torch."""
+    w = torch.randint(-128, 128, (32, 16), generator=gen, device="cuda").to(torch.int8)
+    x = torch.randint(-128, 128, (8, 32), generator=gen, device="cuda").to(torch.int8)
+    got = int8_mma_tile(w, x, sk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int_matmul(x, w))
+
+
+@pytest.mark.parametrize("name,M,N,K", [("i8_dense", 8, 14336, 4096), ("i8_dense", 64, 4096, 4096),
+                                        ("i8_dense", 1, 1024, 4096), ("i8_dense", 64, 4096, 14336),
+                                        ("u8_group_zeros", 8, 4096, 4096),
+                                        ("w4_group_zeros", 64, 1024, 4096)])
+def test_int8_decode_launches_as_planned(gen, name, M, N, K):
+    """One call: one kernel (no memset, no epilogue launch), no allocation but
+    the output, and the split sums and arrival counters left at 0."""
+    layer = _int8_layer(gen, name, N, K)
+    x, sx = _xq(gen, M, K)
+    args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    f = int8_mod.form(layer.meta, layer.scales, layer.zeros)
+    p = int8_mod.plan(M, N, K, f.gs_loop, f.float_groups)
+    want = int8_decode(*args)                             # builds, allocates the split state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = []
+    device_ops = _device_ops(lambda: got.append(int8_decode(*args)))
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    assert len(device_ops) == p.launches == 1, device_ops
+    assert allocs == len(got)                             # the outputs alone
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("int8_decode")
 
 
 def test_int8_decode_rows_do_not_depend_on_batch(gen):
@@ -308,7 +396,6 @@ def test_fused_kernel_int_path_launches_as_planned(gen, M, N, K):
     """One call: the planned launches (one kernel, no memset, no second
     pass), no allocation but the output, and the split accumulator and
     arrival counters left at 0."""
-    from torch.profiler import ProfilerActivity, profile
     layer = _int8_layer(gen, "i8_dense", N, K)
     x, sx = _xq(gen, M, K)
     args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
@@ -316,16 +403,13 @@ def test_fused_kernel_int_path_launches_as_planned(gen, M, N, K):
     want = fused_gemm(*args)                              # builds, allocates the split state
     torch.cuda.synchronize()
     before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = fused_gemm(*args)
-        torch.cuda.synchronize()
+    got = []
+    device_ops = _device_ops(lambda: got.append(fused_gemm(*args)))
     allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
-    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(device_ops) == plan.launches == 1, device_ops
-    assert allocs == 1                                    # the output alone
-    assert torch.equal(got, want)
-    for state in fused._SPLIT_STATE.values():
-        assert all(int(t.abs().sum()) == 0 for t in state)
+    assert allocs == len(got)                             # the outputs alone
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("fused_gemm")
 
 
 def _float_layer(gen, name, N, K):
@@ -465,6 +549,25 @@ def test_paged_decode_rows_do_not_depend_on_batch_or_page_ids(gen):
     assert torch.equal(alone[0], full[b])
     assert torch.equal(attention.paged_decode_attention_kernel(q, k_pages, v_pages, lengths,
                                                                table), full)
+
+
+@pytest.mark.parametrize("lengths,pps", [(PAGED_LENGTHS, 16), ([1, 5, 60, 128], 16),
+                                         ([1, 3000, 8191, 700], 64)])
+def test_paged_decode_launches_as_planned(gen, lengths, pps):
+    """One call: one kernel (no combine launch), whether a slot fits one split
+    or spans several, no allocation but the output, and the arrival counters
+    left at 0."""
+    args = _paged_case(gen, lengths, 128, 8, 2, 128, pps)
+    want = attention.paged_decode_attention_kernel(*args)   # builds, allocates the split state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = []
+    device_ops = _device_ops(lambda: got.append(attention.paged_decode_attention_kernel(*args)))
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    assert len(device_ops) == 1, device_ops
+    assert allocs == len(got)                             # the outputs alone
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("paged_decode")
 
 
 def test_paged_engine_runs_the_attention_kernels(gen):
