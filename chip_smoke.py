@@ -11,7 +11,12 @@ Phases, each printing one JSON line:
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes:
            relative error max|a-b| / max|b| <= 5e-3 against the plain
            version's float32 result, median CUDA-event device times with the
-           L2 cache flushed between launches, and the bound;
+           L2 cache flushed between launches, and the bound; the decode
+           kernel's plan and one device operation a call (the kernel nodes
+           of a CUDA graph that captures the call); beside the decode and
+           prefill kernels a dense bf16 matmul and, as the library
+           yardstick, torch._weight_int4pack_mm on the same W4 layer
+           (checked against the plain version within 5e-3);
   layer    GemLiteLinear A16W4 gs=128 4096x4096 at M in {1, 64, 128, 4096},
            routed to decode, decode, prefill, dequantize;
   serve    Llama-3-8B widths cut to 4 of 32 layers, random bf16 weights from a
@@ -60,7 +65,10 @@ Phases, each printing one JSON line:
            per-layer decode kernel on that layer bit for bit and the plain
            version within 5e-3 (max form, float32 plain result); no host sync
            under torch.cuda.set_sync_debug_mode("error"); times and bounds
-           (one layer's bytes), and the per-layer decode kernel at W1/W2;
+           (one layer's bytes), a dense bf16 matmul beside them,
+           torch._weight_int4pack_mm on the timed layer at W4, the plan and
+           one device operation a call, and the per-layer decode kernel at
+           W1/W2;
   serve_scan    Llama-3-8B at full widths and its full 32 layers, random
            weights drawn and quantized (W4 gs=128) one block at a time on the
            card, the serve phase's 8 requests served twice on the dense cache:
@@ -167,6 +175,20 @@ def random_layer(N: int, K: int, gen: torch.Generator):
         W_q, scales, zeros)
 
 
+def int4pack_mm(W_q, scales, zeros, K: int):
+    """torch._weight_int4pack_mm (tinygemm) on a mode-4 W4 layer: the library
+    yardstick of the W4 kernels, timed here and used nowhere in the port.
+    It computes (q - 8) * s + zero per group, so zero = z' + 8 s for HQQ's
+    q * s + z' (z' = -z * s); zero rounds to bf16, the only change of
+    function. Returns x -> (M, N) bf16."""
+    from gemlite_tpu_torch.ops.reference import unpack_rows_ref
+    q = unpack_rows_ref(W_q, 4, 8, K).t().to(torch.uint8)          # (N, K) codes
+    packed = torch._convert_weight_to_int4pack((q[:, ::2] << 4 | q[:, 1::2]).contiguous(), 8)
+    zero = (zeros.float() + 8 * scales.float()).to(torch.bfloat16)
+    sz = torch.stack([scales, zero], -1).contiguous()             # (K / gs, N, 2)
+    return lambda x: torch._weight_int4pack_mm(x, packed, GROUP, sz)
+
+
 def phase_build():
     from gemlite_tpu_torch.ops import build
     t0 = time.perf_counter()
@@ -189,7 +211,7 @@ def kernel_bound(bytes_moved: float, flops: float, peak, ops_rate=None):
 def phase_kernels(card: str, peak, timer: Timer) -> dict:
     """Each kernel against its plain version; returns the rows at the shapes
     the kernels line reports."""
-    from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain
+    from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain, plan
     from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
     from gemlite_tpu_torch.ops.prefill import prefill_matmul, prefill_matmul_plain
 
@@ -200,6 +222,7 @@ def phase_kernels(card: str, peak, timer: Timer) -> dict:
         meta, args = layer.meta, (layer.W_q, layer.scales, layer.zeros)
         w_bytes = K * N / 2 + 2 * 2 * (K // GROUP) * N
         dense_w = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+        library = int4pack_mm(*args, K)
         cases = [("decode", M, decode_matmul, decode_matmul_plain) for M in (1, 8, 64)]
         cases += [("prefill", M, prefill_matmul, prefill_matmul_plain) for M in (128, 1024)]
         for name, M, kern, plain in cases:
@@ -213,12 +236,21 @@ def phase_kernels(card: str, peak, timer: Timer) -> dict:
                    "ms": timer.ms(lambda: kern(x, *args, meta)),
                    "plain_ms": timer.ms(lambda: plain(x, *args, meta), iters=5),
                    "dense_bf16_matmul_ms": timer.ms(lambda: torch.matmul(x, dense_w)),
+                   "library_ms": timer.ms(lambda: library(x)),
+                   "library_rel_err": rel_err(library(x), want),
                    "bound_ms": bound, "bound_by": by, "card": card}
+            if kern is decode_matmul:
+                row["plan"] = plan(M, N, K, GROUP, 4)._asdict()
+                row["device_ops_per_call"] = device_ops_per_call(lambda: kern(x, *args, meta))
             emit(row)
             if not err <= REL_TOL:
                 raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
+            if not row["library_rel_err"] <= REL_TOL:
+                raise RuntimeError(f"{name}: the library call computes another function: {row}")
+            if kern is decode_matmul and row["device_ops_per_call"] != 1:
+                raise RuntimeError(f"{name}: one call took several device operations: {row}")
             rows.append(row)
-        del dense_w
+        del dense_w, library
         if (N, K) == (14336, 4096):
             got = dequantize_weights(*args, meta)
             want = dequantize_full(*args, meta)
@@ -394,7 +426,7 @@ def first_step_check(params, cfg, prompt, route="decode", bucket=None) -> dict:
     return out
 
 
-W4_GROUPS = {"decode_kernel": ("gemv_decode", "splitk_reduce"), "prefill_kernel": ("prefill_w4",)}
+W4_GROUPS = {"decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_w4",)}
 
 
 def device_times(prof, groups) -> dict:
@@ -623,22 +655,12 @@ def int_mm_ms(timer: Timer, M: int, N: int, K: int, w: torch.Tensor, gen) -> flo
     return timer.ms(lambda: torch._int_mm(a, b))
 
 
-def device_ops_per_call(fn):
-    """The device operations of one fn() under torch.profiler (CUDA activity),
-    or None when three captures in a row recorded no device event at all
-    (the profiler's known flake on this card's machine)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)                  # let the tracer settle before the call
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if ops:
-            return ops
-    return None
+def device_ops_per_call(fn) -> int:
+    """The device operations (kernel, memcpy and memset nodes) of one fn(),
+    counted in a CUDA graph that captures it after a warm-up call
+    (``build.graph_ops``)."""
+    from gemlite_tpu_torch.ops import build
+    return len(build.graph_ops(fn))
 
 
 def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
@@ -671,12 +693,11 @@ def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
         if kern is int8_decode:
             f = form(meta, layer.scales, layer.zeros)
             row["plan"] = plan(M, N, K, f.gs_loop, f.float_groups)._asdict()
-            ops = device_ops_per_call(lambda: kern(*args, meta))
-            row["device_ops_per_call"] = None if ops is None else len(ops)
+            row["device_ops_per_call"] = device_ops_per_call(lambda: kern(*args, meta))
         emit(row)
         if (exact and not row["bit_exact"]) or not err <= REL_TOL:
             raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
-        if row.get("device_ops_per_call") not in (None, 1):
+        if kern is int8_decode and row["device_ops_per_call"] != 1:
             raise RuntimeError(f"{name}: one call took several device operations: {row}")
         rows.append(row)
 
@@ -843,13 +864,12 @@ def phase_kernels_attn(card: str, peak, timer: Timer) -> dict:
                                                    lengths, table),
             lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
             live * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2, 4.0 * live * Hq * D)
-        ops = device_ops_per_call(
+        row["device_ops_per_call"] = device_ops_per_call(
             lambda: A.paged_decode_attention_kernel(q, k_pages, v_pages, lengths, table))
-        row["device_ops_per_call"] = None if ops is None else len(ops)
         emit({"kernel": "paged_decode", "lengths": list(lengths_b),
               "device_ops_per_call": row["device_ops_per_call"]})
-        if ops is not None and len(ops) != 1:
-            raise RuntimeError(f"paged decode: one call took several device operations: {ops}")
+        if row["device_ops_per_call"] != 1:
+            raise RuntimeError(f"paged decode: one call took several device operations: {row}")
         if lengths_b == PAGED_LENGTHS:
             rows["paged_decode"] = row
         del k_pages, v_pages, kc, vc
@@ -1047,8 +1067,8 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
 
 SCAN_LAYERS = 32
 SCAN_CHECKED = (0, 17, 31)
-SCAN_GROUPS = {"stacked_decode_kernel": ("gemv_stacked",), "decode_kernel": ("gemv_decode",),
-               "splitk_reduce": ("splitk_reduce",), "prefill_kernel": ("prefill_w4",)}
+SCAN_GROUPS = {"stacked_decode_kernel": ("decode_mma_stacked",),
+               "decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_w4",)}
 
 
 def random_stack(L: int, N: int, K: int, bits: int, gen: torch.Generator):
@@ -1077,7 +1097,7 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
     it must equal the per-layer decode kernel on that layer bit for bit and
     its plain version within 5e-3, with no host sync around its launches.
     Returns the rows the kernels line reports."""
-    from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain
+    from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain, plan
     from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_matmul_stacked_plain
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1090,6 +1110,8 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
         W_q, scales, zeros, meta = random_stack(SCAN_LAYERS, N, K, bits, gen)
         stack = (W_q, scales, zeros)
         layer = {l: (W_q[l], scales[l], zeros[l]) for l in SCAN_CHECKED}
+        dense_w = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+        library = int4pack_mm(*layer[timed], K) if bits == 4 else None
         for M in Ms:
             x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
             torch.cuda.synchronize()
@@ -1112,17 +1134,26 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
                    "ms": timer.ms(lambda: decode_matmul_stacked(x, *stack, meta, ids[timed])),
                    "plain_ms": timer.ms(lambda: decode_matmul_stacked_plain(
                        x, *stack, meta, timed), iters=5),
-                   "bound_ms": bound, "bound_by": by, "library_ms": None, "card": card}
+                   "dense_bf16_matmul_ms": timer.ms(lambda: torch.matmul(x, dense_w)),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": timer.ms(lambda: library(x)) if library else None,
+                   "library_rel_err": rel_err(library(x), want[timed]) if library else None,
+                   "plan": plan(M, N, K, GROUP, bits)._asdict(),
+                   "device_ops_per_call": device_ops_per_call(
+                       lambda: decode_matmul_stacked(x, *stack, meta, ids[timed])),
+                   "card": card}
             if bits != 4:
                 row["per_layer_ms"] = timer.ms(lambda: decode_matmul(x, *layer[timed], meta))
                 row["per_layer_plain_ms"] = timer.ms(
                     lambda: decode_matmul_plain(x, *layer[timed], meta), iters=5)
                 row["per_layer_rel_err"] = max(rel_err(per[l], want[l]) for l in SCAN_CHECKED)
             emit(row)
-            if not equal or not err <= REL_TOL or not row.get("per_layer_rel_err", 0) <= REL_TOL:
+            if not equal or not err <= REL_TOL or not row.get("per_layer_rel_err", 0) <= REL_TOL \
+                    or not (row["library_rel_err"] or 0) <= REL_TOL \
+                    or row["device_ops_per_call"] != 1:
                 raise RuntimeError(f"stacked decode kernel check failed: {row}")
             rows.append(row)
-        del W_q, scales, zeros, stack, layer
+        del W_q, scales, zeros, stack, layer, dense_w, library
     emit({"phase": "kernels_scan", "ok": True, "checked": len(rows), "card": card})
     return {"decode_stacked": next(r for r in rows if (r["bits"], r["M"], r["N"], r["K"])
                                    == (4, 8, 14336, 4096))}

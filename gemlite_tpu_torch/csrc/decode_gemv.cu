@@ -1,6 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
-// W1/W2/W4 decode GEMV / split-K for M <= 64: out = x @ dequant(W_q), bf16
-// out, float32 accumulation, W_group_mode 4 with bf16 group scales and zeros.
+// W1/W2/W4 decode for M <= 64: out = x @ dequant(W_q), bf16 out, float32
+// sums on the bf16 tensor cores, W_group_mode 4 with bf16 group scales and
+// pre-folded zeros, one launch a call.
 //
 // Two entries share one body:
 //   gl_decode          one layer: replaces the TPU kernel
@@ -11,236 +12,476 @@
 //                      The TPU kernel reads l as a scalar-prefetch operand in
 //                      its index maps; here each block reads l from a device
 //                      pointer and offsets its weight, scale and zero
-//                      pointers by it, so the host never reads the index and
-//                      one launch entry serves every layer.
+//                      pointers by it, so the host never reads the index.
 //
-// What bounds it: at M <= 8 the packed weights (K * N * bits / 8 bytes)
-// dominate the traffic, so the bound is bytes over HBM bandwidth. Design:
-//   * one thread owns one output column n and walks down K; a warp's word loads
-//     are 128 contiguous bytes because W_q rows are N-contiguous;
-//   * each thread issues the loads of a whole K-chunk (64 rows: 8 W4 words,
-//     4 W2 words or 2 W1 words) before using them, so many loads are in flight;
-//   * x is staged in shared memory one K-chunk at a time, as float and
-//     transposed (xs[k][m]), so the inner loop reads 4 rows with one 16-byte
-//     broadcast load;
-//   * K is split over gridDim.y so that 4096-wide layers fill the 132 SMs.
-//     Partial sums go to a float32 workspace and a second kernel adds them in
-//     split order: no float atomics, so a run repeats bit for bit, and row m's
-//     result does not depend on M (the split count depends on N and K only).
-//     The stacked entry keeps the same plan, so at layer l it equals the
-//     per-layer entry on that layer bit for bit.
-// At M = 64 the float32 FMAs (64 per weight) bound it instead; the tensor-core
-// prefill kernel is the better tool there, which a later change may route.
-#include "w4_common.cuh"
+// What bounds it: the packed weights and their metadata (K * N * bits / 8 +
+// 4 * K / gs * N bytes) dwarf x and the output at M <= 64, so the bound is
+// bytes over HBM bandwidth (M 8, 14336 x 4096 W4 gs 128: 31.2 MB, 9.4 us).
+// The design streams each weight byte once at every M and keeps it off the
+// float32 pipe:
+//   * the operands are swapped: out^T = W^T . x^T on mma.sync m16n8k16 bf16
+//     with float32 sums. A is a 16-column x 16-k tile of dequantized W built
+//     in registers, B a 16-k x 8-row tile of x. A block owns 128 columns and
+//     all M rows: each warp owns 32 columns (two m16 tiles) and every n8 tile
+//     of rows, so the work that grows with M runs on the tensor cores and
+//     each A fragment serves up to 8 of them;
+//   * K is permuted inside each 32-deep block so that a lane dequantizes
+//     whole words: lane (g = lane / 4, t = lane % 4) takes codes k0 + 8t ..
+//     k0 + 8t + 7 of columns g and g + 8 (a whole W4 word, half a W2 word,
+//     one byte of a W1 word), pairs code e with code e + 4 (compute_stage),
+//     and reads x[m][k0 + 8t .. + 7] as one 16-byte piece, paired the same
+//     way by byte permutes. A sum over k does not depend on the order of k,
+//     so nothing crosses lanes;
+//   * dequantization in bf16x2, rounded as the plain version rounds: a code
+//     pair becomes 128 + q exactly (a shift, then a mask and | 0x4300 in one
+//     lop3), fma(128 + q, s, -128 s) rounds the exact q * s once, and
+//     fma(t, 1, z) rounds the exact t + z once. The plain version rounds
+//     the same two results once each (float32 holds q * s exactly, and
+//     rounding t + z to float32 and then to bf16 is one correct rounding:
+//     24 >= 2 * 8 + 2 bits);
+//   * a ring of 2-6 stages of 16-byte cp.async pieces brings each 128-deep
+//     step: the step's words (column-swizzled so that the 4-byte reads of a
+//     warp hit 32 banks), its scale and zero rows and its x chunk (rows
+//     swizzled for conflict-free 16-byte reads), up to 54 KB a block;
+//   * K is split over gridDim.y so that about four blocks run per SM, in
+//     one wave: the warps of four blocks hide the latency of the
+//     dequantization chains (scripts/torch_decode_variants.py). The
+//     split depends on N, K and gs only, never on M, so a row's sum is the
+//     same whatever the batch, and the stacked entry equals the per-layer
+//     entry bit for bit. Each split writes its float32 partial and bumps
+//     its column tile's arrival counter; the last block adds the partials in
+//     split order, writes bf16 and leaves the counter at 0. With one split
+//     the block writes its result directly. One launch, no allocation.
+#include <atomic>
+
+#include "gl_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // output columns per block
-constexpr int kChunk = 64;      // K rows of x staged per chunk
+using gl::cp_async16;
+using gl::cp_async4;
+using gl::cp_async_commit;
+using gl::cp_async_wait_n;
+using gl::smem_u32;
+using bf16 = __nv_bfloat16;
 
-// The body. Requires gs % (32 / BITS) == 0 and k_per_split % gs == 0, so that
-// a word never straddles a group, a split or a chunk.
-template <int MT, int BITS>
-__device__ __forceinline__ void decode_body(
-        const __nv_bfloat16* __restrict__ x,       // (M, K)
-        const uint32_t* __restrict__ wq,            // (K / epw, N)
-        const __nv_bfloat16* __restrict__ scales,   // (K / gs, N)
-        const __nv_bfloat16* __restrict__ zeros,    // (K / gs, N)
-        float* __restrict__ partial,                // (splits, M, N)
-        __nv_bfloat16* __restrict__ out,            // (M, N)
-        int M, int N, int K, int gs, int k_per_split) {
-    constexpr int EPW = 32 / BITS;           // codes per word
-    constexpr int WPC = kChunk / EPW;        // words per chunk
-    __shared__ __align__(16) float xs[kChunk][MT];
-    const int n = blockIdx.x * kThreads + threadIdx.x;
-    const int split = blockIdx.y;
-    const int k_begin = split * k_per_split;
-    const int k_end = min(K, k_begin + k_per_split);
-    const bool live = n < N;
+constexpr int BK = 128;                  // K per ring stage
+constexpr int BN = 128;                  // output columns per block: 4 warps of 32
+constexpr int kMinBlocks = 4;            // blocks an SM that the registers leave room for
+constexpr int kMaxStages = 6;
+constexpr int kSmemMax = 112 * 1024;     // the most shared memory a launch may take
 
-    float acc[MT];
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+struct Params {
+    const bf16* x;                       // (M, K)
+    const uint32_t* wq;                  // ([L,] K / epw, N)
+    const bf16* scales;                  // ([L,] K / gs, N)
+    const bf16* zeros;                   // ([L,] K / gs, N), -z * s
+    const int* layer_idx;                // stacked entry: the layer, on the device
+    int L;
+    bf16* out;                           // (M, N)
+    float* part;                         // (splits, M, N) float32 partials
+    int* counters;                       // one per column tile, 0 between calls
+    int M, N, K, gs, k_per_split;
+    int stages;                          // ring depth
+    int mrows;                           // group rows a stage holds
+    int wvec, mvec;                      // copy sizes of words (16 / 4) and metadata (16 / 4 / 2)
+};
 
-    for (int kc = k_begin; kc < k_end; kc += kChunk) {
-        const int klen = min(kChunk, k_end - kc);   // a multiple of EPW
-        for (int i = threadIdx.x; i < kChunk * MT; i += kThreads) {
-            const int m = i / kChunk, kk = i % kChunk;
-            float v = 0.f;
-            if (m < M && kk < klen) v = __bfloat162float(x[(size_t)m * K + kc + kk]);
-            xs[kk][m] = v;
+__host__ __device__ constexpr int word_rows(int bits) { return BK * bits / 32; }
+__host__ __device__ constexpr int words_bytes(int bits) { return word_rows(bits) * BN * 4; }
+__host__ __device__ constexpr int x_bytes(int nt) { return nt * 8 * BK * 2; }
+__host__ __device__ constexpr int meta_bytes(int mrows) { return mrows * BN * 2; }
+__host__ __device__ constexpr int stage_bytes(int bits, int nt, int mrows) {
+    return words_bytes(bits) + x_bytes(nt) + 2 * meta_bytes(mrows);
+}
+
+// index of word (r, c) in a stage's word tile: bits 3-4 of c flipped by r,
+// so the lanes of a warp (rows t, columns g and g + 8 of two m16 tiles) hit
+// 32 banks and a 16-byte piece (4 columns) stays whole
+__device__ __forceinline__ int w_idx(int r, int c) { return r * BN + (c ^ ((r & 3) << 3)); }
+// 16-byte chunk c (8 k) of row m of the x tile: rows 2i and 2i + 1 of a
+// quarter warp's 16-byte reads land on the two halves of the banks
+__device__ __forceinline__ int x_chunk(int m, int c) { return c ^ ((m & 1) << 2); }
+
+// d = a * b + c, bf16x2, one rounding
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one ring stage: the words, x and metadata of k0 .. k0 + BK - 1 of the
+// range ending at k_end; copies past M, N or k_end fill zeros (a zero code
+// with a zero scale and zero is a zero weight, against a zero x)
+template <int NT, int BITS>
+__device__ __forceinline__ void load_stage(const Params& p, const uint32_t* wq, const bf16* sc,
+                                           const bf16* ze, unsigned char* st, int n0, int k0,
+                                           int k_end) {
+    constexpr int EPW = 32 / BITS, WR = word_rows(BITS), XR = NT * 8;
+    uint32_t* ws = reinterpret_cast<uint32_t*>(st);
+    bf16* xs = reinterpret_cast<bf16*>(st + words_bytes(BITS));
+    const int t = threadIdx.x;
+
+    const int rv = min(WR, (k_end - k0) / EPW);
+    const uint32_t* wg = wq + (size_t)(k0 / EPW) * p.N + n0;
+    if (p.wvec == 16) {
+        for (int i = t; i < WR * (BN / 4); i += BN) {
+            const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+            const bool ok = r < rv && n0 + c < p.N;
+            cp_async16(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : (const void*)wq,
+                       ok ? 16 : 0);
         }
-        __syncthreads();
-        if (live) {
-            const int nw = klen / EPW;
-            uint32_t words[WPC];
-            float s[WPC], z[WPC];
-#pragma unroll
-            for (int w = 0; w < WPC; ++w) {
-                words[w] = 0u;
-                s[w] = 0.f;
-                z[w] = 0.f;
-                if (w < nw) {
-                    const int k0 = kc + w * EPW;
-                    const size_t g = (size_t)(k0 / gs) * N + n;
-                    words[w] = __ldg(wq + (size_t)(k0 / EPW) * N + n);
-                    s[w] = __bfloat162float(scales[g]);
-                    z[w] = __bfloat162float(zeros[g]);
-                }
-            }
-#pragma unroll
-            for (int w = 0; w < WPC; ++w) {
-                if (w < nw) {
-#pragma unroll
-                    for (int j = 0; j < EPW; ++j) {
-                        const float wv = dequant_mode4<BITS>(words[w], j, s[w], z[w]);
-                        const float* xr = xs[w * EPW + j];
-                        if constexpr (MT % 4 == 0) {
-#pragma unroll
-                            for (int m = 0; m < MT; m += 4) {
-                                const float4 xv = *reinterpret_cast<const float4*>(xr + m);
-                                acc[m + 0] = fmaf(xv.x, wv, acc[m + 0]);
-                                acc[m + 1] = fmaf(xv.y, wv, acc[m + 1]);
-                                acc[m + 2] = fmaf(xv.z, wv, acc[m + 2]);
-                                acc[m + 3] = fmaf(xv.w, wv, acc[m + 3]);
-                            }
-                        } else {
-#pragma unroll
-                            for (int m = 0; m < MT; ++m) acc[m] = fmaf(xr[m], wv, acc[m]);
-                        }
-                    }
-                }
-            }
-        }
-        __syncthreads();
-    }
-
-    if (!live) return;
-    if (gridDim.y == 1) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-            if (m < M) out[(size_t)m * N + n] = __float2bfloat16_rn(acc[m]);
     } else {
+        for (int i = t; i < WR * BN; i += BN) {
+            const int r = i / BN, c = i % BN;
+            const bool ok = r < rv && n0 + c < p.N;
+            cp_async4(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : (const void*)wq,
+                      ok ? 4 : 0);
+        }
+    }
+    for (int i = t; i < XR * (BK / 8); i += BN) {
+        const int m = i / (BK / 8), c = i % (BK / 8), k = k0 + 8 * c;
+        const bool ok = m < p.M && k < k_end;
+        cp_async16(smem_u32(xs + m * BK + 8 * x_chunk(m, c)),
+                   ok ? p.x + (size_t)m * p.K + k : (const void*)p.x, ok ? 16 : 0);
+    }
+    const int g0 = k0 / p.gs, gv = min(p.mrows, (k_end - 1) / p.gs - g0 + 1);
 #pragma unroll
-        for (int m = 0; m < MT; ++m)
-            if (m < M) partial[((size_t)split * M + m) * N + n] = acc[m];
+    for (int a = 0; a < 2; ++a) {
+        const bf16* src = (a ? ze : sc) + (size_t)g0 * p.N + n0;
+        bf16* dst = reinterpret_cast<bf16*>(st + words_bytes(BITS) + x_bytes(NT) +
+                                            a * meta_bytes(p.mrows));
+        if (p.mvec == 2) {                   // odd N: plain 2-byte loads
+            for (int i = t; i < p.mrows * BN; i += BN) {
+                const int r = i / BN, c = i % BN;
+                dst[i] = r < gv && n0 + c < p.N ? src[(size_t)r * p.N + c] : __ushort_as_bfloat16(0);
+            }
+        } else {
+            const int e = p.mvec / 2;        // bf16 values a piece
+            for (int i = t; i < p.mrows * (BN / e); i += BN) {
+                const int r = i / (BN / e), c = (i % (BN / e)) * e;
+                const bool ok = r < gv && n0 + c < p.N;
+                const void* s = ok ? (const void*)(src + (size_t)r * p.N + c) : (const void*)sc;
+                if (e == 8) cp_async16(smem_u32(dst + r * BN + c), s, ok ? 16 : 0);
+                else cp_async4(smem_u32(dst + r * BN + c), s, ok ? 4 : 0);
+            }
+        }
     }
 }
 
-template <int MT, int BITS>
-__global__ void __launch_bounds__(kThreads)
-gemv_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ wq,
-                   const __nv_bfloat16* __restrict__ scales,
-                   const __nv_bfloat16* __restrict__ zeros, float* __restrict__ partial,
-                   __nv_bfloat16* __restrict__ out, int M, int N, int K, int gs,
-                   int k_per_split) {
-    decode_body<MT, BITS>(x, wq, scales, zeros, partial, out, M, N, K, gs, k_per_split);
+// The products of one stage for one warp: columns wn0 + 16 i + (0..15) of the
+// block, row tiles jj < nt. acc[i][jj][r] is the m16n8 fragment: r = 0, 1 at
+// column g, rows 8 jj + 2 t + 0, 1; r = 2, 3 the same rows at column g + 8.
+// Lane (g, t) takes codes 0..7 of k0 + 8t .. k0 + 8t + 7 and pairs code e
+// with code e + 4 (one shift and one mask put both beside 0x4300): pair e
+// feeds mma e / 2, its low-k registers for even e, its high-k ones for odd
+// e, so element (j, f) of a lane's fragments (f = 0..3: logical k 2t, 2t + 1,
+// 2t + 8, 2t + 9) is code 2j + f / 2 + 4 (f % 2); x is paired to match.
+template <int NT, int BITS>
+__device__ __forceinline__ void compute_stage(const Params& p, const unsigned char* st, int k0,
+                                              int k_end, int nt, int wn0, int lane,
+                                              float (&acc)[2][NT][4]) {
+    constexpr int EPW = 32 / BITS;
+    constexpr uint32_t MASK2 = ((1u << BITS) - 1u) * 0x00010001u;
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
+    const bf16* xs = reinterpret_cast<const bf16*>(st + words_bytes(BITS));
+    const uint16_t* ss = reinterpret_cast<const uint16_t*>(st + words_bytes(BITS) + x_bytes(NT));
+    const uint16_t* zs = ss + p.mrows * BN;
+    const int g = lane >> 2, t = lane & 3;
+    uint32_t s2[2][2], z2[2][2], m2[2][2];               // [m16 tile i][column g, g + 8]
+#pragma unroll
+    for (int kb = 0; kb < BK / 32; ++kb) {
+        const int kl = 32 * kb + 8 * t;                  // this lane's first k in the stage
+        if (k0 + 32 * kb >= k_end) break;
+        if (kb == 0 || p.mrows > 1) {                    // one group row a stage: read it once
+            const int gr = p.mrows == 1 ? 0 : (k0 + kl) / p.gs - k0 / p.gs;
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int c = wn0 + 16 * i + 8 * h + g;
+                    s2[i][h] = ss[gr * BN + c] * 0x00010001u;
+                    z2[i][h] = zs[gr * BN + c] * 0x00010001u;
+                    m2[i][h] = fma_bf16x2(s2[i][h], 0xC300C300u, 0x80008000u);   // -128 s, exact
+                }
+        }
+        const int r = kl / EPW, shift = BITS * (kl % EPW);
+        uint32_t a[2][2][4];                             // [mma j][m16 tile i][register]
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                uint32_t u = ws[w_idx(r, wn0 + 16 * i + 8 * h + g)] >> shift;
+                // code e at bit BITS e and code e + 4 at bit BITS e + 16
+                if constexpr (BITS == 2) u = (u & 0xFFu) | ((u & 0xFF00u) << 8);
+                if constexpr (BITS == 1) u = (u & 0xFu) | ((u & 0xF0u) << 12);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const uint32_t v = ((u >> (BITS * e)) & MASK2) | 0x43004300u;   // 128 + q
+                    const uint32_t w = fma_bf16x2(fma_bf16x2(v, s2[i][h], m2[i][h]), 0x3F803F80u,
+                                                  z2[i][h]);
+                    a[e >> 1][i][2 * (e & 1) + h] = w;
+                }
+            }
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (jj >= nt) break;
+            const int m = 8 * jj + g;
+            const uint4 xv = *reinterpret_cast<const uint4*>(xs + m * BK + 8 * x_chunk(m, 4 * kb + t));
+            // (x[8t + 2j], x[8t + 2j + 4]) and (x[8t + 2j + 1], x[8t + 2j + 5])
+            const uint32_t b00 = __byte_perm(xv.x, xv.z, 0x5410), b01 = __byte_perm(xv.x, xv.z, 0x7632);
+            const uint32_t b10 = __byte_perm(xv.y, xv.w, 0x5410), b11 = __byte_perm(xv.y, xv.w, 0x7632);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                mma_bf16(acc[i][jj], a[0][i], b00, b01);
+                mma_bf16(acc[i][jj], a[1][i], b10, b11);
+            }
+        }
+    }
+}
+
+// The block's sums, staged in shared memory as tile[m][BN]: into the output,
+// or with K split the block's partial, and the last block of the column
+// tile adds the partials in split order and leaves its counter at 0. Four
+// columns a thread where rows allow, and eight splits' loads in flight
+// before they are added. Not inlined: one copy serves every instance.
+__device__ __noinline__ void finish(const Params p, const float* tile, int* flag) {
+    const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
+    const size_t MN = (size_t)p.M * p.N;
+    const int V = p.N % 4 == 0 ? 4 : 1;
+    if (nsplit > 1) {
+        for (int e = threadIdx.x * V; e < p.M * BN; e += blockDim.x * V) {
+            const int m = e / BN, n = n0 + e % BN;
+            if (n >= p.N) continue;
+            float* dst = p.part + split * MN + (size_t)m * p.N + n;
+            if (V == 4) *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(tile + e);
+            else *dst = tile[e];
+        }
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) *flag = atomicAdd(p.counters + blockIdx.x, 1) == nsplit - 1;
+        __syncthreads();
+        if (!*flag) return;
+        __threadfence();
+    }
+    for (int e = threadIdx.x * V; e < p.M * BN; e += blockDim.x * V) {
+        const int m = e / BN, n = n0 + e % BN;
+        if (n >= p.N) continue;
+        const size_t idx = (size_t)m * p.N + n;
+        float v[4] = {tile[e], 0.f, 0.f, 0.f};
+        if (V == 4) {
+            const float4 tv = *reinterpret_cast<const float4*>(tile + e);
+            v[0] = tv.x, v[1] = tv.y, v[2] = tv.z, v[3] = tv.w;
+        }
+        if (nsplit > 1) {
+            v[0] = v[1] = v[2] = v[3] = 0.f;
+            for (int s0 = 0; s0 < nsplit; s0 += 8) {
+                float4 r[8];
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const float* src = p.part + (s0 + j) * MN + idx;
+                    if (s0 + j >= nsplit) r[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+                    else if (V == 4) r[j] = __ldcg(reinterpret_cast<const float4*>(src));
+                    else r[j] = make_float4(__ldcg(src), 0.f, 0.f, 0.f);
+                }
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    if (s0 + j >= nsplit) break;
+                    v[0] = __fadd_rn(v[0], r[j].x);
+                    v[1] = __fadd_rn(v[1], r[j].y);
+                    v[2] = __fadd_rn(v[2], r[j].z);
+                    v[3] = __fadd_rn(v[3], r[j].w);
+                }
+            }
+        }
+        if (V == 4) {
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+            uint2 pk;
+            pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+            pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+            *reinterpret_cast<uint2*>(p.out + idx) = pk;
+        } else {
+            p.out[idx] = __float2bfloat16_rn(v[0]);
+        }
+    }
+    if (nsplit > 1 && threadIdx.x == 0) p.counters[blockIdx.x] = 0;
+}
+
+template <int NT, int BITS>
+__device__ __forceinline__ void decode_body(const Params& p, const uint32_t* wq, const bf16* sc,
+                                            const bf16* ze) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    __shared__ int last_flag;
+    const int S = p.stages, SB = stage_bytes(BITS, NT, p.mrows);
+    const int lane = threadIdx.x & 31, wn0 = (threadIdx.x >> 5) * 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int n0 = blockIdx.x * BN, split = blockIdx.y;
+    const int k_begin = split * p.k_per_split, k_end = min(p.K, k_begin + p.k_per_split);
+    const int steps = (k_end - k_begin + BK - 1) / BK;
+    const int nt = (p.M + 7) / 8;
+
+    float acc[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < steps) load_stage<NT, BITS>(p, wq, sc, ze, smem + s * SB, n0, k_begin + s * BK, k_end);
+        cp_async_commit();
+    }
+    for (int it = 0; it < steps; ++it) {
+        // stage it has landed; every warp is done with stage it - 1
+        cp_async_wait_n(S - 2);
+        __syncthreads();
+        const int nxt = it + S - 1;
+        if (nxt < steps)
+            load_stage<NT, BITS>(p, wq, sc, ze, smem + (nxt % S) * SB, n0, k_begin + nxt * BK, k_end);
+        cp_async_commit();
+        compute_stage<NT, BITS>(p, smem + (it % S) * SB, k_begin + it * BK, k_end, nt, wn0, lane, acc);
+    }
+    cp_async_wait_n(0);
+    __syncthreads();                                     // the ring is free
+    float* tile = reinterpret_cast<float*>(smem);        // [M][BN]
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (jj >= nt) break;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int m = 8 * jj + 2 * t + (r & 1);
+                if (m < p.M) tile[m * BN + wn0 + 16 * i + g + 8 * (r >> 1)] = acc[i][jj][r];
+            }
+        }
+    __syncthreads();
+    finish(p, tile, &last_flag);
+}
+
+template <int NT, int BITS>
+__global__ void __launch_bounds__(BN, kMinBlocks) decode_mma_kernel(Params p) {
+    decode_body<NT, BITS>(p, p.wq, p.scales, p.zeros);
 }
 
 // wq (L, K / epw, N), scales and zeros (L, K / gs, N); *layer_idx in [0, L).
 // Offsets are size_t: a 32-layer stack of 14336 x 4096 W4 weights is 940 MB.
-template <int MT, int BITS>
-__global__ void __launch_bounds__(kThreads)
-gemv_stacked_kernel(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ wq,
-                    const __nv_bfloat16* __restrict__ scales,
-                    const __nv_bfloat16* __restrict__ zeros, const int* __restrict__ layer_idx,
-                    int L, float* __restrict__ partial, __nv_bfloat16* __restrict__ out,
-                    int M, int N, int K, int gs, int k_per_split) {
-    const int l = __ldg(layer_idx);          // the same 4 bytes for every thread
-    if (l < 0 || l >= L) __trap();           // the caller's index is out of the stack
-    const size_t words = (size_t)(K / (32 / BITS)) * N, groups = (size_t)(K / gs) * N;
-    decode_body<MT, BITS>(x, wq + (size_t)l * words, scales + (size_t)l * groups,
-                          zeros + (size_t)l * groups, partial, out, M, N, K, gs, k_per_split);
+template <int NT, int BITS>
+__global__ void __launch_bounds__(BN, kMinBlocks) decode_mma_stacked_kernel(Params p) {
+    const int l = __ldg(p.layer_idx);                    // the same 4 bytes for every thread
+    if (l < 0 || l >= p.L) __trap();                     // the caller's index is out of the stack
+    const size_t words = (size_t)(p.K / (32 / BITS)) * p.N, groups = (size_t)(p.K / p.gs) * p.N;
+    decode_body<NT, BITS>(p, p.wq + l * words, p.scales + l * groups, p.zeros + l * groups);
 }
 
-// out[i] = sum over splits of partial[s, i], added in split order.
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     __nv_bfloat16* __restrict__ out,
-                                     int count, int splits) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= count) return;
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += partial[(size_t)s * count + i];
-    out[i] = __float2bfloat16_rn(acc);
+__host__ int smem_bytes(int bits, int nt, int mrows, int stages, int M) {
+    const int ring = stages * stage_bytes(bits, nt, mrows), tile = M * BN * 4;
+    return ring > tile ? ring : tile;
 }
 
-struct Args {
-    const __nv_bfloat16* x;
-    const uint32_t* wq;
-    const __nv_bfloat16* scales;
-    const __nv_bfloat16* zeros;
-    const int* layer_idx;       // null: one layer
-    int L;
-    float* partial;
-    __nv_bfloat16* out;
-    int M, N, K, gs, splits, k_per_split;
-};
-
-template <int MT, int BITS>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-    const dim3 grid((a.N + kThreads - 1) / kThreads, a.splits);
-    if (a.layer_idx)
-        gemv_stacked_kernel<MT, BITS><<<grid, kThreads, 0, stream>>>(
-            a.x, a.wq, a.scales, a.zeros, a.layer_idx, a.L, a.partial, a.out,
-            a.M, a.N, a.K, a.gs, a.k_per_split);
-    else
-        gemv_decode_kernel<MT, BITS><<<grid, kThreads, 0, stream>>>(
-            a.x, a.wq, a.scales, a.zeros, a.partial, a.out, a.M, a.N, a.K, a.gs,
-            a.k_per_split);
+template <int NT, int BITS>
+cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
+    static std::atomic<unsigned> ready{0};               // a bit per device: attributes set
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (!(ready.load() & (1u << dev))) {
+        err = cudaFuncSetAttribute(decode_mma_kernel<NT, BITS>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(decode_mma_stacked_kernel<NT, BITS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+        if (err != cudaSuccess) return err;
+        ready.fetch_or(1u << dev);
+    }
+    const int bytes = smem_bytes(BITS, NT, p.mrows, p.stages, p.M);
+    if (bytes > kSmemMax) return cudaErrorInvalidValue;
+    const dim3 grid((p.N + BN - 1) / BN, splits);
+    if (p.layer_idx) decode_mma_stacked_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
+    else decode_mma_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
     return cudaGetLastError();
 }
 
 template <int BITS>
-cudaError_t launch_rows(const Args& a, cudaStream_t stream) {
-    if (a.M <= 1) return launch<1, BITS>(a, stream);
-    if (a.M <= 2) return launch<2, BITS>(a, stream);
-    if (a.M <= 4) return launch<4, BITS>(a, stream);
-    if (a.M <= 8) return launch<8, BITS>(a, stream);
-    if (a.M <= 16) return launch<16, BITS>(a, stream);
-    if (a.M <= 32) return launch<32, BITS>(a, stream);
-    if (a.M <= 64) return launch<64, BITS>(a, stream);
-    return cudaErrorInvalidValue;
+cudaError_t launch_rows(const Params& p, int splits, cudaStream_t stream) {
+    if (p.M <= 8) return launch<1, BITS>(p, splits, stream);
+    if (p.M <= 16) return launch<2, BITS>(p, splits, stream);
+    if (p.M <= 32) return launch<4, BITS>(p, splits, stream);
+    return launch<8, BITS>(p, splits, stream);
 }
 
-int run(const Args& a, int bits, cudaStream_t stream) {
+// group rows that one 128-deep stage can touch: the least mrows the ring may
+// hold (ops/decode.plan chooses the ring; this only checks it)
+int groups_per_stage(int gs) {
+    if (gs % BK == 0) return 1;
+    return BK % gs == 0 ? BK / gs : BK / gs + 2;
+}
+
+int run(Params p, int bits, int splits, cudaStream_t stream) {
+    const int epw = bits > 0 ? 32 / bits : 0;
+    const bool shape_ok = p.M >= 1 && p.M <= 64 && p.N >= 1 && (bits == 1 || bits == 2 || bits == 4) &&
+                          p.gs > 0 && p.gs % (epw > 8 ? epw : 8) == 0 && p.K % p.gs == 0;
+    const bool split_ok = splits >= 1 && p.k_per_split > 0 && p.k_per_split % p.gs == 0 &&
+                          (splits == 1 || p.k_per_split % BK == 0) &&
+                          (long long)(splits - 1) * p.k_per_split < p.K &&
+                          (long long)splits * p.k_per_split >= p.K &&
+                          (splits == 1 || (p.part != nullptr && p.counters != nullptr));
+    if (!shape_ok || !split_ok || p.stages < 2 || p.stages > kMaxStages ||
+        p.mrows < groups_per_stage(p.gs) || reinterpret_cast<uintptr_t>(p.x) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // 16-byte pieces need 16-byte rows and bases (every layer of a stack too)
+    p.wvec = p.N % 4 == 0 && reinterpret_cast<uintptr_t>(p.wq) % 16 == 0 ? 16 : 4;
+    const uintptr_t meta_base = reinterpret_cast<uintptr_t>(p.scales) | reinterpret_cast<uintptr_t>(p.zeros);
+    p.mvec = p.N % 8 == 0 && meta_base % 16 == 0 ? 16 : (p.N % 2 == 0 && meta_base % 4 == 0 ? 4 : 2);
     cudaError_t err;
-    if (bits == 4) err = launch_rows<4>(a, stream);
-    else if (bits == 2) err = launch_rows<2>(a, stream);
-    else if (bits == 1) err = launch_rows<1>(a, stream);
-    else return static_cast<int>(cudaErrorInvalidValue);
-    if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-    const int count = a.M * a.N;
-    splitk_reduce_kernel<<<(count + 255) / 256, 256, 0, stream>>>(a.partial, a.out, count,
-                                                                 a.splits);
-    return static_cast<int>(cudaGetLastError());
+    if (bits == 4) err = launch_rows<4>(p, splits, stream);
+    else if (bits == 2) err = launch_rows<2>(p, splits, stream);
+    else err = launch_rows<1>(p, splits, stream);
+    return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Launch on `stream`. With splits > 1, `partial` holds splits * M * N floats.
-// `bits` is 1, 2 or 4. Returns the cudaError_t of the launches (0 on success).
+// Launch on `stream`. `bits` is 1, 2 or 4. K is cut into `splits` ranges of
+// `k_per_split` (none empty); with splits > 1 the call needs `part`, (splits,
+// M, N) floats, and `counters`, one int32 per column tile, all 0, which the
+// kernel leaves 0. `stages` and `mrows` come from ops/decode.plan. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int gl_decode(const void* x, const void* wq, const void* scales, const void* zeros,
-                         void* partial, void* out, int M, int N, int K, int gs, int bits,
-                         int splits, int k_per_split, void* stream_ptr) {
-    const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(wq),
-                 static_cast<const __nv_bfloat16*>(scales),
-                 static_cast<const __nv_bfloat16*>(zeros), nullptr, 1,
-                 static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
-                 M, N, K, gs, splits, k_per_split};
-    return run(a, bits, static_cast<cudaStream_t>(stream_ptr));
+                         void* part, void* counters, void* out, int M, int N, int K, int gs,
+                         int bits, int splits, int k_per_split, int stages, int mrows,
+                         void* stream_ptr) {
+    const Params p{static_cast<const bf16*>(x), static_cast<const uint32_t*>(wq),
+                   static_cast<const bf16*>(scales), static_cast<const bf16*>(zeros), nullptr, 1,
+                   static_cast<bf16*>(out), static_cast<float*>(part), static_cast<int*>(counters),
+                   M, N, K, gs, k_per_split, stages, mrows, 0, 0};
+    return run(p, bits, splits, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The same for layer *layer_idx (a device pointer to one int32) of the
 // L-layer stacks wq (L, K / epw, N), scales and zeros (L, K / gs, N).
 extern "C" int gl_decode_stacked(const void* x, const void* wq, const void* scales,
-                                 const void* zeros, const void* layer_idx, void* partial,
-                                 void* out, int L, int M, int N, int K, int gs, int bits,
-                                 int splits, int k_per_split, void* stream_ptr) {
+                                 const void* zeros, const void* layer_idx, void* part,
+                                 void* counters, void* out, int L, int M, int N, int K, int gs,
+                                 int bits, int splits, int k_per_split, int stages, int mrows,
+                                 void* stream_ptr) {
     if (layer_idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(wq),
-                 static_cast<const __nv_bfloat16*>(scales),
-                 static_cast<const __nv_bfloat16*>(zeros), static_cast<const int*>(layer_idx),
-                 L, static_cast<float*>(partial), static_cast<__nv_bfloat16*>(out),
-                 M, N, K, gs, splits, k_per_split};
-    return run(a, bits, static_cast<cudaStream_t>(stream_ptr));
+    const Params p{static_cast<const bf16*>(x), static_cast<const uint32_t*>(wq),
+                   static_cast<const bf16*>(scales), static_cast<const bf16*>(zeros),
+                   static_cast<const int*>(layer_idx), L, static_cast<bf16*>(out),
+                   static_cast<float*>(part), static_cast<int*>(counters),
+                   M, N, K, gs, k_per_split, stages, mrows, 0, 0};
+    return run(p, bits, splits, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -1,6 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Build the hand-written CUDA kernels at first use, load them with ctypes,
-and plan their split-K grids.
+keep the scratch of the kernels whose K splits meet in one launch, and count
+the device operations of a call.
 
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launchers that take raw device
 pointers, sizes and a ``cudaStream_t`` and return the ``cudaError_t`` of the
@@ -21,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "TARGET_BLOCKS", "build", "load", "check", "split_k", "split_state"]
+__all__ = ["KERNEL_SOURCES", "build", "load", "check", "graph_ops", "split_state"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -30,8 +31,6 @@ KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "dequantize", "int8_decode", "f
                   "flash_attention", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -104,23 +103,16 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def split_k(blocks: int, K: int, unit: int, target: int = TARGET_BLOCKS):
-    """(splits, k_per_split): K cut in ranges of whole ``unit``s (the last
-    range may be shorter) so that a grid of ``blocks`` output tiles, times
-    the splits, holds about ``target`` blocks."""
-    units = -(-K // unit)
-    splits = min(units, max(1, -(-target // blocks)))
-    per = -(-units // splits)
-    return -(-units // per), per * unit
-
-
-def split_state(owner: str, device: torch.device, ints: int, floats: int):
+def split_state(owner: str, device: torch.device, ints: int, floats: int, stream=None):
     """(int32, float32) scratch of a kernel whose split blocks meet in one
     launch, per owner, device and stream, grown on demand. The int32 part
     (accumulators, arrival counters) is zeroed once and every call leaves it
     0; the float32 part holds partials that each call writes before it reads
-    them. So a call allocates no scratch of its own."""
-    key = (owner, device.index, torch.cuda.current_stream(device).cuda_stream)
+    them. So a call allocates no scratch of its own. ``stream``: the
+    caller's ``cuda_stream`` handle, if it has read it already."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (owner, device.index, stream)
     state = _SPLIT_STATE.get(key)
     if state is None or state[0].numel() < ints or state[1].numel() < floats:
         have = (state[0].numel(), state[1].numel()) if state is not None else (1, 1)
@@ -128,3 +120,48 @@ def split_state(owner: str, device: torch.device, ints: int, floats: int):
                  torch.empty(max(floats, have[1]), dtype=torch.float32, device=device))
         _SPLIT_STATE[key] = state
     return state
+
+
+# CUgraphNodeType values (cuda.h) of the nodes that do device work
+_DEVICE_NODES = {0: "kernel", 1: "memcpy", 2: "memset"}
+_CAPTURE_STREAMS = {}
+
+
+def _node_types(graph: int) -> list:
+    """The CUgraphNodeType of every node of a cudaGraph_t, read through the
+    driver API."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    g, n = ctypes.c_void_p(graph), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(0)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    return types
+
+
+def graph_ops(fn) -> list:
+    """The device operations (kernels, copies, memsets) of one ``fn()``, by
+    node type: fn runs once on a side stream (which builds what it needs and
+    makes that stream's split state), then a second call is captured into a
+    CUDA graph and its nodes are counted, and the graph is replayed once so
+    that what fn returned from the captured call holds its results."""
+    dev = torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.setdefault(dev, torch.cuda.Stream(dev))
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    types = _node_types(graph.raw_cuda_graph())
+    graph.replay()
+    torch.cuda.synchronize()
+    return [_DEVICE_NODES[t] for t in types if t in _DEVICE_NODES]

@@ -7,8 +7,8 @@ TPU kernel takes the layer index as a scalar-prefetch operand read by its
 index maps; here the index is a 0-d int32 tensor on the card, and each block
 of the kernel reads it and offsets its weight, scale and zero pointers, so the
 host never reads it and one launch entry serves every layer. The body is the
-per-layer decode kernel's, with the same split plan, so at layer ``l`` the two
-agree bit for bit.
+per-layer decode kernel's, with the same plan (``ops/decode.plan``) and
+split state, so at layer ``l`` the two agree bit for bit.
 
 The plain version is ``forward_meta`` on ``W_q[l]``, ``scales[l]`` and
 ``zeros[l]``. On a CPU tensor the wrapper runs it; on a CUDA tensor it
@@ -22,7 +22,7 @@ import torch
 
 from ..dtypes import DType
 from . import build, w4
-from .decode import can_use_decode, split_plan
+from .decode import can_use_decode, plan, split_buffers
 from .reference import forward_meta
 
 __all__ = ["can_use_stacked_decode", "stacked_decode_refusal", "decode_matmul_stacked",
@@ -68,7 +68,7 @@ def decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx):
 def _lib():
     fn = build.load("decode_gemv").gl_decode_stacked
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -93,14 +93,13 @@ def decode_matmul_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) 
     L = W_q.shape[0]
     x = w4.activations(x, K)
     w4.check_operands(W_q, scales, zeros, meta, layers=L)
-    splits, k_per_split = split_plan(N, K, gs)
+    p = plan(M, N, K, gs, meta.W_nbits)
+    stream = w4.stream()
+    part, cnt = split_buffers(M, N, p, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     err = _lib()(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                 layer_idx.data_ptr(), partial.data_ptr() if partial is not None else None,
-                 out.data_ptr(), L, M, N, K, gs, meta.W_nbits, splits, k_per_split,
-                 w4.stream())
+                 layer_idx.data_ptr(), part, cnt, out.data_ptr(), L, M, N, K, gs, meta.W_nbits,
+                 p.splits, p.k_per_split, p.stages, p.mrows, stream)
     build.check(err, "decode_gemv (stacked)")
     decode_matmul_stacked.launches += 1
     return out

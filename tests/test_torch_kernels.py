@@ -11,7 +11,6 @@ version's float32 result, the JAX kernel tests' bound; the int8 decode kernel
 and the general fused kernel's int path equal their plain versions bit for bit.
 """
 
-import time
 from types import SimpleNamespace
 
 import pytest
@@ -21,7 +20,7 @@ from gemlite_tpu_torch import (ContinuousBatchingEngine, DType, GemLiteLinear, L
                                init_llama, quantize_llama)
 from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynamic,
                                       A8W8_INT8_dynamic)
-from gemlite_tpu_torch.ops import attention, dispatch
+from gemlite_tpu_torch.ops import attention, build, dispatch
 from gemlite_tpu_torch.ops.decode import decode_matmul
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
 from gemlite_tpu_torch.ops import fused
@@ -67,38 +66,41 @@ def _rel(a, b):
 
 def _split_state_is_zero(owner):
     """The int32 split state (accumulators, counters) a kernel leaves 0."""
-    from gemlite_tpu_torch.ops import build
     states = [ints for key, (ints, _) in build._SPLIT_STATE.items() if key[0] == owner]
     assert all(int(t.abs().sum()) == 0 for t in states)
 
 
-def _device_ops(fn):
-    """The names of the device operations of one ``fn()`` under
-    torch.profiler, after a device synchronize. A capture that recorded no
-    device event at all is taken again, up to three times in all; three
-    empty captures fail."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)                  # let the tracer settle before the call
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if ops:
-            return ops
-    pytest.fail("torch.profiler recorded no device event in three captures")
+def _one_call_allocs(fn):
+    """(what one fn() returns, the allocations it made), after a synchronize."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = fn()
+    return out, torch.cuda.memory_stats()["allocation.all.allocated"] - before
 
 
-@pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (1024, 4096)])
-@pytest.mark.parametrize("M", [1, 3, 8, 33, 64])
+@pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (1024, 4096), (14336, 4096),
+                                 (4096, 14336)])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 33, 48, 64])
 def test_decode_kernel(gen, M, N, K):
     layer = _layer(gen, N, K)
     x = _x(gen, M, K)
     got = decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+@pytest.mark.parametrize("N", [132, 130, 129])
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("bits", [1, 4])
+def test_decode_kernel_ragged_columns(gen, bits, M, N):
+    """Columns that are no multiple of 8 (scales in 4-byte pieces), of 4
+    (words in 4-byte pieces) and odd (scales by plain loads)."""
+    layer = _layer(gen, N, 256, gs=64, bits=bits)
+    x = _x(gen, M, 256)
+    got = decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
     assert _rel(got, _plain_f32(layer, x)) <= REL
 
 
@@ -122,6 +124,71 @@ def test_decode_kernel_w1_w2(gen, bits, M, N, K):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+@pytest.mark.parametrize("bits,gs,K,splits", [
+    (4, 16, 512, 2), (4, 128, 512, 2), (2, 16, 512, 2), (2, 64, 512, 2), (1, 32, 512, 2),
+    (1, 128, 512, 2), (4, 24, 2304, 3), (4, 48, 2304, 3), (2, 96, 2304, 3)])
+def test_decode_kernel_one_hot_rows_are_the_weights(gen, bits, gs, K, splits):
+    """x rows e_k for every k (every code position of every word and every
+    group): each output row is row k of the dequantized weights bit for bit,
+    through the kernel's lane permutation, its bf16x2 dequantization and its
+    split. Groups of 24, 48 and 96 do not divide the 128-deep stage, so
+    stages start inside a group and hold up to 128 / gs + 2 group rows."""
+    from gemlite_tpu_torch.ops import decode as dec
+    from gemlite_tpu_torch.ops.reference import dequantize_ref, unpack_rows_ref
+    N = 200
+    layer = _layer(gen, N, K, gs=gs, bits=bits)
+    assert dec.plan(64, N, K, gs, bits).splits == splits
+    w = dequantize_ref(unpack_rows_ref(layer.W_q, bits, 32 // bits, K), layer.scales,
+                       layer.zeros, W_group_mode=4, meta_dtype=DType.BF16)
+    eye = torch.eye(K, dtype=torch.bfloat16, device="cuda")
+    for k0 in range(0, K, 64):
+        got = decode_matmul(eye[k0:k0 + 64], layer.W_q, layer.scales, layer.zeros, layer.meta)
+        torch.cuda.synchronize()
+        assert torch.equal(got.float(), w[k0:k0 + 64].float()), k0
+
+
+@pytest.mark.parametrize("M", [1, 17, 64])
+@pytest.mark.parametrize("bits,gs", [(4, 24), (4, 48), (2, 96), (1, 96)])
+def test_decode_kernel_groups_across_stages(gen, bits, gs, M):
+    """Groups that do not divide the 128-deep stage, over three K ranges and
+    a ragged column tile: the kernel against the plain version."""
+    layer = _layer(gen, 200, 2304, gs=gs, bits=bits)
+    x = _x(gen, M, 2304)
+    got = decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    torch.cuda.synchronize()
+    assert got.shape == (M, 200)
+    assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+@pytest.mark.parametrize("M,N,K", [(8, 14336, 4096), (64, 14336, 4096), (1, 4096, 4096),
+                                   (33, 4096, 14336), (17, 1024, 4096), (8, 200, 96)])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_decode_launches_as_planned(gen, stacked, M, N, K):
+    """One call of either entry: one kernel (no reduce launch, no memset),
+    no allocation but the output, the split state left at 0."""
+    from gemlite_tpu_torch.ops import decode as dec
+    gs = 32 if K % 128 else 128
+    layer = _layer(gen, N, K, gs=gs)
+    x = _x(gen, M, K)
+    if stacked:
+        stacks = tuple(torch.stack([t, t]) for t in (layer.W_q, layer.scales, layer.zeros))
+        idx = torch.ones((), dtype=torch.int32, device="cuda")
+
+        def call():
+            return decode_matmul_stacked(x, *stacks, layer.meta, idx)
+    else:
+        def call():
+            return decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    p = dec.plan(M, N, K, gs, 4)
+    want = call()                                         # builds, allocates the split state
+    got, allocs = _one_call_allocs(lambda: [call()])
+    device_ops = build.graph_ops(lambda: got.append(call()))
+    assert len(device_ops) == p.launches == 1, device_ops
+    assert allocs == 1                                    # the output alone
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("decode_gemv")
 
 
 def _stack(gen, L, N, K, bits):
@@ -328,12 +395,10 @@ def test_int8_decode_launches_as_planned(gen, name, M, N, K):
     p = int8_mod.plan(M, N, K, f.gs_loop, f.float_groups)
     want = int8_decode(*args)                             # builds, allocates the split state
     torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    got = []
-    device_ops = _device_ops(lambda: got.append(int8_decode(*args)))
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    got, allocs = _one_call_allocs(lambda: [int8_decode(*args)])
+    device_ops = build.graph_ops(lambda: got.append(int8_decode(*args)))
     assert len(device_ops) == p.launches == 1, device_ops
-    assert allocs == len(got)                             # the outputs alone
+    assert allocs == 1                                    # the output alone
     assert all(torch.equal(g, want) for g in got)
     _split_state_is_zero("int8_decode")
 
@@ -402,12 +467,10 @@ def test_fused_kernel_int_path_launches_as_planned(gen, M, N, K):
     plan = int_plan(M, N, K)
     want = fused_gemm(*args)                              # builds, allocates the split state
     torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    got = []
-    device_ops = _device_ops(lambda: got.append(fused_gemm(*args)))
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    got, allocs = _one_call_allocs(lambda: [fused_gemm(*args)])
+    device_ops = build.graph_ops(lambda: got.append(fused_gemm(*args)))
     assert len(device_ops) == plan.launches == 1, device_ops
-    assert allocs == len(got)                             # the outputs alone
+    assert allocs == 1                                    # the output alone
     assert all(torch.equal(g, want) for g in got)
     _split_state_is_zero("fused_gemm")
 
@@ -560,12 +623,10 @@ def test_paged_decode_launches_as_planned(gen, lengths, pps):
     args = _paged_case(gen, lengths, 128, 8, 2, 128, pps)
     want = attention.paged_decode_attention_kernel(*args)   # builds, allocates the split state
     torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    got = []
-    device_ops = _device_ops(lambda: got.append(attention.paged_decode_attention_kernel(*args)))
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    got, allocs = _one_call_allocs(lambda: [attention.paged_decode_attention_kernel(*args)])
+    device_ops = build.graph_ops(lambda: got.append(attention.paged_decode_attention_kernel(*args)))
     assert len(device_ops) == 1, device_ops
-    assert allocs == len(got)                             # the outputs alone
+    assert allocs == 1                                    # the output alone
     assert all(torch.equal(g, want) for g in got)
     _split_state_is_zero("paged_decode")
 
