@@ -8,15 +8,16 @@ Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
   build    compile the seven CUDA sources from gemlite_tpu_torch/csrc (eight
            kernels: decode_gemv.cu holds the per-layer and stacked decode);
-  kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes:
-           relative error max|a-b| / max|b| <= 5e-3 against the plain
-           version's float32 result, median CUDA-event device times with the
-           L2 cache flushed between launches, and the bound; the decode
-           kernel's plan and one device operation a call (the kernel nodes
-           of a CUDA graph that captures the call); beside the decode and
-           prefill kernels a dense bf16 matmul and, as the library
-           yardstick, torch._weight_int4pack_mm on the same W4 layer
-           (checked against the plain version within 5e-3);
+  kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
+           (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
+           W1 prefill at M 128 on 14336x4096): relative error max|a-b| /
+           max|b| <= 5e-3 against the plain version's float32 result, median
+           CUDA-event device times with the L2 cache flushed between
+           launches, and the bound; the decode and prefill kernels' plans and
+           one device operation a call (the kernel nodes of a CUDA graph
+           that captures the call); beside them a dense bf16 matmul and, as
+           the library yardstick, torch._weight_int4pack_mm on the same W4
+           layer (checked against the plain version within 5e-3);
   layer    GemLiteLinear A16W4 gs=128 4096x4096 at M in {1, 64, 128, 4096},
            routed to decode, decode, prefill, dequantize;
   serve    Llama-3-8B widths cut to 4 of 32 layers, random bf16 weights from a
@@ -164,14 +165,15 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def random_layer(N: int, K: int, gen: torch.Generator):
-    """A16W4 gs=128 layer from random codes and HQQ-like bf16 metadata."""
+def random_layer(N: int, K: int, gen: torch.Generator, bits: int = 4):
+    """A16Wn gs=128 layer (W4 unless told) from random codes and HQQ-like
+    bf16 metadata."""
     from gemlite_tpu_torch import DType, GemLiteLinear
-    W_q = torch.randint(0, 16, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
+    W_q = torch.randint(0, 2 ** bits, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
     G = N * K // GROUP
     scales = (torch.rand((G, 1), generator=gen, device="cuda") * 2e-3 + 1e-3).to(torch.bfloat16)
-    zeros = torch.randint(0, 16, (G, 1), generator=gen, device="cuda").to(torch.bfloat16)
-    return GemLiteLinear(4, GROUP, K, N, DType.BF16, DType.BF16, device="cuda").pack(
+    zeros = torch.randint(0, 2 ** bits, (G, 1), generator=gen, device="cuda").to(torch.bfloat16)
+    return GemLiteLinear(bits, GROUP, K, N, DType.BF16, DType.BF16, device="cuda").pack(
         W_q, scales, zeros)
 
 
@@ -208,50 +210,57 @@ def kernel_bound(bytes_moved: float, flops: float, peak, ops_rate=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+PREFILL_MS = (128, 1024, 2048)       # 2048: the engine's largest prefill bucket
+PREFILL_LOW_BITS_SHAPE = (14336, 4096)
+
+
 def phase_kernels(card: str, peak, timer: Timer) -> dict:
     """Each kernel against its plain version; returns the rows at the shapes
     the kernels line reports."""
-    from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain, plan
+    from gemlite_tpu_torch.ops import decode, prefill
     from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
-    from gemlite_tpu_torch.ops.prefill import prefill_matmul, prefill_matmul_plain
 
+    plans = {decode.decode_matmul: decode.plan, prefill.prefill_matmul: prefill.plan}
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for N, K in SHAPES:
-        layer = random_layer(N, K, gen)
+    for bits, N, K in [(4, N, K) for N, K in SHAPES] + [(b, *PREFILL_LOW_BITS_SHAPE) for b in (2, 1)]:
+        layer = random_layer(N, K, gen, bits)
         meta, args = layer.meta, (layer.W_q, layer.scales, layer.zeros)
-        w_bytes = K * N / 2 + 2 * 2 * (K // GROUP) * N
+        w_bytes = K * N * bits / 8 + 2 * 2 * (K // GROUP) * N
         dense_w = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
-        library = int4pack_mm(*args, K)
-        cases = [("decode", M, decode_matmul, decode_matmul_plain) for M in (1, 8, 64)]
-        cases += [("prefill", M, prefill_matmul, prefill_matmul_plain) for M in (128, 1024)]
+        library = int4pack_mm(*args, K) if bits == 4 else None
+        cases = [("prefill", M, prefill.prefill_matmul, prefill.prefill_matmul_plain)
+                 for M in (PREFILL_MS if bits == 4 else (128,))]
+        if bits == 4:
+            cases = [("decode", M, decode.decode_matmul, decode.decode_matmul_plain)
+                     for M in (1, 8, 64)] + cases
         for name, M, kern, plain in cases:
             x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
             got, want = kern(x, *args, meta), plain(x, *args, with_f32_out(meta))
             torch.cuda.synchronize()
             err = rel_err(got, want)
             bound, by = kernel_bound(w_bytes + 2 * M * K + 2 * M * N, 2.0 * M * N * K, peak)
-            row = {"kernel": name, "M": M, "N": N, "K": K, "rel_err": err,
+            row = {"kernel": name, "bits": bits, "M": M, "N": N, "K": K, "rel_err": err,
                    "max_abs_err": max_abs(got, want),
                    "ms": timer.ms(lambda: kern(x, *args, meta)),
                    "plain_ms": timer.ms(lambda: plain(x, *args, meta), iters=5),
                    "dense_bf16_matmul_ms": timer.ms(lambda: torch.matmul(x, dense_w)),
-                   "library_ms": timer.ms(lambda: library(x)),
-                   "library_rel_err": rel_err(library(x), want),
-                   "bound_ms": bound, "bound_by": by, "card": card}
-            if kern is decode_matmul:
-                row["plan"] = plan(M, N, K, GROUP, 4)._asdict()
-                row["device_ops_per_call"] = device_ops_per_call(lambda: kern(x, *args, meta))
+                   "library_ms": timer.ms(lambda: library(x)) if library else None,
+                   "library_rel_err": rel_err(library(x), want) if library else None,
+                   "bound_ms": bound, "bound_by": by,
+                   "plan": plans[kern](M, N, K, GROUP, bits)._asdict(),
+                   "device_ops_per_call": device_ops_per_call(lambda: kern(x, *args, meta)),
+                   "card": card}
             emit(row)
             if not err <= REL_TOL:
                 raise RuntimeError(f"{name} kernel disagrees with its plain version: {row}")
-            if not row["library_rel_err"] <= REL_TOL:
+            if not (row["library_rel_err"] or 0) <= REL_TOL:
                 raise RuntimeError(f"{name}: the library call computes another function: {row}")
-            if kern is decode_matmul and row["device_ops_per_call"] != 1:
+            if row["device_ops_per_call"] != 1:
                 raise RuntimeError(f"{name}: one call took several device operations: {row}")
             rows.append(row)
         del dense_w, library
-        if (N, K) == (14336, 4096):
+        if (bits, N, K) == (4, 14336, 4096):
             got = dequantize_weights(*args, meta)
             want = dequantize_full(*args, meta)
             torch.cuda.synchronize()
@@ -267,9 +276,10 @@ def phase_kernels(card: str, peak, timer: Timer) -> dict:
                 raise RuntimeError(f"dequantize kernel disagrees with its plain version: {row}")
             rows.append(row)
     emit({"phase": "kernels", "ok": True, "checked": len(rows), "card": card})
-    pick = {"decode": (8, 14336, 4096), "prefill": (128, 14336, 4096),
-            "dequantize": (0, 14336, 4096)}
-    return {r["kernel"]: r for r in rows if (r["M"], r["N"], r["K"]) == pick[r["kernel"]]}
+    pick = {"decode": (4, 8, 14336, 4096), "prefill": (4, 128, 14336, 4096),
+            "dequantize": (4, 0, 14336, 4096)}
+    return {r["kernel"]: r for r in rows
+            if (r.get("bits", 4), r["M"], r["N"], r["K"]) == pick[r["kernel"]]}
 
 
 def counters():
@@ -426,7 +436,7 @@ def first_step_check(params, cfg, prompt, route="decode", bucket=None) -> dict:
     return out
 
 
-W4_GROUPS = {"decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_w4",)}
+W4_GROUPS = {"decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_wgmma",)}
 
 
 def device_times(prof, groups) -> dict:
@@ -1068,7 +1078,7 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
 SCAN_LAYERS = 32
 SCAN_CHECKED = (0, 17, 31)
 SCAN_GROUPS = {"stacked_decode_kernel": ("decode_mma_stacked",),
-               "decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_w4",)}
+               "decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_wgmma",)}
 
 
 def random_stack(L: int, N: int, K: int, bits: int, gen: torch.Generator):

@@ -55,6 +55,7 @@
 #include <atomic>
 
 #include "gl_common.cuh"
+#include "w4_common.cuh"
 
 namespace {
 
@@ -102,13 +103,6 @@ __device__ __forceinline__ int w_idx(int r, int c) { return r * BN + (c ^ ((r & 
 // 16-byte chunk c (8 k) of row m of the x tile: rows 2i and 2i + 1 of a
 // quarter warp's 16-byte reads land on the two halves of the banks
 __device__ __forceinline__ int x_chunk(int m, int c) { return c ^ ((m & 1) << 2); }
-
-// d = a * b + c, bf16x2, one rounding
-__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
-    uint32_t d;
-    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-    return d;
-}
 
 // d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 sums
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -212,7 +206,7 @@ __device__ __forceinline__ void compute_stage(const Params& p, const unsigned ch
                     const int c = wn0 + 16 * i + 8 * h + g;
                     s2[i][h] = ss[gr * BN + c] * 0x00010001u;
                     z2[i][h] = zs[gr * BN + c] * 0x00010001u;
-                    m2[i][h] = fma_bf16x2(s2[i][h], 0xC300C300u, 0x80008000u);   // -128 s, exact
+                    m2[i][h] = minus128(s2[i][h]);
                 }
         }
         const int r = kl / EPW, shift = BITS * (kl % EPW);
@@ -228,9 +222,7 @@ __device__ __forceinline__ void compute_stage(const Params& p, const unsigned ch
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const uint32_t v = ((u >> (BITS * e)) & MASK2) | 0x43004300u;   // 128 + q
-                    const uint32_t w = fma_bf16x2(fma_bf16x2(v, s2[i][h], m2[i][h]), 0x3F803F80u,
-                                                  z2[i][h]);
-                    a[e >> 1][i][2 * (e & 1) + h] = w;
+                    a[e >> 1][i][2 * (e & 1) + h] = dequant_pair(v, s2[i][h], m2[i][h], z2[i][h]);
                 }
             }
 #pragma unroll

@@ -8,11 +8,11 @@ By the flattened batch size M, in the JAX router's order:
                      general_fused; else (``dense_fallback``) the plain
                      ``dequantize_full`` and a dense ``torch.matmul``
 
-The decode kernel takes mode-4 bf16 layers of W1, W2 and W4 codes, as the
-JAX decode kernel does; the prefill and dequantize kernels take W4. A float
-layer that the JAX package sends to one of its kernels but whose form the
-port's kernel does not cover yet (A16W8, W8 codes, modes 1-3, channel-wise;
-W1/W2 at M > 64) runs on the general fused kernel here. ``dense_fallback``
+The decode and prefill kernels take mode-4 bf16 layers of W1, W2 and W4
+codes, as the JAX decode and prefill kernels do; the dequantize kernel takes
+W4. A float layer that the JAX package sends to one of its kernels but whose
+form the port's kernel does not cover yet (A16W8, W8 codes, modes 1-3,
+channel-wise; W1/W2 at M >= 4096) runs on the general fused kernel here. ``dense_fallback``
 is kept for the layers that the JAX package itself dequantizes without a
 Pallas kernel (``_xla_dequantized``). On the card a layer that no kernel
 serves (the MX codecs, csm 4) raises ``NotImplementedError``: no plain

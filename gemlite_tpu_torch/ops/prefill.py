@@ -1,26 +1,136 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Prefill kernel: fused W4 dequantize + bf16 tensor-core GEMM for
-64 < M < 4096 (``csrc/prefill_gemm.cu``).
+"""Prefill kernel: W1/W2/W4 x bf16 for 64 < M < 4096 on Hopper's ``wgmma``,
+one launch a call (``csrc/prefill_gemm.cu``, entry ``gl_prefill``).
 
-Replaces ``gemlite_tpu/ops/pallas_prefill.py:pallas_prefill_matmul``. The plain
-version is ``ops/reference.forward_meta``. On a CPU tensor the wrapper runs the
-plain version; on a CUDA tensor it launches the kernel or raises.
+Replaces ``gemlite_tpu/ops/pallas_prefill.py:pallas_prefill_matmul`` on the
+mode-4 bf16 layers of W1, W2 and W4 codes, as the JAX router sends them to
+its prefill kernel. The plain version is ``ops/reference.forward_meta``. On a
+CPU tensor the wrapper runs the plain version; on a CUDA tensor it launches
+the kernel or raises. ``plan`` owns the kernel's grid and ring: the CUDA side
+only checks that what it is given fits.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build, w4
 from .reference import forward_meta
 
-__all__ = ["can_use_prefill", "prefill_matmul", "prefill_matmul_plain"]
+__all__ = ["PREFILL_BITS", "PrefillPlan", "can_use_prefill", "plan", "prefill_matmul",
+           "prefill_matmul_plain", "smem_bytes", "workspace"]
 
-BK = 64   # the kernel's K step; a step must not straddle a quantization group
+PREFILL_BITS = (1, 2, 4)
+BK = 64                    # the kernel's K per ring stage; a stage never straddles a group
+TILE = 128                 # weight columns per block: two consumer warpgroups of 64
+SMS = 132                  # H100 SXM streaming multiprocessors; one block each
+MAX_STAGES = 5             # ring depth (the kernel takes 2-6)
+SMEM_MAX = 227 * 1024      # the most shared memory a block may take (the kernel's kSmemMax)
+# The split cost model (microseconds, H100): a 64-deep stage of BM rows on
+# the tensor cores, a block's fixed cost (ring fill, epilogue), the rate at
+# which the last block of a tile reads the partials, and the rate at which
+# all partials are written and read back.
+STAGE_US = {128: 0.40, 256: 0.80}
+BLOCK_US = 2.0
+MERGE_BYTES_PER_US = 1.0e5
+PARTIAL_BYTES_PER_US = 3.0e6
 
 
 def can_use_prefill(meta, M: int) -> bool:
-    return 64 < M < 4096 and w4.serves(meta, min_group=BK)
+    return 64 < M < 4096 and w4.serves(meta, min_group=BK, bits=PREFILL_BITS)
+
+
+class PrefillPlan(NamedTuple):
+    """The kernel's grid for one call: ``tiles_n`` blocks of 128 weight
+    columns by ``tiles_m`` blocks of ``bm`` rows of x, each summing
+    ``splits`` K ranges of ``k_per_split`` (the last may be shorter), in one
+    launch; a ring of ``stages`` 64-deep stages, each holding one group row
+    of scales and zeros; ``smem`` bytes of shared memory."""
+    bm: int
+    tiles_n: int
+    tiles_m: int
+    splits: int
+    k_per_split: int
+    stages: int
+    smem: int
+
+    @property
+    def tile(self) -> int:
+        return TILE
+
+    @property
+    def mrows(self) -> int:
+        """Group rows a stage holds: one, since gs is a multiple of 64."""
+        return 1
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_n * self.tiles_m * self.splits
+
+    @property
+    def launches(self) -> int:
+        return 1
+
+
+def row_tile(M: int) -> int:
+    """Rows of x a block takes: one n128 product up to M 128, two above."""
+    return 128 if M <= 128 else 256
+
+
+def smem_bytes(bm: int, bits: int, stages: int) -> int:
+    """Shared memory of a block (the kernel's Layout): the ring of x boxes,
+    word rows and a scale and a zero row; the float32 epilogue tile (rows of
+    128 + 4 floats) over it; the mbarriers, the flag and 1024 bytes of slack
+    to align the base."""
+    stage = bm * BK * 2 + BK * bits // 32 * TILE * 4 + 2 * TILE * 2
+    return max(stages * stage, bm * (TILE + 4) * 4) + 16 * stages + 16 + 1024
+
+
+def estimate_us(M: int, N: int, tiles: int, steps: int, splits: int, bm: int) -> float:
+    """The split cost model: whole waves of one block an SM, each block
+    ``ceil(steps / splits)`` stages and its fixed cost; with a split, each
+    block's partial write, the last block's read of every partial of its
+    tile, and all partials through memory."""
+    per = -(-steps // splits)
+    waves = -(-tiles * splits // SMS)
+    tile_bytes = bm * TILE * 4
+    t = waves * (per * STAGE_US[bm] + BLOCK_US)
+    if splits > 1:
+        t += waves * tile_bytes / MERGE_BYTES_PER_US
+        t += splits * tile_bytes / MERGE_BYTES_PER_US
+        t += 2 * splits * M * N * 4 / PARTIAL_BYTES_PER_US
+    return t
+
+
+def plan(M: int, N: int, K: int, gs: int, bits: int) -> PrefillPlan:
+    """Row tile, K split and ring, from the shape. The split is the one of
+    least ``estimate_us`` over whole 64-deep stages a split (ties go to
+    fewer splits); it depends on M's tiles, never on the data."""
+    bm = row_tile(M)
+    tiles_n, tiles_m = -(-N // TILE), -(-M // bm)
+    steps = K // BK
+    best = None
+    for s in range(1, steps + 1):
+        per = -(-steps // s)
+        if -(-steps // per) != s:               # the same ranges as fewer splits
+            continue
+        t = estimate_us(M, N, tiles_n * tiles_m, steps, s, bm)
+        if best is None or t < best[0]:
+            best = (t, s, per)
+    _, splits, per = best
+    stages = max(s for s in range(2, MAX_STAGES + 1) if smem_bytes(bm, bits, s) <= SMEM_MAX)
+    return PrefillPlan(bm, tiles_n, tiles_m, splits, per * BK, stages,
+                       smem_bytes(bm, bits, stages))
+
+
+def workspace(M: int, N: int, p: PrefillPlan):
+    """(float32 partials, int32 arrival counters) that a call needs: a split
+    call writes each split's (M, N) sums and counts arrivals per output
+    tile. The counters are 0 between calls."""
+    if p.splits == 1:
+        return 0, 0
+    return p.splits * M * N, p.tiles_n * p.tiles_m
 
 
 def prefill_matmul_plain(x, W_q, scales, zeros, meta):
@@ -28,9 +138,9 @@ def prefill_matmul_plain(x, W_q, scales, zeros, meta):
 
 
 def _lib():
-    fn = build.load("prefill_gemm").gl_prefill_w4
+    fn = build.load("prefill_gemm").gl_prefill
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -42,12 +152,20 @@ def prefill_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
     M = x.shape[0]
     if not can_use_prefill(meta, M):
         raise NotImplementedError(f"prefill kernel does not take M={M} with {meta}")
-    N, K = meta.out_features, meta.in_features
+    N, K, gs = meta.out_features, meta.in_features, meta.group_size
     x = w4.activations(x, K)
     w4.check_operands(W_q, scales, zeros, meta)
+    p = plan(M, N, K, gs, meta.W_nbits)
+    stream = w4.stream()
+    floats, ints = workspace(M, N, p)
+    part = cnt = None
+    if floats:
+        ibuf, fbuf = build.split_state("prefill_gemm", x.device, ints, floats, stream)
+        part, cnt = fbuf.data_ptr(), ibuf.data_ptr()
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = _lib()(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                 out.data_ptr(), M, N, K, meta.group_size, w4.stream())
+    err = _lib()(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(), part, cnt,
+                 out.data_ptr(), M, N, K, gs, meta.W_nbits, p.bm, p.splits, p.k_per_split,
+                 p.stages, stream)
     build.check(err, "prefill_gemm")
     prefill_matmul.launches += 1
     return out

@@ -4,9 +4,9 @@
 The decode (per-layer and stacked), prefill and dequantize kernels read the
 same layer format: bf16 activations and output, codes in w_layout=0 int32
 words of shape (K / epw, N) with epw = 32 / W_nbits, W_group_mode 4 with bf16
-(K / gs, N) scales and pre-folded zeros, no channel scale. The decode kernel
-reads W1, W2 and W4 codes; prefill and dequantize read W4. A layer outside
-that format is served by no kernel yet.
+(K / gs, N) scales and pre-folded zeros, no channel scale. The decode and
+prefill kernels read W1, W2 and W4 codes; dequantize reads W4. A layer
+outside that format is served by no kernel of these.
 """
 
 import torch

@@ -230,7 +230,7 @@ def test_stacked_decode_reads_no_index_on_the_host(gen):
 
 
 @pytest.mark.parametrize("N,K", [(256, 512), (200, 256), (4096, 1024)])
-@pytest.mark.parametrize("M", [65, 128, 200, 1000])
+@pytest.mark.parametrize("M", [65, 128, 129, 200, 256, 1000, 1024, 2048, 4095])
 def test_prefill_kernel(gen, M, N, K):
     layer = _layer(gen, N, K)
     x = _x(gen, M, K)
@@ -238,6 +238,77 @@ def test_prefill_kernel(gen, M, N, K):
     torch.cuda.synchronize()
     assert got.shape == (M, N)
     assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+@pytest.mark.parametrize("M", [128, 1024, 2048])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)])
+def test_prefill_kernel_8b_shapes(gen, N, K, M):
+    layer = _layer(gen, N, K)
+    x = _x(gen, M, K)
+    got = prefill_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+@pytest.mark.parametrize("M", [65, 300])
+@pytest.mark.parametrize("N", [256, 200, 132, 130, 129, 1000])
+@pytest.mark.parametrize("bits,gs", [(4, 64), (4, 256), (2, 64), (2, 256), (1, 64), (1, 256)])
+def test_prefill_kernel_forms(gen, bits, gs, N, M):
+    """W1/W2/W4, groups of 64 and 256 (a group row over one or four
+    stages), and ragged columns: N 256, 200 and 1000 bring words and
+    metadata by TMA (zeros past N), 132 by 16-byte (words) and 4-byte
+    (metadata) cp.async pieces, 130 by 4-byte pieces, 129 (odd) by 4-byte
+    words and 2-byte metadata loads."""
+    K = 1024
+    layer = _layer(gen, N, K, gs=gs, bits=bits)
+    x = _x(gen, M, K)
+    got = prefill_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N)
+    assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
+@pytest.mark.parametrize("bits,gs,K,N", [
+    (4, 64, 1024, 200), (4, 128, 2048, 256), (2, 64, 1024, 129), (2, 256, 2048, 200),
+    (1, 64, 1024, 200), (1, 128, 1024, 130)])
+def test_prefill_kernel_one_hot_rows_are_the_weights(gen, bits, gs, K, N):
+    """x rows e_k for every k (every code position of every word and every
+    group), 128 rows a call: each output row is row k of the dequantized
+    weights bit for bit, through the kernel's lanes, its bf16x2
+    dequantization and its split."""
+    from gemlite_tpu_torch.ops import prefill as pre
+    from gemlite_tpu_torch.ops.reference import dequantize_ref, unpack_rows_ref
+    layer = _layer(gen, N, K, gs=gs, bits=bits)
+    assert pre.plan(128, N, K, gs, bits).splits > 1
+    w = dequantize_ref(unpack_rows_ref(layer.W_q, bits, 32 // bits, K), layer.scales,
+                       layer.zeros, W_group_mode=4, meta_dtype=DType.BF16)
+    eye = torch.eye(K, dtype=torch.bfloat16, device="cuda")
+    for k0 in range(0, K, 128):
+        got = prefill_matmul(eye[k0:k0 + 128], layer.W_q, layer.scales, layer.zeros, layer.meta)
+        torch.cuda.synchronize()
+        assert torch.equal(got.float(), w[k0:k0 + 128].float()), k0
+
+
+@pytest.mark.parametrize("M,N,K", [(128, 14336, 4096), (128, 4096, 14336), (128, 1024, 4096),
+                                   (1024, 4096, 4096), (2048, 1024, 4096), (200, 200, 256)])
+def test_prefill_launches_as_planned(gen, M, N, K):
+    """One call: one kernel (no reduce launch, no memset), no allocation but
+    the output, the split state left at 0."""
+    from gemlite_tpu_torch.ops import prefill as pre
+    layer = _layer(gen, N, K)
+    x = _x(gen, M, K)
+
+    def call():
+        return prefill_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+    p = pre.plan(M, N, K, 128, 4)
+    want = call()                                         # builds, allocates the split state
+    got, allocs = _one_call_allocs(lambda: [call()])
+    device_ops = build.graph_ops(lambda: got.append(call()))
+    assert len(device_ops) == p.launches == 1, device_ops
+    assert allocs == 1                                    # the output alone
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("prefill_gemm")
 
 
 @pytest.mark.parametrize("N,K", [(256, 512), (200, 256)])
@@ -261,6 +332,20 @@ def test_routes_and_no_fallback(gen):
     mode3.channel_scale_mode = 4          # MX activation scales: no kernel yet
     with pytest.raises(NotImplementedError, match="MX slice"):
         mode3(_x(gen, 4, 512))
+
+
+@pytest.mark.parametrize("bits", [1, 2])
+def test_w1_w2_prefill_routes_to_the_kernel(gen, bits):
+    """W1/W2 mode-4 layers at 64 < M < 4096 run on the prefill kernel, as
+    the JAX router sends them to its prefill kernel."""
+    layer = _layer(gen, 256, 512, bits=bits)
+    before = prefill_matmul.launches
+    dispatch.KERNEL_TRACE.clear()
+    x = _x(gen, 65, 512)
+    got = layer(x)
+    assert dispatch.KERNEL_TRACE == ["prefill"]
+    assert prefill_matmul.launches == before + 1
+    assert _rel(got, _plain_f32(layer, x)) <= REL
 
 
 def test_engine_runs_on_the_kernels(gen):

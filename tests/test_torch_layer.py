@@ -93,11 +93,12 @@ def test_forward_matches_jax_dispatch(M, route, fma, W_nbits):
     x = (rng.normal(size=(M, K)) * 0.2).astype(np.float32)
     want, jtrace = _jax_forward(jl, x)
     got, trace = _port_forward(tl, x)
-    # mode 4 is the format of the decode kernel (W1/W2/W4, as the JAX decode
-    # kernel) and of the prefill and dequantize kernels (W4); the rest runs on
-    # the general fused kernel (at M >= 4096 the JAX package dequantizes with
-    # its Pallas kernel, which the port's dequantize kernel does not cover)
-    if fma and (route == "decode" or W_nbits == 4):
+    # mode 4 is the format of the decode and prefill kernels (W1/W2/W4, as the
+    # JAX decode and prefill kernels) and of the dequantize kernel (W4); the
+    # rest runs on the general fused kernel (at M >= 4096 the JAX package
+    # dequantizes with its Pallas kernel, which the port's dequantize kernel
+    # does not cover)
+    if fma and (route in ("decode", "prefill") or W_nbits == 4):
         assert trace == [f"plain_{route}"]
     else:
         assert trace == ["plain_general_fused"]
