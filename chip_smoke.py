@@ -6,7 +6,7 @@
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the seven CUDA sources from gemlite_tpu_torch/csrc (eight
+  build    compile the eight CUDA sources from gemlite_tpu_torch/csrc (nine
            kernels: decode_gemv.cu holds the per-layer and stacked decode);
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
            (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
@@ -49,9 +49,15 @@ Phases, each printing one JSON line:
            device operation a call) and the general
            fused kernel (int path over int8 weights at M 128 / 1024 on the
            four 8B shapes and over packed W2 / W4 / W1 codes at M 128 / 1024,
-           with its plan and launches per call; four float forms) against
-           their plain versions: bit for bit where the sum is integer, else
-           max|a-b| / max|b| <= 5e-3; times, bounds and torch._int_mm;
+           with its plan and launches per call) against their plain
+           versions: bit for bit where the sum is integer, else max|a-b| /
+           max|b| <= 5e-3; times, bounds and torch._int_mm. Then the float
+           path (csrc/fused_float.cu): A16W8 in-loop bf16 at M 1 / 8 / 64 /
+           128 / 1024 on the four 8B shapes, the other float forms and W4 gs
+           32 mode 4 at M 8 / 128 on 14336x4096, each within 5e-3 of its
+           plain version in one device operation a call, beside a dense bf16
+           matmul on the dequantized weight (the library yardstick) and, where
+           the card's torch has one, torch._weight_int8pack_mm;
   layer_a8w8   A8W8_INT8_dynamic(bf16) 4096x4096 at M in {1, 64, 65, 128,
            4096}, routed to int8_exact, int8_exact, general_fused,
            general_fused, dense_fallback;
@@ -60,6 +66,12 @@ Phases, each printing one JSON line:
            only on int8_exact and general_fused, launches equal the schedule,
            and the first step matches the plain path on the CPU;
   profile_a8w8 device time by kernel over a short A8W8 serving run;
+  serve_a16w8  the same 4-layer model quantized with A16W8_INT8(bf16) (int8
+           weights, float32 channel scales in the K loop), served as in
+           "serve": every linear on the general fused kernel's float path at
+           every M, tokens equal the bare loop, launches equal the schedule,
+           the first step matches the plain path on the CPU;
+  profile_a16w8 device time by kernel over a short A16W8 serving run;
   kernels_scan the stacked decode kernel over stacks of 32 random layers: W4
            at the four 8B shapes, M in {1, 8, 64}, and W2 / W1 (gs 128) at
            4096x4096 and 14336x4096, M = 8; layers 0, 17 and 31 each equal the
@@ -287,14 +299,15 @@ def counters():
                                                  paged_decode_attention_kernel)
     from gemlite_tpu_torch.ops.decode import decode_matmul
     from gemlite_tpu_torch.ops.dequantize import dequantize_weights
-    from gemlite_tpu_torch.ops.fused import fused_gemm
+    from gemlite_tpu_torch.ops.fused import fused_gemm, fused_gemm_float
     from gemlite_tpu_torch.ops.int8_decode import int8_decode
     from gemlite_tpu_torch.ops.prefill import prefill_matmul
     from gemlite_tpu_torch.ops.scan import decode_matmul_stacked
     return {"decode": decode_matmul, "prefill": prefill_matmul,
             "decode_stacked": decode_matmul_stacked,
             "dequantize": dequantize_weights, "int8_decode": int8_decode,
-            "fused_gemm": fused_gemm, "flash": flash_attention_causal,
+            "fused_gemm": fused_gemm, "fused_gemm_float": fused_gemm_float,
+            "flash": flash_attention_causal,
             "paged_decode": paged_decode_attention_kernel}
 
 
@@ -483,14 +496,20 @@ def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GR
 SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
 
 
+KERNEL_OF = {"decode": "decode", "prefill": "prefill", "int8_exact": "int8_decode",
+             "general_fused": "fused_gemm"}
+
+
 def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
-                    long_route: str, profile_phase: str, profile_groups) -> dict:
+                    long_route: str, profile_phase: str, profile_groups,
+                    kernel_of=KERNEL_OF) -> dict:
     """8 greedy requests through ContinuousBatchingEngine(max_batch=8) on the
     dense cache (paged=False). Tokens
     must equal the bare loop; launches must equal the schedule (prompts of up
     to 64 tokens and every decode step on ``short_route``'s kernel, longer
-    prompts on ``long_route``'s); the quantized linears must take no other
-    route; the first step must match the plain path on the CPU."""
+    prompts on ``long_route``'s; ``kernel_of`` names the launch count of each
+    route); the quantized linears must take no other route; the first step
+    must match the plain path on the CPU."""
     from gemlite_tpu_torch import ContinuousBatchingEngine, Request
     from gemlite_tpu_torch.ops import dispatch
 
@@ -526,8 +545,6 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     # launches the path must make: 7 linears per layer per forward; prompts of
     # up to 64 tokens prefill at M <= 64 (buckets 32/64), the rest at M = 128
     # (bucket 128); every decode step runs at M = 8
-    kernel_of = {"decode": "decode", "prefill": "prefill", "int8_exact": "int8_decode",
-                 "general_fused": "fused_gemm"}
     per_fwd = 7 * cfg.num_layers
     short = sum(len(p) <= 64 for p in prompts)
     expect = {k: 0 for k in counts}
@@ -590,7 +607,13 @@ INT8_FORMS = ("u8_scalar_zero", "u8_channel_zeros", "u8_group_zeros", "w4_group_
 # packed codes on the general fused kernel's int path: BitNet's scalar-zero
 # shift (W2, mode 1) and W4 / W1 codes without a zero (mode 0)
 INT_PATH_PACKED_FORMS = ("w2_bitnet_cw", "w4_cw_mode0", "w1_cw_mode0")
-FLOAT_FORMS = ("a16w8_post_scale_bf16", "w4_mode3_bf16", "bitnet_w2_bf16", "a16w8_in_loop_fp16")
+# the general fused kernel's float path: A16W8 as the processor makes it
+# (in-loop bf16) at every M on the 8B shapes, the other forms at M 8 / 128
+FLOAT_MAIN = "a16w8_in_loop_bf16"
+FLOAT_MAIN_MS = (1, 8, 64, 128, 1024)
+FLOAT_FORMS = ("a16w8_post_scale_bf16", "w4_mode3_bf16", "bitnet_w2_bf16", "a16w8_in_loop_fp16",
+               "w4_gs32_mode4_bf16")
+FLOAT_FORM_MS = (8, 128)
 
 
 def a8w8_layer(N: int, K: int, gen: torch.Generator):
@@ -628,6 +651,8 @@ def float_form_layer(name: str, N: int, K: int, gen: torch.Generator):
     """A float-activation layer that the W4 kernels do not take."""
     from gemlite_tpu_torch.helper import A16W158_INT, A16W8_INT8
     w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    if name == "a16w8_in_loop_bf16":           # mode 2, float32 channel scales
+        return A16W8_INT8(device="cuda", dtype=torch.bfloat16).from_weights(w)
     if name == "a16w8_post_scale_bf16":        # mode 0, csm 1
         return A16W8_INT8(device="cuda", dtype=torch.bfloat16, post_scale=True).from_weights(w)
     if name == "a16w8_in_loop_fp16":           # mode 2, fp16
@@ -635,12 +660,13 @@ def float_form_layer(name: str, N: int, K: int, gen: torch.Generator):
     if name == "bitnet_w2_bf16":               # W2, mode 1 with scalar zero 1, csm 1
         t = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
         return A16W158_INT(device="cuda", dtype=torch.bfloat16).from_weights(t, 0.01)
-    from gemlite_tpu_torch import DType, GemLiteLinear   # W4 gs=128 mode 3 (fma_mode=False)
+    from gemlite_tpu_torch import DType, GemLiteLinear   # W4 gs=128 mode 3 (fma_mode=False),
+    gs = 32 if name == "w4_gs32_mode4_bf16" else GROUP    # or gs 32 mode 4
     W_q = torch.randint(0, 16, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
-    scales = (torch.rand((N * K // GROUP, 1), generator=gen, device="cuda") * 2e-3 + 1e-3)
-    zeros = torch.randint(0, 16, (N * K // GROUP, 1), generator=gen, device="cuda").float()
-    return GemLiteLinear(4, GROUP, K, N, DType.BF16, DType.BF16, device="cuda").pack(
-        W_q, scales.to(torch.bfloat16), zeros.to(torch.bfloat16), fma_mode=False)
+    scales = (torch.rand((N * K // gs, 1), generator=gen, device="cuda") * 2e-3 + 1e-3)
+    zeros = torch.randint(0, 16, (N * K // gs, 1), generator=gen, device="cuda").float()
+    return GemLiteLinear(4, gs, K, N, DType.BF16, DType.BF16, device="cuda").pack(
+        W_q, scales.to(torch.bfloat16), zeros.to(torch.bfloat16), fma_mode=gs != GROUP)
 
 
 def layer_bytes(layer) -> int:
@@ -735,16 +761,80 @@ def phase_kernels_a8(card: str, peak, timer: Timer) -> dict:
             x, sx = int8_x(M, K, gen)
             check("fused_gemm", name, M, layer, fused_gemm, fused_matmul_plain,
                   (x, layer.W_q, layer.scales, layer.zeros, sx), True, peak[2])
-    for name in FLOAT_FORMS:
-        layer = float_form_layer(name, N, K, gen)
-        dtype = torch.float16 if "fp16" in name else torch.bfloat16
-        x = (torch.randn((128, K), generator=gen, device="cuda") * 0.5).to(dtype)
-        check("fused_gemm", name, 128, layer, fused_gemm, fused_matmul_plain,
-              (x, layer.W_q, layer.scales, layer.zeros, None), False, peak[1])
+    rows += float_rows(card, peak, timer, gen)
     emit({"phase": "kernels_a8", "ok": True, "checked": len(rows), "card": card})
-    pick = {"int8_decode": (8, 14336, 4096), "fused_gemm": (128, 14336, 4096)}
+    pick = {"int8_decode": ("i8_dense", 8, 14336, 4096), "fused_gemm": ("i8_dense", 128, 14336, 4096),
+            "fused_gemm_float": (FLOAT_MAIN, 8, 14336, 4096)}
     return {r["kernel"]: r for r in rows
-            if r["form"] == "i8_dense" and (r["M"], r["N"], r["K"]) == pick[r["kernel"]]}
+            if (r["form"], r["M"], r["N"], r["K"]) == pick[r["kernel"]]}
+
+
+def int8pack_probe():
+    """torch._weight_int8pack_mm on a small case: None where the card's torch
+    has a CUDA kernel for it, else the error it raises."""
+    x = torch.randn((8, 64), device="cuda").to(torch.bfloat16)
+    w = torch.randint(-127, 128, (32, 64), device="cuda").to(torch.int8)
+    try:
+        torch._weight_int8pack_mm(x, w, torch.ones(32, device="cuda", dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        return None
+    except (RuntimeError, NotImplementedError) as exc:
+        return f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+
+
+def float_rows(card: str, peak, timer: Timer, gen) -> list:
+    """The general fused kernel's float path against its plain version, one
+    device operation a call, beside a dense bf16 matmul on the dequantized
+    weight and, for the int8 forms where the card's torch has it,
+    torch._weight_int8pack_mm (x @ q^T * s: the scale after the sum)."""
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full
+    from gemlite_tpu_torch.ops.fused import float_plan, fused_gemm_float, fused_matmul_plain
+
+    probe = int8pack_probe()
+    emit({"probe": "torch._weight_int8pack_mm", "cuda_kernel": probe is None, "error": probe})
+    cases = [(FLOAT_MAIN, M, N, K) for N, K in SHAPES for M in FLOAT_MAIN_MS]
+    cases += [(name, M, 14336, 4096) for name in FLOAT_FORMS for M in FLOAT_FORM_MS]
+    rows, layers = [], {}
+    for name, M, N, K in cases:
+        if (name, N, K) not in layers:
+            layers.clear()
+            torch.cuda.empty_cache()
+            layer = float_form_layer(name, N, K, gen)
+            dense = dequantize_full(layer.W_q, layer.scales, layer.zeros, layer.meta,
+                                    torch.float16 if "fp16" in name else torch.bfloat16)
+            int8pack = None
+            if probe is None and layer.meta.elements_per_sample == 1:
+                w_nk, s_n = layer.W_q.t().contiguous(), layer.scales.reshape(-1).to(dense.dtype)
+                int8pack = (lambda x, w=w_nk, s=s_n: torch._weight_int8pack_mm(x, w, s))
+            layers[(name, N, K)] = (layer, dense, int8pack)
+        layer, dense, int8pack = layers[(name, N, K)]
+        meta = layer.meta
+        x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(dense.dtype)
+        args = (x, layer.W_q, layer.scales, layer.zeros, None)
+        got, want = fused_gemm_float(*args, meta), fused_matmul_plain(*args, with_f32_out(meta))
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        bound, by = kernel_bound(layer_bytes(layer) + 2 * M * K + 2 * M * N, 2.0 * M * N * K, peak)
+        row = {"kernel": "fused_gemm_float", "form": name, "M": M, "N": N, "K": K,
+               "rel_err": err, "max_abs_err": max_abs(got, want),
+               "ms": timer.ms(lambda: fused_gemm_float(*args, meta)),
+               "plain_ms": timer.ms(lambda: fused_matmul_plain(*args, meta), iters=3),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": timer.ms(lambda: torch.matmul(x, dense)),
+               "library": "dense bf16 matmul on the dequantized weight",
+               "int8pack_mm_ms": timer.ms(lambda: int8pack(x)) if int8pack else None,
+               "int8pack_mm_rel_err": rel_err(int8pack(x), want) if int8pack else None,
+               "plan": float_plan(M, N, K)._asdict(),
+               "device_ops_per_call": device_ops_per_call(lambda: fused_gemm_float(*args, meta)),
+               "card": card}
+        emit(row)
+        if not err <= REL_TOL:
+            raise RuntimeError(f"float path disagrees with its plain version: {row}")
+        if row["device_ops_per_call"] != 1:
+            raise RuntimeError(f"float path: one call took several device operations: {row}")
+        rows.append(row)
+    layers.clear()
+    return rows
 
 
 def phase_layer_a8w8(card: str) -> dict:
@@ -778,6 +868,23 @@ def phase_layer_a8w8(card: str) -> dict:
     if not ok:
         raise RuntimeError("layer_a8w8 phase failed")
     return counts
+
+
+A16W8_GROUPS = {"fused_float_kernel": ("fused_float",)}
+
+
+def phase_serve_a16w8(card: str, cfg, dense) -> dict:
+    """The 4-layer model as A16W8 (int8 weights, channel scales in the K
+    loop): every linear at every M on the float path."""
+    from gemlite_tpu_torch import quantize_llama
+    from gemlite_tpu_torch.helper import A16W8_INT8
+
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, processor=A16W8_INT8(device="cuda", dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    return serve_and_check("serve_a16w8", params, cfg, card, time.perf_counter() - t0,
+                           "general_fused", "general_fused", "profile_a16w8", A16W8_GROUPS,
+                           kernel_of={"general_fused": "fused_gemm_float"})
 
 
 def phase_serve_a8w8(card: str, cfg, dense) -> dict:
@@ -1347,6 +1454,7 @@ def main() -> int:
     picked.update(phase_kernels_a8(card, peak, timer))
     phase_layer_a8w8(card)
     a8_counts = phase_serve_a8w8(card, cfg, dense)
+    a16_counts = phase_serve_a16w8(card, cfg, dense)
     del dense
     picked.update(phase_kernels_scan(card, peak, timer))
     scan_counts = phase_serve_scan(card)
@@ -1361,6 +1469,8 @@ def main() -> int:
                                "gemlite_tpu/ops/pallas_int8.py:286", a8_counts),
                "fused_gemm": ("gemlite_tpu_torch/csrc/fused_gemm.cu",
                               "gemlite_tpu/ops/pallas_gemm.py:294", a8_counts),
+               "fused_gemm_float": ("gemlite_tpu_torch/csrc/fused_float.cu",
+                                    "gemlite_tpu/ops/pallas_gemm.py:294", a16_counts),
                "flash": ("gemlite_tpu_torch/csrc/flash_attention.cu",
                          "gemlite_tpu/models/llama.py:292", paged_counts),
                "paged_decode": ("gemlite_tpu_torch/csrc/paged_attention.cu",
@@ -1374,12 +1484,13 @@ def main() -> int:
                         "launches": counts[name_k],
                         "launches_path": ("serve" if counts is serve_counts else
                                           "serve_a8w8" if counts is a8_counts else
+                                          "serve_a16w8" if counts is a16_counts else
                                           "serve_paged" if counts is paged_counts else
                                           "serve_scan" if counts is scan_counts else "layer"),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        "shape": r.get("shape") or {k: r[k] for k in ("bits", "M", "N", "K")
+                        "shape": r.get("shape") or {k: r[k] for k in ("bits", "form", "M", "N", "K")
                                                     if k in r}})
     if any(k["launches"] < 1 for k in kernels):
         raise RuntimeError(f"a kernel of the path never launched: {kernels}")

@@ -1,21 +1,20 @@
 // SPDX-License-Identifier: Apache-2.0
-// General fused dequantize + GEMM: out = csm(x @ dequant(W)) for any M.
+// General fused dequantize + GEMM: out = csm(x @ dequant(W)) for any M, the
+// paths of int8 and float32 x.
 //
 // Replaces the TPU kernel gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul
-// for every integer-code form its gate admits: x in fp16 / bf16 / fp32 /
-// int8; W1/2/4/8 codes in LSB-first int32 words, or non-packed int8 / fp16 /
-// bf16 weights (elements_per_sample 1); W_group_mode 0-4 with scalar or
-// grouped zeros; channel_scale_mode 0-3.
+// for every integer-code form its gate admits with x in int8 on its int path
+// or in float32: W1/2/4/8 codes in LSB-first int32 words, or non-packed int8
+// / fp16 / bf16 weights (elements_per_sample 1); W_group_mode 0-4 with scalar
+// or grouped zeros; channel_scale_mode 0-3. x in bf16 / fp16, and int8 x off
+// the int path, take the float path of csrc/fused_float.cu.
 //
 // Arithmetic (pallas_gemm.py:145-212):
 //   * int path (int8 x, W_group_mode 0 or a scalar-zero shift, codes that
 //     fit int8): int8 x int8 -> int32 on the tensor cores (mma.sync s8),
 //     exact;
-//   * else the weight tile is dequantized in the compute dtype (bf16 for int8
-//     x), rounded after every op as the TPU kernel's meta_f32=False
-//     arithmetic is, and multiplied on the tensor cores (wmma bf16 / fp16)
-//     with float32 sums; float32 x takes CUDA-core FMAs in float32 (TF32
-//     would drift from the reference);
+//   * float32 x: the weight tile dequantized in float32 and CUDA-core FMAs
+//     in float32 (TF32 would drift from the reference);
 //   * the epilogue scales the accumulator in float32: csm 1 * s[n],
 //     2 * sx[m], 3 * sx[m] * s[n].
 //
@@ -26,21 +25,14 @@
 // The int path (int_mma_kernel, below) is built for that bound: a ring of
 // cp.async stages keeps each SM's next steps in flight while it multiplies,
 // the N-major weights are turned K-major in registers for mma.sync, and a
-// split K is reduced in the same launch. The float path
-// (fused_gemm_tc_kernel): one block owns a 64 x 128 output tile and loops
-// over K in steps of 32; each step stages x and the dequantized weight tile
-// in shared memory, then 8 warps run wmma 16x16x16, with no pipelining.
-#include <mma.h>
-
+// split K is reduced in the same launch.
 #include <atomic>
 
 #include "gl_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BM = 64, BN = 128, BK = 32, kThreads = 256;
+constexpr int BK = 32, kThreads = 256;
 
 struct Params {
     const void* x;            // (M, K)
@@ -53,54 +45,32 @@ struct Params {
     int M, N, K, W_nbits, elems, w_code, mode, csm, gs_s, gs_z, s_code, z_code, out_code;
 };
 
-// round to the compute dtype, as a float
-template <typename T> __device__ __forceinline__ float rnd(float v);
-template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-template <> __device__ __forceinline__ float rnd<__half>(float v) {
-    return __half2float(__float2half_rn(v));
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_float<__half>(float v) {
-    return __float2half_rn(v);
-}
-
-// W_group_mode dequantization of one weight (pallas_gemm.py:159-185), every
-// op rounded to the compute dtype MD
-template <typename MD>
+// W_group_mode dequantization of one weight in float32 (pallas_gemm.py:159-185)
 __device__ __forceinline__ float dequant(float c, int k, int n, const Params& p) {
-    if (p.mode == 0) return rnd<MD>(c);
+    if (p.mode == 0) return c;
     float s = 0.f, z = 0.f;
-    if (p.mode >= 2) s = rnd<MD>(gl::load_meta(p.scales, (size_t)(k / p.gs_s) * p.N + n, p.s_code));
+    if (p.mode >= 2) s = gl::load_meta(p.scales, (size_t)(k / p.gs_s) * p.N + n, p.s_code);
     if ((p.mode == 1 || p.mode >= 3) && p.zero_scalar == nullptr)
-        z = rnd<MD>(gl::load_meta(p.zeros, (size_t)(k / p.gs_z) * p.N + n, p.z_code));
-    const float b = rnd<MD>(c);
+        z = gl::load_meta(p.zeros, (size_t)(k / p.gs_z) * p.N + n, p.z_code);
     switch (p.mode) {
         case 1:
-            if (p.zero_scalar != nullptr) z = rnd<MD>((float)*p.zero_scalar);
-            return rnd<MD>(__fsub_rn(b, z));
+            if (p.zero_scalar != nullptr) z = (float)*p.zero_scalar;
+            return __fsub_rn(c, z);
         case 2:
-            return rnd<MD>(__fmul_rn(b, s));
+            return __fmul_rn(c, s);
         case 3:
-            if (p.zero_scalar != nullptr)
-                return rnd<MD>(__fmul_rn(rnd<MD>((float)((int)c - *p.zero_scalar)), s));
-            return rnd<MD>(__fmul_rn(rnd<MD>(__fsub_rn(b, z)), s));
+            if (p.zero_scalar != nullptr) return __fmul_rn((float)((int)c - *p.zero_scalar), s);
+            return __fmul_rn(__fsub_rn(c, z), s);
         default:
-            return rnd<MD>(__fadd_rn(rnd<MD>(__fmul_rn(b, s)), z));
+            return __fadd_rn(__fmul_rn(c, s), z);
     }
 }
 
-// The (BK, TN) weight tile at (k0, n0), dequantized in CT: store(kk, nn, v)
-// for every kk < BK, nn < TN. (Loading all of a thread's words first, then
+// The (BK, TN) weight tile at (k0, n0), dequantized: store(kk, nn, v) for
+// every kk < BK, nn < TN. (Loading all of a thread's words first, then
 // decoding them, measured slower on the H100 and made nvcc take a minute
 // longer.)
-template <typename CT, int TN, typename Store>
+template <int TN, typename Store>
 __device__ __forceinline__ void load_w_tile(const Params& p, int k0, int n0, Store store) {
     const int e = p.elems;
     const int items = (BK / e) * TN;
@@ -115,93 +85,13 @@ __device__ __forceinline__ void load_w_tile(const Params& p, int k0, int n0, Sto
             const size_t i = (size_t)(k0 + kb) * p.N + n;
             const float c = p.w_code == gl::kI8 ? (float)static_cast<const int8_t*>(p.W)[i]
                                                 : gl::load_meta(p.W, i, p.w_code);
-            store(kb, nn, dequant<CT>(c, k0 + kb, n, p));
+            store(kb, nn, dequant(c, k0 + kb, n, p));
             continue;
         }
         const uint32_t word = static_cast<const uint32_t*>(p.W)[(size_t)((k0 + kb) / e) * p.N + n];
         const uint32_t mask = (1u << p.W_nbits) - 1u;
         for (int j = 0; j < e; ++j)
-            store(kb + j, nn, dequant<CT>((float)((word >> (j * p.W_nbits)) & mask), k0 + kb + j, n, p));
-    }
-}
-
-// Tensor-core kernel of the float path. CT: the compute type (bf16, fp16);
-// XT: x's type (CT, or int8 off the int path). Shared tiles keep k innermost
-// in chunks of 16 (A row-major, B col-major), so every wmma pointer is
-// 32-byte aligned.
-template <typename CT, typename XT>
-__global__ void __launch_bounds__(kThreads) fused_gemm_tc_kernel(Params p) {
-    constexpr int LDK = 24;
-    constexpr int kTileBytes = 2 * (BM + BN) * LDK * (int)sizeof(CT);
-    constexpr int kCBytes = BM * BN * 4;
-    __shared__ __align__(128) unsigned char smem[kTileBytes > kCBytes ? kTileBytes : kCBytes];
-    CT* As = reinterpret_cast<CT*>(smem);                  // [BK/16][BM][LDK]
-    CT* Bs = As + 2 * BM * LDK;                            // [BK/16][BN][LDK]
-
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    const int warp = threadIdx.x >> 5, wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    const XT* x = static_cast<const XT*>(p.x);
-    for (int k0 = 0; k0 < p.K; k0 += BK) {
-        // ---- x tile (BM, BK) ----
-        if constexpr (sizeof(XT) == 2) {
-            const int row = threadIdx.x >> 2, kq = (threadIdx.x & 3) * 8;
-            uint4 v = make_uint4(0, 0, 0, 0);
-            if (m0 + row < p.M)
-                v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + row) * p.K + k0 + kq);
-            *reinterpret_cast<uint4*>(As + ((kq >> 4) * BM + row) * LDK + (kq & 15)) = v;
-        } else if (threadIdx.x < BM * 2) {               // int8 x, 16 per thread
-            const int row = threadIdx.x >> 1, kq = (threadIdx.x & 1) * 16;
-            uint4 v = make_uint4(0, 0, 0, 0);
-            if (m0 + row < p.M)
-                v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + row) * p.K + k0 + kq);
-            CT* dst = As + ((kq >> 4) * BM + row) * LDK;
-            const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-            for (int i = 0; i < 16; ++i) dst[i] = from_float<CT>((float)b[i]);
-        }
-        // ---- weight tile (BK, BN), dequantized ----
-        load_w_tile<CT, BN>(p, k0, n0, [&](int kk, int nn, float v) {
-            Bs[((kk >> 4) * BN + nn) * LDK + (kk & 15)] = from_float<CT>(v);
-        });
-        __syncthreads();
-#pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, CT, wmma::row_major> a[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, CT, wmma::col_major> b[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(a[i], As + (kc * BM + wm * 32 + i * 16) * LDK, LDK);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(b[j], Bs + (kc * BN + wn * 32 + j * 16) * LDK, LDK);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-    float* Cs = reinterpret_cast<float*>(smem);             // [BM][BN], reuses the tiles
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * BN + wn * 32 + j * 16, acc[i][j], BN,
-                                    wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BM * BN; idx += kThreads) {
-        const int m = m0 + idx / BN, n = n0 + idx % BN;
-        if (m >= p.M || n >= p.N) continue;
-        const float v = gl::channel_scale(Cs[idx], p.csm, p.scales, p.s_code, p.sx, m, n);
-        gl::store_out(p.out, (size_t)m * p.N + n, v, p.out_code);
+            store(kb + j, nn, dequant((float)((word >> (j * p.W_nbits)) & mask), k0 + kb + j, n, p));
     }
 }
 
@@ -222,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) fused_gemm_f32_kernel(Params p) {
             if (m0 + row < p.M) v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + row) * p.K + k0 + kq);
             As[kq + 0][row] = v.x; As[kq + 1][row] = v.y; As[kq + 2][row] = v.z; As[kq + 3][row] = v.w;
         }
-        load_w_tile<float, FBN>(p, k0, n0, [&](int kk, int nn, float v) { Bs[kk][nn] = v; });
+        load_w_tile<FBN>(p, k0, n0, [&](int kk, int nn, float v) { Bs[kk][nn] = v; });
         __syncthreads();
 #pragma unroll 8
         for (int kk = 0; kk < BK; ++kk) {
@@ -633,23 +523,16 @@ cudaError_t launch(const Params& p, int splits, int k_per_split, int* ws, int* c
 
 }  // namespace ip
 
-template <typename CT, typename XT>
-cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
-    const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-    fused_gemm_tc_kernel<CT, XT><<<grid, kThreads, 0, stream>>>(p);
-    return cudaGetLastError();
-}
-
 }  // namespace
 
 // Launch on `stream`. x_code / w_code / s_code / z_code / out_code are DType
 // values; int_path selects the int8 tensor-core path (int8 x, W_group_mode 0
-// or 1 with a scalar zero, non-packed weights or W1/2/4 codes), and int8 x
-// off it computes in bf16. On the int path K is cut into `splits` ranges of
-// `k_per_split` (one range of K, or ranges of a multiple of 128 of which none
-// is empty), all in one launch; with splits > 1 it needs `ws`, (the output
-// tiles) x 128 x 128 int32, and `counters`, one int32 per output tile, all 0
-// (the kernel leaves them 0).
+// or 1 with a scalar zero, non-packed weights or W1/2/4 codes); otherwise x
+// must be float32 (the other float inputs take gl_fused_float). On the int
+// path K is cut into `splits` ranges of `k_per_split` (one range of K, or
+// ranges of a multiple of 128 of which none is empty), all in one launch; with
+// splits > 1 it needs `ws`, (the output tiles) x 128 x 128 int32, and
+// `counters`, one int32 per output tile, all 0 (the kernel leaves them 0).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int gl_fused_gemm(const void* x, const void* W, const void* scales, const void* zeros,
                              const void* zero_scalar, const void* sx, void* out, void* ws,
@@ -691,8 +574,5 @@ extern "C" int gl_fused_gemm(const void* x, const void* W, const void* scales, c
         fused_gemm_f32_kernel<<<grid, kThreads, 0, stream>>>(p);
         return static_cast<int>(cudaGetLastError());
     }
-    if (x_code == gl::kBF16) return static_cast<int>(launch_tc<__nv_bfloat16, __nv_bfloat16>(p, stream));
-    if (x_code == gl::kF16) return static_cast<int>(launch_tc<__half, __half>(p, stream));
-    if (x_code == gl::kI8) return static_cast<int>(launch_tc<__nv_bfloat16, int8_t>(p, stream));
     return static_cast<int>(cudaErrorInvalidValue);
 }

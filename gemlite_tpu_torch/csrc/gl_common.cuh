@@ -2,7 +2,7 @@
 // Helpers shared by the int8 decode and general fused kernels: dtype codes
 // (the values of gemlite_tpu_torch.dtypes.DType), metadata loads and output
 // stores by code, and the cp.async / ldmatrix / mma.sync s8 wrappers of
-// their int8 tensor-core paths.
+// their tensor-core paths.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -41,9 +41,13 @@ __device__ __forceinline__ float channel_scale(float v, int csm, const void* s, 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-// 16 / 4 bytes to shared memory; src_bytes 0 fills zeros and reads nothing
+// 16 / 8 / 4 bytes to shared memory; src_bytes 0 fills zeros and reads nothing
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                  "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async4(unsigned dst, const void* src, int src_bytes) {

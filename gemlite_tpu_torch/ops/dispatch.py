@@ -11,8 +11,10 @@ By the flattened batch size M, in the JAX router's order:
 The decode and prefill kernels take mode-4 bf16 layers of W1, W2 and W4
 codes, as the JAX decode and prefill kernels do; the dequantize kernel takes
 W4. A float layer that the JAX package sends to one of its kernels but whose
-form the port's kernel does not cover yet (A16W8, W8 codes, modes 1-3,
-channel-wise; W1/W2 at M >= 4096) runs on the general fused kernel here. ``dense_fallback``
+form the port's kernel does not cover yet (W8 codes, modes 1-3,
+channel-wise; W1/W2 at M >= 4096) runs on the general fused kernel here;
+non-packed int8 weights (A16W8) run on it below M 4096 in both packages,
+on its float path (``fused_gemm_float``). ``dense_fallback``
 is kept for the layers that the JAX package itself dequantizes without a
 Pallas kernel (``_xla_dequantized``). On the card a layer that no kernel
 serves (the MX codecs, csm 4) raises ``NotImplementedError``: no plain

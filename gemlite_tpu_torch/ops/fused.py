@@ -1,24 +1,30 @@
 # SPDX-License-Identifier: Apache-2.0
 """General fused kernel: dequantize a weight tile, then a tensor-core GEMM
-(``csrc/fused_gemm.cu``).
+(``csrc/fused_gemm.cu`` and ``csrc/fused_float.cu``).
 
 Replaces ``gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul`` for every
 integer-code form its gate admits: x in fp16 / bf16 / fp32 / int8; W1/2/4/8
 codes in LSB-first int32 words, or non-packed int8 / fp16 / bf16 weights;
 W_group_mode 0-4 with scalar or grouped zeros; channel_scale_mode 0-3.
 
-    int path   int8 x, W_group_mode 0, or 1 with a scalar zero, codes that
-               fit int8 (not packed W8): int8 x int8 -> int32, exact, in one
-               launch whose tiles and K split ``int_plan`` chooses
-    else       the weight dequantized in the compute dtype (bf16 for int8 x;
-               float32 for float32 x), rounded after every op as the JAX
-               kernel's ``meta_f32=False`` arithmetic does, float32 sums
+    int path    int8 x, W_group_mode 0, or 1 with a scalar zero, codes that
+                fit int8 (not packed W8): int8 x int8 -> int32, exact, in one
+                launch whose tiles and K split ``int_plan`` chooses
+                (``fused_gemm.cu``)
+    float path  bf16 / fp16 x, or int8 x off the int path (computed in
+                bf16): the weights dequantized in the compute dtype, rounded
+                after every op as the JAX kernel's ``meta_f32=False``
+                arithmetic does, products on the tensor cores with float32
+                sums, in one launch whose token tile and K split
+                ``float_plan`` chooses (``fused_float.cu``, wrapper
+                ``fused_gemm_float``)
+    float32 x   dequantized and summed in float32 (``fused_gemm.cu``)
 
 The epilogue scales the accumulator in float32 (csm 1/2/3). The MX codecs
 (fp4 codes, e8m0 / nvfp4 scales) and csm 4 wait for the MX slice.
 
 The plain version, ``fused_matmul_plain``, repeats that arithmetic. On a CPU
-tensor the wrapper runs it; on a CUDA tensor it launches the kernel or raises.
+tensor the wrappers run it; on a CUDA tensor they launch a kernel or raise.
 """
 
 import ctypes
@@ -30,9 +36,10 @@ from ..dtypes import DType, is_mx_dtype, to_torch_dtype
 from . import build
 from .reference import int_matmul, unpack_rows_ref
 
-__all__ = ["IntPlan", "can_use_fused", "fused_gemm", "fused_matmul_plain", "int_path", "int_plan"]
+__all__ = ["FloatPlan", "IntPlan", "can_use_fused", "float_plan", "fused_gemm", "fused_gemm_float",
+           "fused_matmul_plain", "int_path", "int_plan"]
 
-BK = 32                   # the kernel's K step
+BK = 32                   # K must be whole steps of this
 _FLOAT_INPUTS = (DType.FP16.value, DType.BF16.value, DType.FP32.value)
 _META_DTYPES = {torch.float32: DType.FP32.value, torch.float16: DType.FP16.value,
                 torch.bfloat16: DType.BF16.value}
@@ -165,6 +172,63 @@ def int_plan(M: int, N: int, K: int) -> IntPlan:
     return IntPlan(tm, tn, splits, per * INT_BK, 1, 4 * tiles * INT_TILE * INT_TILE)
 
 
+FLOAT_TILE_N = 128        # the float path's output columns a block
+FLOAT_BK = 128            # its K step (a ring stage)
+MIN_SPLIT_STAGES = 4      # the fewest stages a split of the float path takes
+
+
+class FloatPlan(NamedTuple):
+    """The float path's grid for one call: ``tiles_m`` x ``tiles_n`` output
+    tiles of ``8 nt`` rows x 128 columns, each summed over ``splits`` K ranges
+    of ``k_per_split`` (the last may be shorter), in one launch. A split call
+    writes ``splits`` float32 partials of the output, which the last block of
+    each tile adds in split order."""
+    nt: int
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    k_per_split: int
+
+    @property
+    def bm(self) -> int:
+        return 8 * self.nt
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+    @property
+    def launches(self) -> int:
+        return 1
+
+
+def float_plan(M: int, N: int, K: int) -> FloatPlan:
+    """Token tile and split of the float path, from M, N and K alone. Up to
+    M 8 a block holds one token tile of 8 rows, else 16 tiles (128 rows). With
+    at least one tile an SM each block streams its whole K range; with fewer,
+    K is cut in whole 128-deep stages, no split shorter than
+    ``MIN_SPLIT_STAGES`` stages, so that about four light blocks (two of 128
+    rows) run per SM, and no more splits than K / (8 M): the float32
+    partials they write and read (8 M N bytes a split) stay below an int8
+    weight's K N bytes. The output bits depend only on the plan."""
+    nt = 1 if M <= 8 else 16
+    tm, tn = -(-M // (8 * nt)), -(-N // FLOAT_TILE_N)
+    tiles, steps = tm * tn, -(-K // FLOAT_BK)
+    target = (4 if nt == 1 else 2) * SMS
+    splits = 1 if tiles >= SMS else max(1, min(target // tiles, steps // MIN_SPLIT_STAGES,
+                                               K // (8 * M)))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    return FloatPlan(nt, tm, tn, splits, K if splits == 1 else per * FLOAT_BK)
+
+
+def float_workspace(M: int, N: int, plan: FloatPlan):
+    """(float32 partials, arrival counters) a call of the plan needs."""
+    if plan.splits == 1:
+        return 0, 0
+    return plan.splits * M * N, plan.tiles_m * plan.tiles_n
+
+
 def _split_state(device: torch.device, tiles: int):
     """(accumulator, counters) pointers of the split int path: int32 tiles of
     128 x 128 and one arrival counter per output tile, in the zeroed int32
@@ -175,8 +239,10 @@ def _split_state(device: torch.device, tiles: int):
     return ints.data_ptr(), ints.data_ptr() + 4 * n * INT_TILE * INT_TILE
 
 
-def _lib():
-    fn = build.load("fused_gemm").gl_fused_gemm
+def _lib(source: str):
+    """``gl_<source>`` of ``csrc/<source>.cu``: both entries take nine
+    pointers, 17 ints and the stream."""
+    fn = getattr(build.load(source), f"gl_{source}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -194,10 +260,13 @@ def _meta_arg(t, name):
     return t.contiguous()
 
 
-def fused_gemm(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
-    """out (M, N) = csm(x (M, K) @ dequant(W_q)) for any M."""
-    if x.device.type == "cpu":
-        return fused_matmul_plain(x, W_q, scales, zeros, scales_x, meta)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel_args(x, W_q, scales, zeros, scales_x, meta):
+    """The checked operands of a CUDA call: (x, W_q, s, z, zero scalar, sx,
+    gs_s, gs_z, out), raising on what the kernels do not take."""
     if not can_use_fused(meta):
         raise NotImplementedError(f"general fused kernel does not take {meta}: the MX codecs "
                                   "and csm 4 wait for the MX slice")
@@ -227,21 +296,67 @@ def fused_gemm(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Ten
     gs_s = K // (s.numel() // N) if (s is not None and mode in (2, 3, 4)) else K
     gs_z = K // (z.numel() // N) if z is not None else K
     out = torch.empty((M, N), dtype=to_torch_dtype(meta.output_dtype), device=x.device)
+    return x, W_q, s, z, zs, sx, gs_s, gs_z, out
+
+
+def _codes(W_q, s, z):
+    """(w_code, s_code, z_code): the DType values of the stored tensors."""
+    return (_W_DTYPES[W_q.dtype], _META_DTYPES[s.dtype] if s is not None else 0,
+            _META_DTYPES[z.dtype] if z is not None else 0)
+
+
+def fused_gemm_float(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
+    """The float path alone: out (M, N) = csm(x (M, K) @ dequant(W_q)) with x
+    in bf16 / fp16, or int8 off the int path, in one launch of
+    ``csrc/fused_float.cu`` planned by ``float_plan``."""
+    if x.device.type == "cpu":
+        return fused_matmul_plain(x, W_q, scales, zeros, scales_x, meta)
+    if int_path(meta) or meta.input_dtype not in (DType.BF16.value, DType.FP16.value,
+                                                  DType.INT8.value):
+        raise ValueError(f"the float path does not take {meta}: the int path and float32 x "
+                         "run on fused_gemm")
+    x, W_q, s, z, zs, sx, gs_s, gs_z, out = _kernel_args(x, W_q, scales, zeros, scales_x, meta)
+    M, N, K = x.shape[0], meta.out_features, meta.in_features
+    plan = float_plan(M, N, K)
+    part = cnt = None
+    floats, ints = float_workspace(M, N, plan)
+    stream = torch.cuda.current_stream().cuda_stream
+    if plan.splits > 1:
+        counters, partials = build.split_state("fused_float", x.device, ints, floats, stream)
+        part, cnt = partials.data_ptr(), counters.data_ptr()
+    w_code, s_code, z_code = _codes(W_q, s, z)
+    err = _lib("fused_float")(_ptr(x), _ptr(W_q), _ptr(s), _ptr(z), _ptr(zs), _ptr(sx), _ptr(out), part,
+                       cnt, M, N, K, meta.input_dtype, meta.W_nbits, meta.elements_per_sample,
+                       w_code, meta.W_group_mode, meta.channel_scale_mode, gs_s, gs_z, s_code,
+                       z_code, meta.output_dtype, plan.nt, plan.splits, plan.k_per_split, stream)
+    build.check(err, "fused_float")
+    fused_gemm_float.launches += 1
+    return out
+
+
+fused_gemm_float.launches = 0
+
+
+def fused_gemm(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
+    """out (M, N) = csm(x (M, K) @ dequant(W_q)) for any M: the int path,
+    float32 x, or the float path (``fused_gemm_float``)."""
+    if x.device.type == "cpu":
+        return fused_matmul_plain(x, W_q, scales, zeros, scales_x, meta)
     ip = int_path(meta)
+    if not ip and meta.input_dtype != DType.FP32.value and can_use_fused(meta):
+        return fused_gemm_float(x, W_q, scales, zeros, scales_x, meta)
+    x, W_q, s, z, zs, sx, gs_s, gs_z, out = _kernel_args(x, W_q, scales, zeros, scales_x, meta)
+    M, N, K = x.shape[0], meta.out_features, meta.in_features
     plan = int_plan(M, N, K) if ip else IntPlan(0, 0, 1, K, 1, 0)
     ws = cnt = None
     if plan.splits > 1:
         ws, cnt = _split_state(x.device, plan.tiles_m * plan.tiles_n)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _lib()(ptr(x), ptr(W_q), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(out), ws, cnt,
-                 M, N, K, meta.input_dtype, int(ip), meta.W_nbits, e,
-                 _W_DTYPES[W_q.dtype], mode, csm, gs_s, gs_z,
-                 _META_DTYPES[s.dtype] if s is not None else 0,
-                 _META_DTYPES[z.dtype] if z is not None else 0, meta.output_dtype,
-                 plan.splits, plan.k_per_split, torch.cuda.current_stream().cuda_stream)
+    w_code, s_code, z_code = _codes(W_q, s, z)
+    err = _lib("fused_gemm")(_ptr(x), _ptr(W_q), _ptr(s), _ptr(z), _ptr(zs), _ptr(sx), _ptr(out), ws, cnt,
+                 M, N, K, meta.input_dtype, int(ip), meta.W_nbits, meta.elements_per_sample,
+                 w_code, meta.W_group_mode, meta.channel_scale_mode, gs_s, gs_z, s_code, z_code,
+                 meta.output_dtype, plan.splits, plan.k_per_split,
+                 torch.cuda.current_stream().cuda_stream)
     build.check(err, "fused_gemm")
     fused_gemm.launches += 1
     return out

@@ -13,6 +13,7 @@ and the general fused kernel's int path equal their plain versions bit for bit.
 
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,12 +25,14 @@ from gemlite_tpu_torch.ops import attention, build, dispatch
 from gemlite_tpu_torch.ops.decode import decode_matmul
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
 from gemlite_tpu_torch.ops import fused
-from gemlite_tpu_torch.ops.fused import fused_gemm, fused_matmul_plain, int_path, int_plan
+from gemlite_tpu_torch.ops.fused import (fused_gemm, fused_gemm_float, fused_matmul_plain, int_path,
+                                         int_plan)
 from gemlite_tpu_torch.ops import int8_decode as int8_mod
 from gemlite_tpu_torch.ops.int8_decode import int8_decode, int8_decode_plain, int8_mma_tile
 from gemlite_tpu_torch.ops.prefill import prefill_matmul
 from gemlite_tpu_torch.ops.reference import forward_meta, int_matmul
 from gemlite_tpu_torch.ops.scan import decode_matmul_stacked
+from test_torch_float_plan import FLOAT_PATH_FORMS, float_layer, float_x, form_k
 
 pytestmark = pytest.mark.requires_cuda
 REL = 5e-3
@@ -590,6 +593,95 @@ def test_fused_kernel_float_path(gen, name, M, N, K):
     torch.cuda.synchronize()
     want = fused_matmul_plain(x, *args, layer.meta._replace(output_dtype=DType.FP32.value))
     assert got.shape == (M, N) and _rel(got, want) <= REL
+
+
+def _float_case(name, M, N, K):
+    """A float-path layer of the form on the card, x and its per-token scales."""
+    K = form_k(name, K)
+    rng = np.random.default_rng([M, N, K, FLOAT_PATH_FORMS.index(name)])
+    layer = float_layer(name, N, K, rng, device="cuda")
+    x, sx = float_x(rng, M, K, layer.meta, device="cuda")
+    return layer, (x, layer.W_q, layer.scales, layer.zeros, sx)
+
+
+def _float_check(layer, args):
+    got = fused_gemm_float(*args, layer.meta)
+    torch.cuda.synchronize()
+    want = fused_matmul_plain(*args, layer.meta._replace(output_dtype=DType.FP32.value))
+    assert got.shape == want.shape and got.dtype == fused.to_torch_dtype(layer.meta.output_dtype)
+    assert _rel(got, want) <= REL
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 65, 128, 1024, 4095])
+@pytest.mark.parametrize("name", FLOAT_PATH_FORMS)
+def test_fused_float_kernel(gen, name, M):
+    """Every form of the float path (csrc/fused_float.cu): int8 / 16-bit /
+    packed W1-W8 weights, modes 0-4, scalar and grouped zeros, groups that
+    hold a lane's run, a step (gs 20) or neither (gs 18), fp16, int8 x; N 1000
+    ends in a ragged column tile, K 1280 (1152) in five stages."""
+    _float_check(*_float_case(name, M, 1000, 1280))
+
+
+@pytest.mark.parametrize("N", [129, 130, 132, 200])
+@pytest.mark.parametrize("M", [1, 8, 33, 128])
+@pytest.mark.parametrize("name", ["a16w8_in_loop_bf16", "f16_weights_bf16x", "w4_gs32_mode4_bf16",
+                                  "w1_gs64_mode4_fp16", "bitnet_w2_bf16"])
+def test_fused_float_kernel_ragged_columns(gen, name, M, N):
+    """Rows that are no multiple of 16 bytes (4-byte copies), of 4 (plain
+    loads) and odd column counts (2-byte metadata loads, scalar stores)."""
+    _float_check(*_float_case(name, M, N, 256))
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 128, 1024])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)])
+def test_fused_float_kernel_8b_shapes(gen, N, K, M):
+    _float_check(*_float_case("a16w8_in_loop_bf16", M, N, K))
+
+
+@pytest.mark.parametrize("name,M,N,K", [
+    ("a16w8_in_loop_bf16", 8, 14336, 4096), ("a16w8_in_loop_bf16", 128, 14336, 4096),
+    ("a16w8_in_loop_bf16", 64, 4096, 4096), ("a16w8_in_loop_bf16", 1024, 1024, 4096),
+    ("w4_gs32_mode4_bf16", 8, 4096, 14336), ("bitnet_w2_bf16", 128, 1024, 4096),
+    ("w4_int8x_mode3", 33, 1024, 1280), ("w8_gs18_mode4_bf16", 4095, 200, 1280)])
+def test_fused_float_launches_as_planned(gen, name, M, N, K):
+    """One call: one kernel (no memset, no merge launch), no allocation but
+    the output, two calls equal bit for bit, the arrival counters left 0."""
+    layer, args = _float_case(name, M, N, K)
+    p = fused.float_plan(M, N, form_k(name, K))
+    want = fused_gemm_float(*args, layer.meta)            # builds, allocates the split state
+    torch.cuda.synchronize()
+    got, allocs = _one_call_allocs(lambda: [fused_gemm_float(*args, layer.meta)])
+    device_ops = build.graph_ops(lambda: got.append(fused_gemm_float(*args, layer.meta)))
+    assert len(device_ops) == p.launches == 1, device_ops
+    assert allocs == 1                                    # the output alone
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("fused_float")
+
+
+def test_a16w8_routes_to_the_float_path(gen):
+    """An A16W8 layer runs the float path at every M below 4096, as JAX's
+    router sends it to its general kernel, and dense_fallback at 4096."""
+    layer, _ = _float_case("a16w8_in_loop_bf16", 1, 512, 1024)
+    before = fused_gemm_float.launches
+    dispatch.KERNEL_TRACE.clear()
+    for M in (1, 8, 64, 65, 4095, 4096):
+        layer(_x(gen, M, 1024))
+    assert dispatch.KERNEL_TRACE == ["general_fused"] * 5 + ["dense_fallback"]
+    assert fused_gemm_float.launches == before + 5
+
+
+def test_a16w8_engine_runs_on_the_float_path(gen):
+    """A tiny A16W8 model served on the card: every linear on the float
+    path, short and long prompts and decode."""
+    cfg = LlamaConfig.tiny()
+    params = quantize_llama(init_llama(cfg, seed=0, device="cuda"),
+                            processor=A16W8_INT8(device="cuda", dtype=torch.bfloat16))
+    before = fused_gemm_float.launches
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, prefill_buckets=(32, 64, 128),
+                                   device="cuda")
+    out = eng.generate([[1, 2, 3, 4, 5], list(range(7, 77))], max_new_tokens=4)
+    assert [len(o) for o in out] == [4, 4]
+    assert fused_gemm_float.launches - before == 7 * cfg.num_layers * (2 + eng.stats()["decode_steps"])
 
 
 def test_a8w8_engine_runs_on_the_kernels(gen):
