@@ -23,10 +23,13 @@ Phases, each printing one JSON line:
   serve    Llama-3-8B widths cut to 4 of 32 layers, random bf16 weights from a
            seeded generator, quantized to W4 gs=128 on the card, served by
            ContinuousBatchingEngine(max_batch=8, paged=False) on 8 greedy
-           requests; tokens must equal a bare prefill/decode loop, and the
+           requests, its decode step captured in CUDA graphs (the engine's
+           default on the card); tokens must equal a bare prefill/decode
+           loop, launches the schedule with every replay counted, and the
            first step must match the plain path on the CPU stage by stage
-           (first_step_check);
-  profile  device time by kernel over a short serving run;
+           (first_step_check); the capture time and the graph pool's memory;
+  profile  device time by kernel over a short serving run, captured and
+           eager (profile_eager);
   kernels_attn  the causal flash kernel (B=1, S in {256, 1024, 2048, 4096,
            8192}, 32/8 heads, D=128; 8192 is Llama-3-8B's published context)
            and the paged decode kernel (8 slots of lengths 1 to 2047 with 16
@@ -38,7 +41,8 @@ Phases, each printing one JSON line:
            yardstick; the kernels line reports flash at S 2048 and paged
            decode at lengths up to 2047;
   serve_paged   the same W4 model at max_seq_len 2048 served by the default
-           engine (paged, prefix cache; page 128, 64 pages, max_batch 8) on
+           engine (paged, prefix cache, captured decode step; page 128, 64
+           pages, max_batch 8) on
            10 requests, two of which reuse a 640-token prefix: tokens of the
            first 8 equal a bare paged loop, 10 prefix-cache page hits, the
            cached requests' chunk matches a one-shot prefill stage by stage,
@@ -73,8 +77,10 @@ Phases, each printing one JSON line:
            the first step matches the plain path on the CPU;
   profile_a16w8 device time by kernel over a short A16W8 serving run;
   kernels_scan the stacked decode kernel over stacks of 32 random layers: W4
-           at the four 8B shapes, M in {1, 8, 64}, and W2 / W1 (gs 128) at
-           4096x4096 and 14336x4096, M = 8; layers 0, 17 and 31 each equal the
+           at the four 8B shapes, M in {1, 8, 64}, W4 at the fused shapes
+           6144x4096 (wqkv) and 28672x4096 (gate_up), M = 8, and W2 / W1 (gs
+           128) at 4096x4096 and 14336x4096, M = 8; layers 0, 17 and 31 each
+           equal the
            per-layer decode kernel on that layer bit for bit and the plain
            version within 5e-3 (max form, float32 plain result); no host sync
            under torch.cuda.set_sync_debug_mode("error"); times and bounds
@@ -84,12 +90,22 @@ Phases, each printing one JSON line:
            W1/W2;
   serve_scan    Llama-3-8B at full widths and its full 32 layers, random
            weights drawn and quantized (W4 gs=128) one block at a time on the
-           card, the serve phase's 8 requests served twice on the dense cache:
-           unrolled, then with scan_layers=True. Tokens and the first decode
-           step's logits must be equal, launches equal the schedule (the
-           stacked kernel 7 x 32 per decode step), routes only decode, prefill
-           and decode_stacked; host-clock throughput, TTFT, peak memory and a
-           torch.profiler window of 8 decode steps per engine.
+           card, apart and fused (wqkv, gate_up), the serve phase's 8
+           requests served on the dense cache seven ways: eager
+           (graphs=False) and captured, each unrolled, scan_layers=True and
+           fused with scan_layers=True, and fused unrolled eagerly. Tokens
+           must be equal within the unfused runs and within the fused ones,
+           and so must the logits of the first two decode steps (the graph's
+           output on the captured runs: its eager first step, then its first
+           replay); launches equal the schedule (the stacked kernel 7 or 4 x
+           32 per decode step), routes only decode, prefill and
+           decode_stacked. Whether the fused runs' tokens equal the unfused
+           ones is reported: their K splits differ (ops/decode.plan depends
+           on N), so their sums round apart. Host-clock throughput, TTFT,
+           capture time, graph pool, peak memory, and torch.profiler windows
+           of 8 decode steps: eager unrolled and scan (profile_scan_unrolled,
+           profile_scan_scan), captured scan, unrolled and fused scan
+           (profile_scan_captured, _captured_unrolled, _captured_fused).
 Then a "kernels" line and, last, {"ok": true, "device": {...}}. Any failed
 phase raises and the script exits non-zero without that last line. It needs
 one CUDA card and refuses to run without one.
@@ -112,7 +128,14 @@ PEAKS = {"H100 SXM": (3.35e12, 989e12, 1979e12), "H100 PCIe": (2.0e12, 756e12, 1
          "H200": (4.8e12, 989e12, 1979e12)}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the script
+    started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -295,20 +318,10 @@ def phase_kernels(card: str, peak, timer: Timer) -> dict:
 
 
 def counters():
-    from gemlite_tpu_torch.ops.attention import (flash_attention_causal,
-                                                 paged_decode_attention_kernel)
-    from gemlite_tpu_torch.ops.decode import decode_matmul
-    from gemlite_tpu_torch.ops.dequantize import dequantize_weights
-    from gemlite_tpu_torch.ops.fused import fused_gemm, fused_gemm_float
-    from gemlite_tpu_torch.ops.int8_decode import int8_decode
-    from gemlite_tpu_torch.ops.prefill import prefill_matmul
-    from gemlite_tpu_torch.ops.scan import decode_matmul_stacked
-    return {"decode": decode_matmul, "prefill": prefill_matmul,
-            "decode_stacked": decode_matmul_stacked,
-            "dequantize": dequantize_weights, "int8_decode": int8_decode,
-            "fused_gemm": fused_gemm, "fused_gemm_float": fused_gemm_float,
-            "flash": flash_attention_causal,
-            "paged_decode": paged_decode_attention_kernel}
+    """Every wrapper that counts its launches, by name (the engine adds a
+    captured step's counts at each replay)."""
+    from gemlite_tpu_torch.graphs import COUNTED
+    return COUNTED
 
 
 def reset_counts():
@@ -472,25 +485,34 @@ def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GR
     """Where the device time goes in a short serving run: kernel times from
     torch.profiler (CUDA activity only, so no operator is counted twice), and
     the device's busy share against the wall time of the same run made
-    without the profiler."""
+    without the profiler; with the decode step captured (``phase``) and
+    eager (``phase``_eager)."""
     from torch.profiler import ProfilerActivity, profile
     from gemlite_tpu_torch import ContinuousBatchingEngine
 
-    def serve():
-        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda",
-                                       **(engine_kw or {"paged": False}))
-        eng.generate(prompts, max_new_tokens=8)
-        torch.cuda.synchronize()
+    for graphs, name in ((True, phase), (False, f"{phase}_eager")):
+        def serve():
+            eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda", graphs=graphs,
+                                           **(engine_kw or {"paged": False}))
+            eng.generate(prompts, max_new_tokens=8)
+            torch.cuda.synchronize()
+            return eng
 
-    serve()
-    t0 = time.perf_counter()
-    serve()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve()
-    times = device_times(prof, groups)
-    emit({"phase": phase, "ok": True, "what": what, "wall_ms_unprofiled": wall_ms,
-          "device_busy_share": times["device_ms"] / wall_ms, **times, "card": card})
+        t0 = time.perf_counter()
+        eng = serve()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = eng.stats()
+        del eng
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve()
+        times = device_times(prof, groups)
+        emit({"phase": name, "ok": True, "what": what, "graphs": graphs,
+              "wall_ms_unprofiled": wall_ms, "device_busy_share": times["device_ms"] / wall_ms,
+              "wall_ms_less_capture": wall_ms - stats["capture_s"] * 1e3,
+              **times, "decode_steps": stats["decode_steps"],
+              "graph_captures": stats["graph_captures"], "capture_s": stats["capture_s"],
+              "card": card})
 
 
 SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
@@ -498,6 +520,19 @@ SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
 
 KERNEL_OF = {"decode": "decode", "prefill": "prefill", "int8_exact": "int8_decode",
              "general_fused": "fused_gemm"}
+
+
+def captured_throughout(stats: dict) -> bool:
+    """True when every decode step but the first of each graph was a replay."""
+    return (stats["graph_captures"] >= 1
+            and stats["graph_replays"] == stats["decode_steps"] - stats["graph_captures"])
+
+
+def graph_report(stats: dict) -> dict:
+    """The engine's captures: how many, their time, replays, and the memory
+    of its graph pool."""
+    return {"captures": stats["graph_captures"], "capture_s": stats["capture_s"],
+            "replays": stats["graph_replays"], "pool_mb": stats.get("graph_pool_bytes", 0) / 2**20}
 
 
 def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
@@ -557,15 +592,16 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
 
     first_step = first_step_check(params, cfg, prompts[0], route=short_route)
     first_ok = all(v["mean_rel"] <= REL_TOL for k, v in first_step.items() if k != "end_to_end")
-    ok = same and counts == expect and first_ok and routes_ok
+    graphs_ok = captured_throughout(stats)
+    ok = same and counts == expect and first_ok and routes_ok and graphs_ok
     ttft = [r.ttft_s for r in results]
     emit({"phase": phase, "ok": ok, "model": "Llama-3-8B widths, 4 of 32 layers (depth cut)",
           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
           "new_tokens": n_new, "setup_s": setup_s, "wall_s": wall_s,
           "tokens_out": stats["tokens_out"], "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
           "ttft_s": {"median": statistics.median(ttft), "max": max(ttft)},
-          "stats_4_of_32_layers": stats, "launches": counts, "launches_expected": expect,
-          "routes": sorted(routes_seen),
+          "stats_4_of_32_layers": stats, "graphs": graph_report(stats),
+          "launches": counts, "launches_expected": expect, "routes": sorted(routes_seen),
           "engine_equals_bare_loop": same, "first_step_kernel_vs_plain": first_step,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
     if not same:
@@ -576,6 +612,8 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
         raise RuntimeError(f"quantized linears took routes {sorted(routes_seen)}")
     if not first_ok:
         raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
+    if not graphs_ok:
+        raise RuntimeError(f"the decode steps did not run on graphs: {stats}")
     profile_serve(params, cfg, prompts, card, phase=profile_phase, groups=profile_groups)
     return counts
 
@@ -1147,8 +1185,9 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     first_step = first_step_check(params, cfg, firsts[4], route="prefill",
                                   bucket=_next_bucket(len(firsts[4]), eng.buckets))
     first_ok = all(v["mean_rel"] <= REL_TOL for k, v in first_step.items() if k != "end_to_end")
+    graphs_ok = captured_throughout(stats) and stats["graph_captures"] == 1
     ok = (same and hits == 10 and cached_ok and counts == expect and schedule == want_schedule
-          and routes_ok and first_ok)
+          and routes_ok and first_ok and graphs_ok)
     ttft = [r.ttft_s for r in results]
     emit({"phase": "serve_paged", "ok": ok,
           "model": "Llama-3-8B widths, 4 of 32 layers (depth cut), max_seq_len 2048",
@@ -1157,7 +1196,8 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
           "new_tokens": n_new, "wall_s": wall_s, "tokens_out": stats["tokens_out"],
           "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
           "ttft_s": {"median": statistics.median(ttft), "max": max(ttft)},
-          "stats_4_of_32_layers": stats, "prefill_schedule": schedule,
+          "stats_4_of_32_layers": stats, "graphs": graph_report(stats),
+          "prefill_schedule": schedule,
           "launches": counts, "launches_expected": expect,
           "routes": {k: sorted(v) for k, v in seen.items()},
           "engine_equals_bare_paged_loop": same, "prefix_hit_pages": hits,
@@ -1176,6 +1216,8 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
         raise RuntimeError(f"routes {seen}")
     if not first_ok:
         raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
+    if not graphs_ok:
+        raise RuntimeError(f"the paged decode steps did not run on one graph: {stats}")
     profile_serve(params, cfg, firsts + repeats, card, phase="profile_paged", groups=ATTN_GROUPS,
                   what="10 requests (two reuse a 640-token prefix) x 8 new tokens, paged, "
                        "4 of 32 layers", engine_kw=engine_kw)
@@ -1184,6 +1226,7 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
 
 SCAN_LAYERS = 32
 SCAN_CHECKED = (0, 17, 31)
+FUSED_SHAPES = ((6144, 4096), (28672, 4096))     # wqkv and gate_up of quantize_llama(fuse=True)
 SCAN_GROUPS = {"stacked_decode_kernel": ("decode_mma_stacked",),
                "decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_wgmma",)}
 
@@ -1222,6 +1265,7 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
     timed = SCAN_CHECKED[1]
     rows = []
     cases = [(4, N, K, (1, 8, 64)) for N, K in SHAPES]
+    cases += [(4, N, K, (8,)) for N, K in FUSED_SHAPES]
     cases += [(bits, N, K, (8,)) for bits in (2, 1) for N, K in ((4096, 4096), (14336, 4096))]
     for bits, N, K, Ms in cases:
         W_q, scales, zeros, meta = random_stack(SCAN_LAYERS, N, K, bits, gen)
@@ -1278,35 +1322,42 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
 
 def full_depth_llama():
     """Llama-3-8B at its published widths and its 32 layers: random bf16
-    weights from a seeded generator on the card, drawn and quantized to W4
-    gs=128 one block at a time, so that no more than one dense block is
-    alive beside the packed model."""
+    weights from a seeded generator on the card, drawn one block at a time
+    and quantized to W4 gs=128 twice, apart and fused (``fuse=True``), so
+    that no more than one dense block is alive beside the packed models.
+    Returns (cfg, params, fused params); the two share the embedding and the
+    head."""
     import dataclasses
     from gemlite_tpu_torch import LlamaConfig, init_llama, quantize_llama
     cfg = LlamaConfig.llama3_8b(num_layers=SCAN_LAYERS, max_seq_len=512)
     gen = torch.Generator(device="cuda").manual_seed(0)
     one = dataclasses.replace(cfg, num_layers=1, vocab_size=8)
-    blocks = []
+    blocks = {False: [], True: []}
     for _ in range(cfg.num_layers):
         dense = {"blocks": init_llama(one, generator=gen, device="cuda")["blocks"]}
-        blocks.append(quantize_llama(dense, W_nbits=4, group_size=GROUP, device="cuda")["blocks"][0])
+        for fuse, out in blocks.items():
+            out.append(quantize_llama(dense, W_nbits=4, group_size=GROUP, fuse=fuse,
+                                      device="cuda")["blocks"][0])
         del dense
     params = init_llama(dataclasses.replace(cfg, num_layers=0), generator=gen, device="cuda")
-    params["blocks"] = blocks
-    return cfg, params
+    return cfg, dict(params, blocks=blocks[False]), dict(params, blocks=blocks[True])
 
 
 def profile_steps(eng, card: str, phase: str, n_steps: int = 8) -> None:
     """Device time by kernel over ``n_steps`` decode steps of an engine whose
     slots are all decoding, and the busy share against the wall time of as
-    many steps run without the profiler."""
+    many steps run without the profiler; beside it the CUDA-event time of
+    that unprofiled window."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         eng.step()
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    start.record()
     for _ in range(n_steps):
         eng.step()
+    end.record()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1314,24 +1365,50 @@ def profile_steps(eng, card: str, phase: str, n_steps: int = 8) -> None:
             eng.step()
         torch.cuda.synchronize()
     times = device_times(prof, SCAN_GROUPS)
-    emit({"phase": phase, "ok": True, "decode_steps": n_steps, "batch": eng.max_batch,
-          "layers": eng.cfg.num_layers, "wall_ms_unprofiled": wall_ms,
-          "wall_ms_per_step": wall_ms / n_steps,
-          "device_busy_share": times["device_ms"] / wall_ms, **times, "card": card})
+    stats = eng.stats()
+    emit({"phase": phase, "ok": True, "graphs": eng.graphs, "scan_layers": eng._stacked is not None,
+          "decode_steps": n_steps, "batch": eng.max_batch, "layers": eng.cfg.num_layers,
+          "wall_ms_unprofiled": wall_ms, "wall_ms_per_step": wall_ms / n_steps,
+          "event_ms_per_step": start.elapsed_time(end) / n_steps,
+          "device_busy_share": times["device_ms"] / wall_ms, **times,
+          "graphs_report": graph_report(stats), "card": card})
+
+
+def fused_packs_apart(params, fused) -> dict:
+    """Per fused linear, whether every block's fused words, scales and zeros
+    are the separate layers' side by side along N, as the CPU test
+    (tests/test_torch_fuse.py) finds them: the quantizer works group by
+    group, but its reductions may round apart on another number of rows."""
+    out = {}
+    for grp, name, parts in (("attn", "wqkv", ("wq", "wk", "wv")),
+                             ("mlp", "gate_up", ("gate", "up"))):
+        out[name] = all(
+            torch.equal(getattr(fb[grp][name], t),
+                        torch.cat([getattr(pb[grp][q], t) for q in parts], dim=-1))
+            for fb, pb in zip(fused["blocks"], params["blocks"]) for t in ("W_q", "scales", "zeros"))
+    return out
+
+
+# the serve_scan runs: (name, fused, scan_layers, graphs)
+SCAN_RUNS = (("eager_unrolled", False, False, False), ("eager_scan", False, True, False),
+             ("eager_fused_unrolled", True, False, False), ("eager_fused_scan", True, True, False),
+             ("captured_unrolled", False, False, True), ("captured_scan", False, True, True),
+             ("captured_fused_scan", True, True, True))
 
 
 def phase_serve_scan(card: str) -> dict:
-    """The serve phase's traffic on the 32-layer 8B model, served by the
-    unrolled engine and by the scan engine on the same params: equal tokens,
-    bit-equal first decode logits, launches and routes as scheduled.
-    Returns the scan run's launch counts."""
+    """The serve phase's traffic on the 32-layer 8B model, apart and fused,
+    served eagerly and captured, unrolled and over stacked layers: equal
+    tokens and bit-equal logits of the first two decode steps within the
+    unfused runs and within the fused runs, launches and routes as
+    scheduled. Returns the captured scan run's launch counts."""
     from gemlite_tpu_torch import ContinuousBatchingEngine, Request
     from gemlite_tpu_torch.ops import dispatch
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params = full_depth_llama()
+    cfg, params, fused = full_depth_llama()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     model_gb = torch.cuda.memory_allocated() / 1e9
@@ -1339,22 +1416,13 @@ def phase_serve_scan(card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_PROMPT_LENS]
     n_new = 32
     runs = {}
-    for name, scan in (("unrolled", False), ("scan", True)):
+    for name, is_fused, scan, graphs in SCAN_RUNS:
         t0 = time.perf_counter()
-        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, paged=False, scan_layers=scan,
-                                       device="cuda")
+        eng = ContinuousBatchingEngine(fused if is_fused else params, cfg, max_batch=8,
+                                       paged=False, scan_layers=scan, graphs=graphs, device="cuda")
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        first, routes = {}, set()
-        checked, note = eng._checked, dispatch._note
-
-        def recording(fn, *args, **kw):
-            out = checked(fn, *args, **kw)
-            if fn.__name__.startswith("llama_decode_step") and "logits" not in first:
-                first["logits"] = out[0].clone()
-            return out
-
-        eng._checked = recording
+        routes, note = set(), dispatch._note
         dispatch._note = lambda n: (routes.add(n), note(n))
         reset_counts()
         torch.cuda.synchronize()
@@ -1362,69 +1430,92 @@ def phase_serve_scan(card: str) -> dict:
         try:
             for p in prompts:
                 eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+            logits = []
+            for _ in range(2):          # admissions and the first decode step, then the next
+                eng.step()
+                logits.append(eng.last_logits.clone())
             results = eng.run()
             torch.cuda.synchronize()
         finally:
             dispatch._note = note
-            del eng._checked
         wall_s = time.perf_counter() - t0
         by_prompt = {tuple(r.prompt_tokens): r for r in results}
         runs[name] = {"tokens": [by_prompt[tuple(p)].output_tokens for p in prompts],
-                      "logits": first["logits"], "counts": read_counts(), "routes": routes,
+                      "logits": logits, "counts": read_counts(), "routes": routes,
                       "stats": eng.stats(), "wall_s": wall_s, "init_s": init_s,
-                      "ttft": [r.ttft_s for r in results]}
+                      "ttft": [r.ttft_s for r in results], "fused": is_fused, "scan": scan,
+                      "graphs": graphs}
         del eng
-    scan, unrolled = runs["scan"], runs["unrolled"]
-    per_fwd = 7 * cfg.num_layers
     short = sum(len(p) <= 64 for p in prompts)
     expect = {}
     for name, r in runs.items():
+        per_fwd = (4 if r["fused"] else 7) * cfg.num_layers
         steps = r["stats"]["decode_steps"]
         e = {k: 0 for k in r["counts"]}
         e["prefill"] = per_fwd * (len(prompts) - short)
-        if name == "scan":
+        if r["scan"]:
             e["decode"], e["decode_stacked"] = per_fwd * short, per_fwd * steps
         else:
             e["decode"] = per_fwd * (short + steps)
         expect[name] = e
-    same = scan["tokens"] == unrolled["tokens"]
-    logits_equal = bool(torch.equal(scan["logits"], unrolled["logits"]))
+    groups = {"unfused": [n for n, r in runs.items() if not r["fused"]],
+              "fused": [n for n, r in runs.items() if r["fused"]]}
+    same = {g: all(runs[n]["tokens"] == runs[names[0]]["tokens"] for n in names)
+            for g, names in groups.items()}
+    logits_equal = {g: all(torch.equal(a, b) for n in names
+                           for a, b in zip(runs[n]["logits"], runs[names[0]]["logits"]))
+                    for g, names in groups.items()}
     counts_ok = all(runs[n]["counts"] == expect[n] for n in runs)
-    routes_ok = (scan["routes"] == {"decode", "prefill", "decode_stacked"}
-                 and unrolled["routes"] == {"decode", "prefill"})
-    ok = same and logits_equal and counts_ok and routes_ok
+    routes_ok = all(r["routes"] == ({"decode", "prefill", "decode_stacked"} if r["scan"]
+                                    else {"decode", "prefill"}) for r in runs.values())
+    graphs_ok = all(captured_throughout(r["stats"]) if r["graphs"]
+                    else r["stats"]["graph_captures"] == 0 for r in runs.values())
+    ref, fref = runs["eager_unrolled"], runs["eager_fused_unrolled"]
+    fused_vs_unfused = {
+        "packed_side_by_side": fused_packs_apart(params, fused),
+        "tokens_equal": fref["tokens"] == ref["tokens"],
+        "tokens_differing": sum(a != b for x, y in zip(fref["tokens"], ref["tokens"])
+                                for a, b in zip(x, y)),
+        "first_decode_logits_max_abs_diff": max_abs(fref["logits"][0], ref["logits"][0])}
+    ok = all(same.values()) and all(logits_equal.values()) and counts_ok and routes_ok and graphs_ok
     emit({"phase": "serve_scan", "ok": ok,
-          "model": "Llama-3-8B, published widths and all 32 layers, W4 gs=128",
+          "model": "Llama-3-8B, published widths and all 32 layers, W4 gs=128, apart and fused",
           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
           "new_tokens": n_new, "max_batch": 8, "paged": False, "setup_s": setup_s,
-          "model_gb": model_gb, "tokens_equal": same, "first_decode_logits_equal": logits_equal,
-          "first_decode_logits_max_abs_diff": max_abs(scan["logits"], unrolled["logits"]),
+          "models_gb": model_gb, "tokens_equal": same,
+          "first_two_decode_logits_equal": logits_equal, "fused_vs_unfused": fused_vs_unfused,
           **{name: {"wall_s": r["wall_s"], "engine_init_s": r["init_s"],
                     "tokens_out": r["stats"]["tokens_out"],
                     "tokens_per_s_host_clock": r["stats"]["tokens_out"] / r["wall_s"],
                     "ttft_s": {"median": statistics.median(r["ttft"]), "max": max(r["ttft"])},
-                    "decode_steps": r["stats"]["decode_steps"], "launches": r["counts"],
-                    "launches_expected": expect[name], "routes": sorted(r["routes"])}
+                    "decode_steps": r["stats"]["decode_steps"], "graphs": graph_report(r["stats"]),
+                    "launches": r["counts"], "launches_expected": expect[name],
+                    "routes": sorted(r["routes"])}
              for name, r in runs.items()},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
-    if not same:
-        raise RuntimeError("the scan engine's tokens differ from the unrolled engine's")
-    if not logits_equal:
-        raise RuntimeError("the first decode step's logits differ between the engines")
+    if not all(same.values()):
+        raise RuntimeError(f"tokens differ within a group of runs: {same}")
+    if not all(logits_equal.values()):
+        raise RuntimeError(f"the first decode steps' logits differ within a group: {logits_equal}")
     if not counts_ok:
         raise RuntimeError(f"launches {[runs[n]['counts'] for n in runs]}, expected {expect}")
     if not routes_ok:
         raise RuntimeError(f"routes {[sorted(runs[n]['routes']) for n in runs]}")
-    for name, scan_layers in (("unrolled", False), ("scan", True)):
-        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, paged=False,
-                                       scan_layers=scan_layers, device="cuda")
+    if not graphs_ok:
+        raise RuntimeError(f"graphs {[graph_report(runs[n]['stats']) for n in runs]}")
+    for phase, is_fused, scan, graphs in (("profile_scan_unrolled", False, False, False),
+                                          ("profile_scan_scan", False, True, False),
+                                          ("profile_scan_captured", False, True, True),
+                                          ("profile_scan_captured_unrolled", False, False, True),
+                                          ("profile_scan_captured_fused", True, True, True)):
+        eng = ContinuousBatchingEngine(fused if is_fused else params, cfg, max_batch=8,
+                                       paged=False, scan_layers=scan, graphs=graphs, device="cuda")
         for p in prompts:
             eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
         eng.step()                              # admits and prefills all 8, then one decode
-        profile_steps(eng, card, f"profile_scan_{name}")
+        profile_steps(eng, card, phase)
         del eng
-    return scan["counts"]
-
+    return runs["captured_scan"]["counts"]
 
 
 def main() -> int:

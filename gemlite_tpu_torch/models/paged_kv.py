@@ -12,6 +12,9 @@
 
 Unlike the JAX package's functional updates, ``paged_write`` writes the pages
 in place: every ``PagedKV`` made by ``with_table`` shares one pages tensor.
+The engine keeps one table tensor for its lifetime and copies its host table
+into it (``load_table``), so that a captured decode step, which reads the
+tensor it saw at capture, sees every change.
 """
 
 import torch
@@ -34,6 +37,11 @@ class PagedKV:
     def with_table(self, table: torch.Tensor) -> "PagedKV":
         """The same pages seen through another table (a view, not a copy)."""
         return PagedKV(self.pages, table, self.page_size)
+
+    def load_table(self, table) -> None:
+        """Copy a block table of the same shape (a numpy array or a tensor)
+        into ``table`` in place."""
+        self.table.copy_(torch.as_tensor(table))
 
 
 def init_paged_kv(cfg, batch: int, page_size: int = 128, total_pages: int = 0,

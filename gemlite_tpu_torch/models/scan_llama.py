@@ -8,7 +8,8 @@ eagerly and compiles nothing per step, so here the step is a Python loop over
 the layers with the same structure:
 
 * every block linear's packed tensors are stacked into (L, ...) buffers once
-  at load time (``stack_blocks``);
+  at load time (``stack_blocks``), the fused ``wqkv`` / ``gate_up`` layers of
+  ``quantize_llama(fuse=True)`` too, as the JAX package stacks them;
 * each linear kind then runs through one launch entry over its whole stack,
   the stacked decode kernel (``ops/scan.py``), which reads the layer index on
   the device from one ``torch.arange(L)`` made per step; the host never reads
@@ -33,9 +34,8 @@ from .llama import LlamaConfig, _apply, _masked_over, _rms_norm, _rope
 
 __all__ = ["StackedLinear", "stack_blocks", "llama_decode_step_scan"]
 
-_ATTN_KEYS = ("wq", "wk", "wv", "wo")
-_MLP_KEYS = ("gate", "up", "down")
-_FUSED_KEYS = ("wqkv", "gate_up")
+_ATTN_KEYS = ("wq", "wk", "wv", "wo", "wqkv")
+_MLP_KEYS = ("gate", "up", "down", "gate_up")
 
 
 class StackedLinear:
@@ -67,22 +67,26 @@ def _stack_linears(layers) -> StackedLinear:
 
 
 def stack_blocks(params: Dict) -> Dict:
-    """The stacked parameters of a quantized model's blocks: every block
-    linear a packed ``GemLiteLinear`` with one meta across the layers (true
-    for any model ``quantize_llama`` quantizes with one processor); the norm
-    weights stacked to (L, H)."""
+    """The stacked parameters of a quantized model's blocks: the linears that
+    block 0 holds (separate or fused), each a packed ``GemLiteLinear`` with
+    one meta across the layers (true for any model ``quantize_llama``
+    quantizes with one processor); the norm weights stacked to (L, H).
+    Raises ``ValueError`` when a later block lacks one of block 0's linears
+    or holds one that is not quantized."""
     blocks = params["blocks"]
-    for blk in blocks:
-        fused = [k for k in _FUSED_KEYS if k in blk["attn"] or k in blk["mlp"]]
-        if fused:
-            raise NotImplementedError(f"queued: stacking fused {fused} layers for the scan path "
-                                      "(the rest of the fuse slice)")
-        for grp, keys in (("attn", _ATTN_KEYS), ("mlp", _MLP_KEYS)):
-            if not all(isinstance(blk[grp][k], GemLiteLinear) for k in keys):
+    keys = {grp: [k for k in names if k in blocks[0][grp]]
+            for grp, names in (("attn", _ATTN_KEYS), ("mlp", _MLP_KEYS))}
+    for i, blk in enumerate(blocks):
+        for grp, names in keys.items():
+            missing = [k for k in names if k not in blk[grp]]
+            if missing:
+                raise ValueError(f"stack_blocks: block {i} lacks {grp}.{missing}, which "
+                                 "block 0 holds")
+            if not all(isinstance(blk[grp][k], GemLiteLinear) for k in names):
                 raise ValueError("stack_blocks requires all-quantized blocks")
     return {
-        "attn": {k: _stack_linears([b["attn"][k] for b in blocks]) for k in _ATTN_KEYS},
-        "mlp": {k: _stack_linears([b["mlp"][k] for b in blocks]) for k in _MLP_KEYS},
+        **{grp: {k: _stack_linears([b[grp][k] for b in blocks]) for k in names}
+           for grp, names in keys.items()},
         "ln_attn": torch.stack([b["ln_attn"] for b in blocks]),
         "ln_mlp": torch.stack([b["ln_mlp"] for b in blocks]),
     }
@@ -118,14 +122,20 @@ def llama_decode_step_scan(stacked: Dict, params: Dict, cfg: LlamaConfig, token,
     bidx = torch.arange(B, device=dev)[:, None]
     layer_ids = torch.arange(cfg.num_layers, dtype=torch.int32, device=dev)
     T = kv.shape[3]
+    QD, KD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     att, mlp = stacked["attn"], stacked["mlp"]
     x = params["embed"][token]
     for l in range(cfg.num_layers):
         lidx = layer_ids[l]
         h = _rms_norm(x, stacked["ln_attn"][l], cfg.norm_eps)
-        q = _stacked_apply(att["wq"], h, lidx).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = _stacked_apply(att["wk"], h, lidx).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = _stacked_apply(att["wv"], h, lidx).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        if "wqkv" in att:
+            qkv = _stacked_apply(att["wqkv"], h, lidx)
+            q, k, v = qkv[..., :QD], qkv[..., QD:QD + KD], qkv[..., QD + KD:]
+        else:
+            q, k, v = (_stacked_apply(att[n], h, lidx) for n in ("wq", "wk", "wv"))
+        q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         kv[l, 0].index_put_((bidx, pos), k.to(kv.dtype))
@@ -137,8 +147,11 @@ def llama_decode_step_scan(stacked: Dict, params: Dict, cfg: LlamaConfig, token,
         x = x + _stacked_apply(att["wo"], attn.reshape(B, S, -1), lidx)
 
         h = _rms_norm(x, stacked["ln_mlp"][l], cfg.norm_eps)
-        g = _stacked_apply(mlp["gate"], h, lidx)
-        u = _stacked_apply(mlp["up"], h, lidx)
+        if "gate_up" in mlp:
+            gu = _stacked_apply(mlp["gate_up"], h, lidx)
+            g, u = gu[..., :gu.shape[-1] // 2], gu[..., gu.shape[-1] // 2:]
+        else:
+            g, u = _stacked_apply(mlp["gate"], h, lidx), _stacked_apply(mlp["up"], h, lidx)
         h = (torch.nn.functional.silu(g.to(torch.float32)) * u.to(torch.float32)).to(x.dtype)
         x = x + _stacked_apply(mlp["down"], h, lidx)
     x = _rms_norm(x, params["ln_f"], cfg.norm_eps)

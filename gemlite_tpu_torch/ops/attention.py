@@ -55,8 +55,7 @@ def attention(q, k, v, mask):
     q = q.reshape(B, S, Hkv, Hq // Hkv, D)
     scores = torch.einsum("bshrd,bthd->bhrst", q.to(torch.float32),
                           k.to(torch.float32)) / np.sqrt(D)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e30)   # no host-made tensor
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrst,bthd->bshrd", probs, v.to(torch.float32))
     return out.reshape(B, S, Hq, D).to(v.dtype)

@@ -22,7 +22,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "build", "load", "check", "graph_ops", "split_state"]
+__all__ = ["KERNEL_SOURCES", "build", "load", "check", "graph_ops", "split_state",
+           "split_tensors"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -120,6 +121,14 @@ def split_state(owner: str, device: torch.device, ints: int, floats: int, stream
                  torch.empty(max(floats, have[1]), dtype=torch.float32, device=device))
         _SPLIT_STATE[key] = state
     return state
+
+
+def split_tensors(stream: int) -> list:
+    """Every split-state tensor of one stream (its ``cuda_stream`` handle).
+    A CUDA graph captured on that stream writes them at every replay, so it
+    keeps a reference to each: a later growth replaces the tensor in the
+    state, and the graph's one must not be freed and handed out again."""
+    return [t for key, state in _SPLIT_STATE.items() if key[2] == stream for t in state]
 
 
 # CUgraphNodeType values (cuda.h) of the nodes that do device work

@@ -53,16 +53,23 @@ def can_use_stacked_decode(meta, M: int) -> bool:
     return stacked_decode_refusal(meta, M) is None
 
 
-def _index(layer_idx, L: int) -> int:
-    l = int(layer_idx)
-    if not 0 <= l < L:
-        raise IndexError(f"layer_idx {l} outside the stack of {L} layers")
-    return l
+def _layer(t, layer_idx):
+    """Layer ``layer_idx`` of the stack ``t``: a view for an int, and for a
+    one-element tensor an ``index_select``, which does not read the index
+    on the host."""
+    L = t.shape[0]
+    try:
+        if isinstance(layer_idx, torch.Tensor):
+            return t.index_select(0, layer_idx.reshape(1).to(torch.long))[0]
+        if 0 <= layer_idx < L:
+            return t[layer_idx]
+    except IndexError:
+        pass
+    raise IndexError(f"layer_idx {int(layer_idx)} outside the stack of {L} layers")
 
 
 def decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx):
-    l = _index(layer_idx, W_q.shape[0])
-    return forward_meta(x, W_q[l], scales[l], zeros[l], None, meta)
+    return forward_meta(x, *(_layer(t, layer_idx) for t in (W_q, scales, zeros)), None, meta)
 
 
 def _lib():

@@ -24,8 +24,20 @@
   reads each slot's own pages up to its length on the paged decode kernel;
   the dense cache reads the live-KV bucket. Inactive slots write their k/v to
   the trash page (paged) or a stale row of their stripe (dense).
-* Between admissions and finishes the per-slot decode state (tokens, lengths,
-  temperatures, active mask) stays on the device.
+* The decode step (``_decode_step``, the counterpart of the JAX engine's
+  ``_decode_impl``) reads its inputs from static device buffers (tokens,
+  lengths, temperatures, active mask), samples on the device, and writes the
+  next tokens and ``lengths + active`` back into them; the host copies its
+  own values in only after an admission or a finish, and reads one (B,)
+  tensor a step. The step reads nothing on the host.
+* On the card the engine captures that step in a CUDA graph, as the JAX
+  engine jits it: one graph per live-KV bucket on the dense cache (unrolled
+  or scan) and one on the paged cache, all from one memory pool, each
+  captured at the first step that needs it, right after that step ran
+  eagerly on the capture stream (its result is the step's), and replayed
+  from then on (``graphs.CapturedStep``). ``graphs=False`` runs the same
+  step eagerly; on the CPU there are no graphs and the step runs eagerly.
+  A capture or replay that fails raises.
 * ``scan_layers=True`` (dense cache only, as in the JAX engine) stacks the
   block linears once at construction (``models/scan_llama.stack_blocks``) and
   runs every decode step over the stacks: each linear kind through one launch
@@ -33,14 +45,15 @@
   Prefill stays unrolled. Every stacked linear must be one the stacked kernel
   takes at ``max_batch`` rows; the engine checks that at construction and
   raises ``ValueError`` otherwise (an A8W8 model, for one).
-* On the card the engine checks after every prefill and decode step that each
-  quantized linear ran on a hand-written kernel (``KERNEL_ROUTES``: decode,
-  prefill, dequantize, int8_exact, general_fused or decode_stacked) and that
-  no attention ran a plain version (``ATTENTION_TRACE``).
+* On the card the engine checks after every prefill and eager decode step,
+  and at every capture, that each quantized linear ran on a hand-written
+  kernel (``KERNEL_ROUTES``: decode, prefill, dequantize, int8_exact,
+  general_fused or decode_stacked) and that no attention ran a plain version
+  (``ATTENTION_TRACE``).
 
 The speculative draft and mesh sharding are not ported yet and raise.
-Sampling is greedy, or temperature sampling from a ``torch.Generator`` seeded
-with ``seed`` (it does not reproduce JAX's stream).
+Sampling is greedy, or temperature sampling by the Gumbel-max trick from a
+``torch.Generator`` seeded with ``seed`` (it does not reproduce JAX's stream).
 """
 
 import itertools
@@ -53,6 +66,7 @@ import numpy as np
 import torch
 
 from .core import resolve_device
+from .graphs import CapturedStep, pool_bytes
 from .models.llama import init_kv_cache, llama_decode_step_batched, llama_forward
 from .models.paged_kv import init_paged_kv
 from .models.scan_llama import llama_decode_step_scan, stack_blocks
@@ -60,7 +74,7 @@ from .ops.attention import ATTENTION_TRACE
 from .ops.dispatch import KERNEL_ROUTES, KERNEL_TRACE
 from .ops.scan import stacked_decode_refusal
 
-__all__ = ["Request", "ContinuousBatchingEngine", "GenerationResult"]
+__all__ = ["Request", "ContinuousBatchingEngine", "GenerationResult", "sample_tokens"]
 
 
 @dataclass
@@ -82,6 +96,19 @@ class GenerationResult:
     decode_tps: float = 0.0                  # tokens/s after the first token
 
 
+def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, generator: torch.Generator):
+    """(B,) int32 tokens from logits (B, V): argmax where temps == 0, else a
+    draw from softmax(logits / T) as argmax(logits / T + Gumbel noise), the
+    noise from ``generator``. Both are computed every call and picked on the
+    device, as the JAX engine's ``_decode_impl`` picks them."""
+    logits = logits.to(torch.float32)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None] - torch.log(-torch.log(u))
+    sampled = torch.argmax(scaled, dim=-1).to(torch.int32)
+    return torch.where(temps > 0, sampled, greedy)
+
+
 def _next_bucket(n: int, buckets) -> int:
     for b in buckets:
         if n <= b:
@@ -90,14 +117,18 @@ def _next_bucket(n: int, buckets) -> int:
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching over a quantized Llama param dict."""
+    """Slot-based continuous batching over a quantized Llama param dict.
+
+    ``graphs``: capture the decode step in CUDA graphs (the default on the
+    card) or run it eagerly (``False``, the counterpart of
+    ``jax.disable_jit``); ``True`` on the CPU raises."""
 
     def __init__(self, params, cfg, max_batch: int = 8, eos_id: Optional[int] = None,
                  prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048), seed: int = 0,
                  prefill_chunk: Optional[int] = None, draft=None, paged: bool = True,
                  page_size: int = 128, total_pages: Optional[int] = None,
                  prefix_cache: bool = True, mesh=None, scan_layers: bool = False,
-                 device=None):
+                 device=None, graphs: Optional[bool] = None):
         if draft is not None:
             raise NotImplementedError("queued: speculative decoding (draft=)")
         if mesh is not None:
@@ -106,6 +137,11 @@ class ContinuousBatchingEngine:
             raise ValueError("scan_layers requires paged=False (the paged decode kernel "
                              "takes no layer index)")
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError("graphs=True needs the card: the CPU has no CUDA graphs, and the "
+                             "engine runs its decode step there eagerly")
+        self.graphs = on_card if graphs is None else bool(graphs)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the engine on "
                              f"{self.device}")
@@ -141,7 +177,7 @@ class ContinuousBatchingEngine:
             self.kv = init_paged_kv(cfg, max_batch, page_size, total_pages=n_pages,
                                     device=self.device)
             self.page_table = np.zeros((max_batch, self.pages_per_seq), np.int32)  # all trash
-            self.kv = self.kv.with_table(torch.tensor(self.page_table, device=self.device))
+            self.kv.load_table(self.page_table)     # the one table tensor of the engine's life
             self.free_pages: List[int] = list(range(n_pages - 1, 0, -1))
             self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
             self._table_dirty = False
@@ -156,10 +192,19 @@ class ContinuousBatchingEngine:
         self.prefix_stats = {"hit_pages": 0, "new_pages": 0}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self._check_kernels = self.device.type == "cuda"
+        self._check_kernels = on_card
 
-        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        # the decode step's static inputs, written back by the step itself
+        dev = self.device
+        self._static = {"tokens": torch.zeros((max_batch, 1), dtype=torch.int32, device=dev),
+                        "lens": torch.zeros(max_batch, dtype=torch.int32, device=dev),
+                        "temps": torch.zeros(max_batch, dtype=torch.float32, device=dev),
+                        "active": torch.zeros(max_batch, dtype=torch.int32, device=dev)}
         self._dev_dirty = True
+        self._graphs: Dict[Optional[int], CapturedStep] = {}     # by t_active bucket
+        self._capture_stream = torch.cuda.Stream(dev) if self.graphs else None
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self.last_logits: Optional[torch.Tensor] = None          # (B, V) of the last step
 
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_len = np.zeros(max_batch, np.int32)        # valid cache length
@@ -170,8 +215,8 @@ class ContinuousBatchingEngine:
         self.finished: List[GenerationResult] = []
         self._req_times: Dict[int, List[Optional[float]]] = {}
         self._counters = {"steps": 0, "decode_steps": 0, "prefills": 0,
-                          "prefill_chunks": 0, "tokens_out": 0,
-                          "start": time.monotonic()}
+                          "prefill_chunks": 0, "tokens_out": 0, "graph_captures": 0,
+                          "graph_replays": 0, "capture_s": 0.0, "start": time.monotonic()}
 
         # decode attention reads only the live-KV bucket
         self.decode_buckets = []
@@ -294,26 +339,31 @@ class ContinuousBatchingEngine:
 
     def _sync_table(self):
         if self.paged and self._table_dirty:
-            self.kv = self.kv.with_table(torch.tensor(self.page_table, device=self.device))
+            self.kv.load_table(self.page_table)
             self._table_dirty = False
 
     # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
-    def _checked(self, fn, *args, **kw):
-        """Run one model call; on the card, raise unless every quantized
-        linear in it ran on one of the kernels of ``KERNEL_ROUTES`` and no
+    def _check_routes(self):
+        """On the card, raise unless every quantized linear noted in the
+        traces ran on one of the kernels of ``KERNEL_ROUTES`` and no
         attention ran a plain version."""
+        if not self._check_kernels:
+            return
+        bad = sorted(set(KERNEL_TRACE) - set(KERNEL_ROUTES))
+        if bad:
+            raise RuntimeError(f"linears ran off the kernels: routes {bad}")
+        plain = sorted({n for n in ATTENTION_TRACE if n.startswith("plain_")})
+        if plain:
+            raise RuntimeError(f"attention ran its plain version on the card: {plain}")
+
+    def _checked(self, fn, *args, **kw):
+        """Run one model call eagerly, then ``_check_routes``."""
         KERNEL_TRACE.clear()
         ATTENTION_TRACE.clear()
         out = fn(*args, **kw)
-        if self._check_kernels:
-            bad = sorted(set(KERNEL_TRACE) - set(KERNEL_ROUTES))
-            if bad:
-                raise RuntimeError(f"linears ran off the kernels: routes {bad}")
-            plain = sorted({n for n in ATTENTION_TRACE if n.startswith("plain_")})
-            if plain:
-                raise RuntimeError(f"attention ran its plain version on the card: {plain}")
+        self._check_routes()
         return out
 
     def _prefill(self, tokens: np.ndarray, slot: int, cache_len, true_len: int):
@@ -329,25 +379,48 @@ class ContinuousBatchingEngine:
                                   cache_len=cache_len)
         return logits[:, true_len - 1, :]
 
-    def _decode(self, tokens, cache_lens, temps, active, t_active):
+    def _decode_step(self, t_active):
+        """The decode step: every slot advances one token from the static
+        buffers (``t_active``: the live-KV bucket of the dense cache, None on
+        the paged one), the next tokens sampled on the device and written back
+        into ``tokens`` with ``lens + active`` into ``lens``. Inactive slots
+        write their k/v to a stale row or the trash page and do not advance.
+        Reads nothing on the host. Returns the logits (B, V)."""
+        st = self._static
         if self._stacked is not None:
-            logits, _ = self._checked(llama_decode_step_scan, self._stacked, self.params,
-                                      self.cfg, tokens, self.kv, cache_lens, t_active=t_active)
+            logits, _ = llama_decode_step_scan(self._stacked, self.params, self.cfg, st["tokens"],
+                                               self.kv, st["lens"], t_active=t_active)
         else:
-            logits, _ = self._checked(llama_decode_step_batched, self.params, self.cfg, tokens,
-                                      self.kv, cache_lens, t_active=t_active)
-        nxt = self._sample(logits[:, 0, :], temps)
-        return nxt, cache_lens + active
+            logits, _ = llama_decode_step_batched(self.params, self.cfg, st["tokens"], self.kv,
+                                                  st["lens"], t_active=t_active)
+        logits = logits[:, 0, :]
+        st["tokens"].copy_(sample_tokens(logits, st["temps"], self.generator)[:, None])
+        st["lens"].add_(st["active"])
+        return logits
 
-    def _sample(self, logits: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
-        """Greedy where temps == 0, else a draw from softmax(logits / T)."""
-        logits = logits.to(torch.float32)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-        if not bool((temps > 0).any()):
-            return greedy
-        probs = torch.softmax(logits / torch.clamp(temps, min=1e-6)[:, None], dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=self.generator)[:, 0].to(torch.int32)
-        return torch.where(temps > 0, sampled, greedy)
+    def _decode(self, t_active):
+        """One decode step: replay the bucket's graph; at the bucket's first
+        step, run the step eagerly on the capture stream (its result is this
+        step's) and capture it; with graphs off, run it eagerly."""
+        if not self.graphs:
+            out = self._checked(self._decode_step, t_active)
+        elif t_active in self._graphs:
+            out = self._graphs[t_active].replay()
+            self._counters["graph_replays"] += 1
+        else:
+            main, side = torch.cuda.current_stream(self.device), self._capture_stream
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self._checked(self._decode_step, t_active)
+                graph = CapturedStep(lambda: self._decode_step(t_active), side, self._pool,
+                                     self.generator, self._check_routes)
+            main.wait_stream(side)
+            out.record_stream(main)
+            self._graphs[t_active] = graph
+            self._counters["graph_captures"] += 1
+            self._counters["capture_s"] += graph.capture_s
+        self.last_logits = out
+        return out
 
     # ------------------------------------------------------------------
     # host-side scheduler
@@ -369,7 +442,7 @@ class ContinuousBatchingEngine:
     def _first_token(self, slot: int, logits: torch.Tensor):
         req = self.slot_req[slot]
         temps = torch.tensor([req.temperature], dtype=torch.float32, device=self.device)
-        tok = int(self._sample(logits, temps)[0])
+        tok = int(sample_tokens(logits, temps, self.generator)[0])
         self.slot_out[slot] = [tok]
         self.slot_last[slot] = tok
         self._mark_first_token(req)
@@ -504,21 +577,18 @@ class ContinuousBatchingEngine:
         # cache reads the live-KV bucket
         t_act = (None if self.paged
                  else _next_bucket(int(lens[active].max()) + 1, self.decode_buckets))
-        if self._dev is not None and not self._dev_dirty:
-            tokens, lens_d = self._dev["tokens"], self._dev["lens"]
-            temps_d, act_d = self._dev["temps"], self._dev["active"]
-        else:
-            dev = self.device
-            tokens = torch.as_tensor(self.slot_last.reshape(-1, 1), device=dev)
-            lens_d = torch.as_tensor(lens, device=dev)
-            temps_d = torch.tensor([r.temperature if r is not None else 0.0
-                                    for r in self.slot_req], dtype=torch.float32, device=dev)
-            act_d = torch.as_tensor(active.astype(np.int32), device=dev)
-        nxt_d, lens_next = self._decode(tokens, lens_d, temps_d, act_d, t_act)
-        self._dev = {"tokens": nxt_d[:, None], "lens": lens_next, "temps": temps_d,
-                     "active": act_d}
-        self._dev_dirty = False
-        nxt = nxt_d.cpu().numpy()
+        st = self._static
+        if self._dev_dirty:
+            # after an admission or a finish the host's values replace the
+            # ones the last step left in the static buffers
+            st["tokens"].copy_(torch.from_numpy(self.slot_last.reshape(-1, 1)))
+            st["lens"].copy_(torch.from_numpy(lens))
+            st["temps"].copy_(torch.tensor([r.temperature if r is not None else 0.0
+                                            for r in self.slot_req], dtype=torch.float32))
+            st["active"].copy_(torch.from_numpy(active.astype(np.int32)))
+            self._dev_dirty = False
+        self._decode(t_act)
+        nxt = st["tokens"].view(-1).tolist()                # the one download of a step
         self._counters["decode_steps"] += 1
         for slot in range(self.max_batch):
             if not active[slot]:
@@ -537,6 +607,8 @@ class ContinuousBatchingEngine:
         c["tokens_per_s"] = c["tokens_out"] / elapsed if elapsed > 0 else 0.0
         if self.use_prefix:
             c["prefix_cache"] = self.prefix_cache_stats()
+        if self.graphs:
+            c["graph_pool_bytes"] = pool_bytes(self._pool)
         return c
 
     def run(self, max_steps: int = 10_000) -> List[GenerationResult]:

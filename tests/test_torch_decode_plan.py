@@ -30,12 +30,14 @@ from gemlite_tpu_torch.ops import decode as mod
 from gemlite_tpu_torch.ops.reference import dequantize_ref, forward_meta, unpack_rows_ref
 
 SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))   # (N, K)
+FUSED_SHAPES = ((6144, 4096), (28672, 4096))   # wqkv and gate_up of quantize_llama(fuse=True)
 RAGGED = ((256, 512), (200, 256), (132, 96))
 MS = (1, 3, 8, 16, 17, 33, 64)
 # (N, K, gs): the 8B shapes at gs 128, ragged shapes, and groups that are
 # not whole stages (8, 24, 48 at W4; 16 at W2; 256 for all)
 CASES = [(N, K, 128) for N, K in SHAPES] + [(256, 512, 128), (200, 256, 64), (132, 96, 32)] + \
-        [(256, 768, 24), (256, 1536, 48), (200, 512, 8), (256, 512, 16), (1024, 4096, 256)]
+        [(256, 768, 24), (256, 1536, 48), (200, 512, 8), (256, 512, 16), (1024, 4096, 256)] + \
+        [(N, K, 128) for N, K in FUSED_SHAPES]
 # the cases the gate admits: gs a multiple of 8 and of the codes per word
 PLAN_CASES = [(N, K, gs, bits) for N, K, gs in CASES for bits in (1, 2, 4)
               if gs % max(8, 32 // bits) == 0 and K % gs == 0]
@@ -155,6 +157,14 @@ def test_plan_covers_the_shape_and_ignores_M(N, K, gs, bits):
 def test_plan_splits_at_the_8b_shapes():
     got = {(N, K): mod.plan(8, N, K, 128, 4).splits for N, K in SHAPES}
     assert got == {(4096, 4096): 16, (1024, 4096): 16, (14336, 4096): 4, (4096, 14336): 14}
+
+
+def test_plan_splits_at_the_fused_8b_shapes():
+    """The scan path's fused stacks: wqkv in 8 splits of 512 (48 column
+    tiles), gate_up in 3 of 1536 (224 tiles: 672 blocks, past the four an SM
+    the plan aims at, since it rounds the split count up)."""
+    got = {(N, K): mod.plan(8, N, K, 128, 4)[:3] for N, K in FUSED_SHAPES}
+    assert got == {(6144, 4096): (48, 8, 512), (28672, 4096): (224, 3, 1536)}
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4])

@@ -9,7 +9,9 @@ port against gemlite_tpu.models.llama on a tiny config (CPU).
   tests/test_torch_llama.py;
 * a fused layer packs the separate layers' bytes side by side along N;
 * the dense and paged engines serve a fused model with the tokens of the
-  unfused one.
+  unfused one;
+* ``stack_blocks`` stacks fused layers and refuses blocks that mix fused and
+  separate ones.
 """
 
 import jax
@@ -127,6 +129,12 @@ def test_engines_serve_a_fused_model(paged):
 
 
 def test_scan_stack_still_refuses_fused_layers():
-    _, (_, fused) = _tiny_fused_pair(128)
-    with pytest.raises(NotImplementedError, match="fuse"):
-        stack_blocks(fused)
+    """A fused model stacks its fused layers (tests/test_torch_scan.py holds
+    them against the JAX package); blocks that mix fused and separate layers
+    are still refused."""
+    _, (apart, fused) = _tiny_fused_pair(128)
+    mixed = dict(fused, blocks=[fused["blocks"][0], apart["blocks"][1]])
+    with pytest.raises(ValueError, match=r"block 1 lacks attn\.\['wqkv'\]"):
+        stack_blocks(mixed)
+    stacked = stack_blocks(fused)
+    assert sorted(stacked["attn"]) == ["wo", "wqkv"] and sorted(stacked["mlp"]) == ["down", "gate_up"]

@@ -217,6 +217,23 @@ def test_stacked_decode_kernel(gen, bits, M):
         assert _rel(got, _plain_f32(layer, x)) <= REL
 
 
+@pytest.mark.parametrize("N", [6144, 28672])
+def test_stacked_decode_kernel_fused_shapes(gen, N):
+    """The fused wqkv (6144) and gate_up (28672) stacks of Llama-3-8B at K
+    4096: each layer bit for bit the per-layer kernel, within the bound of
+    its plain version."""
+    L, K = 3, 4096
+    layers, stacks = _stack(gen, L, N, K, 4)
+    x = _x(gen, 8, K)
+    ids = torch.arange(L, dtype=torch.int32, device="cuda")
+    for l, layer in enumerate(layers):
+        got = decode_matmul_stacked(x, *stacks, layer.meta, ids[l])
+        per_layer = decode_matmul(x, layer.W_q, layer.scales, layer.zeros, layer.meta)
+        torch.cuda.synchronize()
+        assert got.shape == (8, N) and torch.equal(got, per_layer), l
+        assert _rel(got, _plain_f32(layer, x)) <= REL
+
+
 def test_stacked_decode_reads_no_index_on_the_host(gen):
     layers, stacks = _stack(gen, 3, 512, 1024, 4)
     x = _x(gen, 8, 1024)

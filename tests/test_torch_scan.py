@@ -11,10 +11,17 @@
   port's own ``llama_decode_step_batched``.
 * The scan engine's greedy tokens equal the unrolled engine's and the JAX scan
   engine's; its guard rails; its routes.
+* Fused ``wqkv`` / ``gate_up`` layers (``quantize_llama(fuse=True)``) of a JAX
+  model carried across stack to the bytes of JAX's ``stack_blocks``; the
+  fused scan step matches JAX's within the same bound and equals the port's
+  unrolled step bit for bit; the fused scan engine serves the fused unrolled
+  engine's and the JAX scan engine's tokens.
 
 The JAX gate admits scaled-activation metas (A8W8) and then fails at trace
 time; the port refuses them at construction, and no test matches JAX there.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -101,12 +108,16 @@ def test_stacked_plain_equals_per_layer_decode(W_nbits, as_tensor):
         assert torch.equal(got, want), l
 
 
-def _jax_model(W_nbits=4, seed=0):
+def _jax_model(W_nbits=4, seed=0, fuse=False):
     jcfg = jllama.LlamaConfig.tiny(**TINY)
     jq = jllama.quantize_llama(jllama.init_llama(jcfg, seed=seed),
                                processor=JHQQ(W_nbits=W_nbits, dtype=jnp.bfloat16),
-                               group_size=GS)
+                               group_size=GS, fuse=fuse)
     return jcfg, jq
+
+
+def _carried(jq):
+    return params_from_jax_numpy(jax.tree_util.tree_map(np.asarray, jq), device="cpu")
 
 
 def _prefilled_jax(jcfg, jq, B=2, S0=8, seed=3):
@@ -124,7 +135,7 @@ def test_scan_step_matches_jax_scan_step(W_nbits):
     tkv = tensor_from_numpy(np.asarray(jkv))          # before JAX's step: JAX kv is immutable
     want_logits, want_kv = jscan.llama_decode_step_scan(
         jscan.stack_blocks(jq), jq, jcfg, jnp.asarray(tok), jkv, jnp.asarray(lens))
-    params = params_from_jax_numpy(jax.tree_util.tree_map(np.asarray, jq), device="cpu")
+    params = _carried(jq)
     cfg = tllama.LlamaConfig.tiny(**TINY)
     got_logits, got_kv = tscan.llama_decode_step_scan(
         tscan.stack_blocks(params), params, cfg, torch.from_numpy(tok), tkv,
@@ -133,6 +144,67 @@ def test_scan_step_matches_jax_scan_step(W_nbits):
                                np.asarray(want_logits.astype(jnp.float32)), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got_kv.float().numpy(), np.asarray(want_kv.astype(jnp.float32)),
                                rtol=TOL, atol=TOL)
+
+
+FUSED_STACKS = (("attn", "wqkv"), ("attn", "wo"), ("mlp", "gate_up"), ("mlp", "down"))
+
+
+@pytest.mark.parametrize("grp,name", FUSED_STACKS)
+def test_fused_stacks_equal_jax_stacks(grp, name):
+    """Scales and zeros stack to JAX's bytes; each layer of the stacked words
+    equals that layer of JAX's stack carried across (the carry unfolds the JAX
+    package's plane-folded words into the port's layout)."""
+    jcfg, jq = _jax_model(fuse=True)
+    want = jscan.stack_blocks(jq)[grp][name]
+    got = tscan.stack_blocks(_carried(jq))[grp][name]
+    assert got.bias is None and want.bias is None
+    for t in ("scales", "zeros"):
+        assert torch.equal(getattr(got, t), tensor_from_numpy(np.asarray(getattr(want, t))))
+    for l in range(jcfg.num_layers):
+        node = SimpleNamespace(W_q=np.asarray(want.W_q[l]), scales=np.asarray(want.scales[l]),
+                               zeros=np.asarray(want.zeros[l]), bias=None, meta=want.meta)
+        layer = params_from_jax_numpy(node, device="cpu")
+        assert tuple(got.meta) == tuple(layer.meta)
+        assert torch.equal(got.W_q[l], layer.W_q), l
+
+
+@pytest.mark.parametrize("W_nbits", [4, 2])
+def test_fused_scan_step_matches_jax_and_unrolled(W_nbits):
+    jcfg, jq = _jax_model(W_nbits, fuse=True)
+    jkv, lens, tok = _prefilled_jax(jcfg, jq)
+    tkv = tensor_from_numpy(np.asarray(jkv))
+    kv_unrolled = tkv.clone()
+    want_logits, want_kv = jscan.llama_decode_step_scan(
+        jscan.stack_blocks(jq), jq, jcfg, jnp.asarray(tok), jkv, jnp.asarray(lens))
+    params = _carried(jq)
+    cfg = tllama.LlamaConfig.tiny(**TINY)
+    dispatch.KERNEL_TRACE.clear()
+    got_logits, got_kv = tscan.llama_decode_step_scan(
+        tscan.stack_blocks(params), params, cfg, torch.from_numpy(tok), tkv,
+        torch.from_numpy(lens))
+    assert dispatch.KERNEL_TRACE == ["plain_decode_stacked"] * (4 * cfg.num_layers)
+    np.testing.assert_allclose(got_logits.float().numpy(),
+                               np.asarray(want_logits.astype(jnp.float32)), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got_kv.float().numpy(), np.asarray(want_kv.astype(jnp.float32)),
+                               rtol=TOL, atol=TOL)
+    unrolled, _ = tllama.llama_decode_step_batched(params, cfg, torch.from_numpy(tok),
+                                                   kv_unrolled, torch.from_numpy(lens))
+    assert torch.equal(got_logits, unrolled) and torch.equal(got_kv, kv_unrolled)
+
+
+def test_fused_scan_engine_equals_fused_unrolled_engine_and_jax():
+    jcfg, jq = _jax_model(fuse=True)
+    params = _carried(jq)
+    cfg = tllama.LlamaConfig.tiny(**TINY)
+    rng = np.random.default_rng(4)           # the prompts of the unfused engine test above
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in (5, 9, 14)]
+    kw = dict(max_batch=2, paged=False, prefill_buckets=(16,))
+    scan = ContinuousBatchingEngine(params, cfg, scan_layers=True, device="cpu", **kw)
+    assert sorted(scan._stacked["attn"]) == ["wo", "wqkv"]
+    got = scan.generate(prompts, max_new_tokens=5)
+    unrolled = ContinuousBatchingEngine(params, cfg, device="cpu", **kw)
+    assert got == unrolled.generate(prompts, max_new_tokens=5)
+    assert JEngine(jq, jcfg, scan_layers=True, **kw).generate(prompts, max_new_tokens=5) == got
 
 
 def _port_model(W_nbits=4, processor=None):
@@ -192,6 +264,7 @@ def _mixed_params():
 
 
 def _fused_params():
+    """Block 0 holds a fused ``wqkv`` that block 1 lacks."""
     cfg, params = _port_model()
     params["blocks"][0]["attn"]["wqkv"] = params["blocks"][0]["attn"]["wq"]
     return cfg, params
@@ -219,7 +292,7 @@ def test_scan_guard_rails(case):
             ContinuousBatchingEngine(params, cfg, scan_layers=True, paged=False, device="cpu")
     elif case == "fused":
         cfg, params = _fused_params()
-        with pytest.raises(NotImplementedError, match="fuse slice"):
+        with pytest.raises(ValueError, match=r"block 1 lacks attn\.\['wqkv'\]"):
             tscan.stack_blocks(params)
     else:
         _, tst, _, tmeta, _ = _stacks(4)
