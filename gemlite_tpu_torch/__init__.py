@@ -12,15 +12,18 @@ PyTorch versions run instead.
 
 from .bitpack import (pack_weights_over_cols, pack_weights_over_rows, unpack_over_cols,
                       unpack_over_rows)
-from .core import GemLiteLinear, LayerMeta, forward_functional, get_matmul_type
+from .checkpoint import load_model, save_model
+from .core import (GEMLITE_MATMUL_TYPES, GEMLITE_MATMUL_TYPES_MAPPING, GemLiteLinear, LayerMeta,
+                   forward_functional, get_matmul_type)
 from .dtypes import DType
 from .helper import (A16Wn, A16Wn_HQQ_INT, A16W8_HQQ_INT, A16W4_HQQ_INT, A16W2_HQQ_INT,
                      A16W1_HQQ_INT, A16W8, A16W8_INT8, A8W8_dynamic, A8W8_INT8_dynamic,
-                     A16W158_INT, A8W158_INT_dynamic)
+                     A16W158_INT, A8W158_INT_dynamic, patch_model, warmup)
+from .importers import export_hf_llama, from_transformers, load_hf_llama
 from .interop import paged_kv_from_jax_numpy, params_from_jax_numpy
 from .models import (LlamaConfig, init_kv_cache, init_llama, llama_decode_step,
                      llama_decode_step_batched, llama_forward, llama_prefill,
-                     llama_verify_step, quantize_llama)
+                     llama_verify_step, loss_fn, quantize_llama)
 from .serving import ContinuousBatchingEngine, GenerationResult, Request
 
 __version__ = "0.1.0"

@@ -9,6 +9,7 @@ INT8-activation layers (``scaled_activations``) quantize x per token in the
 forward and hand its scales to the router.
 """
 
+import json
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -17,15 +18,21 @@ from torch import nn
 
 from .bitpack import (fold_plane_count, pack_weights_over_cols,
                       unfold_codes_for_planes, unpack_over_rows)
-from .dtypes import DType, TORCH_TO_DTYPE, is_mx_dtype
+from .dtypes import DType, TORCH_TO_DTYPE, is_mx_dtype, npz_decode_array, npz_encode_array
 from .ops.dispatch import fused_matmul
 from .quant import scale_activations_per_token
 
-__all__ = ["GemLiteLinear", "LayerMeta", "forward_functional", "get_matmul_type",
-           "resolve_device", "tensor_from_numpy"]
+__all__ = ["GEMLITE_MATMUL_TYPES", "GEMLITE_MATMUL_TYPES_MAPPING", "GemLiteLinear",
+           "LayerMeta", "forward_functional", "get_matmul_type", "resolve_device",
+           "tensor_from_numpy"]
 
 GEMLITE_ACC_DTYPE = {DType.FP16: DType.FP32, DType.BF16: DType.FP32,
                      DType.FP32: DType.FP32, DType.INT8: DType.INT32}
+
+# Kernel family names, in the reference's order: their index is the
+# ``matmul_type`` of forward_functional (``gemlite_tpu/core.py:62-68``).
+GEMLITE_MATMUL_TYPES = ["GEMV", "GEMV_REVSPLITK", "GEMV_SPLITK", "GEMM_SPLITK", "GEMM"]
+GEMLITE_MATMUL_TYPES_MAPPING = {name: i for i, name in enumerate(GEMLITE_MATMUL_TYPES)}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,10 +100,18 @@ class LayerMeta(NamedTuple):
         return list(self[:12])
 
 
-def forward_functional(x: torch.Tensor, bias, tensor_args, meta: LayerMeta) -> torch.Tensor:
+def forward_functional(x: torch.Tensor, bias, tensor_args, meta: LayerMeta,
+                       matmul_type: int = -1) -> torch.Tensor:
     """Fused forward: x (..., K) -> (..., N) through the regime router. An
     INT8 layer with ``scaled_activations`` quantizes x per token first
-    (``gemlite_tpu/core.py:forward_functional``)."""
+    (``gemlite_tpu/core.py:forward_functional``).
+
+    ``matmul_type`` indexes GEMLITE_MATMUL_TYPES (-1: the family of M). In
+    the JAX package a family only sets the general kernel's preferred block
+    and config lookup, and M still chooses the route; the port's plans are
+    fixed per M, so the route and the result are M's whatever the family."""
+    if not -1 <= matmul_type < len(GEMLITE_MATMUL_TYPES):
+        raise IndexError(f"matmul_type {matmul_type} names no kernel family")
     W_q, scales, zeros = tensor_args
     out_shape = x.shape[:-1] + (meta.out_features,)
     scales_x = None
@@ -266,6 +281,13 @@ class GemLiteLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return forward_functional(x, self.bias, self.get_tensor_args(), self.meta)
 
+    def forward_manual(self, x: torch.Tensor, matmul_type: str = "GEMM") -> torch.Tensor:
+        """``forward`` under a kernel family's name (``KeyError`` for a name
+        not in GEMLITE_MATMUL_TYPES). M picks the route as in ``forward``, so
+        the result equals ``forward``'s (see ``forward_functional``)."""
+        return forward_functional(x, self.bias, self.get_tensor_args(), self.meta,
+                                  GEMLITE_MATMUL_TYPES_MAPPING[matmul_type])
+
     # ------------------------------------------------------------------
     # Serialization in the JAX package's format: the metadata vector, the
     # original shape and the arrays.
@@ -334,6 +356,29 @@ class GemLiteLinear(nn.Module):
                     output_dtype=DType(meta[6]), scaled_activations=bool(meta[0]),
                     device=device)
         return layer.load_state_dict(state_dict)
+
+    def save(self, path: str) -> None:
+        """One npz of ``state_dict()``, bf16 / fp8 arrays as bit views named
+        in a ``__dtypes__`` entry (the JAX package's ``GemLiteLinear.save``)."""
+        arrays, markers = {}, {}
+        for k, v in self.state_dict().items():
+            arrays[k], marker = npz_encode_array(v)
+            if marker:
+                markers[k] = marker
+        if markers:
+            arrays["__dtypes__"] = np.frombuffer(json.dumps(markers).encode(), dtype=np.uint8)
+        np.savez(path, **arrays)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "GemLiteLinear":
+        """A layer that ``save`` wrote, in this package or the JAX package
+        (plane-folded layers unfold), on ``device``."""
+        dev = resolve_device(device)
+        with np.load(path, allow_pickle=False) as data:
+            sd = {k: data[k] for k in data.files}
+        markers = json.loads(bytes(sd.pop("__dtypes__")).decode()) if "__dtypes__" in sd else {}
+        sd = {k: npz_decode_array(v, markers.get(k)) for k, v in sd.items()}
+        return cls.from_state_dict(sd, device=dev)
 
     def _apply(self, fn, recurse=True):
         out = super()._apply(fn, recurse)

@@ -8,10 +8,11 @@ either package reads the same in the other.
 
 from enum import Enum
 
+import numpy as np
 import torch
 
 __all__ = ["DType", "DTYPE_TO_TORCH", "TORCH_TO_DTYPE", "to_torch_dtype", "is_mx_dtype",
-           "get_dtype_range"]
+           "get_dtype_range", "npz_encode_array", "npz_decode_array"]
 
 
 class DType(Enum):
@@ -94,3 +95,52 @@ def get_dtype_range(dtype):
     d = to_torch_dtype(dtype)
     info = torch.finfo(d) if d.is_floating_point else torch.iinfo(d)
     return float(info.min), float(info.max)
+
+
+# ---------------------------------------------------------------------------
+# npz-safe serialization (``gemlite_tpu/dtypes.py:130-172``): numpy has no
+# bfloat16 or fp8, so such a tensor is stored as its bit view with a marker
+# naming the dtype, and restored by the same view on load. The markers are the
+# JAX package's (ml_dtypes' names), so files cross between the packages.
+# ---------------------------------------------------------------------------
+
+# marker -> (torch dtype, signed torch view, numpy bit dtype the file holds)
+_NPZ_BIT_VIEWS = {
+    "bfloat16": (torch.bfloat16, torch.int16, np.uint16),
+    "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8, np.uint8),
+    "float8_e5m2": (torch.float8_e5m2, torch.uint8, np.uint8),
+    "float8_e4m3fnuz": (torch.float8_e4m3fnuz, torch.uint8, np.uint8),
+    "float8_e5m2fnuz": (torch.float8_e5m2fnuz, torch.uint8, np.uint8),
+    "float8_e8m0fnu": (torch.float8_e8m0fnu, torch.uint8, np.uint8),
+}
+_NPZ_MARKER_OF = {dt: name for name, (dt, _, _) in _NPZ_BIT_VIEWS.items()}
+
+
+def npz_encode_array(x):
+    """A tensor (any device) or numpy array of a native dtype -> (numpy array
+    that np.savez stores as is, the dtype marker or None)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x), None
+    x = x.detach().cpu()
+    marker = _NPZ_MARKER_OF.get(x.dtype)
+    if marker is None:
+        return x.numpy(), None
+    _, view, bits = _NPZ_BIT_VIEWS[marker]
+    return x.contiguous().view(view).numpy().view(bits), marker
+
+
+def npz_decode_array(arr, marker=None) -> torch.Tensor:
+    """Inverse of ``npz_encode_array``: a CPU tensor on the array's memory
+    (on a copy when the array is read-only)."""
+    shape = np.shape(arr)                  # np.ascontiguousarray makes a 0-d array 1-d
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if marker:
+        entry = _NPZ_BIT_VIEWS.get(marker)
+        if entry is None:
+            raise ValueError(f"unknown checkpoint dtype marker {marker!r}")
+        dtype, view, _ = entry
+        bits = arr.view(np.int16 if view == torch.int16 else np.uint8)
+        return torch.from_numpy(bits).view(dtype).reshape(shape)
+    return torch.from_numpy(arr).reshape(shape)

@@ -1,24 +1,32 @@
 # SPDX-License-Identifier: Apache-2.0
 """Processors that turn quantized or float weights into a packed
-``GemLiteLinear`` (counterpart of ``gemlite_tpu/helper.py``).
+``GemLiteLinear``, and the integration helpers around them (counterpart of
+``gemlite_tpu/helper.py``).
 
 Ported: the weight-only grouped INT processors ``A16Wn`` / ``A16Wn_HQQ_INT``
 and their W8/W4/W2/W1 presets; the channel-wise 8-bit ``A16W8_INT8``; the
 dynamic INT8 ``A8W8_INT8_dynamic``; BitNet ``A16W158_INT`` and
-``A8W158_INT_dynamic``. The fp8 and MX processors are not ported yet.
+``A8W158_INT_dynamic``; ``from_linear`` / ``from_bitlinear``,
+``cleanup_linear``, ``patch_model`` (replaces the linears of an ``nn.Module``
+tree or a plain object tree) and ``warmup``. The fp8 and MX processors and
+``from_hqqlinear`` (which needs the ``hqq`` package) are not ported yet.
 """
 
+import gc
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .core import GemLiteLinear, resolve_device, tensor_from_numpy
 from .dtypes import DType, TORCH_TO_DTYPE
 from .quant import quantize_int_weights
+from .utils.m_bucket import _BUCKETS
 
 __all__ = ["A16Wn", "A16Wn_HQQ_INT", "A16W8_HQQ_INT", "A16W4_HQQ_INT",
            "A16W2_HQQ_INT", "A16W1_HQQ_INT", "A16W8", "A16W8_INT8", "A8W8_dynamic",
-           "A8W8_INT8_dynamic", "A16W158_INT", "A8W158_INT_dynamic"]
+           "A8W8_INT8_dynamic", "A16W158_INT", "A8W158_INT_dynamic", "cleanup_linear",
+           "patch_model", "warmup"]
 
 _FLOAT_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
 
@@ -39,6 +47,53 @@ def _channelwise_quant_8bit(weight: torch.Tensor):
     scales = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-6)
     W_q = torch.round(torch.clamp(w / scales, -128.0, 127.0)).to(torch.int8)
     return W_q, scales
+
+
+def _host_tensor(t):
+    """A tensor (detached) or numpy array -> tensor; None stays None."""
+    if t is None or isinstance(t, torch.Tensor):
+        return None if t is None else t.detach()
+    return tensor_from_numpy(t)
+
+
+def _weight_bias_of(linear_layer):
+    """(weight (N, K), bias) of an ``nn.Linear``-like object."""
+    return _host_tensor(linear_layer.weight), _host_tensor(getattr(linear_layer, "bias", None))
+
+
+def cleanup_linear(linear_layer, del_orig: bool = True) -> None:
+    """Drop the original layer's weight references so its float copy can be
+    freed."""
+    if del_orig:
+        for attr in ("weight", "bias", "weight_scale", "W_q", "meta"):
+            if hasattr(linear_layer, attr):
+                try:
+                    setattr(linear_layer, attr, None)
+                except (AttributeError, TypeError):
+                    pass
+    gc.collect()
+
+
+class _FromLinear:
+    """``from_linear`` of the processors that quantize a float weight
+    themselves."""
+
+    def from_linear(self, linear_layer, del_orig: bool = True) -> GemLiteLinear:
+        w, b = _weight_bias_of(linear_layer)
+        out = self.from_weights(w, b)
+        cleanup_linear(linear_layer, del_orig)
+        return out
+
+
+class _FromBitLinear:
+    """``from_bitlinear`` of the BitNet processors: a layer with ``weight`` in
+    {-1, 0, +1}, ``weight_scale`` and ``bias``."""
+
+    def from_bitlinear(self, linear_layer, del_orig: bool = True) -> GemLiteLinear:
+        out = self.from_weights(linear_layer.weight, linear_layer.weight_scale,
+                                linear_layer.bias)
+        cleanup_linear(linear_layer, del_orig)
+        return out
 
 
 class A16Wn:
@@ -125,7 +180,7 @@ def _warmup_quantize(processor, w, group_size: int, **quant_kwargs) -> GemLiteLi
     return processor.from_weights(W_q, scales, zeros, bias=None)
 
 
-class A16W8:
+class A16W8(_FromLinear):
     """16-bit activations x int8 weights, float32 channel-wise scales: scaled
     inside the K loop (W_group_mode 2) or, with ``post_scale``, after it
     (csm 1). The fp8 weights of the JAX package's ``A16W8`` wait for the FP8
@@ -166,7 +221,7 @@ class A16W8:
 A16W8_INT8 = A16W8
 
 
-class A8W8_dynamic:
+class A8W8_dynamic(_FromLinear):
     """Dynamic int8 activations (per-token scales, computed in the forward)
     x int8 weights with float32 channel-wise scales: W_group_mode 0, csm 3,
     an exact int32 K sum scaled after it. ``dtype`` is the output dtype. The
@@ -203,7 +258,7 @@ class A8W8_dynamic:
 A8W8_INT8_dynamic = A8W8_dynamic
 
 
-class A16W158_INT:
+class A16W158_INT(_FromBitLinear):
     """BitNet b1.58: ternary weights {-1, 0, +1} stored as 2-bit codes
     ``w + 1`` with the scalar zero 1 (W_group_mode 1), one weight scale
     broadcast to a float32 channel scale column."""
@@ -239,3 +294,124 @@ class A16W158_INT:
 class A8W158_INT_dynamic(A16W158_INT):
     def from_weights(self, weight, weight_scale, bias=None) -> GemLiteLinear:
         return self._build(weight, weight_scale, bias, DType.INT8, 3, True)
+
+
+# ---------------------------------------------------------------------------
+# Model patching and warm-up (``gemlite_tpu/helper.py:488-644``)
+# ---------------------------------------------------------------------------
+
+def _is_linear_like(m) -> bool:
+    """A callable with a 2-d ``weight``; an embedding table is not a linear."""
+    if isinstance(m, torch.nn.Embedding):
+        return False
+    shape = getattr(getattr(m, "weight", None), "shape", None)
+    return shape is not None and len(shape) == 2 and callable(m)
+
+
+def patch_model(model, processor, skip_modules=("lm_head", "vision", "visual"),
+                group_size: int = 64, device=None):
+    """Replace every linear-like layer of ``model`` with ``processor``'s
+    ``from_linear`` of it, in place, and return ``model``.
+
+    An ``nn.Module`` is walked through ``named_children`` and its children
+    replaced through ``setattr`` (``GemLiteLinear`` is a module); any other
+    object through its attributes, lists and tuples included. A layer whose
+    dotted name holds one of ``skip_modules`` is left as it is. ``device``:
+    where the new layers go (None: the processor's device). A processor
+    without ``from_linear`` goes through ``HQQLinear`` with ``group_size``,
+    which needs the ``hqq`` package (``ImportError`` without it)."""
+    if not hasattr(processor, "from_linear"):
+        try:
+            import hqq  # noqa: F401
+        except ImportError as e:
+            raise ImportError("This processor requires the `hqq` package.") from e
+        raise NotImplementedError(f"queued: from_hqqlinear ({type(processor).__name__}, "
+                                  f"group_size={group_size})")
+    dev = None if device is None else resolve_device(device)
+
+    def convert(layer, name):
+        if any(s in name for s in skip_modules):
+            return layer
+        out = processor.from_linear(layer)
+        return out if dev is None else out.to(dev)
+
+    def walk(mod, prefix=""):
+        if isinstance(mod, torch.nn.Module):
+            for name, child in list(mod.named_children()):
+                full = f"{prefix}.{name}" if prefix else name
+                if _is_linear_like(child):
+                    setattr(mod, name, convert(child, full))
+                else:
+                    walk(child, full)
+            return
+        for name, child in list(vars(mod).items()):
+            if child is None or isinstance(child, (int, float, str, bool)):
+                continue
+            full = f"{prefix}.{name}" if prefix else name
+            if _is_linear_like(child):
+                setattr(mod, name, convert(child, full))
+            elif isinstance(child, (list, tuple)):
+                new = []
+                for i, c in enumerate(child):
+                    if _is_linear_like(c):
+                        new.append(convert(c, f"{full}.{i}"))
+                    else:
+                        if hasattr(c, "__dict__"):
+                            walk(c, f"{full}.{i}")
+                        new.append(c)
+                setattr(mod, name, type(child)(new))
+            elif hasattr(child, "__dict__"):
+                walk(child, full)
+
+    walk(model)
+    return model
+
+
+DEFAULT_WARMUP_BATCHES = sorted(set(_BUCKETS))[::-1]
+
+
+def warmup(processor, shapes, batch_sizes=None, group_size: int = 64,
+           dtype: torch.dtype = torch.bfloat16, device=None):
+    """Build one layer a (out_features, in_features) shape from seeded random
+    weights, as ``processor`` makes it, and run it once at each batch size
+    (default: the M buckets up to 1024, largest first). On the card that
+    builds and loads every kernel library the layers' routes use and
+    launches each route once, so that a first real call pays for neither.
+    Returns the layers."""
+    dev = resolve_device(device)
+    if batch_sizes is None:
+        batch_sizes = [b for b in DEFAULT_WARMUP_BATCHES if b <= 1024]
+    rng = np.random.default_rng(0)
+    layers = []
+    for out_features, in_features in shapes:
+        w = torch.from_numpy(rng.normal(size=(out_features, in_features)).astype(np.float32)
+                             * 0.02).to(dev)
+        layer = _warmup_layer(processor, w, group_size)
+        layers.append(layer)
+        for bs in batch_sizes:
+            x = torch.from_numpy(rng.normal(size=(bs, in_features)) * 0.1).to(dev, dtype)
+            layer(x)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return layers
+
+
+def _warmup_layer(processor, w: torch.Tensor, group_size: int) -> GemLiteLinear:
+    """One layer from a float matrix by the processor's own constructor:
+    BitNet through ``from_bitlinear`` on the signs, a processor that
+    quantizes itself (A16W8, A8W8) through ``from_linear``, a grouped Wn one
+    through the HQQ-style quantizer."""
+    if hasattr(processor, "from_bitlinear"):
+        class _Bit:
+            weight = torch.sign(w)
+            weight_scale = float(w.abs().mean() + 1e-8)
+            bias = None
+
+        return processor.from_bitlinear(_Bit(), del_orig=False)
+    if getattr(processor, "W_nbits", None) is None:
+        class _Lin:
+            weight = w
+            bias = None
+
+        return processor.from_linear(_Lin(), del_orig=False)
+    return _warmup_quantize(processor, w, group_size)

@@ -9,4 +9,5 @@ from .llama import (
     llama_decode_step_batched,
     llama_verify_step,
     init_kv_cache,
+    loss_fn,
 )

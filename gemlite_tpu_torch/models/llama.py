@@ -8,10 +8,11 @@ is one dense tensor (L, 2, B, T, Hkv, D) or a ``PagedKV``
 (``models/paged_kv.py``); both are written in place.
 
 Ported: the no-cache, dense-cache and paged-cache forward, prefill, decode and
-verify steps, over layers from any ported processor (``quantize_llama``). A
-one-shot prefill of 256 tokens or more attends on the causal flash kernel, a
-paged decode step on the paged decode kernel (``ops/attention.py``). Not yet
-ported: tensor-parallel sharding and the training step.
+verify steps, over layers from any ported processor (``quantize_llama``), and
+the forward loss (``loss_fn``). A one-shot prefill of 256 tokens or more
+attends on the causal flash kernel, a paged decode step on the paged decode
+kernel (``ops/attention.py``). Not yet ported: tensor-parallel sharding and
+the training step.
 
 ``cache_len`` tells the attention paths apart as the JAX package's static and
 traced offsets do: a Python int is a static offset, and only offset 0 takes
@@ -34,7 +35,7 @@ from .paged_kv import PagedKV, paged_decode_attention, paged_gather, paged_write
 __all__ = [
     "LlamaConfig", "init_llama", "quantize_llama", "init_kv_cache",
     "llama_forward", "llama_prefill", "llama_decode_step",
-    "llama_decode_step_batched", "llama_verify_step",
+    "llama_decode_step_batched", "llama_verify_step", "loss_fn",
 ]
 
 
@@ -321,3 +322,12 @@ def llama_decode_step_batched(params, cfg, token, kv, cache_lens, t_active=None)
     positions = cache_lens[:, None].to(torch.int32)
     return llama_forward(params, cfg, token, kv=kv, cache_len=cache_lens,
                          positions=positions, t_active=t_active)
+
+
+def loss_fn(params, cfg: LlamaConfig, tokens, targets) -> torch.Tensor:
+    """Mean next-token negative log-likelihood (nats) of ``targets`` (B, S)
+    given ``tokens`` (B, S), from a float32 log-softmax of the logits
+    (``gemlite_tpu/models/llama.py:loss_fn``). Forward only."""
+    logits = llama_forward(params, cfg, tokens)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].to(torch.long)).mean()

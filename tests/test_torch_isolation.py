@@ -45,14 +45,20 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stderr
 
 
-def _entry_points():
+def _entry_points(files: Path):
     from gemlite_tpu_torch import (A16W4_HQQ_INT, ContinuousBatchingEngine, DType,
                                    GemLiteLinear, LlamaConfig, init_kv_cache, init_llama,
                                    params_from_jax_numpy, quantize_llama)
     from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynamic,
-                                          A8W8_INT8_dynamic)
+                                          A8W8_INT8_dynamic, warmup)
+    from gemlite_tpu_torch.checkpoint import load_model, save_model
+    from gemlite_tpu_torch.importers import load_hf_llama
     cfg = LlamaConfig.tiny(num_layers=1)
     cpu_params = init_llama(cfg, device="cpu")
+    save_model({"w": torch.ones(2)}, str(files / "model.npz"))
+    GemLiteLinear(4, 64, 128, 128, DType.BF16, DType.BF16, device="cpu").pack(
+        torch.zeros((128, 128), dtype=torch.uint8), torch.ones((256, 1), dtype=torch.bfloat16),
+        torch.zeros((256, 1), dtype=torch.bfloat16)).save(str(files / "layer.npz"))
     return {
         "GemLiteLinear": lambda **kw: GemLiteLinear(4, 64, 128, 128, DType.BF16, DType.BF16,
                                                      **kw),
@@ -67,19 +73,26 @@ def _entry_points():
         "params_from_jax_numpy": lambda **kw: params_from_jax_numpy({}, **kw),
         "ContinuousBatchingEngine": lambda **kw: ContinuousBatchingEngine(
             quantize_llama(cpu_params, group_size=64, device="cpu"), cfg, **kw),
+        "load_hf_llama": lambda **kw: load_hf_llama(str(ROOT / "checkpoints" / "tiny_en_5m"),
+                                                    **kw),
+        "load_model": lambda **kw: load_model(str(files / "model.npz"), **kw),
+        "GemLiteLinear.load": lambda **kw: GemLiteLinear.load(str(files / "layer.npz"), **kw),
+        "warmup": lambda **kw: warmup(A16W4_HQQ_INT(device="cpu"), [(128, 128)],
+                                      batch_sizes=[1], **kw),
     }
 
 
 ENTRY_POINTS = ("A16W4_HQQ_INT", "A16W8_INT8", "A8W8_INT8_dynamic", "A16W158_INT",
                 "A8W158_INT_dynamic", "ContinuousBatchingEngine", "GemLiteLinear", "init_kv_cache",
-                "init_llama", "params_from_jax_numpy", "quantize_llama")
+                "init_llama", "params_from_jax_numpy", "quantize_llama", "load_hf_llama",
+                "load_model", "GemLiteLinear.load", "warmup")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
-def test_entry_points_need_the_card_or_cpu(name):
+def test_entry_points_need_the_card_or_cpu(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None is valid here")
-    make = _entry_points()[name]
+    make = _entry_points(tmp_path)[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     make(device="cpu")

@@ -11,6 +11,7 @@ version's float32 result, the JAX kernel tests' bound; the int8 decode kernel
 and the general fused kernel's int path equal their plain versions bit for bit.
 """
 
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -842,3 +843,127 @@ def test_paged_engine_runs_the_attention_kernels(gen):
     assert eng.prefix_cache_stats()["hit_pages"] == 18
     assert attention.flash_attention_causal.launches == before[0] + cfg.num_layers
     assert attention.paged_decode_attention_kernel.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# checkpoints/tiny_en_5m on the card: its trained weights at its shapes (N 128
+# / 256 / 768, K 256 / 768; 4/2 heads of 64), through every row it runs
+# ---------------------------------------------------------------------------
+
+TINY_CKPT = Path(__file__).resolve().parent.parent / "checkpoints" / "tiny_en_5m"
+# one linear of each shape: (group, name) -> (N, K)
+TINY_LINEARS = {("attn", "wq"): (256, 256), ("attn", "wk"): (128, 256),
+                ("mlp", "gate"): (768, 256), ("mlp", "down"): (256, 768)}
+
+
+@pytest.fixture(scope="module")
+def tiny_en_5m():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gemlite_tpu_torch import load_hf_llama
+    return load_hf_llama(str(TINY_CKPT), device="cuda")
+
+
+def _tiny_weight(tiny_en_5m, key):
+    params, _ = tiny_en_5m
+    return params["blocks"][3][key[0]][key[1]].float()
+
+
+TINY_ROUTES = {1: "decode", 8: "decode", 64: "decode", 2048: "prefill", 8192: "dequantize"}
+
+
+@pytest.mark.parametrize("M", sorted(TINY_ROUTES))
+@pytest.mark.parametrize("gs", [64, 128])
+@pytest.mark.parametrize("key", sorted(TINY_LINEARS))
+def test_tiny_en_5m_w4_rows(gen, tiny_en_5m, key, gs, M):
+    """Rows 1, 2 and 3 on the trained W4 layers: each M on its kernel, within
+    REL of the plain version (the dequantized dense product at M 8192)."""
+    from gemlite_tpu_torch.helper import A16W4_HQQ_INT, _warmup_quantize
+    layer = _warmup_quantize(A16W4_HQQ_INT(device="cuda", dtype=torch.bfloat16),
+                             _tiny_weight(tiny_en_5m, key), gs)
+    assert (layer.out_features, layer.in_features) == TINY_LINEARS[key]
+    x = _x(gen, M, layer.in_features)
+    dispatch.KERNEL_TRACE.clear()
+    got = layer(x)
+    torch.cuda.synchronize()
+    assert dispatch.KERNEL_TRACE == [TINY_ROUTES[M]]
+    if M >= 4096:
+        args = (layer.W_q, layer.scales, layer.zeros, layer.meta)
+        want = x.float() @ dequantize_full(*args).float()
+    else:
+        want = _plain_f32(layer, x)
+    assert _rel(got, want) <= REL
+
+
+def _tiny_float_layer(tiny_en_5m, key, form):
+    from gemlite_tpu_torch.helper import A16W2_HQQ_INT, A16W8_HQQ_INT, _warmup_quantize
+    w = _tiny_weight(tiny_en_5m, key)
+    if form == "a16w8":
+        return A16W8_INT8(device="cuda", dtype=torch.bfloat16).from_weights(w)
+    proc = (A16W8_HQQ_INT if form == "w8_channel" else A16W2_HQQ_INT)(device="cuda",
+                                                                       dtype=torch.bfloat16)
+    return _warmup_quantize(proc, w, 32)
+
+
+@pytest.mark.parametrize("M", [1, 8, 2048])
+@pytest.mark.parametrize("form", ["a16w8", "w8_channel", "w2_gs32"])
+@pytest.mark.parametrize("key", sorted(TINY_LINEARS))
+def test_tiny_en_5m_float_path(gen, tiny_en_5m, key, form, M):
+    """Row 5f on the trained A16W8 and W8 (channel-wise HQQ) layers, which no
+    decode or prefill gate takes, and on W2 gs 32 above M 64 (the prefill
+    kernel wants groups of 64; the decode kernel takes it at M <= 64). Each
+    route is held to its own plain version, as above: the float path's
+    dequantizes in the compute dtype (fused_matmul_plain)."""
+    layer = _tiny_float_layer(tiny_en_5m, key, form)
+    x = _x(gen, M, layer.in_features)
+    route = "decode" if form == "w2_gs32" and M <= 64 else "general_fused"
+    dispatch.KERNEL_TRACE.clear()
+    before = fused_gemm_float.launches
+    got = layer(x)
+    torch.cuda.synchronize()
+    assert dispatch.KERNEL_TRACE == [route]
+    assert fused_gemm_float.launches == before + (route == "general_fused")
+    if route == "decode":
+        want = _plain_f32(layer, x)
+    else:
+        want = fused_matmul_plain(x, layer.W_q, layer.scales, layer.zeros, None,
+                                  layer.meta._replace(output_dtype=DType.FP32.value))
+    assert _rel(got, want) <= REL
+
+
+@pytest.mark.parametrize("M", [1, 8, 64, 2048])
+@pytest.mark.parametrize("key", sorted(TINY_LINEARS))
+def test_tiny_en_5m_a8w8_is_bit_exact(gen, tiny_en_5m, key, M):
+    """Rows 4 (M <= 64) and 5's int path (M 2048) on the trained A8W8
+    layers, bit for bit against their plain versions."""
+    layer = A8W8_INT8_dynamic(device="cuda", dtype=torch.bfloat16).from_weights(
+        _tiny_weight(tiny_en_5m, key))
+    x, sx = _xq(gen, M, layer.in_features)
+    args = (x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    if M <= 64:
+        assert torch.equal(int8_decode(*args), int8_decode_plain(*args))
+    else:
+        assert int_path(layer.meta)
+        assert torch.equal(fused_gemm(*args), fused_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("B", [4, 16])
+def test_tiny_en_5m_flash(gen, B):
+    """B1 at the eval's shape: windows of 512 bytes, 4/2 heads of 64."""
+    q, k, v = (_attn_in(gen, (B, 512, h, 64)) for h in (4, 2, 2))
+    got = attention.flash_attention_causal(q, k, v)
+    torch.cuda.synchronize()
+    want = attention.causal_attention_plain(q.float(), k.float(), v.float())
+    assert got.shape == (B, 512, 4, 64) and _rel(got, want) <= REL
+
+
+def test_tiny_en_5m_paged_decode(gen):
+    """B2 at the served shape: 8 slots of up to 432 tokens (400-byte prompts
+    and 32 new bytes), page 128, 4 pages a slot, 4/2 heads of 64."""
+    args = _paged_case(gen, [64, 100, 150, 200, 256, 300, 350, 432], 128, 4, 2, 64, 4)
+    got = attention.paged_decode_attention_kernel(*args)
+    torch.cuda.synchronize()
+    q, k_pages, v_pages, lengths, table = args
+    want = attention.paged_decode_attention_plain(q.float(), k_pages.float(), v_pages.float(),
+                                                  lengths, table)
+    assert _rel(got, want) <= REL
