@@ -6,8 +6,9 @@
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the eight CUDA sources from gemlite_tpu_torch/csrc (nine
-           kernels: decode_gemv.cu holds the per-layer and stacked decode);
+  build    compile the nine CUDA sources from gemlite_tpu_torch/csrc
+           (decode_gemv.cu holds the per-layer and stacked decode, fp8_gemm.cu
+           the fp8 decode, stacked decode and prefill);
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
            (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
            W1 prefill at M 128 on 14336x4096): relative error max|a-b| /
@@ -76,6 +77,23 @@ Phases, each printing one JSON line:
            every M, tokens equal the bare loop, launches equal the schedule,
            the first step matches the plain path on the CPU;
   profile_a16w8 device time by kernel over a short A16W8 serving run;
+  kernels_fp8  the fp8 kernels (csrc/fp8_gemm.cu) against their plain
+           version (ops/reference.forward_fp8_ref) within 5e-3: decode at M 1
+           / 8 / 64 and prefill at M 128 / 1024 on the four 8B shapes, for
+           A8W8_FP8 (e4m3 x) and A16W8_FP8 (bf16 x); the fp8 dequantize on
+           14336x4096, equal to dequantize_full bit for bit; the stacked
+           decode over a 32-layer A16W8_FP8 stack at layers 0 / 17 / 31, each
+           equal to the per-layer kernel bit for bit; the float path with fp8
+           x (A8W4 gs 64) at M 8 / 128. Plans, one device operation a call,
+           times, bounds, and torch._scaled_mm (row-wise scales) or a dense
+           bf16 matmul as the yardstick;
+  layer_fp8    A8W8_FP8_dynamic(bf16) 4096x4096 at M in {1, 64, 65, 128,
+           4096}, routed to decode, decode, prefill, prefill, dequantize;
+  serve_fp8    the 4-layer model quantized with A8W8_FP8_dynamic(bf16),
+           served as in "serve": tokens equal the bare loop, the linears run
+           only on the fp8 decode and prefill kernels, launches equal the
+           schedule, the first step matches the plain path on the CPU;
+  profile_fp8  device time by kernel over a short A8W8_FP8 serving run;
   kernels_scan the stacked decode kernel over stacks of 32 random layers: W4
            at the four 8B shapes, M in {1, 8, 64}, W4 at the fused shapes
            6144x4096 (wqkv) and 28672x4096 (gate_up), M = 8, and W2 / W1 (gs
@@ -115,21 +133,24 @@ Phases, each printing one JSON line:
            each file's size and each step's seconds;
   real_weights  the repo's trained checkpoint (checkpoints/tiny_en_5m: a
            byte-level Llama, 6 layers, hidden 256, 4/2 heads of 64) imported
-           on the card, in seven configurations (dense bf16, A16W8, A8W8, W8,
-           W4 gs 128 / 64, W2 gs 32): loss_fn's nll on PARITY.md's eval (256
+           on the card, in ten configurations (dense bf16, A16W8, A8W8, W8,
+           W4 gs 128 / 64, W2 gs 32, A16W8_FP8, A8W8_FP8, A8W4_HQQ_INT_dynamic
+           gs 64): loss_fn's nll on PARITY.md's eval (256
            held-out windows of 512 bytes) in batches of 4 windows (M 2048),
            the first 16 as one batch (M 8192), and those 16 through the plain
            versions on the CPU: |card - CPU| <= 2e-3 nats/byte (1% relative
            for W2 gs 32), beside PARITY.md's JAX-package value, each model
-           quantized on the card equal byte for byte to the CPU's; W4 gs 128 and
-           A8W8 serve 8 held-out prompts (64-400 bytes, 32 greedy tokens) on
-           the paged, dense and (W4) scan engines, each equal to its bare
-           loop; every kernel of the kernels line launches;
+           quantized on the card equal byte for byte to the CPU's; W4 gs 128,
+           A8W8 and A16W8_FP8 serve 8 held-out prompts (64-400 bytes, 32
+           greedy tokens) on the paged, dense and (W4, A16W8_FP8) scan
+           engines, each equal to its bare loop; every kernel of the kernels
+           line launches;
   patch_model   an nn.Module tree of bf16 nn.Linears at an 8B block's seven
-           shapes and an 8B lm_head, patched with A16W8_INT8 and
-           A8W8_INT8_dynamic: the lm_head skipped, each output at M 8 and 128
-           within 2e-2 (norm-relative) of the float nn.Linear on the expected
-           route, forward_manual equal to forward under every family name;
+           shapes and an 8B lm_head, patched with A16W8_INT8,
+           A8W8_INT8_dynamic and A8W8_FP8_dynamic: the lm_head skipped, each
+           output at M 8 and 128 within 2e-2 (norm-relative; 5e-2 with fp8 x
+           and w) of the float nn.Linear on the expected route,
+           forward_manual equal to forward under every family name;
   warmup   warmup(A16W4_HQQ_INT) over the four 8B shapes at the buckets 1 to
            1024 on the decode and prefill kernels; later first calls build
            and load no library.
@@ -977,6 +998,286 @@ def phase_serve_a8w8(card: str, cfg, dense) -> dict:
     return serve_and_check("serve_a8w8", params, cfg, card, time.perf_counter() - t0,
                            "int8_exact", "general_fused", "profile_a8w8", A8_GROUPS)[0]
 
+FP8_GROUPS = {"fp8_decode_kernel": ("fp8_decode",), "fp8_prefill_kernel": ("fp8_prefill",)}
+FP8_DECODE_MS = (1, 8, 64)
+FP8_PREFILL_MS = (128, 1024)
+FP8_FLOAT_MS = (8, 128)              # row 5f with fp8 x (A8W4 gs 64)
+FP8_SHAPE = (14336, 4096)            # the kernels line's fp8 rows
+
+
+def fp8_layer(kind: str, N: int, K: int, gen: torch.Generator):
+    """An fp8-coded layer: A8W8_FP8_dynamic (fp8 x, csm 3) or A16W8_FP8 (bf16
+    x, mode 2), e4m3, from random weights quantized on the card."""
+    from gemlite_tpu_torch.helper import A16W8_FP8, A8W8_FP8_dynamic
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    proc = A8W8_FP8_dynamic if kind == "a8w8_fp8" else A16W8_FP8
+    return proc(device="cuda", dtype=torch.bfloat16).from_weights(w)
+
+
+def fp8_inputs(layer, M: int, gen: torch.Generator):
+    """(x as the fp8 kernels take it, per-token scales or None): bf16 x
+    quantized per token to e4m3 for a scaled-activation layer."""
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+    x = (torch.randn((M, layer.in_features), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    if layer.scaled_activations:
+        return scale_activations_per_token(x, torch.float8_e4m3fn)
+    return x, None
+
+
+def scaled_mm_call(layer, x, sx):
+    """torch._scaled_mm with row-wise scales on an A8W8_FP8 layer: the
+    library yardstick of the fp8 rows, timed here and used nowhere in the
+    port. It takes M in multiples of 16, so x is padded (zero rows, unit
+    scales) outside the timed call; returns (call, M)."""
+    from gemlite_tpu_torch.ops.reference import unpack_rows_ref
+    M, K = x.shape
+    w = unpack_rows_ref(layer.W_q, 8, 4, K).t().contiguous().view(torch.float8_e4m3fn)   # (N, K)
+    Mp = -(-M // 16) * 16
+    xp = torch.zeros((Mp, K), dtype=x.dtype, device=x.device)
+    xp[:M] = x
+    sp = torch.ones((Mp, 1), dtype=torch.float32, device=x.device)
+    sp[:M] = sx
+    s_w = layer.scales.reshape(1, -1).float().contiguous()
+    return lambda: torch._scaled_mm(xp, w.t(), scale_a=sp, scale_b=s_w, out_dtype=torch.bfloat16)
+
+
+def fp8_bytes(layer, M: int) -> float:
+    """What an fp8 call must move: the words, the column scales, x, the
+    per-token scales and the bf16 output."""
+    xb = 2 if layer.input_dtype.value == 2 else 1
+    return layer_bytes(layer) + M * layer.in_features * xb + 4 * M + 2 * M * layer.out_features
+
+
+def phase_kernels_fp8(card: str, peak, timer: Timer) -> dict:
+    """The fp8 kernels against their plain versions (ops/reference.
+    forward_fp8_ref, float32 result) within 5e-3, at the four 8B shapes:
+    decode at M 1 / 8 / 64 and prefill at M 128 / 1024 for A8W8_FP8 (fp8 x)
+    and A16W8_FP8 (bf16 x); the fp8 form of the dequantize kernel on
+    14336x4096, equal to dequantize_full bit for bit; the stacked decode
+    entry on a 32-layer A16W8_FP8 stack of 14336x4096 at layers 0 / 17 / 31,
+    equal to the per-layer kernel bit for bit; row 5f with fp8 x (A8W4 gs
+    64, 14336x4096) at M 8 / 128. Each in one device operation a call, with
+    its plan, CUDA-event time, bound (bytes over 3.35 TB/s or 2 M N K over
+    the fp8 rate for fp8 x, the bf16 rate for bf16 x) and yardstick:
+    torch._scaled_mm with row-wise scales for A8W8_FP8, a dense bf16 matmul
+    on the dequantized weight for the others. Returns the kernels line's
+    rows."""
+    from gemlite_tpu_torch.helper import A8W4_HQQ_INT_dynamic, _warmup_quantize
+    from gemlite_tpu_torch.ops import fp8
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
+    from gemlite_tpu_torch.ops.fused import float_plan, fused_gemm_float, fused_matmul_plain
+    from gemlite_tpu_torch.ops.reference import forward_fp8_ref
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+
+    def record(row, got, want, exact=False):
+        emit(row)
+        if exact and not torch.equal(got, want):
+            raise RuntimeError(f"{row['kernel']} differs from its reference bit for bit: {row}")
+        if not row["rel_err"] <= REL_TOL:
+            raise RuntimeError(f"{row['kernel']} disagrees with its plain version: {row}")
+        if row.get("device_ops_per_call", 1) != 1:
+            raise RuntimeError(f"{row['kernel']}: one call took several device operations: {row}")
+        rows.append(row)
+
+    for kind in ("a8w8_fp8", "a16w8_fp8"):
+        ops_rate = peak[2] if kind == "a8w8_fp8" else peak[1]
+        for N, K in SHAPES:
+            layer = fp8_layer(kind, N, K, gen)
+            meta = layer.meta
+            dense = dequantize_full(layer.W_q, layer.scales, None, meta)
+            for name, Ms, kern, plan in (("fp8_decode", FP8_DECODE_MS, fp8.fp8_decode,
+                                          fp8.decode_plan),
+                                         ("fp8_prefill", FP8_PREFILL_MS, fp8.fp8_prefill,
+                                          fp8.prefill_plan)):
+                for M in Ms:
+                    x, sx = fp8_inputs(layer, M, gen)
+                    args = (x, layer.W_q, layer.scales, sx)
+                    got = kern(*args, meta)
+                    want = forward_fp8_ref(*args, with_f32_out(meta))
+                    torch.cuda.synchronize()
+                    if kind == "a8w8_fp8":
+                        library = scaled_mm_call(layer, x, sx)
+                        lib_name = "torch._scaled_mm, row-wise scales (M padded to 16)"
+                        try:
+                            lib_out = library()[:M]
+                        except (RuntimeError, NotImplementedError) as exc:   # the card's torch
+                            lib_name += f": {type(exc).__name__}: {str(exc)[:120]}"
+                            library = lib_out = None
+                    else:
+                        library = lambda x=x: torch.matmul(x, dense)    # noqa: E731
+                        lib_out = library()
+                        lib_name = "dense bf16 matmul on the dequantized weight"
+                    bound, by = kernel_bound(fp8_bytes(layer, M), 2.0 * M * N * K, peak, ops_rate)
+                    row = {"kernel": name, "form": kind, "M": M, "N": N, "K": K,
+                           "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+                           "ms": timer.ms(lambda: kern(*args, meta)),
+                           "plain_ms": timer.ms(lambda: forward_fp8_ref(*args, meta), iters=3),
+                           "bound_ms": bound, "bound_by": by,
+                           "library_ms": timer.ms(library) if library else None,
+                           "library": lib_name,
+                           "library_rel_err": rel_err(lib_out, want) if library else None,
+                           "plan": plan(M, N, K, 1 if kind == "a8w8_fp8" else 2)._asdict(),
+                           "device_ops_per_call": device_ops_per_call(lambda: kern(*args, meta)),
+                           "card": card}
+                    record(row, got, want)
+            if (N, K) == FP8_SHAPE and kind == "a8w8_fp8":
+                got = dequantize_weights(layer.W_q, layer.scales, None, meta)
+                want = dequantize_full(layer.W_q, layer.scales, None, meta)
+                bound, by = kernel_bound(layer_bytes(layer) + 2 * K * N, 1.0 * K * N, peak)
+                row = {"kernel": "dequantize_fp8", "form": kind, "M": 0, "N": N, "K": K,
+                       "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+                       "ms": timer.ms(lambda: dequantize_weights(layer.W_q, layer.scales, None,
+                                                                 meta)),
+                       "plain_ms": timer.ms(lambda: dequantize_full(layer.W_q, layer.scales, None,
+                                                                    meta), iters=3),
+                       "bound_ms": bound, "bound_by": by, "library_ms": None,
+                       "library": "none: no single PyTorch call converts the fp8 codes and "
+                                  "folds the channel scale (the plain version takes several)",
+                       "device_ops_per_call": device_ops_per_call(
+                           lambda: dequantize_weights(layer.W_q, layer.scales, None, meta)),
+                       "card": card}
+                record(row, got, want, exact=True)
+            del layer, dense
+
+    # the stacked entry: a 32-layer A16W8_FP8 stack, every checked layer equal
+    # to the per-layer kernel bit for bit
+    N, K = FP8_SHAPE
+    layers = [fp8_layer("a16w8_fp8", N, K, gen) for _ in range(SCAN_LAYERS)]
+    meta = layers[0].meta
+    W = torch.stack([lyr.W_q for lyr in layers])
+    S = torch.stack([lyr.scales for lyr in layers])
+    dense = dequantize_full(layers[SCAN_CHECKED[1]].W_q, layers[SCAN_CHECKED[1]].scales, None, meta)
+    for M in FP8_DECODE_MS:
+        x, _ = fp8_inputs(layers[0], M, gen)
+        for li in SCAN_CHECKED:
+            idx = torch.tensor(li, dtype=torch.int32, device="cuda")
+            got = fp8.fp8_decode_stacked(x, W, S, meta, idx)
+            per_layer = fp8.fp8_decode(x, layers[li].W_q, layers[li].scales, None, meta)
+            want = forward_fp8_ref(x, layers[li].W_q, layers[li].scales, None, with_f32_out(meta))
+            torch.cuda.synchronize()
+            bound, by = kernel_bound(fp8_bytes(layers[li], M), 2.0 * M * N * K, peak)
+            timed = li == SCAN_CHECKED[1]
+            row = {"kernel": "fp8_decode_stacked", "form": "a16w8_fp8", "layer": li,
+                   "layers": SCAN_LAYERS, "M": M, "N": N, "K": K,
+                   "equals_per_layer": bool(torch.equal(got, per_layer)),
+                   "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+                   "ms": timer.ms(lambda: fp8.fp8_decode_stacked(x, W, S, meta, idx)) if timed
+                   else None,
+                   "per_layer_ms": timer.ms(lambda: fp8.fp8_decode(
+                       x, layers[li].W_q, layers[li].scales, None, meta)) if timed else None,
+                   "plain_ms": timer.ms(lambda: forward_fp8_ref(
+                       x, layers[li].W_q, layers[li].scales, None, meta), iters=3) if timed
+                   else None,
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": timer.ms(lambda: torch.matmul(x, dense)) if timed else None,
+                   "library": "dense bf16 matmul on the layer's dequantized weight",
+                   "plan": fp8.decode_plan(M, N, K, 2)._asdict(),
+                   "device_ops_per_call": device_ops_per_call(
+                       lambda: fp8.fp8_decode_stacked(x, W, S, meta, idx)),
+                   "card": card}
+            record(row, got, per_layer, exact=True)
+    del layers, W, S, dense
+    torch.cuda.empty_cache()
+
+    # row 5f with fp8 x: A8W4 gs 64 (mode 3, bf16 scales and zeros, csm 2)
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    layer = _warmup_quantize(A8W4_HQQ_INT_dynamic(device="cuda", dtype=torch.bfloat16), w, 64)
+    meta = layer.meta
+    dense = dequantize_full(layer.W_q, layer.scales, layer.zeros, meta)
+    del w
+    for M in FP8_FLOAT_MS:
+        xb = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        x, sx = scale_activations_per_token(xb, torch.float8_e4m3fn)
+        args = (x, layer.W_q, layer.scales, layer.zeros, sx)
+        got, want = fused_gemm_float(*args, meta), fused_matmul_plain(*args, with_f32_out(meta))
+        xd = x.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        bound, by = kernel_bound(layer_bytes(layer) + M * K + 4 * M + 2 * M * N, 2.0 * M * N * K,
+                                 peak)
+        row = {"kernel": "fused_gemm_float_fp8x", "form": "a8w4_gs64_fp8x", "M": M, "N": N,
+               "K": K, "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+               "ms": timer.ms(lambda: fused_gemm_float(*args, meta)),
+               "plain_ms": timer.ms(lambda: fused_matmul_plain(*args, meta), iters=3),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": timer.ms(lambda: torch.matmul(xd, dense)),
+               "library": "dense bf16 matmul on the dequantized weight (x converted outside)",
+               "plan": float_plan(M, N, K)._asdict(),
+               "device_ops_per_call": device_ops_per_call(lambda: fused_gemm_float(*args, meta)),
+               "card": card}
+        record(row, got, want)
+    del layer, dense
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_fp8", "ok": True, "checked": len(rows), "card": card})
+    pick = {"fp8_decode": ("a8w8_fp8", 8), "fp8_prefill": ("a8w8_fp8", 128),
+            "dequantize_fp8": ("a8w8_fp8", 0), "fp8_decode_stacked": ("a16w8_fp8", 8),
+            "fused_gemm_float_fp8x": ("a8w4_gs64_fp8x", 8)}
+    return {r["kernel"]: r for r in rows
+            if (r["form"], r["M"]) == pick[r["kernel"]] and (r["N"], r["K"]) == FP8_SHAPE
+            and r.get("layer", SCAN_CHECKED[1]) == SCAN_CHECKED[1]}
+
+
+def phase_layer_fp8(card: str) -> dict:
+    """An A8W8_FP8_dynamic(bf16) GemLiteLinear 4096x4096 through its routes:
+    decode at M 1 / 64, prefill at M 65 / 128, the fp8 dequantize kernel
+    then a dense bf16 matmul at M 4096; each within 5e-3 of its plain
+    version (the fp8 forward below 4096; at 4096 the bf16 product with the
+    plain folded weight, then the per-token scale in float32, rounded where
+    ``ops/dispatch._dense`` rounds). Returns the launch counts."""
+    from gemlite_tpu_torch.ops import dispatch
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full
+    from gemlite_tpu_torch.ops.reference import forward_fp8_ref
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    layer = fp8_layer("a8w8_fp8", 4096, 4096, gen)
+    xs = {M: (torch.randn((M, 4096), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+          for M in (1, 64, 65, 128, 4096)}
+    reset_counts()
+    dispatch.KERNEL_TRACE.clear()
+    outs = {M: layer(x) for M, x in xs.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    routes = list(dispatch.KERNEL_TRACE)
+    errs = {}
+    for M, x in xs.items():
+        xq, sx = scale_activations_per_token(x, torch.float8_e4m3fn)
+        if M >= 4096:
+            w = dequantize_full(layer.W_q, layer.scales, None, layer.meta)
+            want = torch.matmul(xq.to(torch.bfloat16), w).float() * sx
+        else:
+            want = forward_fp8_ref(xq, layer.W_q, layer.scales, sx, with_f32_out(layer.meta))
+        errs[M] = rel_err(outs[M], want)
+    ok = (routes == ["decode", "decode", "prefill", "prefill", "dequantize"]
+          and all(e <= REL_TOL for e in errs.values())
+          and (counts["fp8_decode"], counts["fp8_prefill"], counts["dequantize"]) == (2, 2, 1))
+    emit({"phase": "layer_fp8", "ok": ok, "routes": routes, "rel_err": errs, "launches": counts,
+          "card": card})
+    if not ok:
+        raise RuntimeError(f"layer_fp8 phase failed: routes {routes}, rel_err {errs}, "
+                           f"launches {counts}")
+    return counts
+
+
+def phase_serve_fp8(card: str, cfg, dense) -> dict:
+    """The 4-layer model quantized with A8W8_FP8_dynamic(bf16) (e4m3 weights,
+    float32 channel scales, e4m3 activations per token) served as in
+    "serve": every linear on the fp8 decode kernel up to M 64, on the fp8
+    prefill kernel above."""
+    from gemlite_tpu_torch import quantize_llama
+    from gemlite_tpu_torch.helper import A8W8_FP8_dynamic
+
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, processor=A8W8_FP8_dynamic(device="cuda",
+                                                              dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    return serve_and_check("serve_fp8", params, cfg, card, time.perf_counter() - t0,
+                           "decode", "prefill", "profile_fp8", FP8_GROUPS,
+                           kernel_of={"decode": "fp8_decode", "prefill": "fp8_prefill"})[0]
+
+
 ATTN_GROUPS = {"flash_kernel": ("flash_attn",),
                "paged_decode_kernel": ("paged_decode",), **W4_GROUPS}
 FLASH_SEQS = (256, 1024, 2048, 4096, 8192)
@@ -1556,17 +1857,22 @@ NLL_REL_TOL_W2 = 1e-2      # W2 gs 32 (nll about 2.76) sits in the chaotic regim
 # PARITY.md's nll/byte on the same eval, computed by the JAX package (its
 # backend is not recorded there); A8W8 has no row
 PARITY_NLL = {"dense_bf16": 0.1972, "a16w8": 0.1976, "w8_gs128": 0.1973, "w4_gs128": 0.3076,
-              "w4_gs64": 0.2740, "w2_gs32": 2.7584, "a8w8": None}
+              "w4_gs64": 0.2740, "w2_gs32": 2.7584, "a8w8": None, "a16w8_fp8": None,
+              "a8w8_fp8": None, "a8w4_gs64": None}
+# the engines serve these (the stacked kernel takes W4 and A16W8_FP8)
+RW_SERVED = {"w4_gs128": True, "a8w8": False, "a16w8_fp8": True}
 EVAL_WINDOWS, EVAL_SEQ, EVAL_BATCH, EVAL_CHECKED = 256, 512, 4, 16
 RW_PROMPT_LENS = (64, 100, 150, 200, 256, 300, 350, 400)
 RW_PROMPT_START = 140_000   # past the eval's 256 x 512 bytes
 
 
 def real_weight_configs(dense, device: str):
-    """PARITY.md's rows (MXFP4 waits for the MX slice) and A8W8, each built
-    from the imported dense model on its device."""
+    """PARITY.md's rows (MXFP4 waits for the MX slice), A8W8 and the FP8
+    slice's A16W8_FP8, A8W8_FP8_dynamic and A8W4_HQQ_INT_dynamic gs 64, each
+    built from the imported dense model on its device."""
     from gemlite_tpu_torch import quantize_llama
-    from gemlite_tpu_torch.helper import A16W8_INT8, A8W8_INT8_dynamic
+    from gemlite_tpu_torch.helper import (A16W8_FP8, A16W8_INT8, A8W4_HQQ_INT_dynamic,
+                                          A8W8_FP8_dynamic, A8W8_INT8_dynamic)
     bf16 = torch.bfloat16
     return {
         "dense_bf16": lambda: dense,
@@ -1577,6 +1883,11 @@ def real_weight_configs(dense, device: str):
         "w4_gs128": lambda: quantize_llama(dense, W_nbits=4, group_size=128, device=device),
         "w4_gs64": lambda: quantize_llama(dense, W_nbits=4, group_size=64, device=device),
         "w2_gs32": lambda: quantize_llama(dense, W_nbits=2, group_size=32, device=device),
+        "a16w8_fp8": lambda: quantize_llama(dense, processor=A16W8_FP8(device=device, dtype=bf16)),
+        "a8w8_fp8": lambda: quantize_llama(dense, processor=A8W8_FP8_dynamic(device=device,
+                                                                           dtype=bf16)),
+        "a8w4_gs64": lambda: quantize_llama(dense, processor=A8W4_HQQ_INT_dynamic(
+            device=device, dtype=bf16), group_size=64),
     }
 
 
@@ -1620,7 +1931,7 @@ def serve_real(params, cfg, prompts, n_new: int, scan: bool) -> dict:
 def phase_real_weights(card: str) -> None:
     """The repo's trained checkpoint (checkpoints/tiny_en_5m, a byte-level
     Llama: 6 layers, hidden 256, 4/2 heads of 64) imported on the card by
-    load_hf_llama, in seven configurations: the nll of PARITY.md's eval (256
+    load_hf_llama, in ten configurations: the nll of PARITY.md's eval (256
     held-out windows of 512 bytes) by loss_fn in batches of 4 windows (M
     2048), the first 16 windows again as one batch (M 8192), and the same 16
     through the plain versions on the CPU (the same packed layers copied
@@ -1628,9 +1939,10 @@ def phase_real_weights(card: str) -> None:
     layers quantized on the card must equal, byte for byte, those quantized
     from the same weights on the CPU (which equal the JAX package's:
     tests/test_torch_real_weights.py).
-    Then W4 gs 128 and A8W8 serve 8 held-out prompts of 64-400 bytes, 32
-    greedy tokens each, on the paged, dense and (W4) scan engines, each
-    equal to its bare loop. Every kernel of the kernels line must launch."""
+    Then W4 gs 128, A8W8 and A16W8_FP8 serve 8 held-out prompts of 64-400
+    bytes, 32 greedy tokens each, on the paged, dense and (W4, A16W8_FP8)
+    scan engines, each equal to its bare loop. Every kernel of the kernels
+    line must launch. Returns each configuration's launch counts."""
     from gemlite_tpu_torch import load_hf_llama
 
     reset_counts()
@@ -1646,6 +1958,7 @@ def phase_real_weights(card: str) -> None:
     rows, failed, served = {}, [], {}
     on_cpu = real_weight_configs(_params_to_cpu(dense), "cpu")
     for name, build_params in real_weight_configs(dense, "cuda").items():
+        before = read_counts()
         t0 = time.perf_counter()
         params = build_params()
         torch.cuda.synchronize()
@@ -1673,10 +1986,12 @@ def phase_real_weights(card: str) -> None:
                       "quantize_s": quant_s, "eval_s": eval_s}
         if gap > bound or plain_on_card or not same_bytes or not np.isfinite(nll):
             failed.append(name)
-        if name in ("w4_gs128", "a8w8"):
+        if name in RW_SERVED:
             prompts = [data[RW_PROMPT_START + 12_000 * i:RW_PROMPT_START + 12_000 * i + n].tolist()
                        for i, n in enumerate(RW_PROMPT_LENS)]
-            served[name] = serve_real(params, cfg, prompts, 32, scan=name == "w4_gs128")
+            served[name] = serve_real(params, cfg, prompts, 32, scan=RW_SERVED[name])
+        rows[name]["launches"] = {k: v - before[k] for k, v in read_counts().items()
+                                  if v != before[k]}
         del params
     counts = read_counts()
     runs_ok = all(r["equal_bare_loop"] and r["captured"] for s in served.values()
@@ -1704,6 +2019,7 @@ def phase_real_weights(card: str) -> None:
         raise RuntimeError("real_weights: engine tokens differ from the bare loops")
     if min(counts.values()) < 1:
         raise RuntimeError(f"real_weights: a kernel never launched: {counts}")
+    return {name: row["launches"] for name, row in rows.items()}
 
 
 def tree_nbytes(tree) -> int:
@@ -1811,6 +2127,10 @@ BLOCK_8B = {"self_attn.q_proj": (4096, 4096), "self_attn.k_proj": (1024, 4096),
             "mlp.down_proj": (4096, 14336)}
 PATCH_MS = (8, 128)
 PATCH_REL_TOL = 2e-2        # ||patched - float|| / ||float||: quantization error
+# e4m3 rounds x and w each to 3 mantissa bits (about 2.5% rms a value), so
+# the product's error is about 3.6%: tests/test_layer.py and
+# tests/test_helpers.py hold the JAX package's fp8 layers to 8e-2
+PATCH_REL_TOL_FP8 = 5e-2
 
 
 def block_8b_model(seed: int):
@@ -1832,26 +2152,33 @@ def block_8b_model(seed: int):
 
 
 def phase_patch_model(card: str) -> None:
-    """patch_model over the 8B block tree with A16W8_INT8 and
-    A8W8_INT8_dynamic: every block linear replaced and the lm_head skipped;
-    at M 8 and 128 each output within 2e-2 (norm-relative) of the float
-    nn.Linear on the same input, on the expected routes (A16W8: the float
-    path; A8W8: int8 decode at M 8, the int path at M 128); forward_manual
+    """patch_model over the 8B block tree with A16W8_INT8, A8W8_INT8_dynamic
+    and A8W8_FP8_dynamic: every block linear replaced and the lm_head
+    skipped; at M 8 and 128 each output within 2e-2 (norm-relative; 5e-2 for
+    fp8 x and w) of the float nn.Linear on the same input, on the expected
+    routes (A16W8: the float path; A8W8: int8 decode at M 8, the int path at
+    M 128; A8W8_FP8: the fp8 decode and prefill kernels); forward_manual
     under each family name equal to forward bit for bit."""
     from gemlite_tpu_torch import GEMLITE_MATMUL_TYPES, GemLiteLinear, patch_model
-    from gemlite_tpu_torch.helper import A16W8_INT8, A8W8_INT8_dynamic
+    from gemlite_tpu_torch.helper import A16W8_INT8, A8W8_FP8_dynamic, A8W8_INT8_dynamic
 
     expected = {"A16W8_INT8": ({8: "general_fused", 128: "general_fused"},
                                {"fused_gemm_float": 2 * len(BLOCK_8B)}),
                 "A8W8_INT8_dynamic": ({8: "int8_exact", 128: "general_fused"},
-                                      {"int8_decode": len(BLOCK_8B), "fused_gemm": len(BLOCK_8B)})}
+                                      {"int8_decode": len(BLOCK_8B), "fused_gemm": len(BLOCK_8B)}),
+                "A8W8_FP8_dynamic": ({8: "decode", 128: "prefill"},
+                                     {"fp8_decode": len(BLOCK_8B), "fp8_prefill": len(BLOCK_8B)})}
+    tolerance = {"A16W8_INT8": PATCH_REL_TOL, "A8W8_INT8_dynamic": PATCH_REL_TOL,
+                 "A8W8_FP8_dynamic": PATCH_REL_TOL_FP8}
     gen = torch.Generator(device="cuda").manual_seed(5)
     xs = {M: torch.randn((M, 14336), generator=gen, device="cuda").to(torch.bfloat16)
           for M in PATCH_MS}
     report, bad = {}, []
     for name, proc in (("A16W8_INT8", A16W8_INT8(device="cuda", dtype=torch.bfloat16)),
                        ("A8W8_INT8_dynamic", A8W8_INT8_dynamic(device="cuda",
-                                                               dtype=torch.bfloat16))):
+                                                               dtype=torch.bfloat16)),
+                       ("A8W8_FP8_dynamic", A8W8_FP8_dynamic(device="cuda",
+                                                             dtype=torch.bfloat16))):
         ref, model = block_8b_model(11), block_8b_model(11)
         t0 = time.perf_counter()
         patch_model(model, proc)
@@ -1884,11 +2211,12 @@ def phase_patch_model(card: str) -> None:
                 manual_equal &= all(torch.equal(lin.forward_manual(x[:, :lin.in_features], f),
                                                 out) for f in GEMLITE_MATMUL_TYPES)
         skipped = isinstance(model.lm_head, torch.nn.Linear)
-        if max(errs.values()) > PATCH_REL_TOL or counts != expected[name][1] or \
+        if max(errs.values()) > tolerance[name] or counts != expected[name][1] or \
                 not manual_equal or not skipped:
             bad.append(f"{name}: max rel err {max(errs.values())}, launches {counts}, "
                        f"forward_manual equal {manual_equal}, lm_head skipped {skipped}")
-        report[name] = {"patch_s": patch_s, "rel_err": errs, "routes": routes,
+        report[name] = {"patch_s": patch_s, "rel_err": errs, "tolerance": tolerance[name],
+                        "routes": routes,
                         "launches": counts, "forward_manual_equals_forward": manual_equal,
                         "lm_head_skipped": skipped}
         del ref, model
@@ -1968,41 +2296,63 @@ def main() -> int:
     phase_layer_a8w8(card)
     a8_counts = phase_serve_a8w8(card, cfg, dense)
     a16_counts = phase_serve_a16w8(card, cfg, dense)
+    picked.update(phase_kernels_fp8(card, peak, timer))
+    fp8_layer_counts = phase_layer_fp8(card)
+    fp8_counts = phase_serve_fp8(card, cfg, dense)
     del dense
     picked.update(phase_kernels_scan(card, peak, timer))
     scan_counts = phase_serve_scan(card)
-    phase_real_weights(card)
+    rw_counts = phase_real_weights(card)
     phase_patch_model(card)
     phase_warmup(card)
 
+    # name -> (source, the TPU kernel it replaces, the run whose launches count,
+    # that run's name, the wrapper's counter)
+    fp8_src = "gemlite_tpu_torch/csrc/fp8_gemm.cu"
     sources = {"decode": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
-                          "gemlite_tpu/ops/pallas_decode.py:619", serve_counts),
+                          "gemlite_tpu/ops/pallas_decode.py:619", serve_counts, "serve", "decode"),
                "prefill": ("gemlite_tpu_torch/csrc/prefill_gemm.cu",
-                           "gemlite_tpu/ops/pallas_prefill.py:570", serve_counts),
+                           "gemlite_tpu/ops/pallas_prefill.py:570", serve_counts, "serve",
+                           "prefill"),
                "dequantize": ("gemlite_tpu_torch/csrc/dequantize.cu",
-                              "gemlite_tpu/ops/pallas_prefill.py:353", layer_counts),
+                              "gemlite_tpu/ops/pallas_prefill.py:353", layer_counts, "layer",
+                              "dequantize"),
                "int8_decode": ("gemlite_tpu_torch/csrc/int8_decode.cu",
-                               "gemlite_tpu/ops/pallas_int8.py:286", a8_counts),
+                               "gemlite_tpu/ops/pallas_int8.py:286", a8_counts, "serve_a8w8",
+                               "int8_decode"),
                "fused_gemm": ("gemlite_tpu_torch/csrc/fused_gemm.cu",
-                              "gemlite_tpu/ops/pallas_gemm.py:294", a8_counts),
+                              "gemlite_tpu/ops/pallas_gemm.py:294", a8_counts, "serve_a8w8",
+                              "fused_gemm"),
                "fused_gemm_float": ("gemlite_tpu_torch/csrc/fused_float.cu",
-                                    "gemlite_tpu/ops/pallas_gemm.py:294", a16_counts),
+                                    "gemlite_tpu/ops/pallas_gemm.py:294", a16_counts,
+                                    "serve_a16w8", "fused_gemm_float"),
                "flash": ("gemlite_tpu_torch/csrc/flash_attention.cu",
-                         "gemlite_tpu/models/llama.py:292", paged_counts),
+                         "gemlite_tpu/models/llama.py:292", paged_counts, "serve_paged", "flash"),
                "paged_decode": ("gemlite_tpu_torch/csrc/paged_attention.cu",
-                                "gemlite_tpu/models/paged_kv.py:124", paged_counts),
+                                "gemlite_tpu/models/paged_kv.py:124", paged_counts, "serve_paged",
+                                "paged_decode"),
                "decode_stacked": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
-                                  "gemlite_tpu/ops/pallas_scan.py:70", scan_counts)}
+                                  "gemlite_tpu/ops/pallas_scan.py:70", scan_counts, "serve_scan",
+                                  "decode_stacked"),
+               "fp8_decode": (fp8_src, "gemlite_tpu/ops/pallas_decode.py:619", fp8_counts,
+                              "serve_fp8", "fp8_decode"),
+               "fp8_prefill": (fp8_src, "gemlite_tpu/ops/pallas_prefill.py:570", fp8_counts,
+                               "serve_fp8", "fp8_prefill"),
+               "dequantize_fp8": ("gemlite_tpu_torch/csrc/dequantize.cu",
+                                  "gemlite_tpu/ops/pallas_prefill.py:353", fp8_layer_counts,
+                                  "layer_fp8", "dequantize"),
+               "fp8_decode_stacked": (fp8_src, "gemlite_tpu/ops/pallas_scan.py:70",
+                                      rw_counts["a16w8_fp8"], "real_weights (a16w8_fp8)",
+                                      "fp8_decode_stacked"),
+               "fused_gemm_float_fp8x": ("gemlite_tpu_torch/csrc/fused_float.cu",
+                                         "gemlite_tpu/ops/pallas_gemm.py:294",
+                                         rw_counts["a8w4_gs64"], "real_weights (a8w4_gs64)",
+                                         "fused_gemm_float")}
     kernels = []
-    for name_k, (src, replaces, counts) in sources.items():
+    for name_k, (src, replaces, counts, path, counter) in sources.items():
         r = picked[name_k]
         kernels.append({"name": name_k, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name_k],
-                        "launches_path": ("serve" if counts is serve_counts else
-                                          "serve_a8w8" if counts is a8_counts else
-                                          "serve_a16w8" if counts is a16_counts else
-                                          "serve_paged" if counts is paged_counts else
-                                          "serve_scan" if counts is scan_counts else "layer"),
+                        "launches": counts.get(counter, 0), "launches_path": path,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

@@ -17,8 +17,10 @@ from .core import (GEMLITE_MATMUL_TYPES, GEMLITE_MATMUL_TYPES_MAPPING, GemLiteLi
                    forward_functional, get_matmul_type)
 from .dtypes import DType
 from .helper import (A16Wn, A16Wn_HQQ_INT, A16W8_HQQ_INT, A16W4_HQQ_INT, A16W2_HQQ_INT,
-                     A16W1_HQQ_INT, A16W8, A16W8_INT8, A8W8_dynamic, A8W8_INT8_dynamic,
-                     A16W158_INT, A8W158_INT_dynamic, patch_model, warmup)
+                     A16W1_HQQ_INT, A16W8, A16W8_INT8, A16W8_FP8, A8W8_dynamic,
+                     A8W8_INT8_dynamic, A8W8_FP8_dynamic, A8Wn_HQQ_INT_dynamic,
+                     A8W4_HQQ_INT_dynamic, A8W2_HQQ_INT_dynamic, A16W158_INT,
+                     A8W158_INT_dynamic, patch_model, warmup)
 from .importers import export_hf_llama, from_transformers, load_hf_llama
 from .interop import paged_kv_from_jax_numpy, params_from_jax_numpy
 from .models import (LlamaConfig, init_kv_cache, init_llama, llama_decode_step,

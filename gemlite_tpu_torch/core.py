@@ -5,8 +5,10 @@
 metadata as registered buffers, plus the reference 12-int metadata vector.
 The port always packs the reference LSB-first layout (``w_layout=0``); layers
 packed by the JAX package in its plane-folded layout are unfolded on load.
-INT8-activation layers (``scaled_activations``) quantize x per token in the
-forward and hand its scales to the router.
+INT8- and FP8-activation layers (``scaled_activations``) quantize x per
+token in the forward and hand its scales to the router. fp8 weights
+(``float8_e4m3fn`` / ``float8_e5m2``) are stored as their bit codes, four to
+an int32 word, and marked by ``w_code_dtype``.
 """
 
 import json
@@ -18,7 +20,8 @@ from torch import nn
 
 from .bitpack import (fold_plane_count, pack_weights_over_cols,
                       unfold_codes_for_planes, unpack_over_rows)
-from .dtypes import DType, TORCH_TO_DTYPE, is_mx_dtype, npz_decode_array, npz_encode_array
+from .dtypes import (FP8_INT8_DTYPES, DType, TORCH_TO_DTYPE, is_mx_dtype, npz_decode_array,
+                     npz_encode_array, to_torch_dtype)
 from .ops.dispatch import fused_matmul
 from .quant import scale_activations_per_token
 
@@ -27,7 +30,19 @@ __all__ = ["GEMLITE_MATMUL_TYPES", "GEMLITE_MATMUL_TYPES_MAPPING", "GemLiteLinea
            "tensor_from_numpy"]
 
 GEMLITE_ACC_DTYPE = {DType.FP16: DType.FP32, DType.BF16: DType.FP32,
-                     DType.FP32: DType.FP32, DType.INT8: DType.INT32}
+                     DType.FP32: DType.FP32, DType.FP8: DType.FP32, DType.FP8e5: DType.FP32,
+                     DType.INT8: DType.INT32}
+
+_FP8_WEIGHTS = {torch.float8_e4m3fn: DType.FP8, torch.float8_e5m2: DType.FP8e5}
+
+
+def _fp8_codes_subnormal_free(codes_or_packed: torch.Tensor, e5m2: bool) -> bool:
+    """True when no stored fp8 bit code is subnormal (E = 0, M != 0), on the
+    uint8 codes or the packed int32 words (packing only moves the bytes)
+    (``gemlite_tpu/core.py:_fp8_codes_subnormal_free``)."""
+    b = codes_or_packed.contiguous().view(torch.uint8)
+    exp_m, man_m = (0x7C, 0x03) if e5m2 else (0x78, 0x07)
+    return not bool((((b & exp_m) == 0) & ((b & man_m) != 0)).any())
 
 # Kernel family names, in the reference's order: their index is the
 # ``matmul_type`` of forward_functional (``gemlite_tpu/core.py:62-68``).
@@ -94,6 +109,12 @@ class LayerMeta(NamedTuple):
     in_features: int = 0
     out_features: int = 0
     zero_is_scalar: int = 0
+    # fp8 weight codes: the DType value of the stored bit codes (FP8 for
+    # e4m3fn, FP8e5 for e5m2), 0 for integer codes
+    w_code_dtype: int = 0
+    # 1 when a pack-time scan found no subnormal fp8 code (the JAX plane
+    # kernels' fast decode; the port's kernels decode every code exactly)
+    fp8_nosub: int = 0
 
     @property
     def meta_args(self):
@@ -115,8 +136,8 @@ def forward_functional(x: torch.Tensor, bias, tensor_args, meta: LayerMeta,
     W_q, scales, zeros = tensor_args
     out_shape = x.shape[:-1] + (meta.out_features,)
     scales_x = None
-    if meta.scaled_activations and meta.input_dtype == DType.INT8.value:
-        x, scales_x = scale_activations_per_token(x, torch.int8)
+    if meta.scaled_activations and DType(meta.input_dtype) in FP8_INT8_DTYPES:
+        x, scales_x = scale_activations_per_token(x, to_torch_dtype(meta.input_dtype))
     out = fused_matmul(x.reshape(-1, x.shape[-1]), W_q, scales, zeros, meta, scales_x)
     out = out.reshape(out_shape)
     if bias is not None:
@@ -135,13 +156,13 @@ def _as_tensor(a, device):
 class GemLiteLinear(nn.Module):
     """Quantized linear layer: ``pack()`` once, then call it like a module.
 
-    Packs float- and INT8-activation layers over W1/W2/W4/W8 codes or
-    non-packed int8 / fp16 / bf16 weights: W_group_mode 0-4,
+    Packs float-, INT8- and FP8-activation layers over W1/W2/W4/W8 codes, fp8
+    bit codes, or non-packed int8 / fp16 / bf16 weights: W_group_mode 0-4,
     channel_scale_mode 0-3, the fma fold of mode 4 (``zeros := -z*s``
     computed in float32 and stored in the zeros' dtype)."""
 
     SUPPORTED_BITS = (1, 2, 4, 8, 16)
-    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32, DType.INT8)
+    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32, DType.FP8, DType.FP8e5, DType.INT8)
     MIN_SIZE = 32
 
     def __init__(self, W_nbits: int = 4, group_size: Optional[int] = 64,
@@ -173,18 +194,21 @@ class GemLiteLinear(nn.Module):
         self.meta_dtype = input_dtype
         self.acc_dtype = GEMLITE_ACC_DTYPE[input_dtype] if acc_dtype is None else acc_dtype
         # float activations are never dynamically quantized
-        self.scaled_activations = bool(scaled_activations) and input_dtype == DType.INT8
+        self.scaled_activations = bool(scaled_activations) and input_dtype in FP8_INT8_DTYPES
         self.channel_scale_mode = 0
         self.W_group_mode = -1
         self.data_contiguous = True
         self.zero_is_scalar = False
+        self.w_code_dtype = 0
+        self.fp8_nosub = 0
         for name in ("W_q", "scales", "zeros", "bias"):
             self.register_buffer(name, None)
 
     def pack(self, W_q, scales=None, zeros=None, bias=None, fma_mode: bool = True,
              contiguous: Optional[bool] = None):
-        """Pack (N, K) uint8 codes, or non-packed (N, K) int8 / fp16 / bf16
-        weights, and (G, 1)-shaped group metadata.
+        """Pack (N, K) uint8 codes, (N, K) fp8 weights (W_nbits 8: their bit
+        codes, four to an int32 word, ``w_code_dtype`` set), or non-packed
+        (N, K) int8 / fp16 / bf16 weights, and (G, 1)-shaped group metadata.
 
         Follows the decision tree of ``gemlite_tpu/core.py:pack``; packed
         words stay in the LSB-first layout (w_layout=0), non-packed weights
@@ -198,6 +222,12 @@ class GemLiteLinear(nn.Module):
         if self.out_features is None or self.in_features is None:
             self.out_features, self.in_features = W_q.shape
         N = self.out_features
+        self.w_code_dtype = self.fp8_nosub = 0
+        if self.W_nbits == 8 and W_q.dtype in _FP8_WEIGHTS:
+            self.w_code_dtype = _FP8_WEIGHTS[W_q.dtype].value
+            W_q = W_q.view(torch.uint8)
+            self.fp8_nosub = int(_fp8_codes_subnormal_free(
+                W_q, e5m2=self.w_code_dtype == DType.FP8e5.value))
         if W_q.dtype == torch.uint8:
             self.W_q, self.elements_per_sample = pack_weights_over_cols(
                 W_q.reshape(N, self.in_features), self.W_nbits, 32, transpose=True)
@@ -247,9 +277,23 @@ class GemLiteLinear(nn.Module):
         elif self.scaled_activations:
             self.channel_scale_mode = 2
 
+        self._upgrade_fp8_nosub()
         if self.scales is not None and self.scales.dtype in TORCH_TO_DTYPE:
             self.meta_dtype = TORCH_TO_DTYPE[self.scales.dtype]
         return self
+
+    def _upgrade_fp8_nosub(self):
+        """fp8_nosub 1 -> 2 for a mode-2 layer whose e8m0 (uint8) block-scale
+        exponents keep the JAX prefill kernel's scaled fold finite
+        (``gemlite_tpu/core.py:_upgrade_fp8_nosub``). Only MX layers have
+        such scales, so this is a no-op on every layer the port packs; it
+        is kept so that the state reads as the JAX package's."""
+        if (self.fp8_nosub == 1 and self.W_group_mode == 2 and self.scales is not None
+                and self.scales.dtype == torch.uint8):
+            gap = 112 if self.w_code_dtype == DType.FP8e5.value else 120
+            e = self.scales
+            if e.numel() and int(e.min()) >= 1 and int(e.max()) <= 254 - gap:
+                self.fp8_nosub = 2
 
     @property
     def meta(self) -> LayerMeta:
@@ -269,6 +313,8 @@ class GemLiteLinear(nn.Module):
             in_features=self.in_features,
             out_features=self.out_features,
             zero_is_scalar=int(self.zero_is_scalar),
+            w_code_dtype=int(self.w_code_dtype),
+            fp8_nosub=int(self.fp8_nosub),
         )
 
     def get_meta_args(self):
@@ -305,22 +351,28 @@ class GemLiteLinear(nn.Module):
         for name in ("scales", "zeros", "bias"):
             if getattr(self, name) is not None:
                 sd[name] = getattr(self, name)
+        for name in ("w_code_dtype", "fp8_nosub"):
+            if getattr(self, name):
+                sd[name] = torch.tensor(getattr(self, name), dtype=torch.int32)
         return sd
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """Load a state dict of this package or of the JAX package (numpy
         arrays). A plane-folded JAX layer (``w_layout`` 1 or 2) is unfolded to
-        w_layout=0, with the logic of ``GemLiteLinear.to_reference_layout``."""
+        w_layout=0, with the logic of ``GemLiteLinear.to_reference_layout``;
+        fp8 bit codes keep their ``w_code_dtype`` and ``fp8_nosub`` (a file
+        without the flag is scanned, as the JAX package does)."""
         sd = dict(state_dict)
-        for key in ("w_code_dtype", "fp8_nosub", "mx_flat", "mx_x2"):
+        for key in ("mx_flat", "mx_x2"):
             if int(np.asarray(sd.get(key, 0))):
-                raise NotImplementedError(f"queued: layers with {key} (fp8/MX codecs)")
+                raise NotImplementedError(f"queued: layers with {key} (MX codecs)")
         meta = [int(v) for v in np.asarray(sd["metadata"])]
         (scaled_activations, self.W_nbits, self.group_size, self.unpack_mask,
          self.elements_per_sample, input_dtype, output_dtype, acc_dtype, meta_dtype,
          self.channel_scale_mode, self.W_group_mode, data_contiguous) = meta
         if is_mx_dtype(input_dtype) or DType(input_dtype) not in self.SUPPORTED_DTYPES:
-            raise NotImplementedError(f"queued: layer metadata {meta} (MX / fp8 inputs)")
+            raise NotImplementedError(f"queued: layer metadata {meta} (MX inputs; the *nuz "
+                                      "fp8 inputs are refused, as the JAX kernels refuse them)")
         self.scaled_activations = bool(scaled_activations)
         self.data_contiguous = bool(data_contiguous)
         self.input_dtype = DType(input_dtype)
@@ -334,10 +386,19 @@ class GemLiteLinear(nn.Module):
         if w_layout:
             W_q = self._unfold(W_q, w_layout)
         self.W_q = W_q
+        self.w_code_dtype = int(np.asarray(sd.get("w_code_dtype", 0)))
+        if "fp8_nosub" in sd:
+            self.fp8_nosub = int(np.asarray(sd["fp8_nosub"]))
+        elif self.w_code_dtype:
+            self.fp8_nosub = int(_fp8_codes_subnormal_free(
+                W_q, e5m2=self.w_code_dtype == DType.FP8e5.value))
+        else:
+            self.fp8_nosub = 0
         self.scales = _as_tensor(sd.get("scales"), dev)
         self.zeros = _as_tensor(sd.get("zeros"), dev)
         self.zero_is_scalar = self.zeros is not None and self.zeros.ndim == 0
         self.bias = _as_tensor(sd.get("bias"), dev)
+        self._upgrade_fp8_nosub()
         return self
 
     def _unfold(self, W_q: torch.Tensor, w_layout: int) -> torch.Tensor:

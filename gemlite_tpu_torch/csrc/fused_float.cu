@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernel gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul
 // off its int path (pallas_gemm.py:145-212) for every integer-code form its
-// gate admits: x in bf16 / fp16, or int8 x computed in bf16; non-packed int8 /
+// gate admits: x in bf16 / fp16, or int8 / fp8 (e4m3, e5m2) x computed in
+// bf16 (pallas_gemm.py:337-339; both exact in bf16); non-packed int8 /
 // fp16 / bf16 weights, or W1 / W2 / W4 / W8 codes in LSB-first int32 words
 // of (K / e, N); W_group_mode 0-4 with scalar or grouped zeros; csm 0-3.
 // Each weight is dequantized in the compute dtype with one rounding per op
@@ -49,6 +50,8 @@
 //     float32 partial, the last block of the tile adds the partials in split
 //     order, applies the csm epilogue and leaves its counter at 0. One launch,
 //     no allocation; the output bits depend only on the plan.
+#include <cuda_fp8.h>
+
 #include <algorithm>
 #include <atomic>
 #include <type_traits>
@@ -116,8 +119,15 @@ template <int J, int XB> __host__ __device__ __forceinline__ int x_unit(int m, i
     return P ^ (XB == 2 ? (m & 1) << 2 : (m & 3) << 2);
 }
 
+// 1-byte fp8 activations, e4m3 or e5m2 by Params::x_fp8 (instances of their
+// own, for the W4 and W2 codes of A8W4 / A8W2_HQQ_INT_dynamic only: the
+// int8-x instances stay as they were)
+struct fp8x {
+    uint8_t bits;
+};
+
 struct Params {
-    const void* x;              // (M, K) bf16 / fp16 / int8
+    const void* x;              // (M, K) bf16 / fp16 / int8 / fp8
     const void* W;              // (K / e, N) int32 words, or (K, N) int8 / fp16 / bf16
     const void* scales;         // (K / gs_s, N), or (1, N) channel scales
     const void* zeros;          // (K / gs_z, N), or nullptr
@@ -132,6 +142,7 @@ struct Params {
     int srows, zrows;           // group rows of scales / zeros a stage holds (0: not staged)
     int wvec, svec, zvec;       // copy sizes: 16 / 4 bytes, or plain loads (1 / 2)
     int meta_q;                 // k that share one metadata lookup: 4 J, 4 or 1
+    int x_fp8;                  // fp8x: the fp8 DType (3 e4m3, 8 e5m2)
 };
 
 __host__ __device__ inline int meta_bytes(int rows, int code) {
@@ -463,6 +474,17 @@ __device__ __forceinline__ void compute_stage(const Params& p, const unsigned ch
                 if constexpr (XB == 2) {
                     const uint4 v = *reinterpret_cast<const uint4*>(xs + m * (BK * 2) + P * 16);
                     xb[0] = v.x, xb[1] = v.y, xb[2] = v.z, xb[3] = v.w;
+                } else if constexpr (std::is_same<XT, fp8x>::value) {   // fp8 x, exact in bf16
+                    const uint2 v = *reinterpret_cast<const uint2*>(xs + m * BK + P * 8);
+                    const __nv_fp8_interpretation_t fmt = p.x_fp8 == 8 ? __NV_E5M2 : __NV_E4M3;
+                    const uint32_t u[2] = {v.x, v.y};
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
+                            static_cast<__nv_fp8x2_storage_t>((u[q >> 1] >> (16 * (q & 1))) & 0xFFFFu), fmt);
+                        const float2 f = __half22float2(__half2(hr));
+                        xb[q] = pack2<CT>(f.x, f.y);
+                    }
                 } else {                                 // int8 x, exact in bf16
                     const uint2 v = *reinterpret_cast<const uint2*>(xs + m * BK + P * 8);
                     const uint32_t u0 = v.x ^ 0x80808080u, u1 = v.y ^ 0x80808080u;
@@ -645,6 +667,11 @@ cudaError_t launch_types(const Params& p, int x_code, int nt, int splits, cudaSt
     if (x_code == gl::kI8)
         return nt == 1 ? launch<F, bf16, int8_t, 1>(p, splits, stream)
                        : launch<F, bf16, int8_t, 16>(p, splits, stream);
+    if constexpr (F == kW4 || F == kW2) {                // fp8 x (e4m3 3, e5m2 8): A8W4 / A8W2
+        if (x_code == 3 || x_code == 8)
+            return nt == 1 ? launch<F, bf16, fp8x, 1>(p, splits, stream)
+                           : launch<F, bf16, fp8x, 16>(p, splits, stream);
+    }
     return cudaErrorInvalidValue;
 }
 
@@ -665,7 +692,8 @@ int stage_rows(int gs, int K) {
 }  // namespace
 
 // Launch on `stream`. x_code / w_code / s_code / z_code / out_code are DType
-// values; x is bf16 or fp16 (the compute dtype), or int8 (computed in bf16).
+// values; x is bf16 or fp16 (the compute dtype), or int8, or fp8 (e4m3 3, e5m2
+// 8) over W4 / W2 codes (both computed in bf16).
 // The weights are W_nbits codes, elems to an int32 word, or non-packed
 // (elems 1) int8 / fp16 / bf16. nt (1 or 16) is the block's token tiles of 8
 // rows; K is cut into `splits` ranges of `k_per_split` (one range, or ranges
@@ -696,6 +724,7 @@ extern "C" int gl_fused_float(const void* x, const void* W, const void* scales, 
              out, static_cast<float*>(part), static_cast<int*>(counters),
              M, N, K, mode, csm, gs_s, gs_z, w_code, s_code, z_code, out_code,
              k_per_split, 0, 8 * std::min(nt, (M + 7) / 8), 0, 0, 0, 0, 0, 0};
+    p.x_fp8 = x_code == 3 || x_code == 8 ? x_code : 0;
     const bool staged_s = mode >= 2, staged_z = (mode == 1 || mode >= 3) && zero_scalar == nullptr;
     if (staged_s) {
         p.srows = stage_rows(gs_s, K);

@@ -11,8 +11,9 @@ from enum import Enum
 import numpy as np
 import torch
 
-__all__ = ["DType", "DTYPE_TO_TORCH", "TORCH_TO_DTYPE", "to_torch_dtype", "is_mx_dtype",
-           "get_dtype_range", "npz_encode_array", "npz_decode_array"]
+__all__ = ["DType", "DTYPE_TO_TORCH", "TORCH_TO_DTYPE", "FP8_DTYPES", "FP8_INT8_DTYPES",
+           "to_torch_dtype", "is_mx_dtype", "get_dtype_range", "npz_encode_array",
+           "npz_decode_array"]
 
 
 class DType(Enum):
@@ -72,6 +73,10 @@ TORCH_TO_DTYPE = {
 }
 
 MX_DTYPES = (DType.MXFP16, DType.MXBF16, DType.MXFP8, DType.MXFP4, DType.NVFP4)
+# the fp8 activation dtypes a layer takes (``gemlite_tpu/dtypes.py:113``
+# less the ``*nuz`` flavours, which the JAX kernels refuse too)
+FP8_DTYPES = (DType.FP8, DType.FP8e5)
+FP8_INT8_DTYPES = (DType.INT8,) + FP8_DTYPES
 
 
 def to_torch_dtype(dtype) -> torch.dtype:
@@ -91,7 +96,8 @@ def is_mx_dtype(dtype) -> bool:
 
 def get_dtype_range(dtype):
     """(min, max) of a torch dtype (or DType) as Python floats: for int8,
-    (-128.0, 127.0), the range dynamic activation quantization clips to."""
+    (-128.0, 127.0), for e4m3fn (-448.0, 448.0), the range dynamic
+    activation quantization clips to."""
     d = to_torch_dtype(dtype)
     info = torch.finfo(d) if d.is_floating_point else torch.iinfo(d)
     return float(info.min), float(info.max)

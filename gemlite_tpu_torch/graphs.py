@@ -26,6 +26,7 @@ from .ops.decode import decode_matmul
 from .ops.dequantize import dequantize_weights
 from .ops.dispatch import KERNEL_TRACE
 from .ops.fused import fused_gemm, fused_gemm_float
+from .ops.fp8 import fp8_decode, fp8_decode_stacked, fp8_prefill
 from .ops.int8_decode import int8_decode
 from .ops.prefill import prefill_matmul
 from .ops.scan import decode_matmul_stacked
@@ -37,7 +38,8 @@ COUNTED = {"decode": decode_matmul, "prefill": prefill_matmul,
            "decode_stacked": decode_matmul_stacked, "dequantize": dequantize_weights,
            "int8_decode": int8_decode, "fused_gemm": fused_gemm,
            "fused_gemm_float": fused_gemm_float, "flash": flash_attention_causal,
-           "paged_decode": paged_decode_attention_kernel}
+           "paged_decode": paged_decode_attention_kernel, "fp8_decode": fp8_decode,
+           "fp8_prefill": fp8_prefill, "fp8_decode_stacked": fp8_decode_stacked}
 
 
 def pool_bytes(pool) -> int:

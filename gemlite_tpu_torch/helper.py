@@ -4,12 +4,15 @@
 ``gemlite_tpu/helper.py``).
 
 Ported: the weight-only grouped INT processors ``A16Wn`` / ``A16Wn_HQQ_INT``
-and their W8/W4/W2/W1 presets; the channel-wise 8-bit ``A16W8_INT8``; the
-dynamic INT8 ``A8W8_INT8_dynamic``; BitNet ``A16W158_INT`` and
-``A8W158_INT_dynamic``; ``from_linear`` / ``from_bitlinear``,
-``cleanup_linear``, ``patch_model`` (replaces the linears of an ``nn.Module``
-tree or a plain object tree) and ``warmup``. The fp8 and MX processors and
-``from_hqqlinear`` (which needs the ``hqq`` package) are not ported yet.
+and their W8/W4/W2/W1 presets; the channel-wise 8-bit ``A16W8`` (int8, or
+fp8 with ``fp8=``: ``A16W8_INT8``, ``A16W8_FP8``); the dynamic 8-bit
+``A8W8_dynamic`` (``A8W8_INT8_dynamic``, ``A8W8_FP8_dynamic``); the fp8
+activations over packed grouped-INT weights of ``A8Wn_HQQ_INT_dynamic``
+(``A8W4_HQQ_INT_dynamic``, ``A8W2_HQQ_INT_dynamic``); BitNet
+``A16W158_INT`` and ``A8W158_INT_dynamic``; ``from_linear`` /
+``from_bitlinear``, ``cleanup_linear``, ``patch_model`` (replaces the linears
+of an ``nn.Module`` tree or a plain object tree) and ``warmup``. The MX
+processors are not ported yet; ``from_hqqlinear`` needs the ``hqq`` package.
 """
 
 import gc
@@ -23,12 +26,14 @@ from .dtypes import DType, TORCH_TO_DTYPE
 from .quant import quantize_int_weights
 from .utils.m_bucket import _BUCKETS
 
-__all__ = ["A16Wn", "A16Wn_HQQ_INT", "A16W8_HQQ_INT", "A16W4_HQQ_INT",
-           "A16W2_HQQ_INT", "A16W1_HQQ_INT", "A16W8", "A16W8_INT8", "A8W8_dynamic",
-           "A8W8_INT8_dynamic", "A16W158_INT", "A8W158_INT_dynamic", "cleanup_linear",
-           "patch_model", "warmup"]
+__all__ = ["A16W8", "A16W8_INT8", "A16W8_FP8", "A16Wn", "A16Wn_HQQ_INT",
+           "A16W8_HQQ_INT", "A16W4_HQQ_INT", "A16W2_HQQ_INT", "A16W1_HQQ_INT",
+           "A8W8_dynamic", "A8W8_INT8_dynamic", "A8W8_FP8_dynamic",
+           "A8Wn_HQQ_INT_dynamic", "A8W4_HQQ_INT_dynamic", "A8W2_HQQ_INT_dynamic",
+           "A16W158_INT", "A8W158_INT_dynamic", "cleanup_linear", "patch_model", "warmup"]
 
 _FLOAT_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
+DEFAULT_FP8 = torch.float8_e4m3fn
 
 
 def _float_dtype_of(t: torch.Tensor, override=None) -> torch.dtype:
@@ -37,15 +42,44 @@ def _float_dtype_of(t: torch.Tensor, override=None) -> torch.dtype:
     return t.dtype if t.dtype in _FLOAT_DTYPES else torch.bfloat16
 
 
-def _channelwise_quant_8bit(weight: torch.Tensor):
-    """Symmetric per-output-channel int8 quantization (absmax / 127), in
-    float32: (W_q int8 (N, K), scales float32 (N, 1)); the INT8 branch of
-    ``gemlite_tpu/helper.py:_channelwise_quant_8bit``."""
+def _flush_fp8_subnormal_codes(W_q: torch.Tensor) -> torch.Tensor:
+    """Round fp8 subnormal codes to the nearest of {0, +-min normal} (a
+    mantissa above half the range goes up, the rest to a signed zero), so
+    that the stored codes are subnormal-free and ``pack()`` sets
+    ``fp8_nosub`` (``gemlite_tpu/helper.py:_flush_fp8_subnormal_codes``).
+    Pass ``flush_subnormals=False`` to a processor to keep every code."""
+    bits = W_q.view(torch.uint8)
+    e5m2 = W_q.dtype == torch.float8_e5m2
+    exp_m, man_m, half = (0x7C, 0x03, 2) if e5m2 else (0x78, 0x07, 4)
+    sub = ((bits & exp_m) == 0) & ((bits & man_m) != 0)
+    if not bool(sub.any()):
+        return W_q
+    sign = bits & 0x80
+    snapped = torch.where((bits & man_m) > half, sign | (man_m + 1), sign)
+    return torch.where(sub, snapped, bits).to(torch.uint8).view(W_q.dtype)
+
+
+def _channelwise_quant_8bit(weight: torch.Tensor, fp8: Optional[torch.dtype] = None,
+                            flush_subnormals: bool = True):
+    """Symmetric per-output-channel 8-bit quantization (absmax / max), in
+    float32: (W_q (N, K) int8, or ``fp8`` rounded to nearest even, scales
+    float32 (N, 1)) (``gemlite_tpu/helper.py:_channelwise_quant_8bit``)."""
+    if fp8 is not None:
+        info = torch.finfo(fp8)
+        min_val, max_val = float(info.min), float(info.max)
+    else:
+        min_val, max_val = -128.0, 127.0
     w = weight.to(torch.float32)
     amax = w.abs().amax(dim=1, keepdim=True)
     # a tensor divisor: CUDA divides by a Python scalar through its reciprocal
-    scales = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-6)
-    W_q = torch.round(torch.clamp(w / scales, -128.0, 127.0)).to(torch.int8)
+    scales = (amax / torch.full_like(amax, max_val)).clamp_min(1e-6)
+    W_q = torch.clamp(w / scales, min_val, max_val)
+    if fp8 is not None:
+        W_q = W_q.to(fp8)
+        if flush_subnormals:
+            W_q = _flush_fp8_subnormal_codes(W_q)
+    else:
+        W_q = torch.round(W_q).to(torch.int8)
     return W_q, scales
 
 
@@ -181,22 +215,27 @@ def _warmup_quantize(processor, w, group_size: int, **quant_kwargs) -> GemLiteLi
 
 
 class A16W8(_FromLinear):
-    """16-bit activations x int8 weights, float32 channel-wise scales: scaled
-    inside the K loop (W_group_mode 2) or, with ``post_scale``, after it
-    (csm 1). The fp8 weights of the JAX package's ``A16W8`` wait for the FP8
-    slice."""
+    """16-bit activations x 8-bit weights, channel-wise scales (float32, or
+    the activation dtype without ``fp32_scale``): int8 weights, or with
+    ``fp8`` (``torch.float8_e4m3fn`` / ``torch.float8_e5m2``) fp8 weights
+    stored as bit codes; scaled inside the K loop (W_group_mode 2) or, with
+    ``post_scale``, after it (csm 1)."""
 
     def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
-                 post_scale: bool = False):
+                 fp8: Optional[torch.dtype] = None, fp32_scale: bool = True,
+                 post_scale: bool = False, flush_subnormals: bool = True):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.fp8 = fp8
+        self.fp32_scale = fp32_scale
         self.post_scale = post_scale
+        self.flush_subnormals = flush_subnormals
 
     def from_weights(self, weight, bias=None, scales=None) -> GemLiteLinear:
         weight = tensor_from_numpy(weight).to(self.device)
         if scales is None:
             dtype = _float_dtype_of(weight, self.dtype)
-            W_q, scales = _channelwise_quant_8bit(weight)
+            W_q, scales = _channelwise_quant_8bit(weight, self.fp8, self.flush_subnormals)
         else:
             if weight.element_size() != 1:
                 raise ValueError("pre-quantized weight must be 8-bit")
@@ -210,7 +249,8 @@ class A16W8(_FromLinear):
                               output_dtype=gem_dtype, device=self.device)
         if bias is not None:
             bias = tensor_from_numpy(bias).to(dtype)
-        layer.pack(W_q, scales.to(torch.float32), zeros=None, bias=bias)
+        scales = scales.to(torch.float32 if self.fp32_scale else dtype)
+        layer.pack(W_q, scales, zeros=None, bias=bias)
         if self.post_scale:
             layer.W_group_mode, layer.channel_scale_mode = 0, 1
         else:
@@ -218,25 +258,42 @@ class A16W8(_FromLinear):
         return layer
 
 
-A16W8_INT8 = A16W8
+class A16W8_INT8(A16W8):
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
+                 fp32_scale: bool = True, post_scale: bool = False):
+        super().__init__(device, dtype, fp8=None, fp32_scale=fp32_scale, post_scale=post_scale)
+
+
+class A16W8_FP8(A16W8):
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
+                 fp8: torch.dtype = DEFAULT_FP8, fp32_scale: bool = True,
+                 post_scale: bool = False, flush_subnormals: bool = True):
+        super().__init__(device, dtype, fp8=fp8, fp32_scale=fp32_scale, post_scale=post_scale,
+                         flush_subnormals=flush_subnormals)
 
 
 class A8W8_dynamic(_FromLinear):
-    """Dynamic int8 activations (per-token scales, computed in the forward)
-    x int8 weights with float32 channel-wise scales: W_group_mode 0, csm 3,
-    an exact int32 K sum scaled after it. ``dtype`` is the output dtype. The
-    fp8 flavour of the JAX package's ``A8W8_dynamic`` waits for the FP8
-    slice."""
+    """Dynamic 8-bit activations (per-token scales, computed in the forward)
+    x 8-bit weights with channel-wise scales: int8 x int8 with an exact
+    int32 K sum, or with ``fp8`` fp8 activations x fp8 weights (bit codes)
+    with a float32 sum; W_group_mode 0, csm 3, both scales applied after the
+    sum. ``dtype`` is the output dtype."""
 
-    def __init__(self, device=None, dtype: Optional[torch.dtype] = None):
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
+                 fp8: Optional[torch.dtype] = None, fp32_scale: bool = True,
+                 flush_subnormals: bool = True):
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.fp8 = fp8
+        self.fp32_scale = fp32_scale
+        self.flush_subnormals = flush_subnormals
 
     def from_weights(self, weight, bias=None, scales=None) -> GemLiteLinear:
         weight = tensor_from_numpy(weight).to(self.device)
+        input_dtype = TORCH_TO_DTYPE[self.fp8] if self.fp8 is not None else DType.INT8
         if scales is None:
             dtype = _float_dtype_of(weight, self.dtype)
-            W_q, scales = _channelwise_quant_8bit(weight)
+            W_q, scales = _channelwise_quant_8bit(weight, self.fp8, self.flush_subnormals)
         else:
             if weight.element_size() != 1:
                 raise ValueError("pre-quantized weight must be 8-bit")
@@ -245,17 +302,97 @@ class A8W8_dynamic(_FromLinear):
             W_q = weight
         out_features, in_features = W_q.shape
         layer = GemLiteLinear(8, group_size=in_features, in_features=in_features,
-                              out_features=out_features, input_dtype=DType.INT8,
+                              out_features=out_features, input_dtype=input_dtype,
                               output_dtype=TORCH_TO_DTYPE[dtype], scaled_activations=True,
                               device=self.device)
         if bias is not None:
             bias = tensor_from_numpy(bias).to(dtype)
-        layer.pack(W_q, scales.to(torch.float32), zeros=None, bias=bias)
+        layer.pack(W_q, scales.to(torch.float32 if self.fp32_scale else dtype), zeros=None,
+                   bias=bias)
         layer.W_group_mode, layer.channel_scale_mode = 0, 3
         return layer
 
 
-A8W8_INT8_dynamic = A8W8_dynamic
+class A8W8_INT8_dynamic(A8W8_dynamic):
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__(device, dtype, fp8=None)
+
+
+class A8W8_FP8_dynamic(A8W8_dynamic):
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
+                 fp8: torch.dtype = DEFAULT_FP8, flush_subnormals: bool = True):
+        super().__init__(device, dtype, fp8=fp8, flush_subnormals=flush_subnormals)
+
+
+A8W8_int8_dynamic = A8W8_INT8_dynamic
+A8W8_fp8_dynamic = A8W8_FP8_dynamic
+
+
+class A8Wn_HQQ_INT_dynamic(A16Wn):
+    """Dynamic fp8 activations (per-token scales) x packed grouped-INT Wn
+    weights (W_group_mode 3 with bf16 scales and zeros, no fma fold; csm 2;
+    at gs = K, mode 3 or with ``post_scale`` mode 1 and csm 3). Off the int
+    path the fp8 x is computed in bf16."""
+
+    def __init__(self, device=None, dtype: Optional[torch.dtype] = None,
+                 post_scale: bool = False, fp8: torch.dtype = DEFAULT_FP8,
+                 fp32_scale: bool = False, W_nbits: Optional[int] = None):
+        if W_nbits is None:
+            raise ValueError("W_nbits must be 8, 4, 2 or 1")
+        super().__init__(device, dtype, post_scale)
+        self.fp8 = fp8
+        self.fp32_scale = fp32_scale
+        self.W_nbits = W_nbits
+
+    def from_weights(self, W_q, scales, zeros, bias=None) -> GemLiteLinear:
+        W_q = tensor_from_numpy(W_q)
+        scales = tensor_from_numpy(scales)
+        zeros = tensor_from_numpy(zeros)
+        group_size = W_q.numel() // scales.numel()
+        dtype = _float_dtype_of(scales, self.dtype)
+        out_features, in_features = W_q.shape
+        layer = GemLiteLinear(self.W_nbits, group_size=group_size, in_features=in_features,
+                              out_features=out_features, input_dtype=TORCH_TO_DTYPE[self.fp8],
+                              output_dtype=TORCH_TO_DTYPE[dtype], scaled_activations=True,
+                              device=self.device)
+        if bias is not None:
+            bias = tensor_from_numpy(bias).to(dtype)
+        layer.pack(W_q.to(torch.uint8), scales.to(torch.float32 if self.fp32_scale else dtype),
+                   zeros.to(dtype), bias=bias, fma_mode=False)
+        if group_size == in_features:
+            if self.post_scale:
+                layer.W_group_mode, layer.channel_scale_mode = 1, 3
+            else:
+                layer.W_group_mode, layer.channel_scale_mode = 3, 2
+        return layer
+
+    def from_hqqlinear(self, hqq_layer, del_orig: bool = True) -> GemLiteLinear:
+        """An ``hqq`` ``HQQLinear`` (axis 1) unpacked and packed here; raises
+        ``ImportError`` without the ``hqq`` package."""
+        try:
+            import hqq  # noqa: F401
+        except ImportError as e:
+            raise ImportError("This processor requires the `hqq` package.") from e
+        if hqq_layer.meta["axis"] != 1:
+            raise ValueError("Only axis==1 is supported.")
+        W_q = _host_tensor(hqq_layer.unpack(dtype=None)).reshape(hqq_layer.meta["shape"])
+        scales = _host_tensor(hqq_layer.meta["scale"])
+        zeros = _host_tensor(hqq_layer.meta["zero"])
+        bias = _host_tensor(hqq_layer.bias) if hqq_layer.bias is not None else None
+        cleanup_linear(hqq_layer, del_orig)
+        return self.from_weights(W_q, scales, zeros, bias)
+
+
+class A8W4_HQQ_INT_dynamic(A8Wn_HQQ_INT_dynamic):
+    def __init__(self, device=None, dtype=None, post_scale=False, fp8=DEFAULT_FP8,
+                 fp32_scale=False):
+        super().__init__(device, dtype, post_scale, fp8, fp32_scale, W_nbits=4)
+
+
+class A8W2_HQQ_INT_dynamic(A8Wn_HQQ_INT_dynamic):
+    def __init__(self, device=None, dtype=None, post_scale=False, fp8=DEFAULT_FP8,
+                 fp32_scale=False):
+        super().__init__(device, dtype, post_scale, fp8, fp32_scale, W_nbits=2)
 
 
 class A16W158_INT(_FromBitLinear):

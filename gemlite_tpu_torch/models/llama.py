@@ -115,8 +115,11 @@ def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: i
     dtype=bf16)``: scales and zeros are stored in bf16, as the JAX package's
     default does, which makes every layer a W_group_mode 4 bf16 layer that the
     decode, prefill and dequantize kernels serve. A processor without
-    ``W_nbits`` (``A8W8_INT8_dynamic``) quantizes the float weight itself
-    through ``from_weights``.
+    ``W_nbits`` (``A16W8_INT8``, ``A8W8_INT8_dynamic``, ``A16W8_FP8``,
+    ``A8W8_FP8_dynamic``) quantizes the float weight itself through
+    ``from_weights``; one with ``W_nbits`` (``A16Wn_HQQ_INT``,
+    ``A8Wn_HQQ_INT_dynamic``) gets the HQQ-style quantizer's codes at
+    ``group_size`` (``helper._warmup_quantize``, as in JAX).
 
     ``fuse=True`` concatenates q/k/v into one ``wqkv`` layer and gate/up into
     one ``gate_up`` layer in float32 before quantizing, as the JAX package

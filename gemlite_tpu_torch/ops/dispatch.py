@@ -10,9 +10,17 @@ By the flattened batch size M, in the JAX router's order:
 
 The decode and prefill kernels take mode-4 bf16 layers of W1, W2 and W4
 codes, as the JAX decode and prefill kernels do; the dequantize kernel takes
-W4. A float layer that the JAX package sends to one of its kernels but whose
-form the port's kernel does not cover yet (W8 codes, modes 1-3,
-channel-wise; W1/W2 at M >= 4096) runs on the general fused kernel here;
+W4. Layers of fp8 bit codes (``A16W8_FP8``, ``A8W8_FP8_dynamic``) take the
+fp8 kernels under the same route names (``ops/fp8.py``): decode at M <= 64,
+prefill below 4096, the fp8 form of the dequantize kernel then a dense
+matmul from 4096, and never the general fused kernel, whose JAX gate refuses
+them (``pallas_gemm.py:can_use_pallas``). fp8 x over integer codes
+(``A8Wn_HQQ_INT_dynamic``) runs the general fused kernel's float path at
+every M, where JAX runs its decode, prefill and dequantize kernels (a route
+difference: the same results on a slower kernel). A float layer that the
+JAX package sends to one of its kernels but whose form the port's kernel
+does not cover yet (W8 codes, modes 1-3, channel-wise; W1/W2 at M >= 4096)
+runs on the general fused kernel here;
 non-packed int8 weights (A16W8) run on it below M 4096 in both packages,
 on its float path (``fused_gemm_float``). ``dense_fallback``
 is kept for the layers that the JAX package itself dequantizes without a
@@ -29,6 +37,7 @@ import torch
 from ..dtypes import DType, to_torch_dtype
 from .decode import can_use_decode, decode_matmul
 from .dequantize import can_use_dequantize, dequantize_full, dequantize_weights
+from .fp8 import fp8_coded, fp8_decode, fp8_prefill, serves_fp8
 from .fused import can_use_fused, fused_gemm
 from .int8_decode import can_use_int8_decode, int8_decode
 from .prefill import can_use_prefill, prefill_matmul
@@ -69,6 +78,10 @@ def _xla_dequantized(meta) -> bool:
 
 
 def _route(meta, M: int):
+    if fp8_coded(meta):
+        if not serves_fp8(meta):
+            return None
+        return "decode" if M <= 64 else "prefill" if M < 4096 else "dequantize"
     if M >= 4096:
         if can_use_dequantize(meta):
             return "dequantize"
@@ -102,13 +115,15 @@ def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> to
     if route is None:
         if not on_cpu:
             raise NotImplementedError(
-                f"no kernel serves M={x.shape[0]} with {meta}: the MX codecs and csm 4 "
-                "wait for the MX slice")
+                f"no kernel serves M={x.shape[0]} with {meta}: the MX codecs, csm 4 and "
+                "grouped fp8 wait for the MX slice; fp8 codes need K and N multiples of 128")
         _note("plain_oracle")
         return forward_meta(x, W_q, scales, zeros, scales_x, meta)
     _note(f"plain_{route}" if on_cpu else route)
     if route == "int8_exact":
         return int8_decode(x, W_q, scales, zeros, scales_x, meta)
+    if fp8_coded(meta) and route in ("decode", "prefill"):
+        return (fp8_decode if route == "decode" else fp8_prefill)(x, W_q, scales, scales_x, meta)
     if route == "decode":
         return decode_matmul(x, W_q, scales, zeros, meta)
     if route == "prefill":

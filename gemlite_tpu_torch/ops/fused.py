@@ -11,8 +11,9 @@ W_group_mode 0-4 with scalar or grouped zeros; channel_scale_mode 0-3.
                 fit int8 (not packed W8): int8 x int8 -> int32, exact, in one
                 launch whose tiles and K split ``int_plan`` chooses
                 (``fused_gemm.cu``)
-    float path  bf16 / fp16 x, or int8 x off the int path (computed in
-                bf16): the weights dequantized in the compute dtype, rounded
+    float path  bf16 / fp16 x, or int8 x off the int path, or fp8 x
+                (e4m3 / e5m2) over W4 / W2 codes (both computed in bf16):
+                the weights dequantized in the compute dtype, rounded
                 after every op as the JAX kernel's ``meta_f32=False``
                 arithmetic does, products on the tensor cores with float32
                 sums, in one launch whose token tile and K split
@@ -41,6 +42,8 @@ __all__ = ["FloatPlan", "IntPlan", "can_use_fused", "float_plan", "fused_gemm", 
 
 BK = 32                   # K must be whole steps of this
 _FLOAT_INPUTS = (DType.FP16.value, DType.BF16.value, DType.FP32.value)
+_FP8_INPUTS = (DType.FP8.value, DType.FP8e5.value)
+_BYTE_INPUTS = (DType.INT8.value,) + _FP8_INPUTS      # computed in bf16
 _META_DTYPES = {torch.float32: DType.FP32.value, torch.float16: DType.FP16.value,
                 torch.bfloat16: DType.BF16.value}
 _W_DTYPES = {torch.int32: DType.INT32.value, torch.int8: DType.INT8.value,
@@ -52,8 +55,12 @@ def can_use_fused(meta) -> bool:
     integer codes, without the TPU's block rules)."""
     if is_mx_dtype(meta.input_dtype) or meta.channel_scale_mode not in (0, 1, 2, 3):
         return False
-    if meta.input_dtype not in _FLOAT_INPUTS + (DType.INT8.value,):
+    if meta.input_dtype not in _FLOAT_INPUTS + _BYTE_INPUTS:
         return False
+    if getattr(meta, "w_code_dtype", 0):
+        return False                       # fp8 bit codes: the fp8 kernels (ops/fp8.py)
+    if meta.input_dtype in _FP8_INPUTS and meta.elements_per_sample not in (8, 16):
+        return False                       # fp8 x: W4 / W2 codes (A8W4 / A8W2) only
     e = meta.elements_per_sample
     packed = meta.W_nbits in (1, 2, 4, 8) and e == 32 // meta.W_nbits
     if not (packed or (e == 1 and meta.W_nbits in (8, 16))):
@@ -73,7 +80,7 @@ def int_path(meta) -> bool:
 
 def compute_dtype(meta) -> torch.dtype:
     """The dtype of the dot off the int path: the input's float dtype, bf16
-    for int8 x."""
+    for int8 and fp8 x."""
     if meta.input_dtype in _FLOAT_INPUTS:
         return to_torch_dtype(meta.input_dtype)
     return torch.bfloat16
@@ -307,12 +314,12 @@ def _codes(W_q, s, z):
 
 def fused_gemm_float(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
     """The float path alone: out (M, N) = csm(x (M, K) @ dequant(W_q)) with x
-    in bf16 / fp16, or int8 off the int path, in one launch of
+    in bf16 / fp16, or int8 off the int path, or fp8, in one launch of
     ``csrc/fused_float.cu`` planned by ``float_plan``."""
     if x.device.type == "cpu":
         return fused_matmul_plain(x, W_q, scales, zeros, scales_x, meta)
-    if int_path(meta) or meta.input_dtype not in (DType.BF16.value, DType.FP16.value,
-                                                  DType.INT8.value):
+    if int_path(meta) or meta.input_dtype not in (DType.BF16.value,
+                                                  DType.FP16.value) + _BYTE_INPUTS:
         raise ValueError(f"the float path does not take {meta}: the int path and float32 x "
                          "run on fused_gemm")
     x, W_q, s, z, zs, sx, gs_s, gs_z, out = _kernel_args(x, W_q, scales, zeros, scales_x, meta)

@@ -14,6 +14,9 @@ W_group_mode, per K-group dequantization of the weight:
 
 channel_scale_mode, epilogue on the (M, N) accumulator:
     0: none   1: * scales_w[None, :]   2: * scales_x[:, None]   3: both
+
+fp8 bit codes (``w_code_dtype``): the bytes are the fp8 weights themselves,
+summed against x in float32 and scaled after the dot (``forward_fp8_ref``).
 """
 
 import torch
@@ -21,7 +24,8 @@ import torch
 from ..bitpack import unpack_over_rows
 from ..dtypes import DType, to_torch_dtype
 
-__all__ = ["unpack_rows_ref", "dequantize_ref", "int_matmul", "forward_ref", "forward_meta"]
+__all__ = ["unpack_rows_ref", "dequantize_ref", "int_matmul", "forward_ref", "forward_meta",
+           "fp8_values", "forward_fp8_ref"]
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,8 +121,50 @@ def forward_ref(x: torch.Tensor, W_q_packed: torch.Tensor, scales, zeros, scales
     return acc.to(out_dtype)
 
 
+def fp8_values(W_q: torch.Tensor, meta) -> torch.Tensor:
+    """The (K, N) float32 values of a layer's fp8 bit codes: the unpacked
+    bytes read as ``float8_e4m3fn`` / ``float8_e5m2``, converted exactly."""
+    codes = unpack_over_rows(W_q, 8, meta.in_features)
+    return codes.view(to_torch_dtype(meta.w_code_dtype)).to(torch.float32)
+
+
+def forward_fp8_ref(x: torch.Tensor, W_q: torch.Tensor, scales, scales_x, meta) -> torch.Tensor:
+    """out = csm(x @ W) for fp8 bit codes, the plain version of every fp8
+    kernel (``gemlite_tpu/ops/pallas_decode.py:400-406``): the fp8 weights
+    are true values, summed against x (bf16 or fp8, exact in float32) in
+    float32; mode 2 multiplies each group's sum by its (1, N) scale row and
+    adds the groups in order; then csm 1 (* scales), 2 (* scales_x) or 3
+    (* scales_x, then * scales), each multiply in float32. Returns (M, N)
+    in the output dtype."""
+    K, N = meta.in_features, meta.out_features
+    w = fp8_values(W_q, meta)
+    xf = x.to(torch.float32)
+    if meta.W_group_mode == 2:
+        s = scales.reshape(-1, N).to(torch.float32)
+        gs = K // s.shape[0]
+        acc = None
+        for g in range(s.shape[0]):
+            part = (xf[:, g * gs:(g + 1) * gs] @ w[g * gs:(g + 1) * gs]) * s[g:g + 1]
+            acc = part if acc is None else acc + part
+    elif meta.W_group_mode == 0:
+        acc = xf @ w
+    else:
+        raise ValueError(f"fp8 codes are true values: W_group_mode 0 or 2, not {meta.W_group_mode}")
+    csm = meta.channel_scale_mode
+    if csm in (2, 3):
+        acc = acc * scales_x.reshape(-1, 1).to(torch.float32)
+    if csm in (1, 3):
+        acc = acc * scales.reshape(1, -1).to(torch.float32)
+    elif csm == 4:
+        raise NotImplementedError("queued: csm 4 (MX grouped activation scales)")
+    return acc.to(to_torch_dtype(meta.output_dtype))
+
+
 def forward_meta(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
-    """forward_ref with its static arguments taken from a LayerMeta."""
+    """forward_ref with its static arguments taken from a LayerMeta (for fp8
+    bit codes, ``forward_fp8_ref``)."""
+    if getattr(meta, "w_code_dtype", 0):
+        return forward_fp8_ref(x, W_q, scales, scales_x, meta)
     return forward_ref(
         x, W_q, scales, zeros, scales_x,
         W_nbits=meta.W_nbits, group_size=meta.group_size,

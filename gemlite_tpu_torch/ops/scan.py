@@ -1,6 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
 """Stacked decode kernel: layer ``l`` of an L-layer stack of W1/W2/W4 mode-4
-layers for M <= 64 (``csrc/decode_gemv.cu``, entry ``gl_decode_stacked``).
+layers for M <= 64 (``csrc/decode_gemv.cu``, entry ``gl_decode_stacked``),
+or of fp8-coded layers with unscaled x (``A16W8_FP8``; ``csrc/fp8_gemm.cu``,
+entry ``gl_fp8_decode_stacked``, wrapper ``ops/fp8.fp8_decode_stacked``).
 
 Replaces ``gemlite_tpu/ops/pallas_scan.py:pallas_decode_matmul_stacked``. The
 TPU kernel takes the layer index as a scalar-prefetch operand read by its
@@ -23,6 +25,7 @@ import torch
 from ..dtypes import DType
 from . import build, w4
 from .decode import can_use_decode, plan, split_buffers
+from .fp8 import fp8_coded, fp8_decode_stacked, fp8_refusal
 from .reference import forward_meta
 
 __all__ = ["can_use_stacked_decode", "stacked_decode_refusal", "decode_matmul_stacked",
@@ -42,6 +45,10 @@ def stacked_decode_refusal(meta, M: int) -> Optional[str]:
         return "its activations are quantized per token, and the stacked path has no scales_x"
     if meta.zero_is_scalar:
         return "its zero is a scalar"
+    if fp8_coded(meta):
+        if not 0 < M <= 64:
+            return f"the fp8 decode kernel takes M <= 64 rows, not M={M}"
+        return fp8_refusal(meta, M)
     if not can_use_decode(meta, M):
         return (f"the decode kernel takes M <= 64 rows of mode-4 bf16 W1/W2/W4 layers, "
                 f"not M={M} with W_nbits={meta.W_nbits}, W_group_mode={meta.W_group_mode}, "
@@ -56,7 +63,9 @@ def can_use_stacked_decode(meta, M: int) -> bool:
 def _layer(t, layer_idx):
     """Layer ``layer_idx`` of the stack ``t``: a view for an int, and for a
     one-element tensor an ``index_select``, which does not read the index
-    on the host."""
+    on the host. ``None`` (a stack the layers lack) stays None."""
+    if t is None:
+        return None
     L = t.shape[0]
     try:
         if isinstance(layer_idx, torch.Tensor):
@@ -88,6 +97,11 @@ def decode_matmul_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) 
     CPU too). On the card the index is never read by the host."""
     if x.device.type == "cpu":
         return decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx)
+    if fp8_coded(meta):
+        why = stacked_decode_refusal(meta, x.shape[0])
+        if why is not None:
+            raise NotImplementedError(f"stacked decode kernel does not take this layer: {why}")
+        return fp8_decode_stacked(x, W_q, scales, meta, layer_idx)
     M = x.shape[0]
     why = stacked_decode_refusal(meta, M)
     if why is not None:

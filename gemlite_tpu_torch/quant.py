@@ -13,29 +13,35 @@ the CPU and on the card.
 import numpy as np
 import torch
 
-from .dtypes import get_dtype_range
+from .dtypes import get_dtype_range, to_torch_dtype
 
 __all__ = ["quantize_int_weights", "scale_activations_per_token"]
 
 
-def scale_activations_per_token(x: torch.Tensor, w_dtype=torch.int8):
-    """Per-token (per-row) symmetric dynamic quantization.
+def scale_activations_per_token(x: torch.Tensor, w_dtype=torch.int8, fp32_scale: bool = True):
+    """Per-token (per-row) symmetric dynamic quantization
+    (``gemlite_tpu/quant.py:scale_activations_per_token``).
 
-    x (..., K) float -> (x_q (..., K) in ``w_dtype``, scales (M, 1) float32):
-    scale = row absmax / max_val in float32, clamped to >= 1e-6; the codes are
-    x / scale clipped to the type's range and, for an integer type, rounded
-    half to even. Plain PyTorch on every device, as the JAX package computes
-    it with plain jnp."""
+    x (..., K) float -> (x_q (..., K) in ``w_dtype`` (int8, e4m3fn or e5m2;
+    a torch dtype or a ``DType``), scales (M, 1) float32): scale = row absmax
+    / max_val, clamped to >= 1e-6; the codes are x / scale clipped to the
+    type's range, rounded half to even (an integer type by ``round``, an fp8
+    type by its cast). With ``fp32_scale`` the chain runs in float32, else
+    in x's own dtype. Plain PyTorch on every device, as the JAX package
+    computes it with plain jnp."""
+    w_dtype = to_torch_dtype(w_dtype)
     min_val, max_val = get_dtype_range(w_dtype)
-    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    xf = x.reshape(-1, x.shape[-1])
+    if fp32_scale:
+        xf = xf.to(torch.float32)
     amax = xf.abs().amax(dim=1, keepdim=True)
     # divide by a tensor on the same device: CUDA divides by a Python scalar
     # as a multiply by its reciprocal, which can land one ulp off
-    scales = (amax / torch.full_like(amax, max_val)).clamp_min(1e-6)
+    scales = torch.maximum(amax / torch.full_like(amax, max_val), torch.full_like(amax, 1e-6))
     q = torch.clamp(xf / scales, min_val, max_val)
     if not w_dtype.is_floating_point:
         q = torch.round(q)
-    return q.to(w_dtype).reshape(x.shape), scales
+    return q.to(w_dtype).reshape(x.shape), scales.to(torch.float32)
 
 
 _NP_BUFSIZE = 8192      # numpy's reduction buffer: a longer row is summed in chunks

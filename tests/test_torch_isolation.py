@@ -49,7 +49,8 @@ def _entry_points(files: Path):
     from gemlite_tpu_torch import (A16W4_HQQ_INT, ContinuousBatchingEngine, DType,
                                    GemLiteLinear, LlamaConfig, init_kv_cache, init_llama,
                                    params_from_jax_numpy, quantize_llama)
-    from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_INT8, A8W158_INT_dynamic,
+    from gemlite_tpu_torch.helper import (A16W158_INT, A16W8_FP8, A16W8_INT8, A8W158_INT_dynamic,
+                                          A8W4_HQQ_INT_dynamic, A8W8_FP8_dynamic,
                                           A8W8_INT8_dynamic, warmup)
     from gemlite_tpu_torch.checkpoint import load_model, save_model
     from gemlite_tpu_torch.importers import load_hf_llama
@@ -67,6 +68,9 @@ def _entry_points(files: Path):
         "A8W8_INT8_dynamic": lambda **kw: A8W8_INT8_dynamic(**kw),
         "A16W158_INT": lambda **kw: A16W158_INT(**kw),
         "A8W158_INT_dynamic": lambda **kw: A8W158_INT_dynamic(**kw),
+        "A16W8_FP8": lambda **kw: A16W8_FP8(**kw),
+        "A8W8_FP8_dynamic": lambda **kw: A8W8_FP8_dynamic(**kw),
+        "A8W4_HQQ_INT_dynamic": lambda **kw: A8W4_HQQ_INT_dynamic(**kw),
         "init_llama": lambda **kw: init_llama(cfg, **kw),
         "init_kv_cache": lambda **kw: init_kv_cache(cfg, 1, **kw),
         "quantize_llama": lambda **kw: quantize_llama(cpu_params, group_size=64, **kw),
@@ -83,7 +87,8 @@ def _entry_points(files: Path):
 
 
 ENTRY_POINTS = ("A16W4_HQQ_INT", "A16W8_INT8", "A8W8_INT8_dynamic", "A16W158_INT",
-                "A8W158_INT_dynamic", "ContinuousBatchingEngine", "GemLiteLinear", "init_kv_cache",
+                "A8W158_INT_dynamic", "A16W8_FP8", "A8W8_FP8_dynamic", "A8W4_HQQ_INT_dynamic",
+                "ContinuousBatchingEngine", "GemLiteLinear", "init_kv_cache",
                 "init_llama", "params_from_jax_numpy", "quantize_llama", "load_hf_llama",
                 "load_model", "GemLiteLinear.load", "warmup")
 
