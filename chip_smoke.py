@@ -6,9 +6,10 @@
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the nine CUDA sources from gemlite_tpu_torch/csrc
+  build    compile the ten CUDA sources from gemlite_tpu_torch/csrc
            (decode_gemv.cu holds the per-layer and stacked decode, fp8_gemm.cu
-           the fp8 decode, stacked decode and prefill);
+           the fp8 decode, stacked decode and prefill, mx_gemm.cu the MX
+           decode, stacked decode and prefill);
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
            (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
            W1 prefill at M 128 on 14336x4096): relative error max|a-b| /
@@ -94,6 +95,27 @@ Phases, each printing one JSON line:
            only on the fp8 decode and prefill kernels, launches equal the
            schedule, the first step matches the plain path on the CPU;
   profile_fp8  device time by kernel over a short A8W8_FP8 serving run;
+  kernels_mx   the MX kernels (csrc/mx_gemm.cu, the MX form of
+           csrc/dequantize.cu) against their plain version
+           (ops/reference.mx_forward_ref) within 5e-3: decode at M 1 / 8 / 64
+           and prefill at M 128 / 1024 on the four 8B shapes for A16W4_MXFP,
+           A16W8_MXFP (e4m3; e5m2 on 14336x4096) and A8W8_MXFP_dynamic, NVFP4
+           on the prefill kernel at M 8 / 128; the csm-4 form (e4m3 codes and
+           group scales in) at M 128 / 1024 for MXFP4 and NVFP4, equal bit for
+           bit to the bf16 form fed fake_quant_activations; the MX dequantize
+           on 14336x4096 equal to dequantize_full bit for bit; the stacked
+           decode over a 32-layer A16W4_MXFP stack at layers 0 / 17 / 31,
+           equal to the per-layer kernel bit for bit. Plans, one device
+           operation a call, times, bounds and a dense bf16 matmul on the
+           dequantized weight as the yardstick;
+  layer_mx     each of the six MX processors at 4096x4096, M in {1, 64, 65,
+           128, 4096}, on the JAX router's routes (decode / prefill /
+           prefill_mx_csm4 / dequantize);
+  serve_mxfp4, serve_nvfp4  the 4-layer model quantized with A16W4_MXFP
+           and A4W4_NVFP_dynamic, served as in "serve": tokens equal the bare
+           loop, the linears run only on the MX routes, launches equal the
+           schedule, the first step matches the plain path on the CPU; each
+           profiled (profile_mxfp4, profile_nvfp4);
   kernels_scan the stacked decode kernel over stacks of 32 random layers: W4
            at the four 8B shapes, M in {1, 8, 64}, W4 at the fused shapes
            6144x4096 (wqkv) and 28672x4096 (gate_up), M = 8, and W2 / W1 (gs
@@ -133,18 +155,19 @@ Phases, each printing one JSON line:
            each file's size and each step's seconds;
   real_weights  the repo's trained checkpoint (checkpoints/tiny_en_5m: a
            byte-level Llama, 6 layers, hidden 256, 4/2 heads of 64) imported
-           on the card, in ten configurations (dense bf16, A16W8, A8W8, W8,
-           W4 gs 128 / 64, W2 gs 32, A16W8_FP8, A8W8_FP8, A8W4_HQQ_INT_dynamic
-           gs 64): loss_fn's nll on PARITY.md's eval (256
+           on the card, in thirteen configurations (dense bf16, A16W8, A8W8,
+           W8, W4 gs 128 / 64, W2 gs 32, A16W8_FP8, A8W8_FP8,
+           A8W4_HQQ_INT_dynamic gs 64, A16W4_MXFP, A8W8_MXFP_dynamic,
+           A4W4_NVFP_dynamic): loss_fn's nll on PARITY.md's eval (256
            held-out windows of 512 bytes) in batches of 4 windows (M 2048),
            the first 16 as one batch (M 8192), and those 16 through the plain
            versions on the CPU: |card - CPU| <= 2e-3 nats/byte (1% relative
            for W2 gs 32), beside PARITY.md's JAX-package value, each model
            quantized on the card equal byte for byte to the CPU's; W4 gs 128,
-           A8W8 and A16W8_FP8 serve 8 held-out prompts (64-400 bytes, 32
-           greedy tokens) on the paged, dense and (W4, A16W8_FP8) scan
-           engines, each equal to its bare loop; every kernel of the kernels
-           line launches;
+           A8W8, A16W8_FP8 and A16W4_MXFP serve 8 held-out prompts (64-400
+           bytes, 32 greedy tokens) on the paged, dense and (W4, A16W8_FP8,
+           A16W4_MXFP) scan engines, each equal to its bare loop; every
+           kernel of the kernels line launches;
   patch_model   an nn.Module tree of bf16 nn.Linears at an 8B block's seven
            shapes and an 8B lm_head, patched with A16W8_INT8,
            A8W8_INT8_dynamic and A8W8_FP8_dynamic: the lm_head skipped, each
@@ -532,6 +555,48 @@ def first_step_check(params, cfg, prompt, route="decode", bucket=None) -> dict:
     return out
 
 
+def linear_step_check(params, cfg, prompt, route) -> dict:
+    """The first prefill step linear by linear: the plain path runs on the
+    CPU, hooks record the input and output of each block linear, and the
+    card's layer is fed that same input; each output is held to mean|a-b| /
+    mean|b| <= 5e-3 (``first_step_check``'s form). This is the stage check
+    of a model whose activations are micro-scaled to fp4 (csm 4): there a
+    block-level check cannot hold, since the fake quantization of x is
+    discontinuous and a random-weight block carries any difference into
+    whole-step flips of codes and group scales (measured on the CPU with an
+    A4W4 8B block: one bf16 ulp on 1% of the block's input moves its output
+    by 16-22%, mean form). Fed the same input, a linear fake-quantizes it to
+    the same codes on the card and on the CPU, so what is compared is the
+    kernel against its plain version."""
+    from gemlite_tpu_torch import GemLiteLinear
+    from gemlite_tpu_torch.models import llama as L
+    from gemlite_tpu_torch.ops import dispatch
+
+    cpu = _params_to_cpu(params)
+    records, hooks = [], []
+    for i, blk in enumerate(cpu["blocks"]):
+        for grp in ("attn", "mlp"):
+            for name, lin in blk[grp].items():
+                if isinstance(lin, GemLiteLinear):
+                    hooks.append(lin.register_forward_hook(
+                        lambda m, inp, out, key=(i, grp, name): records.append(
+                            (key, inp[0].detach(), out.detach()))))
+    tok = torch.tensor([prompt], dtype=torch.int32)
+    dispatch.KERNEL_TRACE.clear()
+    try:
+        L.llama_forward(cpu, cfg, tok)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {}
+    for (i, grp, name), x, want in records:
+        out[f"block{i}.{name}"] = _mean_max(params["blocks"][i][grp][name](x.cuda()), want)
+    routes = sorted(set(dispatch.KERNEL_TRACE))
+    if routes != sorted([route, f"plain_{route}"]):
+        raise RuntimeError(f"the linear stages ran {routes}")
+    return out
+
+
 W4_GROUPS = {"decode_kernel": ("decode_mma_kernel",), "prefill_kernel": ("prefill_wgmma",)}
 
 
@@ -607,14 +672,17 @@ def graph_report(stats: dict) -> dict:
 
 def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
                     long_route: str, profile_phase: str, profile_groups,
-                    kernel_of=KERNEL_OF) -> dict:
+                    kernel_of=KERNEL_OF, linear_stages: bool = False) -> dict:
     """8 greedy requests through ContinuousBatchingEngine(max_batch=8) on the
     dense cache (paged=False). Tokens
     must equal the bare loop; launches must equal the schedule (prompts of up
     to 64 tokens and every decode step on ``short_route``'s kernel, longer
     prompts on ``long_route``'s; ``kernel_of`` names the launch count of each
     route); the quantized linears must take no other route; the first step
-    must match the plain path on the CPU."""
+    must match the plain path on the CPU, block by block, or with
+    ``linear_stages`` (micro-scaled activations) linear by linear
+    (``linear_step_check``; the block-level numbers are then reported
+    beside it)."""
     from gemlite_tpu_torch import ContinuousBatchingEngine, Request
 
     rng = np.random.default_rng(0)
@@ -651,7 +719,8 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     same = got == want
 
     first_step = first_step_check(params, cfg, prompts[0], route=short_route)
-    first_ok = all(v["mean_rel"] <= REL_TOL for k, v in first_step.items() if k != "end_to_end")
+    gated = linear_step_check(params, cfg, prompts[0], short_route) if linear_stages else first_step
+    first_ok = all(v["mean_rel"] <= REL_TOL for k, v in gated.items() if k != "end_to_end")
     graphs_ok = captured_throughout(stats)
     ok = same and counts == expect and first_ok and routes_ok and graphs_ok
     ttft = [r.ttft_s for r in results]
@@ -663,6 +732,8 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
           "stats_4_of_32_layers": stats, "graphs": graph_report(stats),
           "launches": counts, "launches_expected": expect, "routes": sorted(routes_seen),
           "engine_equals_bare_loop": same, "first_step_kernel_vs_plain": first_step,
+          "first_step_gate": "linear by linear" if linear_stages else "block by block",
+          **({"first_step_linears_kernel_vs_plain": gated} if linear_stages else {}),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
     if not same:
         raise RuntimeError(f"engine tokens differ from the bare loop:\n{got}\n{want}")
@@ -671,7 +742,7 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     if not routes_ok:
         raise RuntimeError(f"quantized linears took routes {sorted(routes_seen)}")
     if not first_ok:
-        raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
+        raise RuntimeError(f"first step: kernel path vs plain path {gated}")
     if not graphs_ok:
         raise RuntimeError(f"the decode steps did not run on graphs: {stats}")
     profile_serve(params, cfg, prompts, card, phase=profile_phase, groups=profile_groups)
@@ -1278,6 +1349,310 @@ def phase_serve_fp8(card: str, cfg, dense) -> dict:
                            kernel_of={"decode": "fp8_decode", "prefill": "fp8_prefill"})[0]
 
 
+MX_GROUPS = {"mx_decode_kernel": ("mx_decode",), "mx_prefill_kernel": ("mx_prefill",)}
+MX_DECODE_MS = (1, 8, 64)
+MX_PREFILL_MS = (128, 1024)
+MX_NVFP4_MS = (8, 128)               # NVFP4 has no decode form: M <= 64 runs the prefill kernel
+MX_SHAPE = (14336, 4096)             # the kernels line's MX rows
+MX_FORMS = {"a16w4_mxfp": ("A16W4_MXFP", {}), "a16w8_mxfp": ("A16W8_MXFP", {}),
+            "a16w8_mxfp_e5m2": ("A16W8_MXFP", {"fp8": torch.float8_e5m2}),
+            "a8w8_mxfp": ("A8W8_MXFP_dynamic", {}), "a8w4_mxfp": ("A8W4_MXFP_dynamic", {}),
+            "a4w4_mxfp": ("A4W4_MXFP_dynamic", {}), "a4w4_nvfp": ("A4W4_NVFP_dynamic", {})}
+
+
+def mx_layer(form: str, N: int, K: int, gen: torch.Generator):
+    """An MX layer of ``form`` from random N(0, 0.02) weights quantized on the
+    card by the processor's from_linear."""
+    from types import SimpleNamespace
+    from gemlite_tpu_torch import mx
+    name, kw = MX_FORMS[form]
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    return getattr(mx, name)(device="cuda", **kw).from_linear(SimpleNamespace(weight=w, bias=None),
+                                                              del_orig=False)
+
+
+def mx_inputs(layer, M: int, gen: torch.Generator):
+    """(x as the decode / prefill kernels take it, per-token scales or None,
+    the kernel's meta): bf16 x; e4m3 per token for csm 2; for csm 4 the
+    fake-quantized bf16 x and csm 0, as the router hands it to them."""
+    from gemlite_tpu_torch.ops.reference import fake_quant_activations
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+    x = (torch.randn((M, layer.in_features), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    meta = layer.meta
+    if meta.channel_scale_mode == 2:
+        return (*scale_activations_per_token(x, torch.float8_e4m3fn), meta)
+    if meta.channel_scale_mode == 4:
+        return fake_quant_activations(x, meta.input_dtype), None, meta._replace(channel_scale_mode=0)
+    return x, None, meta
+
+
+def phase_kernels_mx(card: str, peak, timer: Timer) -> dict:
+    """The MX kernels (csrc/mx_gemm.cu, the MX form of csrc/dequantize.cu)
+    against their plain version (ops/reference.mx_forward_ref, float32 result)
+    within 5e-3: decode at M 1 / 8 / 64 and prefill at M 128 / 1024 on the
+    four 8B shapes for A16W4_MXFP, A16W8_MXFP (e4m3; e5m2 on 14336x4096) and
+    A8W8_MXFP_dynamic (per-token e4m3 x); NVFP4 on the prefill kernel at M 8 /
+    128; the csm-4 form at M 128 / 1024 for A4W4_MXFP and A4W4_NVFP on
+    14336x4096, equal bit for bit to the bf16 form fed fake_quant_activations;
+    the stacked decode over a 32-layer A16W4_MXFP stack of 14336x4096 at
+    layers 0 / 17 / 31, equal to the per-layer kernel bit for bit; the MX
+    dequantize on 14336x4096 (MXFP4, MXFP8, NVFP4), equal to dequantize_full
+    bit for bit. Each in one device operation a call, with its plan,
+    CUDA-event time with the L2 flushed, bound (bytes over 3.35 TB/s or 2 M N
+    K over the bf16 rate) and a dense bf16 matmul on the dequantized weight
+    as the yardstick. Returns the kernels line's rows."""
+    from gemlite_tpu_torch.ops import mx
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
+    from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
+    from gemlite_tpu_torch.quant import scale_activations_mx
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+
+    def record(row, got, want, exact=False):
+        emit(row)
+        if exact and not torch.equal(got, want):
+            raise RuntimeError(f"{row['kernel']} differs from its reference bit for bit: {row}")
+        if not row["rel_err"] <= REL_TOL:
+            raise RuntimeError(f"{row['kernel']} disagrees with its plain version: {row}")
+        if row.get("device_ops_per_call", 1) != 1:
+            raise RuntimeError(f"{row['kernel']}: one call took several device operations: {row}")
+        rows.append(row)
+
+    def call_row(name, form, layer, M, kern, x, sx, meta, plan, timed=True):
+        N, K = layer.out_features, layer.in_features
+        args = (x, layer.W_q, layer.scales, sx)
+        got = kern(*args, meta)
+        want = mx_forward_ref(x, layer.W_q, layer.scales, None, sx, with_f32_out(meta))
+        dense = dequantize_full(layer.W_q, layer.scales, None, meta)
+        xb = x.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        bound, by = kernel_bound(layer_bytes(layer) + M * K * x.element_size() + 2 * M * N,
+                                 2.0 * M * N * K, peak)
+        row = {"kernel": name, "form": form, "M": M, "N": N, "K": K,
+               "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+               "ms": timer.ms(lambda: kern(*args, meta)) if timed else None,
+               "plain_ms": timer.ms(lambda: mx_forward_ref(x, layer.W_q, layer.scales, None, sx,
+                                                           meta), iters=3) if timed else None,
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": timer.ms(lambda: torch.matmul(xb, dense)) if timed else None,
+               "library": "dense bf16 matmul on the dequantized weight (x converted outside)",
+               "plan": plan._asdict(),
+               "device_ops_per_call": device_ops_per_call(lambda: kern(*args, meta)),
+               "card": card}
+        record(row, got, want)
+
+    for form in ("a16w4_mxfp", "a16w8_mxfp", "a8w8_mxfp", "a4w4_nvfp", "a16w8_mxfp_e5m2"):
+        for N, K in (SHAPES if form != "a16w8_mxfp_e5m2" else (MX_SHAPE,)):
+            layer = mx_layer(form, N, K, gen)
+            kind = mx.w_kind(layer.meta)
+            if form != "a4w4_nvfp":
+                for M in MX_DECODE_MS:
+                    x, sx, meta = mx_inputs(layer, M, gen)
+                    call_row("mx_decode", form, layer, M, mx.mx_decode, x, sx, meta,
+                             mx.decode_plan(M, N, K, kind, x.element_size()))
+            for M in (MX_NVFP4_MS if form == "a4w4_nvfp" else MX_PREFILL_MS):
+                x, sx, meta = mx_inputs(layer, M, gen)
+                call_row("mx_prefill", form, layer, M, mx.mx_prefill, x, sx, meta,
+                         mx.prefill_plan(M, N, K, kind))
+            del layer
+    torch.cuda.empty_cache()
+
+    # the csm-4 form: e4m3 codes and float32 group scales in, bit for bit the
+    # bf16 form fed fake_quant_activations(x)
+    N, K = MX_SHAPE
+    for form in ("a4w4_mxfp", "a4w4_nvfp"):
+        layer = mx_layer(form, N, K, gen)
+        meta, meta0 = layer.meta, layer.meta._replace(channel_scale_mode=0)
+        dense = dequantize_full(layer.W_q, layer.scales, None, meta0)
+        for M in MX_PREFILL_MS:
+            xr = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            codes, s = scale_activations_mx(xr, meta.input_dtype)
+            fq = fake_quant_activations(xr, meta.input_dtype)
+            got = mx.mx_prefill_csm4(codes, s, layer.W_q, layer.scales, meta)
+            fed = mx.mx_prefill(fq, layer.W_q, layer.scales, None, meta0)
+            want = mx_forward_ref(fq, layer.W_q, layer.scales, None, None, with_f32_out(meta0))
+            torch.cuda.synchronize()
+            bound, by = kernel_bound(layer_bytes(layer) + M * K + 4 * s.numel() + 2 * M * N,
+                                     2.0 * M * N * K, peak)
+            row = {"kernel": "mx_prefill_csm4", "form": form, "M": M, "N": N, "K": K,
+                   "equals_bf16_form_fed_fake_quant": bool(torch.equal(got, fed)),
+                   "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+                   "ms": timer.ms(lambda: mx.mx_prefill_csm4(codes, s, layer.W_q, layer.scales,
+                                                             meta)),
+                   "bf16_form_ms": timer.ms(lambda: mx.mx_prefill(fq, layer.W_q, layer.scales,
+                                                                  None, meta0)),
+                   "plain_ms": timer.ms(lambda: mx_forward_ref(fq, layer.W_q, layer.scales, None,
+                                                               None, meta0), iters=3),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": timer.ms(lambda: torch.matmul(fq, dense)),
+                   "library": "dense bf16 matmul of the fake-quantized x on the dequantized weight",
+                   "plan": mx.prefill_plan(M, N, K, 0)._asdict(),
+                   "device_ops_per_call": device_ops_per_call(
+                       lambda: mx.mx_prefill_csm4(codes, s, layer.W_q, layer.scales, meta)),
+                   "card": card}
+            record(row, got, fed, exact=True)
+        del layer, dense
+
+    # the MX dequantize: bit for bit dequantize_full
+    for form in ("a16w4_mxfp", "a16w8_mxfp", "a4w4_nvfp"):
+        layer = mx_layer(form, N, K, gen)
+        args = (layer.W_q, layer.scales, None, layer.meta)
+        got, want = dequantize_weights(*args), dequantize_full(*args)
+        torch.cuda.synchronize()
+        bound, by = kernel_bound(layer_bytes(layer) + 2 * K * N, 1.0 * K * N, peak)
+        row = {"kernel": "dequantize_mx", "form": form, "M": 0, "N": N, "K": K,
+               "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+               "ms": timer.ms(lambda: dequantize_weights(*args)),
+               "plain_ms": timer.ms(lambda: dequantize_full(*args), iters=3),
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "library": "none: no single PyTorch call decodes fp4 / fp8 codes and folds the "
+                          "group scales (the plain version takes several)",
+               "device_ops_per_call": device_ops_per_call(lambda: dequantize_weights(*args)),
+               "card": card}
+        record(row, got, want, exact=True)
+        del layer
+
+    # the stacked entry: a 32-layer A16W4_MXFP stack, every checked layer equal
+    # to the per-layer kernel bit for bit
+    Ws, Ss, metas, checked = [], [], set(), {}
+    for li in range(SCAN_LAYERS):
+        layer = mx_layer("a16w4_mxfp", N, K, gen)
+        Ws.append(layer.W_q)
+        Ss.append(layer.scales)
+        metas.add(tuple(layer.meta))
+        if li in SCAN_CHECKED:
+            checked[li] = layer
+    if len(metas) != 1:
+        raise RuntimeError(f"the stack's layers have several metas: {metas}")
+    W, S = torch.stack(Ws), torch.stack(Ss)
+    del Ws, Ss
+    meta = checked[0].meta
+    dense = dequantize_full(checked[SCAN_CHECKED[1]].W_q, checked[SCAN_CHECKED[1]].scales, None,
+                            meta)
+    for M in MX_DECODE_MS:
+        x, _, _ = mx_inputs(checked[0], M, gen)
+        for li in SCAN_CHECKED:
+            lyr = checked[li]
+            idx = torch.tensor(li, dtype=torch.int32, device="cuda")
+            got = mx.mx_decode_stacked(x, W, S, meta, idx)
+            per_layer = mx.mx_decode(x, lyr.W_q, lyr.scales, None, meta)
+            want = mx_forward_ref(x, lyr.W_q, lyr.scales, None, None, with_f32_out(meta))
+            torch.cuda.synchronize()
+            bound, by = kernel_bound(layer_bytes(lyr) + 2 * M * K + 2 * M * N, 2.0 * M * N * K,
+                                     peak)
+            timed = li == SCAN_CHECKED[1]
+            row = {"kernel": "mx_decode_stacked", "form": "a16w4_mxfp", "layer": li,
+                   "layers": SCAN_LAYERS, "M": M, "N": N, "K": K,
+                   "equals_per_layer": bool(torch.equal(got, per_layer)),
+                   "rel_err": rel_err(got, want), "max_abs_err": max_abs(got, want),
+                   "ms": timer.ms(lambda: mx.mx_decode_stacked(x, W, S, meta, idx)) if timed
+                   else None,
+                   "per_layer_ms": timer.ms(lambda: mx.mx_decode(x, lyr.W_q, lyr.scales, None,
+                                                                 meta)) if timed else None,
+                   "plain_ms": timer.ms(lambda: mx_forward_ref(x, lyr.W_q, lyr.scales, None, None,
+                                                               meta), iters=3) if timed else None,
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": timer.ms(lambda: torch.matmul(x, dense)) if timed else None,
+                   "library": "dense bf16 matmul on the layer's dequantized weight",
+                   "plan": mx.decode_plan(M, N, K, 0, 2)._asdict(),
+                   "device_ops_per_call": device_ops_per_call(
+                       lambda: mx.mx_decode_stacked(x, W, S, meta, idx)),
+                   "card": card}
+            record(row, got, per_layer, exact=True)
+    del checked, W, S, dense
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_mx", "ok": True, "checked": len(rows), "card": card})
+    pick = {"mx_decode": ("a16w4_mxfp", 8), "mx_prefill": ("a16w4_mxfp", 128),
+            "mx_prefill_csm4": ("a4w4_nvfp", 128), "dequantize_mx": ("a16w4_mxfp", 0),
+            "mx_decode_stacked": ("a16w4_mxfp", 8)}
+    return {r["kernel"]: r for r in rows
+            if (r["form"], r["M"]) == pick[r["kernel"]] and (r["N"], r["K"]) == MX_SHAPE
+            and r.get("layer", SCAN_CHECKED[1]) == SCAN_CHECKED[1]}
+
+
+MX_LAYER_ROUTES = {
+    "a16w4_mxfp": ["decode", "decode", "prefill", "prefill", "dequantize"],
+    "a16w8_mxfp": ["decode", "decode", "prefill", "prefill", "dequantize"],
+    "a8w8_mxfp": ["decode", "decode", "prefill", "prefill", "dequantize"],
+    "a8w4_mxfp": ["decode", "decode", "prefill", "prefill", "dequantize"],
+    "a4w4_mxfp": ["decode", "decode", "prefill_mx_csm4", "prefill_mx_csm4", "dequantize"],
+    "a4w4_nvfp": ["prefill", "prefill", "prefill_mx_csm4", "prefill_mx_csm4", "dequantize"]}
+
+
+def phase_layer_mx(card: str) -> dict:
+    """Each of the six MX processors' layers at 4096x4096 through its routes
+    at M 1 / 64 / 65 / 128 / 4096 (the JAX router's, under the port's names),
+    each within 5e-3 of its plain path: x quantized as the forward does it,
+    then the plain product (at M 4096 the dense product with the folded bf16
+    weight, the sums in float32 as the route keeps them). Returns the launch
+    counts."""
+    from gemlite_tpu_torch.ops import dispatch
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full
+    from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    reset_counts()
+    report, bad = {}, []
+    for form, routes_want in MX_LAYER_ROUTES.items():
+        layer = mx_layer(form, 4096, 4096, gen)
+        meta = layer.meta
+        dispatch.KERNEL_TRACE.clear()
+        errs = {}
+        for M in (1, 64, 65, 128, 4096):
+            x = (torch.randn((M, 4096), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            out = layer(x)
+            sx, m0 = None, meta
+            if meta.channel_scale_mode == 2:
+                x, sx = scale_activations_per_token(x, torch.float8_e4m3fn)
+            elif meta.channel_scale_mode == 4:
+                x, m0 = fake_quant_activations(x, meta.input_dtype), meta._replace(
+                    channel_scale_mode=0)
+            if M >= 4096:
+                want = x.float() @ dequantize_full(layer.W_q, layer.scales, None, m0).float()
+                want = want * sx if sx is not None else want
+            else:
+                want = mx_forward_ref(x, layer.W_q, layer.scales, None, sx, with_f32_out(m0))
+            errs[M] = rel_err(out, want)
+        torch.cuda.synchronize()
+        routes = list(dispatch.KERNEL_TRACE)
+        report[form] = {"routes": routes, "rel_err": errs}
+        if routes != routes_want or max(errs.values()) > REL_TOL:
+            bad.append(form)
+        del layer
+    counts = read_counts()
+    ok = not bad and min(counts[k] for k in ("mx_decode", "mx_prefill", "mx_prefill_csm4",
+                                             "dequantize")) >= 1
+    emit({"phase": "layer_mx", "ok": ok, "shape": [4096, 4096], "M": [1, 64, 65, 128, 4096],
+          "processors": report, "launches": counts, "card": card})
+    if not ok:
+        raise RuntimeError(f"layer_mx phase failed for {bad}: {report}, launches {counts}")
+    return counts
+
+
+def phase_serve_mx(card: str, cfg, dense, form: str) -> dict:
+    """The 4-layer model quantized on the card with A16W4_MXFP (serve_mxfp4:
+    the MX decode kernel up to M 64, the MX prefill kernel above) or
+    A4W4_NVFP_dynamic (serve_nvfp4: the MX prefill kernel on fake-quantized x
+    up to M 64, its csm-4 form above), served as in "serve"; NVFP4's first
+    step is checked linear by linear (``linear_step_check``)."""
+    from gemlite_tpu_torch import quantize_llama
+    from gemlite_tpu_torch import mx
+
+    proc, phase, short, long_, kernel_of = {
+        "a16w4_mxfp": (mx.A16W4_MXFP, "serve_mxfp4", "decode", "prefill",
+                       {"decode": "mx_decode", "prefill": "mx_prefill"}),
+        "a4w4_nvfp": (mx.A4W4_NVFP_dynamic, "serve_nvfp4", "prefill", "prefill_mx_csm4",
+                      {"prefill": "mx_prefill", "prefill_mx_csm4": "mx_prefill_csm4"})}[form]
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, processor=proc(device="cuda"))
+    torch.cuda.synchronize()
+    return serve_and_check(phase, params, cfg, card, time.perf_counter() - t0, short, long_,
+                           phase.replace("serve", "profile"), MX_GROUPS, kernel_of=kernel_of,
+                           linear_stages=form == "a4w4_nvfp")[0]
+
+
 ATTN_GROUPS = {"flash_kernel": ("flash_attn",),
                "paged_decode_kernel": ("paged_decode",), **W4_GROUPS}
 FLASH_SEQS = (256, 1024, 2048, 4096, 8192)
@@ -1551,7 +1926,7 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     if not routes_ok:
         raise RuntimeError(f"routes {seen}")
     if not first_ok:
-        raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
+        raise RuntimeError(f"first step: kernel path vs plain path {gated}")
     if not graphs_ok:
         raise RuntimeError(f"the paged decode steps did not run on one graph: {stats}")
     profile_serve(params, cfg, firsts + repeats, card, phase="profile_paged", groups=ATTN_GROUPS,
@@ -1858,19 +2233,21 @@ NLL_REL_TOL_W2 = 1e-2      # W2 gs 32 (nll about 2.76) sits in the chaotic regim
 # backend is not recorded there); A8W8 has no row
 PARITY_NLL = {"dense_bf16": 0.1972, "a16w8": 0.1976, "w8_gs128": 0.1973, "w4_gs128": 0.3076,
               "w4_gs64": 0.2740, "w2_gs32": 2.7584, "a8w8": None, "a16w8_fp8": None,
-              "a8w8_fp8": None, "a8w4_gs64": None}
-# the engines serve these (the stacked kernel takes W4 and A16W8_FP8)
-RW_SERVED = {"w4_gs128": True, "a8w8": False, "a16w8_fp8": True}
+              "a8w8_fp8": None, "a8w4_gs64": None, "a16w4_mxfp": None, "a8w8_mxfp": None,
+              "a4w4_nvfp": None}
+# the engines serve these (the stacked kernel takes W4, A16W8_FP8 and A16W4_MXFP)
+RW_SERVED = {"w4_gs128": True, "a8w8": False, "a16w8_fp8": True, "a16w4_mxfp": True}
 EVAL_WINDOWS, EVAL_SEQ, EVAL_BATCH, EVAL_CHECKED = 256, 512, 4, 16
 RW_PROMPT_LENS = (64, 100, 150, 200, 256, 300, 350, 400)
 RW_PROMPT_START = 140_000   # past the eval's 256 x 512 bytes
 
 
 def real_weight_configs(dense, device: str):
-    """PARITY.md's rows (MXFP4 waits for the MX slice), A8W8 and the FP8
-    slice's A16W8_FP8, A8W8_FP8_dynamic and A8W4_HQQ_INT_dynamic gs 64, each
-    built from the imported dense model on its device."""
-    from gemlite_tpu_torch import quantize_llama
+    """PARITY.md's rows, A8W8, the FP8 slice's A16W8_FP8, A8W8_FP8_dynamic and
+    A8W4_HQQ_INT_dynamic gs 64, and the MX slice's A16W4_MXFP,
+    A8W8_MXFP_dynamic and A4W4_NVFP_dynamic, each built from the imported
+    dense model on its device."""
+    from gemlite_tpu_torch import mx, quantize_llama
     from gemlite_tpu_torch.helper import (A16W8_FP8, A16W8_INT8, A8W4_HQQ_INT_dynamic,
                                           A8W8_FP8_dynamic, A8W8_INT8_dynamic)
     bf16 = torch.bfloat16
@@ -1888,6 +2265,9 @@ def real_weight_configs(dense, device: str):
                                                                            dtype=bf16)),
         "a8w4_gs64": lambda: quantize_llama(dense, processor=A8W4_HQQ_INT_dynamic(
             device=device, dtype=bf16), group_size=64),
+        "a16w4_mxfp": lambda: quantize_llama(dense, processor=mx.A16W4_MXFP(device=device)),
+        "a8w8_mxfp": lambda: quantize_llama(dense, processor=mx.A8W8_MXFP_dynamic(device=device)),
+        "a4w4_nvfp": lambda: quantize_llama(dense, processor=mx.A4W4_NVFP_dynamic(device=device)),
     }
 
 
@@ -1931,7 +2311,7 @@ def serve_real(params, cfg, prompts, n_new: int, scan: bool) -> dict:
 def phase_real_weights(card: str) -> None:
     """The repo's trained checkpoint (checkpoints/tiny_en_5m, a byte-level
     Llama: 6 layers, hidden 256, 4/2 heads of 64) imported on the card by
-    load_hf_llama, in ten configurations: the nll of PARITY.md's eval (256
+    load_hf_llama, in thirteen configurations: the nll of PARITY.md's eval (256
     held-out windows of 512 bytes) by loss_fn in batches of 4 windows (M
     2048), the first 16 windows again as one batch (M 8192), and the same 16
     through the plain versions on the CPU (the same packed layers copied
@@ -1939,9 +2319,9 @@ def phase_real_weights(card: str) -> None:
     layers quantized on the card must equal, byte for byte, those quantized
     from the same weights on the CPU (which equal the JAX package's:
     tests/test_torch_real_weights.py).
-    Then W4 gs 128, A8W8 and A16W8_FP8 serve 8 held-out prompts of 64-400
-    bytes, 32 greedy tokens each, on the paged, dense and (W4, A16W8_FP8)
-    scan engines, each equal to its bare loop. Every kernel of the kernels
+    Then W4 gs 128, A8W8, A16W8_FP8 and A16W4_MXFP serve 8 held-out prompts
+    of 64-400 bytes, 32 greedy tokens each, on the paged, dense and (W4,
+    A16W8_FP8, A16W4_MXFP) scan engines, each equal to its bare loop. Every kernel of the kernels
     line must launch. Returns each configuration's launch counts."""
     from gemlite_tpu_torch import load_hf_llama
 
@@ -2299,6 +2679,10 @@ def main() -> int:
     picked.update(phase_kernels_fp8(card, peak, timer))
     fp8_layer_counts = phase_layer_fp8(card)
     fp8_counts = phase_serve_fp8(card, cfg, dense)
+    picked.update(phase_kernels_mx(card, peak, timer))
+    mx_layer_counts = phase_layer_mx(card)
+    mxfp4_counts = phase_serve_mx(card, cfg, dense, "a16w4_mxfp")
+    nvfp4_counts = phase_serve_mx(card, cfg, dense, "a4w4_nvfp")
     del dense
     picked.update(phase_kernels_scan(card, peak, timer))
     scan_counts = phase_serve_scan(card)
@@ -2309,6 +2693,7 @@ def main() -> int:
     # name -> (source, the TPU kernel it replaces, the run whose launches count,
     # that run's name, the wrapper's counter)
     fp8_src = "gemlite_tpu_torch/csrc/fp8_gemm.cu"
+    mx_src = "gemlite_tpu_torch/csrc/mx_gemm.cu"
     sources = {"decode": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
                           "gemlite_tpu/ops/pallas_decode.py:619", serve_counts, "serve", "decode"),
                "prefill": ("gemlite_tpu_torch/csrc/prefill_gemm.cu",
@@ -2347,7 +2732,19 @@ def main() -> int:
                "fused_gemm_float_fp8x": ("gemlite_tpu_torch/csrc/fused_float.cu",
                                          "gemlite_tpu/ops/pallas_gemm.py:294",
                                          rw_counts["a8w4_gs64"], "real_weights (a8w4_gs64)",
-                                         "fused_gemm_float")}
+                                         "fused_gemm_float"),
+               "mx_decode": (mx_src, "gemlite_tpu/ops/pallas_decode.py:619", mxfp4_counts,
+                             "serve_mxfp4", "mx_decode"),
+               "mx_decode_stacked": (mx_src, "gemlite_tpu/ops/pallas_scan.py:70",
+                                     rw_counts["a16w4_mxfp"], "real_weights (a16w4_mxfp)",
+                                     "mx_decode_stacked"),
+               "mx_prefill": (mx_src, "gemlite_tpu/ops/pallas_prefill.py:570", mxfp4_counts,
+                              "serve_mxfp4", "mx_prefill"),
+               "mx_prefill_csm4": (mx_src, "gemlite_tpu/ops/pallas_prefill.py:570", nvfp4_counts,
+                                   "serve_nvfp4", "mx_prefill_csm4"),
+               "dequantize_mx": ("gemlite_tpu_torch/csrc/dequantize.cu",
+                                 "gemlite_tpu/ops/pallas_prefill.py:353", mx_layer_counts,
+                                 "layer_mx", "dequantize")}
     kernels = []
     for name_k, (src, replaces, counts, path, counter) in sources.items():
         r = picked[name_k]

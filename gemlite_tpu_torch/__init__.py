@@ -22,6 +22,8 @@ from .helper import (A16Wn, A16Wn_HQQ_INT, A16W8_HQQ_INT, A16W4_HQQ_INT, A16W2_H
                      A8W4_HQQ_INT_dynamic, A8W2_HQQ_INT_dynamic, A16W158_INT,
                      A8W158_INT_dynamic, patch_model, warmup)
 from .importers import export_hf_llama, from_transformers, load_hf_llama
+from .mx import (A16Wn_MXFP, A16W8_MXFP, A16W4_MXFP, A8Wn_MXFP_dynamic, A8W8_MXFP_dynamic,
+                 A8W4_MXFP_dynamic, A4W4_MXFP_dynamic, A4W4_NVFP_dynamic)
 from .interop import paged_kv_from_jax_numpy, params_from_jax_numpy
 from .models import (LlamaConfig, init_kv_cache, init_llama, llama_decode_step,
                      llama_decode_step_batched, llama_forward, llama_prefill,

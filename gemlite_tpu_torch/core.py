@@ -8,7 +8,12 @@ packed by the JAX package in its plane-folded layout are unfolded on load.
 INT8- and FP8-activation layers (``scaled_activations``) quantize x per
 token in the forward and hand its scales to the router. fp8 weights
 (``float8_e4m3fn`` / ``float8_e5m2``) are stored as their bit codes, four to
-an int32 word, and marked by ``w_code_dtype``.
+an int32 word, and marked by ``w_code_dtype``. MX layers (input dtypes MXFP16,
+MXBF16, MXFP8, MXFP4, NVFP4; ``mx.py``) keep fp4 codes eight to a word and
+their group scales as e8m0 bits (uint8) or e4m3 (NVFP4), W_group_mode 2; an
+MXFP8 layer with csm 2 quantizes x per token to e4m3, and micro-scaled x
+(csm 4) goes to the router as it is. The JAX package's TPU codecs of MX
+layers (the plane fold, ``mx_x2``, ``mx_flat``) are undone on load.
 """
 
 import json
@@ -23,7 +28,7 @@ from .bitpack import (fold_plane_count, pack_weights_over_cols,
 from .dtypes import (FP8_INT8_DTYPES, DType, TORCH_TO_DTYPE, is_mx_dtype, npz_decode_array,
                      npz_encode_array, to_torch_dtype)
 from .ops.dispatch import fused_matmul
-from .quant import scale_activations_per_token
+from .quant import fp4x2_remap_packed, scale_activations_per_token
 
 __all__ = ["GEMLITE_MATMUL_TYPES", "GEMLITE_MATMUL_TYPES_MAPPING", "GemLiteLinear",
            "LayerMeta", "forward_functional", "get_matmul_type", "resolve_device",
@@ -31,7 +36,11 @@ __all__ = ["GEMLITE_MATMUL_TYPES", "GEMLITE_MATMUL_TYPES_MAPPING", "GemLiteLinea
 
 GEMLITE_ACC_DTYPE = {DType.FP16: DType.FP32, DType.BF16: DType.FP32,
                      DType.FP32: DType.FP32, DType.FP8: DType.FP32, DType.FP8e5: DType.FP32,
-                     DType.INT8: DType.INT32}
+                     DType.INT8: DType.INT32, DType.MXFP16: DType.FP32,
+                     DType.MXBF16: DType.FP32, DType.MXFP8: DType.FP32, DType.MXFP4: DType.FP32,
+                     DType.NVFP4: DType.FP32}
+# input dtypes whose activations are never quantized in the forward
+_FLOAT_INPUTS = (DType.FP16, DType.BF16, DType.FP32, DType.MXFP16, DType.MXBF16)
 
 _FP8_WEIGHTS = {torch.float8_e4m3fn: DType.FP8, torch.float8_e5m2: DType.FP8e5}
 
@@ -43,6 +52,20 @@ def _fp8_codes_subnormal_free(codes_or_packed: torch.Tensor, e5m2: bool) -> bool
     b = codes_or_packed.contiguous().view(torch.uint8)
     exp_m, man_m = (0x7C, 0x03) if e5m2 else (0x78, 0x07)
     return not bool((((b & exp_m) == 0) & ((b & man_m) != 0)).any())
+
+
+def _mx_scales(scales: torch.Tensor, input_dtype: DType) -> torch.Tensor:
+    """An MX layer's group scales as stored: e8m0 exponent bits (uint8) from
+    uint8, float8_e8m0fnu or power-of-two floats; NVFP4's as e4m3."""
+    if input_dtype == DType.NVFP4:
+        return scales.to(torch.float8_e4m3fn)
+    if scales.dtype == torch.uint8:
+        return scales
+    if scales.dtype == torch.float8_e8m0fnu:
+        return scales.view(torch.uint8)
+    from .quant import _f32_pow2_to_e8m0_bits
+    return _f32_pow2_to_e8m0_bits(scales)
+
 
 # Kernel family names, in the reference's order: their index is the
 # ``matmul_type`` of forward_functional (``gemlite_tpu/core.py:62-68``).
@@ -60,10 +83,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def tensor_from_numpy(a, device=None) -> torch.Tensor:
-    """numpy array (bfloat16 arrays from ml_dtypes included) or tensor -> tensor.
+_FP8_NUMPY = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,
+              "float8_e8m0fnu": torch.float8_e8m0fnu}
 
-    A bfloat16 numpy array is read through its uint16 bit view, so no
+
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """numpy array (bfloat16 and fp8 arrays from ml_dtypes included) or
+    tensor -> tensor.
+
+    A bfloat16 or fp8 numpy array is read through its bit view, so no
     ml_dtypes import is needed here."""
     if isinstance(a, torch.Tensor):
         return a.to(device) if device is not None else a
@@ -74,6 +102,9 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).astype(np.int16))
         t = t.view(torch.bfloat16).reshape(shape)
+    elif a.dtype.name in _FP8_NUMPY:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8))
+        t = t.view(_FP8_NUMPY[a.dtype.name]).reshape(shape)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a)).reshape(shape)
     return t.to(device) if device is not None else t
@@ -138,6 +169,9 @@ def forward_functional(x: torch.Tensor, bias, tensor_args, meta: LayerMeta,
     scales_x = None
     if meta.scaled_activations and DType(meta.input_dtype) in FP8_INT8_DTYPES:
         x, scales_x = scale_activations_per_token(x, to_torch_dtype(meta.input_dtype))
+    elif (meta.scaled_activations and meta.input_dtype == DType.MXFP8.value
+          and meta.channel_scale_mode == 2):
+        x, scales_x = scale_activations_per_token(x, torch.float8_e4m3fn)
     out = fused_matmul(x.reshape(-1, x.shape[-1]), W_q, scales, zeros, meta, scales_x)
     out = out.reshape(out_shape)
     if bias is not None:
@@ -159,10 +193,13 @@ class GemLiteLinear(nn.Module):
     Packs float-, INT8- and FP8-activation layers over W1/W2/W4/W8 codes, fp8
     bit codes, or non-packed int8 / fp16 / bf16 weights: W_group_mode 0-4,
     channel_scale_mode 0-3, the fma fold of mode 4 (``zeros := -z*s``
-    computed in float32 and stored in the zeros' dtype)."""
+    computed in float32 and stored in the zeros' dtype); and MX layers (fp4
+    or fp8 codes with group scales, mode 2; csm 2 or 4 set by the MX
+    processors)."""
 
     SUPPORTED_BITS = (1, 2, 4, 8, 16)
-    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32, DType.FP8, DType.FP8e5, DType.INT8)
+    SUPPORTED_DTYPES = (DType.FP16, DType.BF16, DType.FP32, DType.FP8, DType.FP8e5, DType.INT8,
+                        DType.MXFP16, DType.MXBF16, DType.MXFP8, DType.MXFP4, DType.NVFP4)
     MIN_SIZE = 32
 
     def __init__(self, W_nbits: int = 4, group_size: Optional[int] = 64,
@@ -194,7 +231,7 @@ class GemLiteLinear(nn.Module):
         self.meta_dtype = input_dtype
         self.acc_dtype = GEMLITE_ACC_DTYPE[input_dtype] if acc_dtype is None else acc_dtype
         # float activations are never dynamically quantized
-        self.scaled_activations = bool(scaled_activations) and input_dtype in FP8_INT8_DTYPES
+        self.scaled_activations = bool(scaled_activations) and input_dtype not in _FLOAT_INPUTS
         self.channel_scale_mode = 0
         self.W_group_mode = -1
         self.data_contiguous = True
@@ -212,7 +249,10 @@ class GemLiteLinear(nn.Module):
 
         Follows the decision tree of ``gemlite_tpu/core.py:pack``; packed
         words stay in the LSB-first layout (w_layout=0), non-packed weights
-        are stored transposed (K, N) with ``elements_per_sample=1``."""
+        are stored transposed (K, N) with ``elements_per_sample=1``. An MX
+        layer needs its group scales: e8m0 bits (uint8, float8_e8m0fnu or
+        power-of-two floats) or, for NVFP4, e4m3 values; they are stored
+        (G, N), with W_group_mode 2 and csm 0."""
         dev = self.device
         W_q = tensor_from_numpy(W_q).to(dev)
         if zeros is not None and self.input_dtype == DType.INT8:
@@ -231,7 +271,8 @@ class GemLiteLinear(nn.Module):
         if W_q.dtype == torch.uint8:
             self.W_q, self.elements_per_sample = pack_weights_over_cols(
                 W_q.reshape(N, self.in_features), self.W_nbits, 32, transpose=True)
-            contiguous = True if contiguous is None else contiguous
+            if contiguous is None:
+                contiguous = not is_mx_dtype(self.input_dtype)
         elif W_q.dtype in _NON_PACKED_BITS:
             if _NON_PACKED_BITS[W_q.dtype] != self.W_nbits:
                 raise ValueError(f"{W_q.dtype} weights require W_nbits="
@@ -277,6 +318,12 @@ class GemLiteLinear(nn.Module):
         elif self.scaled_activations:
             self.channel_scale_mode = 2
 
+        if is_mx_dtype(self.input_dtype):
+            if self.scales is None:
+                raise ValueError(f"{self.input_dtype} layers require block scales: pack() "
+                                 "expects the e8m0 / fp8 scales of WeightQuantizerMXFP")
+            self.scales = _mx_scales(self.scales, self.input_dtype)
+            self.W_group_mode, self.channel_scale_mode = 2, 0
         self._upgrade_fp8_nosub()
         if self.scales is not None and self.scales.dtype in TORCH_TO_DTYPE:
             self.meta_dtype = TORCH_TO_DTYPE[self.scales.dtype]
@@ -285,9 +332,9 @@ class GemLiteLinear(nn.Module):
     def _upgrade_fp8_nosub(self):
         """fp8_nosub 1 -> 2 for a mode-2 layer whose e8m0 (uint8) block-scale
         exponents keep the JAX prefill kernel's scaled fold finite
-        (``gemlite_tpu/core.py:_upgrade_fp8_nosub``). Only MX layers have
-        such scales, so this is a no-op on every layer the port packs; it
-        is kept so that the state reads as the JAX package's."""
+        (``gemlite_tpu/core.py:_upgrade_fp8_nosub``): MXFP8 layers. The
+        port's kernels decode every code exactly and do not read the flag;
+        it is kept so that the state reads as the JAX package's."""
         if (self.fp8_nosub == 1 and self.W_group_mode == 2 and self.scales is not None
                 and self.scales.dtype == torch.uint8):
             gap = 112 if self.w_code_dtype == DType.FP8e5.value else 120
@@ -363,16 +410,13 @@ class GemLiteLinear(nn.Module):
         fp8 bit codes keep their ``w_code_dtype`` and ``fp8_nosub`` (a file
         without the flag is scanned, as the JAX package does)."""
         sd = dict(state_dict)
-        for key in ("mx_flat", "mx_x2"):
-            if int(np.asarray(sd.get(key, 0))):
-                raise NotImplementedError(f"queued: layers with {key} (MX codecs)")
         meta = [int(v) for v in np.asarray(sd["metadata"])]
         (scaled_activations, self.W_nbits, self.group_size, self.unpack_mask,
          self.elements_per_sample, input_dtype, output_dtype, acc_dtype, meta_dtype,
          self.channel_scale_mode, self.W_group_mode, data_contiguous) = meta
-        if is_mx_dtype(input_dtype) or DType(input_dtype) not in self.SUPPORTED_DTYPES:
-            raise NotImplementedError(f"queued: layer metadata {meta} (MX inputs; the *nuz "
-                                      "fp8 inputs are refused, as the JAX kernels refuse them)")
+        if DType(input_dtype) not in self.SUPPORTED_DTYPES:
+            raise NotImplementedError(f"layer metadata {meta}: the *nuz fp8 inputs are "
+                                      "refused, as the JAX kernels refuse them")
         self.scaled_activations = bool(scaled_activations)
         self.data_contiguous = bool(data_contiguous)
         self.input_dtype = DType(input_dtype)
@@ -385,6 +429,11 @@ class GemLiteLinear(nn.Module):
         w_layout = int(np.asarray(sd.get("w_layout", 0)))
         if w_layout:
             W_q = self._unfold(W_q, w_layout)
+        # the x2 fp4 codebook (JAX mx_x2): the remap is its own inverse, and
+        # the stored e8m0 exponents were lowered by one; mx_flat is a flag
+        mx_x2 = int(np.asarray(sd.get("mx_x2", 0)))
+        if mx_x2:
+            W_q = fp4x2_remap_packed(W_q)
         self.W_q = W_q
         self.w_code_dtype = int(np.asarray(sd.get("w_code_dtype", 0)))
         if "fp8_nosub" in sd:
@@ -395,6 +444,10 @@ class GemLiteLinear(nn.Module):
         else:
             self.fp8_nosub = 0
         self.scales = _as_tensor(sd.get("scales"), dev)
+        if is_mx_dtype(input_dtype) and self.scales is not None:
+            self.scales = _mx_scales(self.scales, self.input_dtype)
+            if mx_x2:
+                self.scales = self.scales + 1
         self.zeros = _as_tensor(sd.get("zeros"), dev)
         self.zero_is_scalar = self.zeros is not None and self.zeros.ndim == 0
         self.bias = _as_tensor(sd.get("bias"), dev)
@@ -402,8 +455,16 @@ class GemLiteLinear(nn.Module):
         return self
 
     def _unfold(self, W_q: torch.Tensor, w_layout: int) -> torch.Tensor:
+        """Plane-folded words -> w_layout 0, by the JAX fold unit
+        (``gemlite_tpu/core.py:_plane_fold_unit``): 32 for NVFP4, the group
+        for other MX layers and for 1 < group < K, else 512."""
         K = self.in_features
-        fold_gs = self.group_size if 1 < self.group_size < K else 512
+        if self.input_dtype == DType.NVFP4:
+            fold_gs = 32
+        elif is_mx_dtype(self.input_dtype) or 1 < self.group_size < K:
+            fold_gs = self.group_size
+        else:
+            fold_gs = 512
         codes = unpack_over_rows(W_q, self.W_nbits, K).T
         codes = unfold_codes_for_planes(codes, fold_plane_count(self.W_nbits, w_layout), fold_gs)
         return pack_weights_over_cols(codes, self.W_nbits, 32, transpose=True)[0]

@@ -1,9 +1,11 @@
 // SPDX-License-Identifier: Apache-2.0
 // Dequantize packed words to a dense (K, N) bf16 in one streaming pass:
-// W4 codes of W_group_mode 4 (gl_dequantize_w4), or fp8 bit codes
+// W4 codes of W_group_mode 4 (gl_dequantize_w4), fp8 bit codes
 // (gl_dequantize_fp8: each value converted exactly, times its column's scale
 // in float32 where the layer has one (mode 2 or csm 1 / 3, the fold of
-// gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul), one rounding to bf16).
+// gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul), one rounding to bf16),
+// or MX codes (gl_dequantize_mx: fp4 or fp8 codes times their group's e8m0
+// or NVFP4 scale in float32, one rounding to bf16; csrc/mx_common.cuh).
 //
 // Replaces the TPU kernel gemlite_tpu/ops/pallas_prefill.py:pallas_dequantize;
 // the dense product after it stays torch.matmul, as the JAX package leaves it
@@ -16,6 +18,7 @@
 // columns, so every access is coalesced.
 #include <cuda_fp8.h>
 
+#include "mx_common.cuh"
 #include "w4_common.cuh"
 
 namespace {
@@ -83,7 +86,38 @@ __global__ void dequantize_fp8_kernel(const uint4* __restrict__ wq,   // (K / 4,
     }
 }
 
+// MX form: one thread reads one word of column n (8 fp4 or 4 fp8 codes, all
+// in one group) and writes its values down the column.
+__global__ void dequantize_mx_kernel(const uint32_t* __restrict__ wq,    // (K / per_word, N)
+                                     const uint8_t* __restrict__ scales,  // (K / gs, N)
+                                     __nv_bfloat16* __restrict__ out,     // (K, N)
+                                     int N, int wkind, int gs) {
+    const int n = blockIdx.x * blockDim.x + threadIdx.x;
+    const int kw = blockIdx.y, epw = mx::per_word(wkind);
+    if (n >= N) return;
+    const uint32_t word = __ldg(wq + (size_t)kw * N + n);
+    const float s = mx::scale_f32(__ldg(scales + (size_t)(kw * epw / gs) * N + n), gs == 16);
+    for (int j = 0; j < epw; ++j)
+        out[(size_t)(kw * epw + j) * N + n] =
+            __float2bfloat16_rn(__fmul_rn(mx::code_f32(word, j, wkind), s));
+}
+
 }  // namespace
+
+// Launch on `stream`: MX codes of w_kind (0 fp4, 1 e4m3, 2 e5m2) in (K /
+// per_word, N) words; scales (K / gs, N) e8m0 bits (gs 32) or NVFP4 e4m3 (gs
+// 16, fp4 only). Returns the cudaError_t of the launch.
+extern "C" int gl_dequantize_mx(const void* wq, const void* scales, void* out, int N, int K,
+                                int w_kind, int gs, void* stream_ptr) {
+    if (N < 1 || K < 32 || K % 32 || w_kind < mx::kFp4 || w_kind > mx::kE5m2 ||
+        (gs != 32 && !(gs == 16 && w_kind == mx::kFp4)) || wq == nullptr || scales == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((N + 255) / 256, K / mx::per_word(w_kind));
+    dequantize_mx_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+        static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales),
+        static_cast<__nv_bfloat16*>(out), N, w_kind, gs);
+    return static_cast<int>(cudaGetLastError());
+}
 
 // Launch on `stream`: fp8 codes (w_code: DType 3 e4m3, 8 e5m2) in (K / 4, N)
 // words, N a multiple of 4, 16-byte aligned; `scales` (N) float32 (s_code 0)

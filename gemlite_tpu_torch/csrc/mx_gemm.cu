@@ -1,0 +1,826 @@
+// SPDX-License-Identifier: Apache-2.0
+// MX weights (fp4 e2m1 codes eight to an int32 word, or fp8 e4m3 / e5m2 bit
+// codes four to a word, with e8m0 group scales of 32, or NVFP4: fp4 codes
+// with e4m3 x 0.05 scales of 16) times bf16, per-token e4m3 (csm 2) or
+// micro-scaled (csm 4) activations: out (M, N) bf16 = x (M, K) . W, then the
+// per-token scale (csm 2). One launch a call. The plain version is
+// ops/reference.mx_forward_ref.
+//
+// Three entries share two bodies:
+//   gl_mx_decode          M <= 64, e8m0 layers: replaces gemlite_tpu/ops/
+//                         pallas_decode.py:pallas_decode_matmul on MX layers
+//                         (fp4 codes and fp8 codes with block scales);
+//   gl_mx_decode_stacked  layer l of an L-layer stack, the index read on the
+//                         device: replaces gemlite_tpu/ops/pallas_scan.py:
+//                         pallas_decode_matmul_stacked on them, with the
+//                         per-layer entry's plan, so the two agree bit for bit;
+//   gl_mx_prefill         M < 4096, every MX layer (NVFP4 from M 1, as JAX
+//                         sends NVFP4 decode there): replaces gemlite_tpu/ops/
+//                         pallas_prefill.py:pallas_prefill_matmul on MX
+//                         layers, with x either bf16 or 1-byte e4m3 codes
+//                         (per-token, csm 2, or micro-scaled with float32
+//                         group scales, csm 4: the prefill_mx_csm4 route).
+//
+// The weights (csrc/mx_common.cuh): fp4 codes become bf16 by byte permutes
+// from a register table, fp8 codes exactly through fp16. The decode kernel
+// sums each 32-deep group's unscaled products in a fresh float32 fragment and
+// adds it times the group's e8m0 scale, a power of two, so exactly; the
+// prefill kernel multiplies each decoded weight by its group's scale in
+// float32 and rounds once to bf16, which is exact for e8m0 scales wherever
+// the product is a normal bf16. Either way the products run on the bf16
+// tensor cores with float32 sums, and the kernels compute the plain
+// version's function up to the order of the sums; NVFP4's e4m3 x 0.05 scale
+// is no power of two, and its weights round once to bf16 (the plain version
+// keeps them in float32), as the JAX package's prefill kernel rounds them.
+// Both decoders are instantiated per weight kind: a run-time branch on the
+// kind in the inner loops cost 40% (measured with scripts/torch_mx_variants.py).
+//
+// The decode body (what bounds it: the weight bytes, K N / 2 for fp4 plus K N /
+// 32 of scales, 0.0093 ms at 3.35 TB/s for 14336 x 4096) is the W4 decode
+// kernel's design (decode_gemv.cu) with fp8_gemm.cu's rings: operands swapped
+// on mma.sync m16n8k16 bf16 (out^T = W^T . x^T: A a 16-column tile of W,
+// decoded in registers, B the M <= 64 tokens as n8 tiles), a cp.async ring of
+// 128-deep stages (words column-swizzled, the stage's four scale rows, x rows
+// swizzled in 16-byte chunks), K split over gridDim.y so that about four blocks
+// run per SM, the splits merged by the last block of each column tile in split
+// order. Lane t of a 32-deep block takes whole words: fp4 codes 8t .. 8t + 7
+// (product j takes 4j .. 4j + 3), fp8 codes 4t .. 4t + 3 and 16 + 4t ..
+// (product j takes the word of 16 j); x is read to match. Per-token e4m3 x
+// converts exactly to bf16 as it is read. The group sums are scaled per column:
+// a fragment row is a weight column.
+//
+// The prefill body (what bounds it: operations, 2 M N K over 989 TFLOP/s bf16,
+// from M about 300; the weight bytes below) is the W4 prefill kernel's design
+// (prefill_gemm.cu): a producer warpgroup fills a ring of 64-deep stages (words
+// and scales by TMA; x by TMA with the 128-byte swizzle when it is bf16, or
+// read as e4m3 codes, times their group scale in float32 and rounded once to
+// bf16 into the same swizzled tile, when it is 1-byte), two consumer warpgroups
+// of 64 weight columns run wgmma m64n128k16 with the decoded weights as the
+// register A operand and the x tile as the K-major shared B operand, 128 rows
+// of x a block, stage j + 1's weights decoded while stage j's products run. The
+// csm-4 tile equals fake_quant_activations(x) bit for bit, so the code form and
+// the bf16 form fed the fake-quantized x give the same output. K is split by
+// ops/mx.prefill_plan and merged in the same launch.
+#include <cuda_fp8.h>
+
+#include <atomic>
+
+#include "gl_common.cuh"
+#include "mx_common.cuh"
+#include "sm90_common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using gl::cp_async16;
+using gl::cp_async_commit;
+using gl::cp_async_wait_n;
+using gl::smem_u32;
+
+enum XKind { kXbf16 = 0, kXe4m3 = 1 };   // the activations
+
+// bytes 0 and 1 of `two` (e4m3 codes) -> bf16x2 (byte 0 low), exact
+__device__ __forceinline__ uint32_t e4m3x2_bf16x2(uint32_t two) {
+    const __half2_raw h =
+        __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two & 0xFFFFu), __NV_E4M3);
+    const float2 f = __half22float2(__half2(h));
+    return mx::bf16x2(f.x, f.y);
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// Decode, M <= 64 (per-layer and stacked), e8m0 scales in groups of 32
+// ---------------------------------------------------------------------------
+
+constexpr int BK = 128;                  // K per ring stage: four groups
+constexpr int BN = 128;                  // output columns per block: 4 warps of 32
+constexpr int SROWS = BK / 32;           // scale rows a stage
+constexpr int kDecodeMinBlocks = 3;
+constexpr int kMaxStages = 6;
+constexpr int kDecodeSmemMax = 112 * 1024;
+
+struct DParams {
+    const void* x;                       // (M, K) bf16 / e4m3
+    const uint32_t* wq;                  // ([L,] K / per_word, N)
+    const uint8_t* scales;               // ([L,] K / 32, N) e8m0 bits
+    const float* sx;                     // (M) per-token scales, or null
+    const int* layer_idx;                // stacked entry: the layer, on the device
+    int L;
+    bf16* out;                           // (M, N)
+    float* part;                         // (splits, M, N) float32 partials
+    int* counters;                       // one per column tile, 0 between calls
+    int M, N, K, k_per_split, stages, wkind;
+};
+
+// a stage: word rows, the scale rows, then x rows (`rows` = M rounded up to 8)
+__host__ __device__ inline int d_words_bytes(int wkind) { return BK / mx::per_word(wkind) * BN * 4; }
+__host__ __device__ inline int d_stage_bytes(int wkind, int rows, int xb) {
+    return d_words_bytes(wkind) + SROWS * BN + rows * BK * xb;
+}
+
+// word (r, c) of a stage: bits 3-4 of c flipped by r, so that a warp's lanes
+// (rows t, columns g and g + 8 of two m16 tiles) hit 32 banks
+__device__ __forceinline__ int w_idx(int r, int c) { return r * BN + (c ^ ((r & 3) << 3)); }
+// byte offset of 16-byte chunk c of x row m (rows of BK * XB bytes)
+template <int XB>
+__device__ __forceinline__ int x_off(int m, int c) { return m * BK * XB + ((c ^ (m & 7)) << 4); }
+
+template <int XB, int W>
+__device__ __forceinline__ void d_load_stage(const DParams& p, const uint32_t* wq,
+                                             const uint8_t* sc, unsigned char* st, int rows,
+                                             int n0, int k0) {
+    constexpr int epw = mx::per_word(W), wr = BK / epw;
+    const int t = threadIdx.x;
+    uint32_t* ws = reinterpret_cast<uint32_t*>(st);
+    unsigned char* ss = st + d_words_bytes(W);
+    unsigned char* xs = ss + SROWS * BN;
+    const uint32_t* wg = wq + (size_t)(k0 / epw) * p.N + n0;
+    for (int i = t; i < wr * (BN / 4); i += BN) {
+        const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+        cp_async16(smem_u32(ws + w_idx(r, c)), wg + (size_t)r * p.N + c, 16);
+    }
+    if (t < SROWS * (BN / 16)) {
+        const int r = t / (BN / 16), c = (t % (BN / 16)) * 16;
+        cp_async16(smem_u32(ss + r * BN + c), sc + (size_t)(k0 / 32 + r) * p.N + n0 + c, 16);
+    }
+    constexpr int CH = BK * XB / 16;     // 16-byte chunks a row
+    const unsigned char* x = static_cast<const unsigned char*>(p.x);
+    for (int i = t; i < rows * CH; i += BN) {
+        const int m = i / CH, c = i % CH;
+        const bool ok = m < p.M;
+        cp_async16(smem_u32(xs + x_off<XB>(m, c)),
+                   ok ? x + ((size_t)m * p.K + k0) * XB + 16 * c : x, ok ? 16 : 0);
+    }
+}
+
+// One stage's products for one warp: columns wn0 + 16 i + (0..15), token tiles
+// jj < nt. acc[i][jj][r]: column wn0 + 16 i + g + 8 (r / 2), token 8 jj + 2t +
+// r % 2. In 32-deep block kb, product j, lane (g, t) holds the four k from
+// k_lane = 32 kb + (fp4 ? 8t + 4j : 16j + 4t) in its slots 2t, 2t + 1 (the
+// first two) and 2t + 8, 2t + 9 (the last two), for A and B alike.
+template <int NT, int X, int W>
+__device__ __forceinline__ void d_compute_stage(const unsigned char* st, int nt, int wn0, int lane,
+                                                float (&acc)[2][NT][4]) {
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
+    const unsigned char* ss = st + d_words_bytes(W);
+    const unsigned char* xs = ss + SROWS * BN;
+    const int g = lane >> 2, t = lane & 3;
+    constexpr bool fp4 = W == mx::kFp4;
+#pragma unroll
+    for (int kb = 0; kb < BK / 32; ++kb) {
+        uint32_t a[2][2][4];                         // [product j][m16 tile i][register]
+        float sc[2][2];                              // the group's scale of column c
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int c = wn0 + 16 * i + 8 * h + g;
+                sc[i][h] = mx::scale_f32(ss[kb * BN + c], false);
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const uint32_t w = fp4 ? ws[w_idx(4 * kb + t, c)] >> (16 * j)
+                                           : ws[w_idx(8 * kb + t + 4 * j, c)];
+                    a[j][i][h] = mx::raw_pair(w, 0, W);
+                    a[j][i][2 + h] = mx::raw_pair(w, 2, W);
+                }
+            }
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (jj >= nt) break;
+            const int m = 8 * jj + g;
+            uint32_t b[2][2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int kl = 32 * kb + (fp4 ? 8 * t + 4 * j : 16 * j + 4 * t);
+                if constexpr (X == kXbf16) {
+                    const uint2 xv = *reinterpret_cast<const uint2*>(
+                        xs + x_off<2>(m, kl >> 3) + 2 * (kl & 7));
+                    b[j][0] = xv.x, b[j][1] = xv.y;
+                } else {
+                    const uint32_t xv = *reinterpret_cast<const uint32_t*>(
+                        xs + x_off<1>(m, kl >> 4) + (kl & 15));
+                    b[j][0] = e4m3x2_bf16x2(xv), b[j][1] = e4m3x2_bf16x2(xv >> 16);
+                }
+            }
+            // the group's sum of unscaled products, then times its (power of
+            // two) scale, exactly, into the float32 sums
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+                for (int j = 0; j < 2; ++j) mma_bf16(part, a[j][i], b[j][0], b[j][1]);
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                    acc[i][jj][r] = __fmaf_rn(part[r], sc[i][r >> 1], acc[i][jj][r]);
+            }
+        }
+    }
+}
+
+// The block's sums, staged as tile[m][BN]: into the output (times the
+// per-token scale), or with K split the block's partial, and the last block
+// of the column tile adds the partials in split order and leaves its counter
+// at 0. Not inlined: one copy serves every instance.
+__device__ __noinline__ void d_finish(const DParams p, const float* tile, int* flag) {
+    const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
+    const size_t MN = (size_t)p.M * p.N;
+    if (nsplit > 1) {
+        for (int e = threadIdx.x * 4; e < p.M * BN; e += blockDim.x * 4) {
+            const int m = e / BN, n = n0 + e % BN;
+            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)m * p.N + n) =
+                *reinterpret_cast<const float4*>(tile + e);
+        }
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) *flag = atomicAdd(p.counters + blockIdx.x, 1) == nsplit - 1;
+        __syncthreads();
+        if (!*flag) return;
+        __threadfence();
+    }
+    for (int e = threadIdx.x * 4; e < p.M * BN; e += blockDim.x * 4) {
+        const int m = e / BN, n = n0 + e % BN;
+        const size_t idx = (size_t)m * p.N + n;
+        float v[4];
+        if (nsplit == 1) {
+            const float4 tv = *reinterpret_cast<const float4*>(tile + e);
+            v[0] = tv.x, v[1] = tv.y, v[2] = tv.z, v[3] = tv.w;
+        } else {
+            v[0] = v[1] = v[2] = v[3] = 0.f;
+            for (int s0 = 0; s0 < nsplit; s0 += 8) {
+                float4 r[8];
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const float4* src = reinterpret_cast<const float4*>(p.part + (s0 + j) * MN + idx);
+                    r[j] = s0 + j < nsplit ? __ldcg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+                }
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    if (s0 + j >= nsplit) break;
+                    v[0] = __fadd_rn(v[0], r[j].x);
+                    v[1] = __fadd_rn(v[1], r[j].y);
+                    v[2] = __fadd_rn(v[2], r[j].z);
+                    v[3] = __fadd_rn(v[3], r[j].w);
+                }
+            }
+        }
+        if (p.sx != nullptr) {
+            const float s = p.sx[m];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[i] = __fmul_rn(v[i], s);
+        }
+        uint2 pk;
+        pk.x = mx::bf16x2(v[0], v[1]);
+        pk.y = mx::bf16x2(v[2], v[3]);
+        *reinterpret_cast<uint2*>(p.out + idx) = pk;
+    }
+    if (nsplit > 1 && threadIdx.x == 0) p.counters[blockIdx.x] = 0;
+}
+
+template <int NT, int X, int W>
+__device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, const uint8_t* sc) {
+    constexpr int XB = X == kXbf16 ? 2 : 1;
+    extern __shared__ __align__(128) unsigned char smem[];
+    __shared__ int last_flag;
+    const int rows = (p.M + 7) / 8 * 8;
+    const int S = p.stages, SB = d_stage_bytes(W, rows, XB);
+    const int lane = threadIdx.x & 31, wn0 = (threadIdx.x >> 5) * 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int n0 = blockIdx.x * BN, k_begin = blockIdx.y * p.k_per_split;
+    const int steps = (min(p.K, k_begin + p.k_per_split) - k_begin) / BK;
+    const int nt = rows / 8;
+
+    float acc[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+    for (int s = 0; s < S - 1; ++s) {
+        if (s < steps) d_load_stage<XB, W>(p, wq, sc, smem + s * SB, rows, n0, k_begin + s * BK);
+        cp_async_commit();
+    }
+    for (int it = 0; it < steps; ++it) {
+        cp_async_wait_n(S - 2);          // stage it has landed
+        __syncthreads();                 // and every warp is done with stage it - 1
+        const int nxt = it + S - 1;
+        if (nxt < steps)
+            d_load_stage<XB, W>(p, wq, sc, smem + (nxt % S) * SB, rows, n0, k_begin + nxt * BK);
+        cp_async_commit();
+        d_compute_stage<NT, X, W>(smem + (it % S) * SB, nt, wn0, lane, acc);
+    }
+    cp_async_wait_n(0);
+    __syncthreads();                     // the ring is free
+    float* tile = reinterpret_cast<float*>(smem);   // [M][BN]
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (jj >= nt) break;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int m = 8 * jj + 2 * t + (r & 1);
+                if (m < p.M) tile[m * BN + wn0 + 16 * i + g + 8 * (r >> 1)] = acc[i][jj][r];
+            }
+        }
+    __syncthreads();
+    d_finish(p, tile, &last_flag);
+}
+
+template <int NT, int X, int W>
+__global__ void __launch_bounds__(BN, kDecodeMinBlocks) mx_decode_kernel(DParams p) {
+    d_body<NT, X, W>(p, p.wq, p.scales);
+}
+
+// wq (L, K / per_word, N), scales (L, K / 32, N); *layer_idx in [0, L)
+template <int NT, int X, int W>
+__global__ void __launch_bounds__(BN, kDecodeMinBlocks) mx_decode_stacked_kernel(DParams p) {
+    const int l = __ldg(p.layer_idx);
+    if (l < 0 || l >= p.L) __trap();     // the caller's index is out of the stack
+    d_body<NT, X, W>(p, p.wq + (size_t)l * (p.K / mx::per_word(W)) * p.N,
+                  p.scales + (size_t)l * (p.K / 32) * p.N);
+}
+
+template <int NT, int X, int W>
+cudaError_t d_launch(const DParams& p, int splits, cudaStream_t stream) {
+    static std::atomic<unsigned> ready{0}, ready_stacked{0};
+    constexpr int XB = X == kXbf16 ? 2 : 1;
+    cudaError_t err = sm90::allow_smem(mx_decode_kernel<NT, X, W>, kDecodeSmemMax, ready);
+    if (err != cudaSuccess) return err;
+    err = sm90::allow_smem(mx_decode_stacked_kernel<NT, X, W>, kDecodeSmemMax, ready_stacked);
+    if (err != cudaSuccess) return err;
+    const int rows = (p.M + 7) / 8 * 8;
+    const int ring = p.stages * d_stage_bytes(W, rows, XB), tile = p.M * BN * 4;
+    const int bytes = ring > tile ? ring : tile;
+    if (bytes > kDecodeSmemMax) return cudaErrorInvalidValue;
+    const dim3 grid(p.N / BN, splits);
+    if (p.layer_idx) mx_decode_stacked_kernel<NT, X, W><<<grid, BN, bytes, stream>>>(p);
+    else mx_decode_kernel<NT, X, W><<<grid, BN, bytes, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int X, int W>
+cudaError_t d_launch_rows(const DParams& p, int splits, cudaStream_t stream) {
+    return p.M <= 8 ? d_launch<1, X, W>(p, splits, stream) : d_launch<8, X, W>(p, splits, stream);
+}
+
+// x_code: DType 2 (bf16) or 3 (e4m3); w_kind: mx::WKind
+int d_run(DParams p, int x_code, int splits, cudaStream_t stream) {
+    const bool shape_ok = p.M >= 1 && p.M <= 64 && p.N >= BN && p.N % BN == 0 && p.K >= BK &&
+                          p.K % BK == 0 && (x_code == gl::kBF16 || x_code == 3) &&
+                          p.wkind >= mx::kFp4 && p.wkind <= mx::kE5m2;
+    const bool split_ok = splits >= 1 && p.k_per_split > 0 && p.k_per_split % BK == 0 &&
+                          (long long)(splits - 1) * p.k_per_split < p.K &&
+                          (long long)splits * p.k_per_split >= p.K &&
+                          (splits == 1 || (p.part != nullptr && p.counters != nullptr));
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.wq) |
+                            reinterpret_cast<uintptr_t>(p.scales);
+    if (!shape_ok || !split_ok || p.scales == nullptr || p.stages < 2 || p.stages > kMaxStages ||
+        bases % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    if (x_code == gl::kBF16) {
+        if (p.wkind == mx::kFp4) err = d_launch_rows<kXbf16, mx::kFp4>(p, splits, stream);
+        else if (p.wkind == mx::kE4m3) err = d_launch_rows<kXbf16, mx::kE4m3>(p, splits, stream);
+        else err = d_launch_rows<kXbf16, mx::kE5m2>(p, splits, stream);
+    } else {
+        if (p.wkind == mx::kFp4) err = d_launch_rows<kXe4m3, mx::kFp4>(p, splits, stream);
+        else if (p.wkind == mx::kE4m3) err = d_launch_rows<kXe4m3, mx::kE4m3>(p, splits, stream);
+        else err = d_launch_rows<kXe4m3, mx::kE5m2>(p, splits, stream);
+    }
+    return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Prefill, M < 4096
+// ---------------------------------------------------------------------------
+
+constexpr int PBK = 64;                       // K a stage: one 128-byte row of bf16 x
+constexpr int PBM = 128;                      // rows of x a block
+constexpr int kConsumers = 256;               // two warpgroups of 64 columns
+constexpr int kThreads = kConsumers + 128;    // and one producer warpgroup
+constexpr int kPrefillSmemMax = 227 * 1024;
+constexpr int kTileStride = BN + 4;           // floats a row of the epilogue tile
+constexpr int kXStage = PBM * PBK * 2;        // the bf16 x tile of a stage
+constexpr int kSStage = 512;                  // a stage's scale rows (2 or 4 of 128 bytes)
+
+struct PParams {
+    const uint8_t* xc;                        // (M, K) e4m3 codes, or null (bf16 x by TMA)
+    const float* xs;                          // (M, K / ags) group scales of the codes, or null
+    const float* sx;                          // (M) per-token scales, or null
+    bf16* out;                                // (M, N)
+    float* part;                              // (splits, M, N)
+    int* counters;                            // one per output tile, 0 between calls
+    int M, N, K, k_per_split, stages, wkind, gs, ags;
+};
+
+struct PMaps {
+    CUtensorMap x, w, s;
+};
+
+__host__ __device__ inline int p_w_bytes(int wkind) { return PBK / mx::per_word(wkind) * BN * 4; }
+
+// shared memory from a 1024-byte aligned base: the x ring, the word ring,
+// the scale ring, the epilogue tile over them once they are free, the
+// mbarriers (full, then empty, one a stage) and the last-block flag.
+// ops/mx.prefill_smem mirrors `bytes`.
+struct PLayout {
+    int w, s, bars, flag, bytes;
+    __host__ __device__ PLayout(int wkind, int stages) {
+        w = stages * kXStage;
+        s = w + stages * p_w_bytes(wkind);
+        const int ring = s + stages * kSStage, tile = PBM * kTileStride * 4;
+        bars = ring > tile ? ring : tile;
+        flag = bars + 16 * stages;
+        bytes = flag + 16 + 1024;
+    }
+};
+
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The producer warpgroup: per stage, once the consumers have released it,
+// the x tile (bf16 by TMA; or codes turned into bf16 by the 128 threads, then
+// made visible to the async proxy), then the words and scales by TMA on the
+// stage's full mbarrier, armed by thread 0 after the x tile is written.
+template <int XC, int W>
+__device__ __forceinline__ void p_produce(const PParams& p, const PMaps& maps, uint8_t* g,
+                                          uint32_t base, const PLayout& L, int n0, int m0,
+                                          int k_begin, int steps) {
+    const int tid = threadIdx.x - kConsumers;
+    const uint32_t bars = base + L.bars;
+    const int wb = p_w_bytes(W), sb = PBK / p.gs * BN;
+    for (int it = 0; it < steps; ++it) {
+        const int st = it % p.stages, k0 = k_begin + it * PBK;
+        const uint32_t full = sm90::bar_addr(bars, st);
+        if (it >= p.stages)
+            sm90::mbar_wait(sm90::bar_addr(bars, p.stages + st), ((it / p.stages) & 1) ^ 1);
+        if constexpr (XC) {
+            // 8 rows of 8 codes a thread (row m = u / 8, chunk c = u % 8 of
+            // unit u = tid + 128 i): every load issued before the first
+            // conversion, so that they are in flight together
+            uint8_t* xt = g + st * kXStage;
+            const int groups = p.K / p.ags;
+            uint2 raw[8];
+            float sc[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int u = tid + 128 * i, row = m0 + (u >> 3), k = k0 + 8 * (u & 7);
+                raw[i] = make_uint2(0u, 0u);
+                sc[i] = 1.f;
+                if (row < p.M) {
+                    raw[i] = __ldg(reinterpret_cast<const uint2*>(p.xc + (size_t)row * p.K + k));
+                    if (p.xs != nullptr) sc[i] = __ldg(p.xs + (size_t)row * groups + k / p.ags);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const int u = tid + 128 * i, m = u >> 3, c = u & 7;
+                const uint32_t w[2] = {raw[i].x, raw[i].y};
+                uint4 pk;
+                uint32_t* o = reinterpret_cast<uint32_t*>(&pk);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const uint32_t two = w[q >> 1] >> (16 * (q & 1));
+                    o[q] = mx::bf16x2(__fmul_rn(mx::fp8_f32(two, false), sc[i]),
+                                      __fmul_rn(mx::fp8_f32(two >> 8, false), sc[i]));
+                }
+                *reinterpret_cast<uint4*>(xt + m * 128 + ((c ^ (m & 7)) << 4)) = pk;
+            }
+            fence_proxy_async();
+            sm90::named_sync<2, 128>();
+        }
+        if (tid == 0) {
+            sm90::mbar_expect_tx(full, (XC ? 0 : kXStage) + wb + sb);
+            if constexpr (!XC) sm90::tma_load_2d(base + st * kXStage, &maps.x, full, k0, m0);
+            sm90::tma_load_2d(base + L.w + st * wb, &maps.w, full, n0, k0 / mx::per_word(W));
+            sm90::tma_load_2d(base + L.s + st * kSStage, &maps.s, full, n0, k0 / p.gs);
+        }
+    }
+}
+
+// The A fragments of one stage for this lane (column col, and col + 8):
+// a[kk][2 half + h] = the decoded weights at k 16 kk + 8 half + 2t, + 1 of
+// column col + 8 h: fp4 nibbles 2t, 2t + 1 of word row 2 kk + half, fp8 bytes
+// 2 (t & 1), + 1 of word row 4 kk + 2 half + t / 2; the group's scale row is
+// (16 kk) / gs.
+template <int W>
+__device__ __forceinline__ void p_build(uint32_t (&a)[4][4], const uint8_t* g, int wofs, int sofs,
+                                        int gs, int col, int t) {
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(g + wofs) + col;
+    const uint8_t* ss = g + sofs + col;
+    constexpr bool fp4 = W == mx::kFp4;
+    const bool nvfp4 = gs == 16;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float s = mx::scale_f32(ss[(16 * kk / gs) * BN + 8 * h], nvfp4);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const uint32_t w = fp4 ? ws[(2 * kk + half) * BN + 8 * h] >> (8 * t)
+                                       : ws[(4 * kk + 2 * half + (t >> 1)) * BN + 8 * h] >> (16 * (t & 1));
+                a[kk][2 * half + h] = mx::decode_pair(w, 0, W, s);
+            }
+        }
+}
+
+// The block's sums, staged as tile[m][kTileStride] for rows m0 .. m0 + 127:
+// into the output (times the per-token scale), or with K split the block's
+// partial, and the last block of the tile adds the partials in split order.
+// Consumer threads only. Not inlined.
+__device__ __noinline__ void p_finish(const PParams p, const float* tile, int* flag, int m0) {
+    const int tid = threadIdx.x, n0 = blockIdx.y * BN;
+    const int split = blockIdx.z, nsplit = gridDim.z;
+    const int ctr = blockIdx.x + gridDim.x * blockIdx.y;
+    const int rows = min(PBM, p.M - m0);
+    const size_t MN = (size_t)p.M * p.N;
+    if (nsplit > 1) {
+        for (int e = tid * 4; e < rows * BN; e += kConsumers * 4) {
+            const int m = e / BN, c = e % BN;
+            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)(m0 + m) * p.N + n0 + c) =
+                *reinterpret_cast<const float4*>(tile + m * kTileStride + c);
+        }
+        __threadfence();
+        sm90::named_sync<1, kConsumers>();
+        if (tid == 0) *flag = atomicAdd(p.counters + ctr, 1) == nsplit - 1;
+        sm90::named_sync<1, kConsumers>();
+        if (!*flag) return;
+        __threadfence();
+    }
+    for (int e = tid * 8; e < rows * BN; e += kConsumers * 8) {
+        const int m = e / BN, c = e % BN, n = n0 + c;
+        const size_t idx = (size_t)(m0 + m) * p.N + n;
+        float v[8];
+        if (nsplit == 1) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) v[i] = tile[m * kTileStride + c + i];
+        } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) v[i] = 0.f;
+            for (int s0 = 0; s0 < nsplit; s0 += 4) {
+                float4 r[4][2];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    r[j][0] = r[j][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+                    if (s0 + j >= nsplit) continue;
+                    const float* src = p.part + (s0 + j) * MN + idx;
+                    r[j][0] = __ldcg(reinterpret_cast<const float4*>(src));
+                    r[j][1] = __ldcg(reinterpret_cast<const float4*>(src + 4));
+                }
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    if (s0 + j >= nsplit) break;
+                    const float q[8] = {r[j][0].x, r[j][0].y, r[j][0].z, r[j][0].w,
+                                        r[j][1].x, r[j][1].y, r[j][1].z, r[j][1].w};
+#pragma unroll
+                    for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], q[i]);
+                }
+            }
+        }
+        if (p.sx != nullptr) {
+            const float s = p.sx[m0 + m];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], s);
+        }
+        uint4 pk;
+        pk.x = mx::bf16x2(v[0], v[1]);
+        pk.y = mx::bf16x2(v[2], v[3]);
+        pk.z = mx::bf16x2(v[4], v[5]);
+        pk.w = mx::bf16x2(v[6], v[7]);
+        *reinterpret_cast<uint4*>(p.out + idx) = pk;
+    }
+    if (nsplit > 1 && tid == 0) p.counters[ctr] = 0;
+}
+
+// What a consumer thread needs across the steps of its pipeline.
+template <int W>
+struct PConsumer {
+    uint8_t* g;
+    uint32_t base, bars;
+    const PLayout* L;
+    int S, col, t, lane, gs;
+
+    __device__ __forceinline__ void full(int it) const {
+        sm90::mbar_wait(sm90::bar_addr(bars, it % S), (it / S) & 1);
+    }
+    __device__ __forceinline__ void release(int it) const {
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(sm90::bar_addr(bars, S + it % S));
+    }
+    __device__ __forceinline__ uint64_t x_desc(int it) const {
+        return sm90::sw128_desc(base + it % S * kXStage, 16, 1024);
+    }
+    __device__ __forceinline__ void build(uint32_t (&a)[4][4], int it) const {
+        p_build<W>(a, g, L->w + it % S * p_w_bytes(W), L->s + it % S * kSStage, gs, col, t);
+    }
+};
+
+// One stage j: issue its products from buffer CUR, decode stage j + 1's
+// weights into the other buffer while they run, wait, release the stage. No
+// product is in flight where a step ends, so the steps may sit under a branch.
+template <int CUR, int W>
+__device__ __forceinline__ void p_step(const PConsumer<W>& c, float (&acc)[64],
+                                       uint32_t (&a)[2][4][4], int j, int steps) {
+    const uint64_t dx = c.x_desc(j);
+    sm90::pin(a[CUR]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n128<0>(acc, a[CUR][kk], dx + ((kk * 32) >> 4), 1);
+    sm90::wgmma_commit();
+    if (j + 1 < steps) {
+        c.full(j + 1);
+        c.build(a[1 - CUR], j + 1);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::pin(acc);
+    c.release(j);
+}
+
+template <int W>
+__device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t base,
+                                          const PLayout& L, int wg, int m0, int steps, int* flag) {
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int col = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;   // and col + 8
+    const PConsumer<W> c{g, base, base + L.bars, &L, p.stages, col, t, lane, p.gs};
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    uint32_t a[2][4][4];                      // stage s in buffer s % 2
+    c.full(0);
+    c.build(a[0], 0);
+    int j = 0;
+    for (; j + 1 < steps; j += 2) {
+        p_step<0, W>(c, acc, a, j, steps);
+        p_step<1, W>(c, acc, a, j + 1, steps);
+    }
+    if (j < steps) p_step<0, W>(c, acc, a, j, steps);
+
+    sm90::named_sync<1, kConsumers>();        // both warpgroups are done with the ring
+    float* tile = reinterpret_cast<float*>(g);
+#pragma unroll
+    for (int n8 = 0; n8 < 16; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            tile[(8 * n8 + 2 * t + (e & 1)) * kTileStride + col + 8 * (e >> 1)] = acc[4 * n8 + e];
+    sm90::named_sync<1, kConsumers>();
+    p_finish(p, tile, flag, m0);
+}
+
+template <int XC, int W>
+__global__ void __launch_bounds__(kThreads, 1)
+mx_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
+    extern __shared__ uint8_t smem_raw[];
+    const PLayout L(p.wkind, p.stages);
+    const uint32_t base = sm90::smem_base(smem_raw), bars = base + L.bars;
+    uint8_t* g = smem_raw + (base - sm90::smem_addr(smem_raw));
+    const int n0 = blockIdx.y * BN, m0 = blockIdx.x * PBM;
+    const int k_begin = blockIdx.z * p.k_per_split;
+    const int steps = (min(p.K, k_begin + p.k_per_split) - k_begin) / PBK;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < p.stages; ++s) {
+            sm90::mbar_init(sm90::bar_addr(bars, s), 1);
+            sm90::mbar_init(sm90::bar_addr(bars, p.stages + s), kConsumers / 32);
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+    if (sm90::warpgroup() == 2) {
+        p_produce<XC, W>(p, maps, g, base, L, n0, m0, k_begin, steps);
+    } else {
+        p_consume<W>(p, g, base, L, sm90::warpgroup(), m0, steps,
+                     reinterpret_cast<int*>(g + L.flag));
+    }
+}
+
+// 2-d map over a contiguous (rows, cols) array, dims innermost first; a box
+// is box_cols x box_rows; what lies past the array reads as zeros
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr, int rows,
+              int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+    const sm90::EncodeTiled encode = sm90::encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t unit[2] = {1, 1};
+    return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int XC, int W>
+cudaError_t p_launch(const void* x, const uint32_t* wq, const uint8_t* scales, const PParams& p,
+                     int splits, cudaStream_t stream) {
+    static std::atomic<unsigned> ready{0};
+    const PLayout L(p.wkind, p.stages);
+    if (L.bytes > kPrefillSmemMax) return cudaErrorInvalidValue;
+    PMaps maps;
+    constexpr int epw = mx::per_word(W);
+    if (!XC && !make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.M, p.K, PBM, PBK,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+        return cudaErrorInvalidValue;
+    if (XC) maps.x = CUtensorMap{};
+    if (!make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, wq, p.K / epw, p.N, PBK / epw, BN,
+                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, scales, p.K / p.gs, p.N, PBK / p.gs,
+                  BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+        return cudaErrorInvalidValue;
+    const cudaError_t err = sm90::allow_smem(mx_prefill_kernel<XC, W>, kPrefillSmemMax, ready);
+    if (err != cudaSuccess) return err;
+    // row tiles fastest: the blocks of one column tile share its words in L2
+    const dim3 grid((p.M + PBM - 1) / PBM, p.N / BN, splits);
+    mx_prefill_kernel<XC, W><<<grid, kThreads, L.bytes, stream>>>(maps, p);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream` (M <= 64). x (M, K) bf16 (x_code 2) or per-token e4m3
+// (x_code 3, with sx (M) float32; else sx null); wq (K / per_word, N) codes of
+// w_kind (0 fp4, 1 e4m3, 2 e5m2), scales (K / 32, N) e8m0 bits. N and K
+// multiples of 128. K is cut into `splits` ranges of `k_per_split` (a multiple
+// of 128, none empty); with splits > 1 the call needs `part`, (splits, M, N)
+// floats, and `counters`, one int32 per column tile, all 0, which the kernel
+// leaves 0. `stages` comes from ops/mx.decode_plan. Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int gl_mx_decode(const void* x, const void* wq, const void* scales, const void* sx,
+                            void* part, void* counters, void* out, int M, int N, int K, int x_code,
+                            int w_kind, int splits, int k_per_split, int stages, void* stream_ptr) {
+    const DParams p{x, static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales),
+                    static_cast<const float*>(sx), nullptr, 1, static_cast<bf16*>(out),
+                    static_cast<float*>(part), static_cast<int*>(counters),
+                    M, N, K, k_per_split, stages, w_kind};
+    return d_run(p, x_code, splits, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The same for layer *layer_idx (a device pointer to one int32) of the
+// L-layer stacks wq (L, K / per_word, N) and scales (L, K / 32, N).
+extern "C" int gl_mx_decode_stacked(const void* x, const void* wq, const void* scales,
+                                    const void* sx, const void* layer_idx, void* part,
+                                    void* counters, void* out, int L, int M, int N, int K,
+                                    int x_code, int w_kind, int splits, int k_per_split,
+                                    int stages, void* stream_ptr) {
+    if (layer_idx == nullptr || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const DParams p{x, static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales),
+                    static_cast<const float*>(sx), static_cast<const int*>(layer_idx), L,
+                    static_cast<bf16*>(out), static_cast<float*>(part), static_cast<int*>(counters),
+                    M, N, K, k_per_split, stages, w_kind};
+    return d_run(p, x_code, splits, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// Launch on `stream` (M < 4096). x (M, K): bf16 (x_code 2, read by TMA), or
+// e4m3 codes (x_code 3) with `xs` (M, K / ags) float32 group scales (csm 4;
+// ags 16 or 32) or null (per-token codes: csm 2, with sx (M) float32); wq and
+// w_kind as for gl_mx_decode; scales (K / gs, N): e8m0 bits (gs 32) or NVFP4
+// e4m3 (gs 16). 128 rows of x a block, stages of 64 k; K cut into `splits`
+// ranges of `k_per_split` (a multiple of 64) and `stages` from
+// ops/mx.prefill_plan.
+extern "C" int gl_mx_prefill(const void* x, const void* xs, const void* wq, const void* scales,
+                             const void* sx, void* part, void* counters, void* out, int M, int N,
+                             int K, int x_code, int ags, int w_kind, int gs, int splits,
+                             int k_per_split, int stages, void* stream_ptr) {
+    const bool codes = x_code == 3;
+    const bool shape_ok = M >= 1 && N >= BN && N % BN == 0 && K >= 128 && K % 128 == 0 &&
+                          (x_code == gl::kBF16 || codes) && w_kind >= mx::kFp4 &&
+                          w_kind <= mx::kE5m2 && (gs == 32 || (gs == 16 && w_kind == mx::kFp4)) &&
+                          (xs == nullptr || (codes && (ags == 16 || ags == 32)));
+    const bool split_ok = splits >= 1 && k_per_split > 0 && k_per_split % PBK == 0 &&
+                          (long long)(splits - 1) * k_per_split < K &&
+                          (long long)splits * k_per_split >= K &&
+                          (splits == 1 || (part != nullptr && counters != nullptr));
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
+                            reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(out);
+    if (!shape_ok || !split_ok || scales == nullptr || stages < 2 || stages > kMaxStages ||
+        bases % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const PParams p{codes ? static_cast<const uint8_t*>(x) : nullptr, static_cast<const float*>(xs),
+                    static_cast<const float*>(sx), static_cast<bf16*>(out),
+                    static_cast<float*>(part), static_cast<int*>(counters), M, N, K, k_per_split,
+                    stages, w_kind, gs, xs != nullptr ? ags : 32};
+    const uint32_t* w = static_cast<const uint32_t*>(wq);
+    const uint8_t* s = static_cast<const uint8_t*>(scales);
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    cudaError_t err;
+    if (w_kind == mx::kFp4)
+        err = codes ? p_launch<1, mx::kFp4>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kFp4>(x, w, s, p, splits, stream);
+    else if (w_kind == mx::kE4m3)
+        err = codes ? p_launch<1, mx::kE4m3>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kE4m3>(x, w, s, p, splits, stream);
+    else
+        err = codes ? p_launch<1, mx::kE5m2>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kE5m2>(x, w, s, p, splits, stream);
+    return static_cast<int>(err);
+}

@@ -28,6 +28,7 @@ from .ops.dispatch import KERNEL_TRACE
 from .ops.fused import fused_gemm, fused_gemm_float
 from .ops.fp8 import fp8_decode, fp8_decode_stacked, fp8_prefill
 from .ops.int8_decode import int8_decode
+from .ops.mx import mx_decode, mx_decode_stacked, mx_prefill, mx_prefill_csm4
 from .ops.prefill import prefill_matmul
 from .ops.scan import decode_matmul_stacked
 
@@ -39,7 +40,9 @@ COUNTED = {"decode": decode_matmul, "prefill": prefill_matmul,
            "int8_decode": int8_decode, "fused_gemm": fused_gemm,
            "fused_gemm_float": fused_gemm_float, "flash": flash_attention_causal,
            "paged_decode": paged_decode_attention_kernel, "fp8_decode": fp8_decode,
-           "fp8_prefill": fp8_prefill, "fp8_decode_stacked": fp8_decode_stacked}
+           "fp8_prefill": fp8_prefill, "fp8_decode_stacked": fp8_decode_stacked,
+           "mx_decode": mx_decode, "mx_decode_stacked": mx_decode_stacked,
+           "mx_prefill": mx_prefill, "mx_prefill_csm4": mx_prefill_csm4}
 
 
 def pool_bytes(pool) -> int:

@@ -11,8 +11,9 @@ activations over packed grouped-INT weights of ``A8Wn_HQQ_INT_dynamic``
 (``A8W4_HQQ_INT_dynamic``, ``A8W2_HQQ_INT_dynamic``); BitNet
 ``A16W158_INT`` and ``A8W158_INT_dynamic``; ``from_linear`` /
 ``from_bitlinear``, ``cleanup_linear``, ``patch_model`` (replaces the linears
-of an ``nn.Module`` tree or a plain object tree) and ``warmup``. The MX
-processors are not ported yet; ``from_hqqlinear`` needs the ``hqq`` package.
+of an ``nn.Module`` tree or a plain object tree) and ``warmup``; the MX
+processors live in ``mx.py`` (``A16Wn.from_weights(quant_type="MXFP")``
+packs MX codes too). ``from_hqqlinear`` needs the ``hqq`` package.
 """
 
 import gc
@@ -97,14 +98,15 @@ def _weight_bias_of(linear_layer):
 
 def cleanup_linear(linear_layer, del_orig: bool = True) -> None:
     """Drop the original layer's weight references so its float copy can be
-    freed."""
-    if del_orig:
-        for attr in ("weight", "bias", "weight_scale", "W_q", "meta"):
-            if hasattr(linear_layer, attr):
-                try:
-                    setattr(linear_layer, attr, None)
-                except (AttributeError, TypeError):
-                    pass
+    freed (with ``del_orig=False`` nothing is dropped, and nothing collected)."""
+    if not del_orig:
+        return
+    for attr in ("weight", "bias", "weight_scale", "W_q", "meta"):
+        if hasattr(linear_layer, attr):
+            try:
+                setattr(linear_layer, attr, None)
+            except (AttributeError, TypeError):
+                pass
     gc.collect()
 
 
@@ -144,8 +146,12 @@ class A16Wn:
 
     def from_weights(self, W_q, scales, zeros, W_nbits: int, group_size: int, bias=None,
                      quant_type: str = "INT") -> GemLiteLinear:
-        if quant_type != "INT":
-            raise NotImplementedError(f"queued: quant_type {quant_type} (MX processors)")
+        if quant_type not in ("INT", "MXFP"):
+            raise ValueError(f"invalid quant_type {quant_type}")
+        if quant_type == "MXFP":
+            from .mx import pack_mxfp_layer
+            return pack_mxfp_layer(W_q, scales, W_nbits, dtype=self.dtype, bias=bias,
+                                   scaled_activations=False, device=self.device)
         W_q = tensor_from_numpy(W_q)
         scales = tensor_from_numpy(scales)
         zeros = tensor_from_numpy(zeros)
@@ -536,8 +542,9 @@ def warmup(processor, shapes, batch_sizes=None, group_size: int = 64,
 def _warmup_layer(processor, w: torch.Tensor, group_size: int) -> GemLiteLinear:
     """One layer from a float matrix by the processor's own constructor:
     BitNet through ``from_bitlinear`` on the signs, a processor that
-    quantizes itself (A16W8, A8W8) through ``from_linear``, a grouped Wn one
-    through the HQQ-style quantizer."""
+    quantizes itself (A16W8, A8W8, every MX processor: its module is ``.mx``)
+    through ``from_linear``, a grouped Wn one through the HQQ-style
+    quantizer (``gemlite_tpu/helper.py:_warmup_layer``)."""
     if hasattr(processor, "from_bitlinear"):
         class _Bit:
             weight = torch.sign(w)
@@ -545,7 +552,7 @@ def _warmup_layer(processor, w: torch.Tensor, group_size: int) -> GemLiteLinear:
             bias = None
 
         return processor.from_bitlinear(_Bit(), del_orig=False)
-    if getattr(processor, "W_nbits", None) is None:
+    if type(processor).__module__.endswith(".mx") or getattr(processor, "W_nbits", None) is None:
         class _Lin:
             weight = w
             bias = None

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core import GemLiteLinear, resolve_device
-from ..helper import A16Wn_HQQ_INT, _warmup_quantize
+from ..helper import A16Wn_HQQ_INT, _warmup_layer, _warmup_quantize
 from ..ops.attention import flash_attention_causal as _attention_flash_causal
 from ..ops.attention import xla_attention
 from .paged_kv import PagedKV, paged_decode_attention, paged_gather, paged_write
@@ -119,7 +119,11 @@ def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: i
     ``A8W8_FP8_dynamic``) quantizes the float weight itself through
     ``from_weights``; one with ``W_nbits`` (``A16Wn_HQQ_INT``,
     ``A8Wn_HQQ_INT_dynamic``) gets the HQQ-style quantizer's codes at
-    ``group_size`` (``helper._warmup_quantize``, as in JAX).
+    ``group_size`` (``helper._warmup_quantize``, as in JAX). An MX processor
+    (module ``.mx``, all six) quantizes the float weight through
+    ``from_linear``, the rule of the JAX package's ``helper._warmup_layer``;
+    JAX's own ``quantize_llama`` tests ``mx_fp8_dtype`` instead, which the
+    A4W4 processors lack, and raises a TypeError for them (ROADMAP Queue C).
 
     ``fuse=True`` concatenates q/k/v into one ``wqkv`` layer and gate/up into
     one ``gate_up`` layer in float32 before quantizing, as the JAX package
@@ -130,6 +134,8 @@ def quantize_llama(params: Dict, processor=None, W_nbits: int = 4, group_size: i
         processor = A16Wn_HQQ_INT(device=device, dtype=dtype, W_nbits=W_nbits)
 
     def q(w):
+        if type(processor).__module__.endswith(".mx"):
+            return _warmup_layer(processor, w.to(torch.float32), group_size)
         if getattr(processor, "W_nbits", None) is not None:
             return _warmup_quantize(processor, w.to(torch.float32), group_size, **quant_kwargs)
         return processor.from_weights(w.to(torch.float32), None)

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "dequantize", "int8_decode", "fused_gemm",
-                  "fused_float", "flash_attention", "paged_attention", "fp8_gemm")
+                  "fused_float", "flash_attention", "paged_attention", "fp8_gemm", "mx_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

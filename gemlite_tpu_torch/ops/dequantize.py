@@ -1,14 +1,15 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Dequantize kernel: packed W4 words of mode 4, or fp8 bit codes with their
-column scale folded in, -> dense (K, N) bf16 in one pass
-(``csrc/dequantize.cu``, entries ``gl_dequantize_w4`` and
-``gl_dequantize_fp8``).
+"""Dequantize kernel: packed W4 words of mode 4, fp8 bit codes with their
+column scale folded in, or MX codes with their group scale folded in, ->
+dense (K, N) bf16 in one pass (``csrc/dequantize.cu``, entries
+``gl_dequantize_w4``, ``gl_dequantize_fp8`` and ``gl_dequantize_mx``).
 
 Replaces ``gemlite_tpu/ops/pallas_prefill.py:pallas_dequantize``. The plain
 version, ``dequantize_full``, is a copy of ``gemlite_tpu/autograd.py``'s, with
 fp8 codes read as their fp8 values (the JAX copy reads the bytes as integer
 codes; its Pallas kernel, which serves the JAX router's fp8 layers, reads
-them as fp8). On a CPU tensor the wrapper runs the plain version; on a CUDA
+them as fp8), and MX codes as ``ops/reference.mx_dequantize_weight_ref``
+reads them. On a CPU tensor the wrapper runs the plain version; on a CUDA
 tensor it launches the kernel or raises.
 """
 
@@ -19,18 +20,29 @@ import torch
 from ..dtypes import DType
 from . import build, w4
 from .fp8 import fp8_coded, serves_fp8
-from .reference import dequantize_ref, fp8_values, unpack_rows_ref
+from .mx import _weights, mx_coded, mx_refusal, w_kind
+from .reference import dequantize_ref, fp8_values, mx_dequantize_weight_ref, unpack_rows_ref
 
 __all__ = ["can_use_dequantize", "dequantize_weights", "dequantize_full"]
 
 
+def _serves_mx(meta) -> bool:
+    """An MX layer the MX kernels take, the layer's csm aside (x is quantized
+    outside the dequantize kernel)."""
+    return mx_coded(meta) and mx_refusal(meta._replace(channel_scale_mode=0)) is None
+
+
 def can_use_dequantize(meta) -> bool:
+    if mx_coded(meta):
+        return _serves_mx(meta)
     return w4.serves(meta) or serves_fp8(meta)
 
 
 def dequantize_full(W_q, scales, zeros, meta, dtype=torch.bfloat16) -> torch.Tensor:
     """Packed layer state -> dense (K, N): dequantized in float32, channel
     scales (csm 1/3) folded in, one cast to ``dtype`` at the end."""
+    if mx_coded(meta):
+        return mx_dequantize_weight_ref(W_q, scales, meta).to(dtype)
     if fp8_coded(meta):
         b = fp8_values(W_q, meta)
         if meta.W_group_mode == 2 or meta.channel_scale_mode in (1, 3):
@@ -82,6 +94,15 @@ def dequantize_weights(W_q: torch.Tensor, scales, zeros, meta) -> torch.Tensor:
         return dequantize_full(W_q, scales, zeros, meta)
     if not can_use_dequantize(meta):
         raise NotImplementedError(f"dequantize kernel does not take {meta}")
+    if mx_coded(meta):
+        W_q, s = _weights(W_q, scales, meta)
+        N, K = meta.out_features, meta.in_features
+        out = torch.empty((K, N), dtype=torch.bfloat16, device=W_q.device)
+        err = _lib("gl_dequantize_mx", 3, 4)(W_q.data_ptr(), s.data_ptr(), out.data_ptr(), N, K,
+                                             w_kind(meta), meta.group_size, w4.stream())
+        build.check(err, "dequantize (mx)")
+        dequantize_weights.launches += 1
+        return out
     if fp8_coded(meta):
         out = _dequantize_fp8(W_q, scales, meta)
         dequantize_weights.launches += 1

@@ -24,12 +24,23 @@ runs on the general fused kernel here;
 non-packed int8 weights (A16W8) run on it below M 4096 in both packages,
 on its float path (``fused_gemm_float``). ``dense_fallback``
 is kept for the layers that the JAX package itself dequantizes without a
-Pallas kernel (``_xla_dequantized``). On the card a layer that no kernel
-serves (the MX codecs, csm 4) raises ``NotImplementedError``: no plain
-version of a kernel ever runs there. On the CPU the same routes run the
-kernels' plain versions and are noted as ``plain_<route>``; a layer no
-kernel would take is noted ``plain_oracle``. The scan path's stacked linears
-(``models/scan_llama.py``) note ``decode_stacked`` or ``plain_decode_stacked``.
+Pallas kernel (``_xla_dequantized``).
+
+MX layers (``ops/mx.py``) take the MX kernels under the same route names:
+micro-scaled x (csm 4) at 64 < M < 4096 goes in as e4m3 codes and group
+scales (``prefill_mx_csm4``); everywhere else it is fake-quantized with
+plain torch ops (JAX does this in XLA) and the layer routes as csm 0:
+decode at M <= 64 (NVFP4: prefill, as in JAX), prefill below 4096, the MX
+form of the dequantize kernel then a dense matmul from 4096. An MX layer
+that JAX does not fold runs on JAX's general fused kernel, whose MX codecs
+(row 5-MX) are not ported, and takes ``dense_fallback`` from M 4096.
+
+On the card a layer that no kernel serves raises ``NotImplementedError``
+naming the form: no plain version of a kernel ever runs there. On the CPU
+the same routes run the kernels' plain versions and are noted as
+``plain_<route>``; a layer no kernel would take is noted ``plain_oracle``.
+The scan path's stacked linears (``models/scan_llama.py``) note
+``decode_stacked`` or ``plain_decode_stacked``.
 """
 
 import torch
@@ -40,8 +51,10 @@ from .dequantize import can_use_dequantize, dequantize_full, dequantize_weights
 from .fp8 import fp8_coded, fp8_decode, fp8_prefill, serves_fp8
 from .fused import can_use_fused, fused_gemm
 from .int8_decode import can_use_int8_decode, int8_decode
+from .mx import jax_folds, mx_coded, mx_decode, mx_prefill, mx_refusal
 from .prefill import can_use_prefill, prefill_matmul
-from .reference import forward_meta
+from ..quant import scale_activations_mx
+from .reference import fake_quant_activations, forward_meta
 
 __all__ = ["KERNEL_TRACE", "KERNEL_ROUTES", "last_kernel", "fused_matmul"]
 
@@ -50,7 +63,7 @@ __all__ = ["KERNEL_TRACE", "KERNEL_ROUTES", "last_kernel", "fused_matmul"]
 KERNEL_TRACE: list = []
 # the routes that run a hand-written kernel for the matmul
 KERNEL_ROUTES = ("decode", "prefill", "dequantize", "int8_exact", "general_fused",
-                 "decode_stacked")
+                 "decode_stacked", "prefill_mx_csm4")
 _TRACE_LIMIT = 4096
 
 
@@ -77,7 +90,25 @@ def _xla_dequantized(meta) -> bool:
     return bool(F > 512 or K % F or F % planes or (F // planes) % 8 or N % 128 or K % 128)
 
 
+def _mx_route(meta, M: int):
+    """An MX layer's route at M rows, or None: micro-scaled x (csm 4) takes
+    ``prefill_mx_csm4`` at 64 < M < 4096 on a layer JAX folds (JAX's gate,
+    ``pallas_prefill.py:can_use_prefill_kernel(mx_x=True)``), and otherwise
+    the routes of csm 0."""
+    if meta.channel_scale_mode == 4 and 64 < M < 4096 and jax_folds(meta):
+        return "prefill_mx_csm4"
+    if not jax_folds(meta):
+        return "dense_fallback" if M >= 4096 else None
+    if M >= 4096:
+        return "dequantize"
+    if M <= 64 and meta.input_dtype != DType.NVFP4.value:
+        return "decode"
+    return "prefill"
+
+
 def _route(meta, M: int):
+    if mx_coded(meta):
+        return _mx_route(meta, M)
     if fp8_coded(meta):
         if not serves_fp8(meta):
             return None
@@ -100,7 +131,15 @@ def _route(meta, M: int):
 
 def _dense(x, w, meta, scales_x):
     """x @ w in bf16 on the tensor cores, then the per-token scale (csm 2/3)
-    in float32 (``gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul``)."""
+    in float32 (``gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul``). An
+    MX layer with per-token x (csm 2) keeps the sums in float32 before the
+    scale, as JAX's ``preferred_element_type`` does: its e4m3 x spans 448x
+    the bf16 step, and a bf16 product rounded before the scale is 1.4e-3
+    (mean) off the JAX package's."""
+    if mx_coded(meta) and meta.channel_scale_mode == 2 and scales_x is not None:
+        out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        out = out * scales_x.reshape(-1, 1).to(torch.float32)
+        return out.to(to_torch_dtype(DType(meta.output_dtype)))
     out = torch.matmul(x.to(torch.bfloat16), w)
     if meta.channel_scale_mode in (2, 3) and scales_x is not None:
         out = out.to(torch.float32) * scales_x.reshape(-1, 1).to(torch.float32)
@@ -110,16 +149,27 @@ def _dense(x, w, meta, scales_x):
 def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> torch.Tensor:
     """out (M, N) = x (M, K) @ dequant(W_q) through the kernel of M's regime.
     ``scales_x`` (M, 1) are the per-token scales of a dynamically quantized x."""
-    route = _route(meta, x.shape[0])
+    M = x.shape[0]
+    route = _route(meta, M)
     on_cpu = x.device.type == "cpu"
     if route is None:
         if not on_cpu:
-            raise NotImplementedError(
-                f"no kernel serves M={x.shape[0]} with {meta}: the MX codecs, csm 4 and "
-                "grouped fp8 wait for the MX slice; fp8 codes need K and N multiples of 128")
+            why = (mx_refusal(meta._replace(channel_scale_mode=0), M) if mx_coded(meta)
+                   else "csm 4 belongs to MX input dtypes, and fp8 codes need K and N "
+                        "multiples of 128 and one group or none")
+            raise NotImplementedError(f"no kernel serves M={M} with {meta}: {why}")
         _note("plain_oracle")
         return forward_meta(x, W_q, scales, zeros, scales_x, meta)
     _note(f"plain_{route}" if on_cpu else route)
+    if mx_coded(meta):
+        if route == "prefill_mx_csm4":
+            return mx_prefill(None, W_q, scales, None, meta,
+                              x_codes=scale_activations_mx(x, meta.input_dtype))
+        if meta.channel_scale_mode == 4:
+            x = fake_quant_activations(x, meta.input_dtype, meta.output_dtype)
+            meta = meta._replace(channel_scale_mode=0)
+        if route in ("decode", "prefill"):
+            return (mx_decode if route == "decode" else mx_prefill)(x, W_q, scales, scales_x, meta)
     if route == "int8_exact":
         return int8_decode(x, W_q, scales, zeros, scales_x, meta)
     if fp8_coded(meta) and route in ("decode", "prefill"):

@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..dtypes import DType, to_torch_dtype
+from ..dtypes import DType, is_mx_dtype, to_torch_dtype
 from . import build
 from .prefill import estimate_us
 from .reference import forward_fp8_ref
@@ -51,10 +51,11 @@ X_DTYPES = (DType.BF16.value,) + CODES
 
 
 def fp8_coded(meta) -> bool:
-    """True when W_q holds fp8 bit codes, four to an int32 word
-    (``gemlite_tpu/ops/pallas_decode.py:fp8_coded`` without the MX case)."""
+    """True when W_q holds fp8 bit codes, four to an int32 word, outside an MX
+    layer (``gemlite_tpu/ops/pallas_decode.py:fp8_coded``; MXFP8 layers take
+    the MX kernels, ``ops/mx.py``)."""
     return (meta.W_nbits == 8 and meta.elements_per_sample == 4
-            and getattr(meta, "w_code_dtype", 0) != 0)
+            and getattr(meta, "w_code_dtype", 0) != 0 and not is_mx_dtype(meta.input_dtype))
 
 
 def fp8_refusal(meta, M: Optional[int] = None) -> Optional[str]:
@@ -69,7 +70,8 @@ def fp8_refusal(meta, M: Optional[int] = None) -> Optional[str]:
         return (f"W_group_mode {meta.W_group_mode} / csm {meta.channel_scale_mode}: fp8 codes "
                 "are true values (mode 0, or 2), csm 0-3")
     if meta.W_group_mode == 2 and meta.group_size != meta.in_features:
-        return "grouped mode-2 fp8 (the MX block scales) waits for the MX slice"
+        return ("grouped mode-2 fp8 codes outside an MX layer: no processor makes them, and "
+                "no kernel of either package takes them (MXFP8 layers: ops/mx.py)")
     if meta.input_dtype not in X_DTYPES or meta.output_dtype != DType.BF16.value:
         return (f"x DType {meta.input_dtype} -> out DType {meta.output_dtype}, not bf16 / fp8 "
                 "-> bf16")

@@ -275,8 +275,9 @@ def _kernel_args(x, W_q, scales, zeros, scales_x, meta):
     """The checked operands of a CUDA call: (x, W_q, s, z, zero scalar, sx,
     gs_s, gs_z, out), raising on what the kernels do not take."""
     if not can_use_fused(meta):
-        raise NotImplementedError(f"general fused kernel does not take {meta}: the MX codecs "
-                                  "and csm 4 wait for the MX slice")
+        raise NotImplementedError(f"general fused kernel does not take {meta}: MX layers run "
+                                  "on the MX kernels (ops/mx.py); this kernel's MX codecs (row "
+                                  "5-MX, for MX layers JAX does not fold) are not ported")
     M = x.shape[0]
     N, K = meta.out_features, meta.in_features
     x_dtype = to_torch_dtype(meta.input_dtype)

@@ -17,15 +17,23 @@ channel_scale_mode, epilogue on the (M, N) accumulator:
 
 fp8 bit codes (``w_code_dtype``): the bytes are the fp8 weights themselves,
 summed against x in float32 and scaled after the dot (``forward_fp8_ref``).
+
+MX layers (``gemlite_tpu/mx.py:113-216``): each fp4 / fp8 code's value times
+its group's scale in float32, the dot in float32 (``mx_forward_ref``); with
+micro-scaled activations (csm 4) x is first rounded to its MX grid in bf16
+(``fake_quant_activations``), as the JAX oracle does.
 """
 
 import torch
 
 from ..bitpack import unpack_over_rows
-from ..dtypes import DType, to_torch_dtype
+from ..dtypes import DType, is_mx_dtype, to_torch_dtype
+from ..quant import (NVFP4_META_SCALE, _f32, _pow2_ceil, e8m0_bits_to_f32, fp4_dequant,
+                     mx_group_size, round_to_fp4)
 
 __all__ = ["unpack_rows_ref", "dequantize_ref", "int_matmul", "forward_ref", "forward_meta",
-           "fp8_values", "forward_fp8_ref"]
+           "fp8_values", "forward_fp8_ref", "fake_quant_activations", "mx_scales_f32",
+           "mx_codes", "mx_dequantize_weight_ref", "mx_forward_ref"]
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,7 +125,7 @@ def forward_ref(x: torch.Tensor, W_q_packed: torch.Tensor, scales, zeros, scales
         acc = (acc.to(meta_t) * scales_x.reshape(-1, 1).to(meta_t)
                * scales.reshape(1, -1).to(meta_t))
     elif channel_scale_mode == 4:
-        raise NotImplementedError("queued: csm 4 (MX grouped activation scales)")
+        raise ValueError("csm 4 (micro-scaled activations) is for MX layers: mx_forward_ref")
     return acc.to(out_dtype)
 
 
@@ -156,13 +164,20 @@ def forward_fp8_ref(x: torch.Tensor, W_q: torch.Tensor, scales, scales_x, meta) 
     if csm in (1, 3):
         acc = acc * scales.reshape(1, -1).to(torch.float32)
     elif csm == 4:
-        raise NotImplementedError("queued: csm 4 (MX grouped activation scales)")
+        raise ValueError("csm 4 (micro-scaled activations) is for MX layers: mx_forward_ref")
     return acc.to(to_torch_dtype(meta.output_dtype))
 
 
 def forward_meta(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
     """forward_ref with its static arguments taken from a LayerMeta (for fp8
-    bit codes, ``forward_fp8_ref``)."""
+    bit codes, ``forward_fp8_ref``; for MX layers ``mx_forward_ref``, after
+    rounding x to its MX grid where the activations are micro-scaled, as the
+    JAX package's ``ops/dispatch.py:_ref_kernel`` does)."""
+    if is_mx_dtype(meta.input_dtype):
+        if meta.channel_scale_mode == 4:
+            x = fake_quant_activations(x, meta.input_dtype, meta.output_dtype)
+            meta = meta._replace(channel_scale_mode=0)
+        return mx_forward_ref(x, W_q, scales, zeros, scales_x, meta)
     if getattr(meta, "w_code_dtype", 0):
         return forward_fp8_ref(x, W_q, scales, scales_x, meta)
     return forward_ref(
@@ -172,3 +187,65 @@ def forward_meta(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
         channel_scale_mode=meta.channel_scale_mode, input_dtype=meta.input_dtype,
         output_dtype=meta.output_dtype, acc_dtype=meta.acc_dtype,
         meta_dtype=meta.meta_dtype, zero_is_scalar=bool(meta.zero_is_scalar))
+
+
+def fake_quant_activations(x: torch.Tensor, input_dtype,
+                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x rounded to the micro-scaled grid of ``input_dtype`` (MXFP8, MXFP4 or
+    NVFP4) and returned dequantized in ``compute_dtype``; the values times
+    their scales are exact in float32, then rounded once."""
+    d = DType(input_dtype)
+    g = x.reshape(-1, x.shape[-1]).to(torch.float32).reshape(-1, mx_group_size(d))
+    amax = g.abs().amax(dim=1, keepdim=True)
+    if d == DType.MXFP8:
+        scales, _ = _pow2_ceil(amax / _f32(448.0, amax))
+        out = torch.clamp(g / scales, -448.0, 448.0).to(torch.float8_e4m3fn).to(
+            torch.float32) * scales
+    elif d == DType.MXFP4:
+        scales, _ = _pow2_ceil(amax / _f32(6.0, amax))
+        out = round_to_fp4(g / scales)[0] * scales
+    elif d == DType.NVFP4:
+        ideal = amax / _f32(6.0, amax) / _f32(NVFP4_META_SCALE, amax)
+        s8 = torch.clamp(ideal, 0, 448.0).to(torch.float8_e4m3fn)
+        full = torch.clamp_min(s8.to(torch.float32) * NVFP4_META_SCALE, 1e-6)
+        out = round_to_fp4(g / full)[0] * full
+    else:
+        raise ValueError(f"not an MX activation dtype: {d}")
+    return out.reshape(x.shape).to(to_torch_dtype(compute_dtype))
+
+
+def mx_scales_f32(scales: torch.Tensor, meta) -> torch.Tensor:
+    """(G, N) group scales as float32: e8m0 bits decoded, or NVFP4's e4m3
+    times 0.05 (a float32 multiply)."""
+    if DType(meta.input_dtype) == DType.NVFP4:
+        return scales.to(torch.float32) * NVFP4_META_SCALE
+    return e8m0_bits_to_f32(scales)
+
+
+def mx_codes(W_q: torch.Tensor, meta) -> torch.Tensor:
+    """(K, N) float32 values of a w_layout-0 layer's codes: fp4 codebook
+    values, or fp8 bit codes read as e4m3 / e5m2."""
+    K = meta.in_features
+    if meta.W_nbits == 4:
+        return fp4_dequant(unpack_over_rows(W_q, 4, K))
+    codes = unpack_over_rows(W_q, 8, K)
+    fp8 = torch.float8_e5m2 if meta.w_code_dtype == DType.FP8e5.value else torch.float8_e4m3fn
+    return codes.view(fp8).to(torch.float32)
+
+
+def mx_dequantize_weight_ref(W_q: torch.Tensor, scales: torch.Tensor, meta) -> torch.Tensor:
+    """Packed MX weights -> the full (K, N) float32 matrix: each code's value
+    times its group's scale in float32."""
+    K = meta.in_features
+    s = mx_scales_f32(scales, meta)
+    return mx_codes(W_q, meta) * torch.repeat_interleave(s, K // s.shape[0], dim=0)
+
+
+def mx_forward_ref(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
+    """The plain MX forward: x (already in the compute dtype, fake-quantized
+    when micro-scaled) in float32 against the float32 weights, times the
+    per-token scales (csm 2), in the output dtype."""
+    acc = x.to(torch.float32) @ mx_dequantize_weight_ref(W_q, scales, meta)
+    if meta.channel_scale_mode == 2 and scales_x is not None:
+        acc = acc * scales_x.reshape(-1, 1).to(torch.float32)
+    return acc.to(to_torch_dtype(meta.output_dtype))

@@ -1,8 +1,10 @@
 # SPDX-License-Identifier: Apache-2.0
 """Stacked decode kernel: layer ``l`` of an L-layer stack of W1/W2/W4 mode-4
 layers for M <= 64 (``csrc/decode_gemv.cu``, entry ``gl_decode_stacked``),
-or of fp8-coded layers with unscaled x (``A16W8_FP8``; ``csrc/fp8_gemm.cu``,
-entry ``gl_fp8_decode_stacked``, wrapper ``ops/fp8.fp8_decode_stacked``).
+of fp8-coded layers with unscaled x (``A16W8_FP8``; ``csrc/fp8_gemm.cu``,
+entry ``gl_fp8_decode_stacked``, wrapper ``ops/fp8.fp8_decode_stacked``), or
+of weight-only MX layers (``A16W4_MXFP``, ``A16W8_MXFP``; ``csrc/mx_gemm.cu``,
+entry ``gl_mx_decode_stacked``, wrapper ``ops/mx.mx_decode_stacked``).
 
 Replaces ``gemlite_tpu/ops/pallas_scan.py:pallas_decode_matmul_stacked``. The
 TPU kernel takes the layer index as a scalar-prefetch operand read by its
@@ -26,6 +28,7 @@ from ..dtypes import DType
 from . import build, w4
 from .decode import can_use_decode, plan, split_buffers
 from .fp8 import fp8_coded, fp8_decode_stacked, fp8_refusal
+from .mx import mx_coded, mx_decode_stacked, mx_refusal
 from .reference import forward_meta
 
 __all__ = ["can_use_stacked_decode", "stacked_decode_refusal", "decode_matmul_stacked",
@@ -40,11 +43,15 @@ def stacked_decode_refusal(meta, M: int) -> Optional[str]:
     path carries no per-token scales. The JAX gate
     (``pallas_scan.py:can_use_stacked_decode``) admits the latter and then
     fails at trace time."""
+    if mx_coded(meta) and meta.channel_scale_mode == 4:
+        return "its activations are micro-scaled (csm 4), and the stacked path has no x scales"
     if meta.scaled_activations or meta.input_dtype == DType.INT8.value \
             or meta.channel_scale_mode in (2, 3):
         return "its activations are quantized per token, and the stacked path has no scales_x"
     if meta.zero_is_scalar:
         return "its zero is a scalar"
+    if mx_coded(meta):
+        return mx_refusal(meta, M, "decode")
     if fp8_coded(meta):
         if not 0 < M <= 64:
             return f"the fp8 decode kernel takes M <= 64 rows, not M={M}"
@@ -97,10 +104,12 @@ def decode_matmul_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) 
     CPU too). On the card the index is never read by the host."""
     if x.device.type == "cpu":
         return decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx)
-    if fp8_coded(meta):
+    if mx_coded(meta) or fp8_coded(meta):
         why = stacked_decode_refusal(meta, x.shape[0])
         if why is not None:
             raise NotImplementedError(f"stacked decode kernel does not take this layer: {why}")
+        if mx_coded(meta):
+            return mx_decode_stacked(x, W_q, scales, meta, layer_idx)
         return fp8_decode_stacked(x, W_q, scales, meta, layer_idx)
     M = x.shape[0]
     why = stacked_decode_refusal(meta, M)

@@ -350,8 +350,8 @@ def test_routes_and_no_fallback(gen):
     mode3(_x(gen, 4, 512))
     mode3(_x(gen, 4096, 512))
     assert dispatch.KERNEL_TRACE == ["general_fused"] * 2
-    mode3.channel_scale_mode = 4          # MX activation scales: no kernel yet
-    with pytest.raises(NotImplementedError, match="MX slice"):
+    mode3.channel_scale_mode = 4          # MX activation scales on a non-MX layer
+    with pytest.raises(NotImplementedError, match="csm 4 belongs to MX input dtypes"):
         mode3(_x(gen, 4, 512))
 
 

@@ -1,0 +1,243 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The MX kernels against their plain versions, on the card.
+
+Card-only: each test skips where no CUDA device is present. On the card:
+
+    python -m pytest --noconftest -m requires_cuda tests/test_torch_mx_kernels.py -q
+
+Tolerance: max|a-b| / max|b| <= 5e-3 against the plain version's float32
+result (``ops/reference.mx_forward_ref``), the JAX kernel tests' bound; the
+stacked decode entry equals the per-layer one bit for bit, the dequantize
+kernel equals ``dequantize_full`` bit for bit (one product and one rounding
+a value in both), and the csm-4 form equals the bf16 form fed
+``fake_quant_activations(x)`` bit for bit.
+"""
+
+import pytest
+import torch
+
+from gemlite_tpu_torch import DType
+from gemlite_tpu_torch.mx import (A16W4_MXFP, A16W8_MXFP, A4W4_MXFP_dynamic, A4W4_NVFP_dynamic,
+                                  A8W4_MXFP_dynamic, A8W8_MXFP_dynamic)
+from gemlite_tpu_torch.ops import build, dispatch
+from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
+from gemlite_tpu_torch.ops.mx import mx_decode, mx_decode_stacked, mx_prefill, mx_prefill_csm4
+from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
+from gemlite_tpu_torch.quant import scale_activations_mx, scale_activations_per_token
+
+pytestmark = pytest.mark.requires_cuda
+REL = 5e-3
+SHAPES_8B = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]   # (N, K)
+FORMS = {
+    "a16w4_mxfp": lambda: A16W4_MXFP(device="cuda"),
+    "a16w8_mxfp_e4m3": lambda: A16W8_MXFP(device="cuda"),
+    "a16w8_mxfp_e5m2": lambda: A16W8_MXFP(device="cuda", fp8=torch.float8_e5m2),
+    "a8w8_mxfp": lambda: A8W8_MXFP_dynamic(device="cuda"),
+    "a8w4_mxfp": lambda: A8W4_MXFP_dynamic(device="cuda"),
+    "a4w4_mxfp": lambda: A4W4_MXFP_dynamic(device="cuda"),
+    "a4w4_nvfp": lambda: A4W4_NVFP_dynamic(device="cuda"),
+}
+DECODE_FORMS = ["a16w4_mxfp", "a16w8_mxfp_e4m3", "a16w8_mxfp_e5m2", "a8w8_mxfp", "a8w4_mxfp"]
+
+
+class _Lin:
+    def __init__(self, w):
+        self.weight, self.bias = w, None
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _layer(gen, form, N, K):
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    return FORMS[form]().from_linear(_Lin(w), del_orig=False)
+
+
+def _inputs(gen, layer, M):
+    """(x as the decode / prefill kernels take it, per-token scales or None,
+    the kernel's meta): e4m3 per token for csm 2, fake-quantized bf16 for csm 4."""
+    x = (torch.randn((M, layer.in_features), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    meta = layer.meta
+    if meta.channel_scale_mode == 2:
+        xq, sx = scale_activations_per_token(x, torch.float8_e4m3fn)
+        return xq, sx, meta
+    if meta.channel_scale_mode == 4:
+        return fake_quant_activations(x, meta.input_dtype), None, meta._replace(channel_scale_mode=0)
+    return x, None, meta
+
+
+def _plain(layer, x, sx, meta):
+    return mx_forward_ref(x, layer.W_q, layer.scales, None, sx,
+                          meta._replace(output_dtype=DType.FP32.value))
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+@pytest.mark.parametrize("form", DECODE_FORMS + ["a4w4_mxfp"])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 33, 64])
+def test_mx_decode_matches_plain(gen, form, M):
+    layer = _layer(gen, form, 1024, 2048)
+    x, sx, meta = _inputs(gen, layer, M)
+    out = mx_decode(x, layer.W_q, layer.scales, sx, meta)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, 1024)
+    assert _rel(out, _plain(layer, x, sx, meta)) <= REL
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("M", [1, 8, 65, 128, 200, 257, 1024])
+def test_mx_prefill_matches_plain(gen, form, M):
+    layer = _layer(gen, form, 1024, 2048)
+    x, sx, meta = _inputs(gen, layer, M)
+    out = mx_prefill(x, layer.W_q, layer.scales, sx, meta)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, 1024)
+    assert _rel(out, _plain(layer, x, sx, meta)) <= REL
+
+
+@pytest.mark.parametrize("form", ["a4w4_mxfp", "a4w4_nvfp"])
+@pytest.mark.parametrize("M", [65, 128, 300, 1024])
+def test_csm4_form_equals_fake_quant_fed_form(gen, form, M):
+    layer = _layer(gen, form, 1024, 2048)
+    x = (torch.randn((M, 2048), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    codes, scales = scale_activations_mx(x, layer.input_dtype)
+    got = mx_prefill_csm4(codes, scales, layer.W_q, layer.scales, layer.meta)
+    fq = fake_quant_activations(x, layer.input_dtype)
+    want = mx_prefill(fq, layer.W_q, layer.scales, None, layer.meta._replace(channel_scale_mode=0))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,K", SHAPES_8B)
+@pytest.mark.parametrize("form", ["a16w4_mxfp", "a8w8_mxfp", "a4w4_nvfp"])
+def test_mx_kernels_8b_shapes(gen, form, N, K):
+    layer = _layer(gen, form, N, K)
+    for M in (1, 8, 64, 128, 1024):
+        x, sx, meta = _inputs(gen, layer, M)
+        kern = mx_decode if M <= 64 and form != "a4w4_nvfp" else mx_prefill
+        assert _rel(kern(x, layer.W_q, layer.scales, sx, meta), _plain(layer, x, sx, meta)) <= REL
+
+
+@pytest.mark.parametrize("form", ["a16w4_mxfp", "a16w8_mxfp_e4m3"])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_mx_stacked_equals_per_layer(gen, form, M):
+    layers = [_layer(gen, form, 1024, 4096) for _ in range(3)]
+    W = torch.stack([lyr.W_q for lyr in layers])
+    S = torch.stack([lyr.scales for lyr in layers])
+    x, _, meta = _inputs(gen, layers[0], M)
+    for li, lyr in enumerate(layers):
+        idx = torch.tensor(li, dtype=torch.int32, device="cuda")
+        got = mx_decode_stacked(x, W, S, meta, idx)
+        assert torch.equal(got, mx_decode(x, lyr.W_q, lyr.scales, None, meta))
+
+
+@pytest.mark.parametrize("form", ["a16w4_mxfp", "a16w8_mxfp_e4m3", "a16w8_mxfp_e5m2", "a4w4_nvfp"])
+def test_mx_dequantize_equals_plain(gen, form):
+    layer = _layer(gen, form, 1024, 2048)
+    args = (layer.W_q, layer.scales, None, layer.meta)
+    assert torch.equal(dequantize_weights(*args), dequantize_full(*args))
+
+
+def test_mx_one_launch_a_call(gen):
+    for form in ("a16w4_mxfp", "a4w4_nvfp"):
+        layer = _layer(gen, form, 4096, 4096)
+        meta = layer.meta._replace(channel_scale_mode=0)
+        x8 = (torch.randn((8, 4096), generator=gen, device="cuda")).to(torch.bfloat16)
+        x128 = (torch.randn((128, 4096), generator=gen, device="cuda")).to(torch.bfloat16)
+        calls = [lambda: mx_prefill(x128, layer.W_q, layer.scales, None, meta),
+                 lambda: dequantize_weights(layer.W_q, layer.scales, None, meta)]
+        if form == "a16w4_mxfp":
+            calls.append(lambda: mx_decode(x8, layer.W_q, layer.scales, None, meta))
+        else:
+            codes, s = scale_activations_mx(x128, layer.input_dtype)
+            calls.append(lambda: mx_prefill_csm4(codes, s, layer.W_q, layer.scales, layer.meta))
+        for fn in calls:
+            assert build.graph_ops(fn) == ["kernel"]
+
+
+ROUTES = {"a16w4_mxfp": ["decode", "decode", "decode", "prefill", "prefill", "dequantize"],
+          "a16w8_mxfp_e4m3": ["decode", "decode", "decode", "prefill", "prefill", "dequantize"],
+          "a8w8_mxfp": ["decode", "decode", "decode", "prefill", "prefill", "dequantize"],
+          "a8w4_mxfp": ["decode", "decode", "decode", "prefill", "prefill", "dequantize"],
+          "a4w4_mxfp": ["decode", "decode", "decode", "prefill_mx_csm4", "prefill_mx_csm4",
+                        "dequantize"],
+          "a4w4_nvfp": ["prefill", "prefill", "prefill", "prefill_mx_csm4", "prefill_mx_csm4",
+                        "dequantize"]}
+
+
+@pytest.mark.parametrize("form", sorted(ROUTES))
+def test_mx_layer_routes(gen, form):
+    """Each MX processor's layer at M 1 / 8 / 64 / 65 / 128 / 4096 runs the
+    JAX package's routes, each within 5e-3 of its plain version."""
+    layer = _layer(gen, form, 4096, 4096)
+    got = []
+    for M in (1, 8, 64, 65, 128, 4096):
+        x = (torch.randn((M, 4096), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        dispatch.KERNEL_TRACE.clear()
+        out = layer(x)
+        got += dispatch.KERNEL_TRACE
+        want = _layer_plain(layer, x)
+        assert _rel(out, want) <= REL, (form, M)
+    assert got == ROUTES[form]
+
+
+def _layer_plain(layer, x):
+    """The layer's plain path at x's M: x quantized as the forward does, then
+    the float32 product with the plain weight (the bf16-rounded weight at M
+    4096, where the route dequantizes)."""
+    meta = layer.meta
+    sx = None
+    if meta.channel_scale_mode == 2:
+        x, sx = scale_activations_per_token(x, torch.float8_e4m3fn)
+    elif meta.channel_scale_mode == 4:
+        x = fake_quant_activations(x, meta.input_dtype)
+        meta = meta._replace(channel_scale_mode=0)
+    if x.shape[0] >= 4096:
+        w = dequantize_full(layer.W_q, layer.scales, None, meta).float()
+        out = x.float() @ w
+        return out * sx if sx is not None else out
+    return _plain(layer, x, sx, meta)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_card_quantizes_the_cpu_bytes(gen, form):
+    w = torch.randn((1024, 2048), generator=gen, device="cuda") * 0.02
+    w[0, :32] = 6.0 * 2.0 ** -7 * (1 + 2.0 ** -23)       # an amax one ulp above 6 * 2^k
+    a = FORMS[form]().from_linear(_Lin(w), del_orig=False)
+    proc = FORMS[form]()
+    proc.device = torch.device("cpu")
+    b = proc.from_linear(_Lin(w.cpu()), del_orig=False)
+    assert a.get_meta_args() == b.get_meta_args()
+    assert torch.equal(a.W_q.cpu(), b.W_q)
+    assert torch.equal(a.scales.cpu().view(torch.uint8), b.scales.view(torch.uint8))
+
+
+def test_patch_model_and_warmup_mx(gen):
+    """patch_model with A16W4_MXFP and A4W4_NVFP_dynamic over an 8B block's
+    linear shapes: each output on the expected route within 2e-1
+    (norm-relative) of the float nn.Linear (fp4 keeps one mantissa bit: the
+    JAX package's NVFP4 end-to-end test holds it to 2e-1); warmup runs every
+    bucket up to 1024 on the MX routes."""
+    from torch import nn
+    from gemlite_tpu_torch import patch_model, warmup
+    shapes = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]
+    for proc, routes in ((A16W4_MXFP(device="cuda"), {8: "decode", 128: "prefill"}),
+                         (A4W4_NVFP_dynamic(device="cuda"), {8: "prefill", 128: "prefill_mx_csm4"})):
+        model = nn.Sequential(*[nn.Linear(k, n, bias=False, device="cuda", dtype=torch.bfloat16)
+                                for n, k in shapes])
+        ref = [lin.weight.detach().clone() for lin in model]
+        patch_model(model, proc, skip_modules=())
+        for lin, w in zip(model, ref):
+            for M, route in routes.items():
+                x = torch.randn((M, lin.in_features), generator=gen, device="cuda").to(torch.bfloat16)
+                dispatch.KERNEL_TRACE.clear()
+                got = lin(x).float()
+                assert dispatch.KERNEL_TRACE == [route]
+                want = x.float() @ w.float().t()
+                assert float((got - want).norm() / want.norm()) < 2e-1
+        dispatch.KERNEL_TRACE.clear()
+        warmup(proc, [(4096, 4096)], device="cuda")
+        assert set(dispatch.KERNEL_TRACE) == set(routes.values())
