@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
   build    compile the ten CUDA sources from gemlite_tpu_torch/csrc
            (decode_gemv.cu holds the per-layer and stacked decode, fp8_gemm.cu
            the fp8 decode, stacked decode and prefill, mx_gemm.cu the MX
-           decode, stacked decode and prefill);
+           decode, stacked decode, prefill and general entries);
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
            (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
            W1 prefill at M 128 on 14336x4096): relative error max|a-b| /
@@ -32,6 +32,21 @@ Phases, each printing one JSON line:
            (first_step_check); the capture time and the graph pool's memory;
   profile  device time by kernel over a short serving run, captured and
            eager (profile_eager);
+  serve_spec  speculative decoding on serve's W4 model, gamma 4, serve's 8
+           requests, 32 new tokens: (1) a self-draft, greedy, dense: the
+           first burst's verify step against its draft steps block by block
+           (each block fed the verify path's input, mean form <= 5e-3), tau
+           = 4 x the largest |draft - verify logit| at the same positions,
+           every rejection at a near-tie (verify top-2 gap < tau); (2) a
+           Llama-3.2-1B-width draft (2 of 16 layers, W4 gs 128), greedy, on
+           the dense and the paged engines: captured = eager token for
+           token, and against the plain captured engine equal or parted
+           only where the plain path's top-2 gap is under tau; (3) a
+           self-draft at temperature 0.8, two runs from one seed equal.
+           Launches equal the schedule (gamma + 1 draft steps and one verify
+           a burst), linears only on decode / prefill, no plain attention;
+           acceptance, tokens a step, tokens/s beside the plain captured
+           engine, captures and graph pool reported;
   kernels_attn  the causal flash kernel (B=1, S in {256, 1024, 2048, 4096,
            8192}, 32/8 heads, D=128; 8192 is Llama-3-8B's published context)
            and the paged decode kernel (8 slots of lengths 1 to 2047 with 16
@@ -111,11 +126,21 @@ Phases, each printing one JSON line:
   layer_mx     each of the six MX processors at 4096x4096, M in {1, 64, 65,
            128, 4096}, on the JAX router's routes (decode / prefill /
            prefill_mx_csm4 / dequantize);
+           kernels_mx also holds the general MX entry (row 5-MX: fp4 layers
+           off the JAX fold rule) within 5e-3 at SmolLM2-360M's shapes
+           (960x960, 320x960, 2560x960, 960x2560) and 2880x2880, M 1 / 8 /
+           64 / 128 / 1024, for A16W4_MXFP, A8W4_MXFP_dynamic,
+           A4W4_MXFP_dynamic (fake-quantized x) and A4W4_NVFP_dynamic;
   serve_mxfp4, serve_nvfp4  the 4-layer model quantized with A16W4_MXFP
            and A4W4_NVFP_dynamic, served as in "serve": tokens equal the bare
            loop, the linears run only on the MX routes, launches equal the
            schedule, the first step matches the plain path on the CPU; each
            profiled (profile_mxfp4, profile_nvfp4);
+  serve_mx_unfolded  SmolLM2-360M's widths (hidden 960, intermediate 2560,
+           15/5 heads of 64, vocab 49152) cut to 4 of 32 layers, random
+           weights, A16W4_MXFP: every linear off the fold rule, so on the
+           general MX entry (route general_fused) at every M; served as in
+           "serve" and profiled (profile_mx_unfolded);
   kernels_scan the stacked decode kernel over stacks of 32 random layers: W4
            at the four 8B shapes, M in {1, 8, 64}, W4 at the fused shapes
            6144x4096 (wqkv) and 28672x4096 (gate_up), M = 8, and W2 / W1 (gs
@@ -146,7 +171,7 @@ Phases, each printing one JSON line:
            of 8 decode steps: eager unrolled and scan (profile_scan_unrolled,
            profile_scan_scan), captured scan, unrolled and fused scan
            (profile_scan_captured, _captured_unrolled, _captured_fused).
-  checkpoint_8b (right after serve) serve's dense model exported by
+  checkpoint_8b (after serve_spec) serve's dense model exported by
            export_hf_llama as an HF checkpoint (two shards and an index) into
            a temporary directory (raises when the disk is short), imported by
            load_hf_llama bit for bit, quantized to W4 gs=128 into serve's
@@ -166,8 +191,14 @@ Phases, each printing one JSON line:
            quantized on the card equal byte for byte to the CPU's; W4 gs 128,
            A8W8, A16W8_FP8 and A16W4_MXFP serve 8 held-out prompts (64-400
            bytes, 32 greedy tokens) on the paged, dense and (W4, A16W8_FP8,
-           A16W4_MXFP) scan engines, each equal to its bare loop; every
-           kernel of the kernels line launches;
+           A16W4_MXFP) scan engines, each equal to its bare loop; the W8 gs
+           128 model with a W4 gs 128 draft, gamma 4, 96 greedy tokens, on
+           the dense and paged speculative engines: tokens equal the plain
+           engine's or part at a near-tie (its own tau, from one self-draft
+           burst of the W8 model), acceptance and tokens a step beside the
+           JAX package's record (SERVING.md section 7); every kernel of the
+           kernels line launches but the general MX entry (no linear of the
+           checkpoint is off the fold rule);
   patch_model   an nn.Module tree of bf16 nn.Linears at an 8B block's seven
            shapes and an 8B lm_head, patched with A16W8_INT8,
            A8W8_INT8_dynamic and A8W8_FP8_dynamic: the lm_head skipped, each
@@ -672,7 +703,8 @@ def graph_report(stats: dict) -> dict:
 
 def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
                     long_route: str, profile_phase: str, profile_groups,
-                    kernel_of=KERNEL_OF, linear_stages: bool = False) -> dict:
+                    kernel_of=KERNEL_OF, linear_stages: bool = False,
+                    model: str = "Llama-3-8B widths, 4 of 32 layers (depth cut)") -> dict:
     """8 greedy requests through ContinuousBatchingEngine(max_batch=8) on the
     dense cache (paged=False). Tokens
     must equal the bare loop; launches must equal the schedule (prompts of up
@@ -724,7 +756,7 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     graphs_ok = captured_throughout(stats)
     ok = same and counts == expect and first_ok and routes_ok and graphs_ok
     ttft = [r.ttft_s for r in results]
-    emit({"phase": phase, "ok": ok, "model": "Llama-3-8B widths, 4 of 32 layers (depth cut)",
+    emit({"phase": phase, "ok": ok, "model": model,
           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
           "new_tokens": n_new, "setup_s": setup_s, "wall_s": wall_s,
           "tokens_out": stats["tokens_out"], "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
@@ -1354,6 +1386,12 @@ MX_DECODE_MS = (1, 8, 64)
 MX_PREFILL_MS = (128, 1024)
 MX_NVFP4_MS = (8, 128)               # NVFP4 has no decode form: M <= 64 runs the prefill kernel
 MX_SHAPE = (14336, 4096)             # the kernels line's MX rows
+# the general entry: SmolLM2-360M's block linears (hidden 960, intermediate
+# 2560, 5 kv heads of 64) and gpt-oss-20b's hidden width, off the fold rule
+MX_GENERAL_SHAPES = ((960, 960), (320, 960), (2560, 960), (960, 2560), (2880, 2880))
+MX_GENERAL_MS = (1, 8, 64, 128, 1024)
+MX_GENERAL_FORMS = ("a16w4_mxfp", "a8w4_mxfp", "a4w4_mxfp", "a4w4_nvfp")
+MX_GENERAL_ROW_SHAPE = (2560, 960)   # the kernels line's row: SmolLM2's gate / up at M 8
 MX_FORMS = {"a16w4_mxfp": ("A16W4_MXFP", {}), "a16w8_mxfp": ("A16W8_MXFP", {}),
             "a16w8_mxfp_e5m2": ("A16W8_MXFP", {"fp8": torch.float8_e5m2}),
             "a8w8_mxfp": ("A8W8_MXFP_dynamic", {}), "a8w4_mxfp": ("A8W4_MXFP_dynamic", {}),
@@ -1437,7 +1475,7 @@ def phase_kernels_mx(card: str, peak, timer: Timer) -> dict:
                "bound_ms": bound, "bound_by": by,
                "library_ms": timer.ms(lambda: torch.matmul(xb, dense)) if timed else None,
                "library": "dense bf16 matmul on the dequantized weight (x converted outside)",
-               "plan": plan._asdict(),
+               "plan": plan._asdict() if plan is not None else None,
                "device_ops_per_call": device_ops_per_call(lambda: kern(*args, meta)),
                "card": card}
         record(row, got, want)
@@ -1562,12 +1600,24 @@ def phase_kernels_mx(card: str, peak, timer: Timer) -> dict:
             record(row, got, per_layer, exact=True)
     del checked, W, S, dense
     torch.cuda.empty_cache()
+
+    # the general entry (row 5-MX): fp4 layers off the JAX fold rule at
+    # SmolLM2-360M's shapes and gpt-oss-20b's 2880
+    for form in MX_GENERAL_FORMS:
+        for N, K in MX_GENERAL_SHAPES:
+            layer = mx_layer(form, N, K, gen)
+            for M in MX_GENERAL_MS:
+                x, sx, meta = mx_inputs(layer, M, gen)
+                call_row("mx_general", form, layer, M, mx.mx_general, x, sx, meta, None)
+            del layer
     emit({"phase": "kernels_mx", "ok": True, "checked": len(rows), "card": card})
     pick = {"mx_decode": ("a16w4_mxfp", 8), "mx_prefill": ("a16w4_mxfp", 128),
             "mx_prefill_csm4": ("a4w4_nvfp", 128), "dequantize_mx": ("a16w4_mxfp", 0),
-            "mx_decode_stacked": ("a16w4_mxfp", 8)}
+            "mx_decode_stacked": ("a16w4_mxfp", 8), "mx_general": ("a16w4_mxfp", 8)}
+    shape = {"mx_general": MX_GENERAL_ROW_SHAPE}
     return {r["kernel"]: r for r in rows
-            if (r["form"], r["M"]) == pick[r["kernel"]] and (r["N"], r["K"]) == MX_SHAPE
+            if (r["form"], r["M"]) == pick[r["kernel"]]
+            and (r["N"], r["K"]) == shape.get(r["kernel"], MX_SHAPE)
             and r.get("layer", SCAN_CHECKED[1]) == SCAN_CHECKED[1]}
 
 
@@ -1651,6 +1701,42 @@ def phase_serve_mx(card: str, cfg, dense, form: str) -> dict:
     return serve_and_check(phase, params, cfg, card, time.perf_counter() - t0, short, long_,
                            phase.replace("serve", "profile"), MX_GROUPS, kernel_of=kernel_of,
                            linear_stages=form == "a4w4_nvfp")[0]
+
+
+def smollm2_llama():
+    """SmolLM2-360M's widths (its published config.json: hidden 960,
+    intermediate 2560, 15/5 heads of 64, vocab 49152, rope_theta 100000) cut
+    to 4 of its 32 layers, random bf16 weights from a seeded generator."""
+    from gemlite_tpu_torch import LlamaConfig, init_llama
+    cfg = LlamaConfig(vocab_size=49152, hidden_size=960, intermediate_size=2560, num_layers=4,
+                      num_heads=15, num_kv_heads=5, head_dim=64, rope_theta=100000.0,
+                      max_seq_len=512)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    return cfg, init_llama(cfg, generator=gen, device="cuda")
+
+
+def phase_serve_mx_unfolded(card: str) -> dict:
+    """SmolLM2-360M's widths quantized on the card with A16W4_MXFP: every
+    block linear has K 960 or N 960 / 320, off the JAX fold rule, so every
+    linear at every M runs the general MX kernel (route general_fused).
+    Served as in "serve"; returns the launch counts."""
+    from gemlite_tpu_torch import mx, quantize_llama
+    from gemlite_tpu_torch.ops.mx import jax_folds
+
+    cfg, dense = smollm2_llama()
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, processor=mx.A16W4_MXFP(device="cuda"))
+    torch.cuda.synchronize()
+    folded = [f"block{i}.{n}" for i, blk in enumerate(params["blocks"])
+              for grp in ("attn", "mlp") for n, lin in blk[grp].items() if jax_folds(lin.meta)]
+    if folded:
+        raise RuntimeError(f"serve_mx_unfolded: linears on the fold rule: {folded}")
+    del dense
+    return serve_and_check("serve_mx_unfolded", params, cfg, card, time.perf_counter() - t0,
+                           "general_fused", "general_fused", "profile_mx_unfolded",
+                           {"mx_general_kernel": ("mx_general",)},
+                           kernel_of={"general_fused": "mx_general"},
+                           model="SmolLM2-360M widths, 4 of 32 layers (depth cut), A16W4_MXFP")[0]
 
 
 ATTN_GROUPS = {"flash_kernel": ("flash_attn",),
@@ -2321,8 +2407,11 @@ def phase_real_weights(card: str) -> None:
     tests/test_torch_real_weights.py).
     Then W4 gs 128, A8W8, A16W8_FP8 and A16W4_MXFP serve 8 held-out prompts
     of 64-400 bytes, 32 greedy tokens each, on the paged, dense and (W4,
-    A16W8_FP8, A16W4_MXFP) scan engines, each equal to its bare loop. Every kernel of the kernels
-    line must launch. Returns each configuration's launch counts."""
+    A16W8_FP8, A16W4_MXFP) scan engines, each equal to its bare loop, and
+    the W8 gs 128 model with its W4 gs 128 draft on the speculative engines
+    (``serve_real_spec``). Every kernel of the kernels line but the general
+    MX entry (no tiny_en_5m linear is off the fold rule) must launch. Returns
+    each configuration's launch counts."""
     from gemlite_tpu_torch import load_hf_llama
 
     reset_counts()
@@ -2373,13 +2462,19 @@ def phase_real_weights(card: str) -> None:
         rows[name]["launches"] = {k: v - before[k] for k, v in read_counts().items()
                                   if v != before[k]}
         del params
+    spec_prompts = [data[RW_PROMPT_START + 12_000 * i:RW_PROMPT_START + 12_000 * i + n].tolist()
+                    for i, n in enumerate(RW_PROMPT_LENS)]
+    spec = serve_real_spec(dense, cfg, spec_prompts)
     counts = read_counts()
     runs_ok = all(r["equal_bare_loop"] and r["captured"] for s in served.values()
                   for r in s.values())
     sample = served["w4_gs128"]["paged"]["tokens"][0]
     text = bytes(data[RW_PROMPT_START:RW_PROMPT_START + RW_PROMPT_LENS[0]]).decode(
         "utf-8", "replace")
-    ok = not failed and runs_ok and min(counts.values()) >= 1
+    # every tiny_en_5m linear folds (K and N multiples of 128), so the general
+    # MX entry cannot run here: serve_mx_unfolded is its path
+    silent = [k for k, v in counts.items() if v < 1 and k != "mx_general"]
+    ok = not failed and runs_ok and spec["ok"] and not silent
     emit({"phase": "real_weights", "ok": ok,
           "model": "checkpoints/tiny_en_5m (trained byte-level Llama, 6 layers, hidden 256, "
                    "4/2 heads of 64)",
@@ -2391,15 +2486,396 @@ def phase_real_weights(card: str) -> None:
           "prompt_lens": list(RW_PROMPT_LENS), "new_tokens": 32,
           "continuation_w4_gs128_paged": {"prompt": text, "generated": bytes(sample).decode(
               "utf-8", "replace")},
-          "launches": counts, "card": card})
+          "spec_w8_target_w4_draft": spec, "launches": counts, "card": card})
     if failed:
         raise RuntimeError(f"real_weights: card nll against the plain port failed for {failed}: "
                            f"{ {k: rows[k] for k in failed} }")
     if not runs_ok:
         raise RuntimeError("real_weights: engine tokens differ from the bare loops")
-    if min(counts.values()) < 1:
-        raise RuntimeError(f"real_weights: a kernel never launched: {counts}")
+    if not spec["ok"]:
+        raise RuntimeError(f"real_weights: speculative decoding failed: {spec}")
+    if silent:
+        raise RuntimeError(f"real_weights: kernels never launched: {silent} in {counts}")
     return {name: row["launches"] for name, row in rows.items()}
+
+
+SPEC_G = 4
+SPEC_NEW = 32
+
+
+def llama32_1b_draft():
+    """Llama-3.2-1B's widths (hidden 2048, intermediate 8192, 32/8 heads of
+    64, vocab 128256, rope_theta 500000) cut to 2 of its 16 layers, random
+    weights from its own seed, W4 gs 128 on the card: the draft of serve_spec."""
+    from gemlite_tpu_torch import LlamaConfig, init_llama, quantize_llama
+    dcfg = LlamaConfig(vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_layers=2,
+                       num_heads=32, num_kv_heads=8, head_dim=64, rope_theta=500000.0,
+                       max_seq_len=512)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dense = init_llama(dcfg, generator=gen, device="cuda")
+    return quantize_llama(dense, W_nbits=4, group_size=128, device="cuda"), dcfg
+
+
+def bare_prefill(params, cfg, prompts, buckets, page_size=None):
+    """Each prompt prefilled in its bucket as the engine does, into its own
+    stripe of a dense cache or, with ``page_size``, its own pages: (kv, lens
+    (B,), the logits (B, V) at each prompt's last position)."""
+    from gemlite_tpu_torch.models.llama import init_kv_cache, llama_forward
+    from gemlite_tpu_torch.models.paged_kv import init_paged_kv
+    from gemlite_tpu_torch.serving import _next_bucket
+    if page_size:
+        kv = init_paged_kv(cfg, len(prompts), page_size, device="cuda")  # slot b: its own pages
+    else:
+        kv = init_kv_cache(cfg, len(prompts), device="cuda")
+    last = []
+    for i, p in enumerate(prompts):
+        padded = torch.zeros((1, _next_bucket(len(p), buckets)), dtype=torch.int32, device="cuda")
+        padded[0, :len(p)] = torch.tensor(p, dtype=torch.int32)
+        view = kv.with_table(kv.table[i:i + 1]) if page_size else kv[:, :, i:i + 1]
+        logits, _ = llama_forward(params, cfg, padded, kv=view, cache_len=0)
+        last.append(logits[0, len(p) - 1])
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    return kv, lens, torch.stack(last)
+
+
+def cache_copy(kv):
+    from gemlite_tpu_torch.models.paged_kv import PagedKV
+    return PagedKV(kv.pages.clone(), kv.table, kv.page_size) if isinstance(kv, PagedKV) \
+        else kv.clone()
+
+
+def self_draft_burst(params, cfg, prompts, buckets, decode_buckets, g, page_size=None,
+                     blocks=True) -> dict:
+    """The first burst of a self-draft (draft = target), greedy, on the model
+    API: g decode steps drafting their argmax, then the verify step over the
+    slot's token and its drafts, each on its own copy of the prefilled cache:
+    dense, or with ``page_size`` paged, where the decode steps attend on the
+    paged decode kernel as the plain engine's do and the verify step over the
+    gathered pages. ``max_dlogit``: the largest |draft logit - verify logit|
+    at the same positions (M B and M B (g + 1) reach the argmax by different
+    sums); tau = 4 x that, the bound of a near-tie on the cache the
+    comparison runs on. With ``blocks`` (dense), each block is also fed the verify path's
+    input at every position, once as the verify step (S g + 1) and once as g +
+    1 decode steps (S 1), and the two outputs are held to mean|a-b| / mean|b|
+    <= 5e-3 (``first_step_check``'s form)."""
+    from gemlite_tpu_torch.models import llama as L
+    from gemlite_tpu_torch.serving import _next_bucket
+    kv, lens, last = bare_prefill(params, cfg, prompts, buckets, page_size)
+    tok = torch.argmax(last.float(), dim=-1).to(torch.int32)[:, None]
+    t_act = _next_bucket(int(lens.max()) + g + 1, decode_buckets)
+    dkv, dl, t, dlogits, drafts = cache_copy(kv), lens, tok, [], []
+    for _ in range(g):
+        lg, _ = L.llama_decode_step_batched(params, cfg, t, dkv, dl,
+                                            t_active=None if page_size else t_act)
+        dlogits.append(lg[:, 0].float())
+        t = torch.argmax(lg[:, 0].float(), dim=-1).to(torch.int32)[:, None]
+        drafts.append(t)
+        dl = dl + 1
+    seq = torch.cat([tok] + drafts, dim=1)
+    vlogits, _ = L.llama_verify_step(params, cfg, seq, cache_copy(kv), lens, t_active=t_act)
+    delta = float((vlogits[:, :g].float() - torch.stack(dlogits, dim=1)).abs().max())
+    out = {"cache": "paged" if page_size else "dense", "t_active": t_act, "max_dlogit": delta,
+           "tau": 4 * delta}
+    if blocks:
+        stages = {}
+        x = params["embed"][seq]
+        pos = lens[:, None] + torch.arange(g + 1, dtype=torch.int32, device="cuda")[None]
+        kv_v, kv_d = kv.clone(), kv.clone()
+        for i, blk in enumerate(params["blocks"]):
+            out_v = L._block_forward(blk, cfg, x, pos, kv_v, i, lens, t_act)
+            out_d = torch.cat([L._block_forward(blk, cfg, x[:, j:j + 1], pos[:, j:j + 1], kv_d, i,
+                                                lens + j, t_act) for j in range(g + 1)], dim=1)
+            stages[f"block{i}"] = _mean_max(out_d, out_v)
+            x = out_v
+        h = L._rms_norm(x, params["ln_f"], cfg.norm_eps)
+        stages["head"] = _mean_max(torch.cat([L._apply(params["lm_head"], h[:, j:j + 1])
+                                              for j in range(g + 1)], dim=1),
+                                   L._apply(params["lm_head"], h))
+        out["stages"] = stages
+        out["stages_ok"] = all(v["mean_rel"] <= REL_TOL for v in stages.values())
+    return out
+
+
+def plain_gaps(params, cfg, prompts, outs, buckets, decode_buckets, page_size=None):
+    """The top-2 logit gap of the plain greedy path at every generated
+    position: a bare loop in the engine's shapes on its cache (dense, or
+    paged with ``page_size``), fed ``outs`` (the plain engine's tokens).
+    gaps[i][k] is the gap of the logits that chose outs[i][k]."""
+    from gemlite_tpu_torch.models.llama import llama_decode_step_batched
+    from gemlite_tpu_torch.serving import _next_bucket
+
+    def gap(rows):
+        top = torch.topk(rows.float(), 2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).tolist()
+
+    kv, lens, last = bare_prefill(params, cfg, prompts, buckets, page_size)
+    gaps = [[d] for d in gap(last)]
+    for k in range(1, max(len(o) for o in outs)):
+        t_act = None if page_size else _next_bucket(int(lens.max()) + 1, decode_buckets)
+        tok = torch.tensor([[o[min(k - 1, len(o) - 1)]] for o in outs], dtype=torch.int32,
+                           device="cuda")
+        logits, _ = llama_decode_step_batched(params, cfg, tok, kv, lens, t_active=t_act)
+        for i, d in enumerate(gap(logits[:, 0])):
+            gaps[i].append(d)
+        lens = lens + 1
+    return gaps
+
+
+def parted(spec_tokens, plain_tokens, gaps, tau) -> list:
+    """Every request whose spec tokens part from the plain engine's: the first
+    parted position and the plain path's top-2 gap there, against tau."""
+    cases = []
+    for i, (a, b) in enumerate(zip(spec_tokens, plain_tokens)):
+        if a != b:
+            k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            cases.append({"request": i, "position": k, "plain_gap": gaps[i][k],
+                          "near_tie": gaps[i][k] < tau})
+    return cases
+
+
+def spec_serve(eng, prompts, n_new, temperature=0.0, rejection_gaps=False) -> dict:
+    """Serve ``prompts`` on a speculative engine step by step, reading after
+    each burst its packed result (the burst's own download, already on the
+    host) to count proposals and acceptances of the active slots; with
+    ``rejection_gaps`` also the verify logits' top-2 gap at every rejected
+    position. Returns tokens, counters and the host-clock time."""
+    from gemlite_tpu_torch import Request
+    reqs = [Request(prompt_tokens=p, max_new_tokens=n_new, temperature=temperature)
+            for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    B, g = eng.max_batch, eng.spec_tokens
+    proposed = accepted = bursts = 0
+    rejections = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.queue or eng.num_active:
+        active = [r is not None and eng.slot_pending[i] is None for i, r in enumerate(eng.slot_req)]
+        before = eng._counters["spec_steps"]
+        eng.step()
+        if eng._counters["spec_steps"] == before:
+            continue
+        bursts += 1
+        n_acc = eng._spec_static["packed"].tolist()[B * g + B:]
+        for slot in range(B):
+            if not active[slot]:
+                continue
+            proposed += g
+            accepted += n_acc[slot]
+            if rejection_gaps and n_acc[slot] < g:
+                top = torch.topk(eng.last_logits[slot, n_acc[slot]].float(), 2).values
+                rejections.append({"burst": bursts, "slot": slot, "position": n_acc[slot],
+                                   "verify_gap": float(top[0] - top[1])})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    finished = {r.request_id: r.output_tokens for r in eng.finished}
+    eng.finished = []
+    stats = eng.stats()
+    return {"tokens": [finished[r.request_id] for r in reqs], "wall_s": wall_s,
+            "tokens_out": stats["tokens_out"], "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
+            "steps": stats["steps"], "spec_steps": stats["spec_steps"],
+            "decode_steps": stats["decode_steps"],
+            "tokens_per_engine_step": stats["tokens_out"] / max(stats["steps"], 1),
+            "acceptance": accepted / max(proposed, 1),
+            "accepted_per_burst": accepted / max(proposed // g, 1),
+            "graphs": graph_report(stats), "rejections": rejections}
+
+
+def spec_schedule(cfg, dcfg, prompts, run: dict, g: int, paged: bool) -> dict:
+    """The launches a spec run must make: 7 linears a layer a forward; the
+    target and the draft prefill every prompt (M <= 64 on the decode kernel,
+    the 128 bucket on the prefill kernel); a burst is g + 1 draft decode steps
+    and one verify over B (g + 1) = 40 rows, all on the decode kernel; a
+    plain step one decode step of the target (and, paged, one paged decode a
+    layer)."""
+    L, dL = 7 * cfg.num_layers, 7 * dcfg.num_layers
+    short = sum(len(p) <= 64 for p in prompts)
+    long_ = len(prompts) - short
+    want = {k: 0 for k in read_counts()}
+    want["decode"] = (L * (short + run["decode_steps"] + run["spec_steps"])
+                      + dL * (short + (g + 1) * run["spec_steps"]))
+    want["prefill"] = (L + dL) * long_
+    if paged:
+        want["paged_decode"] = cfg.num_layers * run["decode_steps"]
+    return want
+
+
+def phase_serve_spec(card: str, cfg, params) -> dict:
+    """Speculative decoding on serve's 4-layer Llama-3-8B-width W4 gs 128
+    target, gamma 4, max_batch 8, serve's 8 requests, 32 new tokens.
+
+    1. Self-draft (draft = target), greedy, on the dense cache: the first
+       burst's verify step against its draft steps block by block (each block
+       fed the verify path's input; mean form <= 5e-3); tau = 4 x the largest
+       |draft logit - verify logit| at the same positions; every rejection of
+       the captured engine at a near-tie (the verify logits' top-2 gap < tau).
+    2. A Llama-3.2-1B-width draft (2 of 16 layers, W4 gs 128), greedy, on the
+       dense cache and on the paged engine: captured = eager (graphs=False)
+       token for token; against the plain captured engine equal, or where a
+       request parts, the plain path's top-2 gap at the first parted
+       position < tau of that cache (on the paged one the plain engine
+       attends on the paged decode kernel, the verify step over the
+       gathered pages: its tau comes from a self-draft burst there).
+    3. Self-draft at temperature 0.8: two runs from one seed equal, every
+       token in the vocabulary.
+    Every run: launches equal the schedule (``spec_schedule``), linears only
+    on the decode and prefill kernels, no plain attention. Reported: the
+    acceptance, tokens a step, host-clock tokens/s beside the plain captured
+    engine, captures, capture time and graph pool. Returns the launch counts
+    of the 1B-draft dense run."""
+    from gemlite_tpu_torch import ContinuousBatchingEngine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_PROMPT_LENS]
+    g = SPEC_G
+    t0 = time.perf_counter()
+    draft = llama32_1b_draft()
+    draft_s = time.perf_counter() - t0
+
+    def engine(dr=None, **kw):
+        if dr is not None:
+            kw.update(draft=dr, spec_tokens=g)
+        return ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda", **kw)
+
+    probe = engine()
+    buckets, decode_buckets, page_size = probe.buckets, probe.decode_buckets, probe.page_size
+    del probe
+    burst = self_draft_burst(params, cfg, prompts, buckets, decode_buckets, g)
+    burst_paged = self_draft_burst(params, cfg, prompts, buckets, decode_buckets, g, page_size,
+                                   blocks=False)
+    tau = burst["tau"]
+    taus = {"dense": tau, "paged": burst_paged["tau"]}
+
+    runs, bad, counts_1b = {}, [], None
+    plans = (("self_greedy_dense", (params, cfg), dict(paged=False), 0.0),
+             ("draft1b_dense", draft, dict(paged=False), 0.0),
+             ("draft1b_dense_eager", draft, dict(paged=False, graphs=False), 0.0),
+             ("draft1b_paged", draft, dict(), 0.0),
+             ("draft1b_paged_eager", draft, dict(graphs=False), 0.0),
+             ("self_sampled_a", (params, cfg), dict(paged=False, seed=5), 0.8),
+             ("self_sampled_b", (params, cfg), dict(paged=False, seed=5), 0.8))
+    for name, dr, kw, temp in plans:
+        eng = engine(dr, **kw)
+        reset_counts()
+        with RouteLog() as log:
+            run = spec_serve(eng, prompts, SPEC_NEW, temp, rejection_gaps=name == "self_greedy_dense")
+        counts = read_counts()
+        want = spec_schedule(cfg, dr[1], prompts, run, g, paged=eng.paged)
+        run.update(launches=counts, launches_expected=want, routes=log.report(),
+                   launches_ok=counts == want,
+                   routes_ok=set(log.linears) <= {"decode", "prefill"}
+                   and not any(a.startswith("plain") for a in log.attention))
+        if name.startswith("draft1b") and not name.endswith("eager") and "dense" in name:
+            counts_1b = counts
+        if not (run["launches_ok"] and run["routes_ok"]):
+            bad.append(name)
+        runs[name] = run
+        del eng
+
+    plain = {}
+    for kind, kw in (("dense", dict(paged=False)), ("paged", dict())):
+        eng = engine(**kw)
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        plain[kind] = {"tokens": toks, "wall_s": wall,
+                       "tokens_per_s_host_clock": st["tokens_out"] / wall,
+                       "tokens_per_engine_step": st["tokens_out"] / st["steps"],
+                       "graphs": graph_report(st)}
+        del eng
+    gaps = {k: plain_gaps(params, cfg, prompts, v["tokens"], buckets, decode_buckets,
+                          page_size if k == "paged" else None) for k, v in plain.items()}
+
+    # 1. self-draft: every rejection at a near-tie of the verify logits
+    rej = runs["self_greedy_dense"]["rejections"]
+    far = [r for r in rej if not r["verify_gap"] < tau]
+    if not burst["stages_ok"] or far:
+        bad.append("self_greedy_dense")
+    # 2. 1B draft: captured = eager; against the plain engine, near ties only
+    cases = {}
+    for kind in ("dense", "paged"):
+        cap, eag = runs[f"draft1b_{kind}"], runs[f"draft1b_{kind}_eager"]
+        if cap["tokens"] != eag["tokens"]:
+            bad.append(f"draft1b_{kind}: captured != eager")
+        cases[kind] = parted(cap["tokens"], plain[kind]["tokens"], gaps[kind], taus[kind])
+        if not all(c["near_tie"] for c in cases[kind]):
+            bad.append(f"draft1b_{kind}: parted from the plain engine off a near-tie")
+    # 3. sampled self-draft: one seed, one answer
+    sa, sb = runs["self_sampled_a"]["tokens"], runs["self_sampled_b"]["tokens"]
+    if sa != sb or not all(0 <= t < cfg.vocab_size for o in sa for t in o):
+        bad.append("self_sampled")
+
+    def summary(r):
+        return {k: v for k, v in r.items() if k not in ("tokens",)}
+
+    emit({"phase": "serve_spec", "ok": not bad, "failed": bad,
+          "target": "serve's Llama-3-8B widths, 4 of 32 layers (depth cut), W4 gs 128",
+          "draft_1b": "Llama-3.2-1B widths, 2 of 16 layers (depth cut), W4 gs 128, seed 1",
+          "gamma": g, "requests": len(prompts), "new_tokens": SPEC_NEW,
+          "draft_quantize_s": draft_s,
+          "self_draft_first_burst": burst, "self_draft_first_burst_paged": burst_paged,
+          "tau": taus,
+          "self_draft_rejections": len(rej), "self_draft_rejections_off_near_tie": far,
+          "parted_from_plain": cases, "runs": {k: summary(v) for k, v in runs.items()},
+          "plain": {k: summary(v) for k, v in plain.items()}, "card": card})
+    if bad:
+        raise RuntimeError(f"serve_spec failed: {bad}")
+    return counts_1b
+
+
+RW_SPEC_NEW = 96
+# the JAX package's record (SERVING.md section 7, its own engine counters):
+# W8 target, W4 draft, gamma 4, 8 slots x 96 greedy tokens
+JAX_SPEC_RECORD = {"tokens_per_engine_step": 25.6, "accepted_per_burst": 2.2}
+
+
+def serve_real_spec(dense, cfg, prompts) -> dict:
+    """tiny_en_5m's W8 gs 128 target with its W4 gs 128 draft, gamma 4, 8
+    slots, 96 greedy tokens, on the dense and the paged engines (captured):
+    tokens equal the plain engine's, or where a request parts, the plain
+    path's top-2 gap at the first parted position is under this model's tau
+    (4 x the largest |draft - verify logit| of one self-draft burst of the W8
+    target on that cache). Acceptance and tokens a step are reported beside
+    the JAX package's record, ungated."""
+    from gemlite_tpu_torch import ContinuousBatchingEngine, quantize_llama
+    from gemlite_tpu_torch.ops.dispatch import KERNEL_ROUTES
+    w8 = quantize_llama(dense, W_nbits=8, group_size=128, device="cuda")
+    w4 = quantize_llama(dense, W_nbits=4, group_size=128, device="cuda")
+    probe = ContinuousBatchingEngine(w8, cfg, max_batch=8, device="cuda")
+    buckets, decode_buckets, page_size = probe.buckets, probe.decode_buckets, probe.page_size
+    del probe
+    out, ok = {"jax_package_record": JAX_SPEC_RECORD}, True
+    for kind, kw in (("dense", dict(paged=False)), ("paged", dict())):
+        ps = page_size if kind == "paged" else None
+        burst = self_draft_burst(w8, cfg, prompts, buckets, decode_buckets, SPEC_G, ps,
+                                 blocks=False)
+        tau = burst["tau"]
+        with RouteLog() as log:
+            eng = ContinuousBatchingEngine(w8, cfg, max_batch=8, device="cuda", draft=(w4, cfg),
+                                           spec_tokens=SPEC_G, **kw)
+            run = spec_serve(eng, prompts, RW_SPEC_NEW)
+        del eng
+        plain = ContinuousBatchingEngine(w8, cfg, max_batch=8, device="cuda", **kw)
+        t0 = time.perf_counter()
+        want = plain.generate(prompts, max_new_tokens=RW_SPEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = plain.stats()
+        del plain
+        cases = parted(run["tokens"], want, plain_gaps(w8, cfg, prompts, want, buckets,
+                                                       decode_buckets, ps), tau)
+        routes_ok = (set(log.linears) <= set(KERNEL_ROUTES)
+                     and not any(a.startswith("plain") for a in log.attention))
+        ok = ok and routes_ok and all(c["near_tie"] for c in cases)
+        out[kind] = {**{k: v for k, v in run.items() if k != "tokens"},
+                     "self_draft_burst_w8": burst, "tau": tau,
+                     "equal_plain_engine": run["tokens"] == want, "parted_from_plain": cases,
+                     "routes": log.report(), "routes_ok": routes_ok,
+                     "plain_tokens_per_s_host_clock": st["tokens_out"] / wall,
+                     "plain_tokens_per_engine_step": st["tokens_out"] / st["steps"]}
+    out["ok"] = ok
+    return out
 
 
 def tree_nbytes(tree) -> int:
@@ -2668,6 +3144,7 @@ def main() -> int:
     layer_counts = phase_layer(card)
     cfg, dense = dense_llama()
     serve_counts, w4_params, serve_tokens = phase_serve(card, cfg, dense)
+    phase_serve_spec(card, cfg, w4_params)
     phase_checkpoint_8b(card, cfg, dense, w4_params, serve_tokens)
     picked.update(phase_kernels_attn(card, peak, timer))
     paged_counts = phase_serve_paged(card, cfg, w4_params)
@@ -2684,6 +3161,7 @@ def main() -> int:
     mxfp4_counts = phase_serve_mx(card, cfg, dense, "a16w4_mxfp")
     nvfp4_counts = phase_serve_mx(card, cfg, dense, "a4w4_nvfp")
     del dense
+    unfolded_counts = phase_serve_mx_unfolded(card)
     picked.update(phase_kernels_scan(card, peak, timer))
     scan_counts = phase_serve_scan(card)
     rw_counts = phase_real_weights(card)
@@ -2744,7 +3222,9 @@ def main() -> int:
                                    "serve_nvfp4", "mx_prefill_csm4"),
                "dequantize_mx": ("gemlite_tpu_torch/csrc/dequantize.cu",
                                  "gemlite_tpu/ops/pallas_prefill.py:353", mx_layer_counts,
-                                 "layer_mx", "dequantize")}
+                                 "layer_mx", "dequantize"),
+               "mx_general": (mx_src, "gemlite_tpu/ops/pallas_gemm.py:439", unfolded_counts,
+                              "serve_mx_unfolded", "mx_general")}
     kernels = []
     for name_k, (src, replaces, counts, path, counter) in sources.items():
         r = picked[name_k]

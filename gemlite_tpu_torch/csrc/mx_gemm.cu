@@ -6,7 +6,7 @@
 // per-token scale (csm 2). One launch a call. The plain version is
 // ops/reference.mx_forward_ref.
 //
-// Three entries share two bodies:
+// Four entries share three bodies:
 //   gl_mx_decode          M <= 64, e8m0 layers: replaces gemlite_tpu/ops/
 //                         pallas_decode.py:pallas_decode_matmul on MX layers
 //                         (fp4 codes and fp8 codes with block scales);
@@ -19,7 +19,12 @@
 //                         pallas_prefill.py:pallas_prefill_matmul on MX
 //                         layers, with x either bf16 or 1-byte e4m3 codes
 //                         (per-token, csm 2, or micro-scaled with float32
-//                         group scales, csm 4: the prefill_mx_csm4 route).
+//                         group scales, csm 4: the prefill_mx_csm4 route);
+//   gl_mx_general         M < 4096, fp4 layers that JAX does not fold (K or N
+//                         off the multiples of 128): replaces the MX codecs of
+//                         gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul
+//                         (:53-80, scale codecs :116-120), under the route
+//                         name general_fused, bf16 or per-token e4m3 x.
 //
 // The weights (csrc/mx_common.cuh): fp4 codes become bf16 by byte permutes
 // from a register table, fp8 codes exactly through fp16. The decode kernel
@@ -745,6 +750,121 @@ cudaError_t p_launch(const void* x, const uint32_t* wq, const uint8_t* scales, c
     return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// General fp4 layers, M < 4096: any K (a multiple of 8) and any N
+// ---------------------------------------------------------------------------
+// The layers JAX does not fold (K or N off the multiples of 128) run on its
+// general fused kernel with its MX codecs; this is their counterpart. Operands
+// swapped on mma.sync m16n8k16 bf16 as in the decode body: A a 16-column tile
+// of W decoded in registers, B 8 tokens. Lane (g, t) of a 32-deep block takes
+// the whole word 4 kb + t of columns n0 + g and n0 + g + 8 (codes 8t .. 8t + 7;
+// product j takes 4j .. 4j + 3) and the same 8 elements of x, read straight
+// from global memory. Each decoded weight is its code times its group's scale
+// in float32, rounded once to bf16 (exact for e8m0 wherever the product is a
+// normal bf16; NVFP4's e4m3 x 0.05 rounds once, as in the prefill body), so
+// groups of 16 and 32 take the same loop. A block is one 16-column tile by
+// 8 or 64 tokens; its four warps take every fourth 32-deep block and their
+// sums meet in shared memory in warp order. Columns past N read zero words and
+// are not written; a lane whose 8 codes start past K reads zeros.
+
+constexpr int GBN = 16;                 // weight columns a block
+constexpr int GWARPS = 4;               // warps a block, splitting K
+
+struct GParams {
+    const void* x;                      // (M, K) bf16 / e4m3
+    const uint32_t* wq;                 // (K / 8, N) fp4 codes
+    const uint8_t* scales;              // (K / gs, N) e8m0 bits or NVFP4 e4m3
+    const float* sx;                    // (M) per-token scales, or null
+    bf16* out;                          // (M, N)
+    int M, N, K, gs;
+};
+
+template <int NT, int X, bool NV>
+__global__ void __launch_bounds__(32 * GWARPS) mx_general_kernel(GParams p) {
+    __shared__ float red[GWARPS][NT * 8][GBN];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * NT * 8;
+    const int c0 = n0 + g, c1 = n0 + g + 8;
+    const bool in0 = c0 < p.N, in1 = c1 < p.N;
+    const int kblocks = (p.K + 31) / 32;
+
+    float acc[NT][4];
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[jj][r] = 0.f;
+
+    for (int kb = warp; kb < kblocks; kb += GWARPS) {
+        const int k = 32 * kb + 8 * t;                  // the lane's first code
+        const bool kin = k < p.K;
+        uint32_t w0 = 0, w1 = 0;
+        float s0 = 0.f, s1 = 0.f;
+        if (kin) {
+            const size_t wrow = (size_t)(k >> 3) * p.N, srow = (size_t)(k / p.gs) * p.N;
+            if (in0) w0 = __ldg(p.wq + wrow + c0), s0 = mx::scale_f32(__ldg(p.scales + srow + c0), NV);
+            if (in1) w1 = __ldg(p.wq + wrow + c1), s1 = mx::scale_f32(__ldg(p.scales + srow + c1), NV);
+        }
+        uint32_t a[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            a[j][0] = mx::decode_pair(w0, 4 * j, mx::kFp4, s0);
+            a[j][1] = mx::decode_pair(w1, 4 * j, mx::kFp4, s1);
+            a[j][2] = mx::decode_pair(w0, 4 * j + 2, mx::kFp4, s0);
+            a[j][3] = mx::decode_pair(w1, 4 * j + 2, mx::kFp4, s1);
+        }
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (m0 + 8 * jj >= p.M) break;              // warp-uniform
+            const int m = m0 + 8 * jj + g;
+            uint32_t b[4] = {0u, 0u, 0u, 0u};
+            if (kin && m < p.M) {
+                if constexpr (X == kXbf16) {
+                    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+                        static_cast<const bf16*>(p.x) + (size_t)m * p.K + k));
+                    b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
+                } else {
+                    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+                        static_cast<const uint8_t*>(p.x) + (size_t)m * p.K + k));
+                    b[0] = e4m3x2_bf16x2(v.x), b[1] = e4m3x2_bf16x2(v.x >> 16);
+                    b[2] = e4m3x2_bf16x2(v.y), b[3] = e4m3x2_bf16x2(v.y >> 16);
+                }
+            }
+            mma_bf16(acc[jj], a[0], b[0], b[1]);
+            mma_bf16(acc[jj], a[1], b[2], b[3]);
+        }
+    }
+    // d fragment: column g + 8 (r / 2), token 8 jj + 2t + r % 2
+#pragma unroll
+    for (int jj = 0; jj < NT; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) red[warp][8 * jj + 2 * t + (r & 1)][g + 8 * (r >> 1)] = acc[jj][r];
+    __syncthreads();
+    for (int e = threadIdx.x; e < NT * 8 * GBN; e += 32 * GWARPS) {
+        const int mm = e / GBN, cc = e % GBN, m = m0 + mm, n = n0 + cc;
+        if (m >= p.M || n >= p.N) continue;
+        float v = red[0][mm][cc];
+#pragma unroll
+        for (int w = 1; w < GWARPS; ++w) v = __fadd_rn(v, red[w][mm][cc]);
+        if (p.sx != nullptr) v = __fmul_rn(v, p.sx[m]);
+        p.out[(size_t)m * p.N + n] = __float2bfloat16_rn(v);
+    }
+}
+
+template <int NT, int X>
+cudaError_t g_launch(const GParams& p, bool nvfp4, cudaStream_t stream) {
+    const dim3 grid((p.N + GBN - 1) / GBN, (p.M + NT * 8 - 1) / (NT * 8));
+    if (nvfp4) mx_general_kernel<NT, X, true><<<grid, 32 * GWARPS, 0, stream>>>(p);
+    else mx_general_kernel<NT, X, false><<<grid, 32 * GWARPS, 0, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int X>
+cudaError_t g_launch_rows(const GParams& p, bool nvfp4, cudaStream_t stream) {
+    return p.M <= 8 ? g_launch<1, X>(p, nvfp4, stream) : g_launch<8, X>(p, nvfp4, stream);
+}
+
 }  // namespace
 
 // Launch on `stream` (M <= 64). x (M, K) bf16 (x_code 2) or per-token e4m3
@@ -822,5 +942,28 @@ extern "C" int gl_mx_prefill(const void* x, const void* xs, const void* wq, cons
     else
         err = codes ? p_launch<1, mx::kE5m2>(x, w, s, p, splits, stream)
                     : p_launch<0, mx::kE5m2>(x, w, s, p, splits, stream);
+    return static_cast<int>(err);
+}
+
+// Launch on `stream` (M < 4096). x (M, K): bf16 (x_code 2) or per-token e4m3
+// (x_code 3, with sx (M) float32; else sx null); wq (K / 8, N) fp4 codes;
+// scales (K / 16, N) NVFP4 e4m3 (nvfp4 1) or (K / 32, N) e8m0 bits (nvfp4 0).
+// K a multiple of 8 and of the group, any N >= 1; x 16-byte aligned. No
+// scratch: one launch, nothing left between calls.
+extern "C" int gl_mx_general(const void* x, const void* wq, const void* scales, const void* sx,
+                             void* out, int M, int N, int K, int x_code, int nvfp4,
+                             void* stream_ptr) {
+    const int gs = nvfp4 ? 16 : 32;
+    const bool ok = M >= 1 && M < 4096 && N >= 1 && K >= gs && K % 8 == 0 && K % gs == 0 &&
+                    (x_code == gl::kBF16 || x_code == 3) && (nvfp4 == 0 || nvfp4 == 1) &&
+                    x != nullptr && wq != nullptr && scales != nullptr && out != nullptr &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(wq) % 4 == 0 && (x_code == gl::kBF16) == (sx == nullptr);
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    const GParams p{x, static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales),
+                    static_cast<const float*>(sx), static_cast<bf16*>(out), M, N, K, gs};
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    const cudaError_t err = x_code == gl::kBF16 ? g_launch_rows<kXbf16>(p, nvfp4, stream)
+                                               : g_launch_rows<kXe4m3>(p, nvfp4, stream);
     return static_cast<int>(err);
 }

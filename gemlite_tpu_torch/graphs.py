@@ -28,7 +28,7 @@ from .ops.dispatch import KERNEL_TRACE
 from .ops.fused import fused_gemm, fused_gemm_float
 from .ops.fp8 import fp8_decode, fp8_decode_stacked, fp8_prefill
 from .ops.int8_decode import int8_decode
-from .ops.mx import mx_decode, mx_decode_stacked, mx_prefill, mx_prefill_csm4
+from .ops.mx import mx_decode, mx_decode_stacked, mx_general, mx_prefill, mx_prefill_csm4
 from .ops.prefill import prefill_matmul
 from .ops.scan import decode_matmul_stacked
 
@@ -42,7 +42,8 @@ COUNTED = {"decode": decode_matmul, "prefill": prefill_matmul,
            "paged_decode": paged_decode_attention_kernel, "fp8_decode": fp8_decode,
            "fp8_prefill": fp8_prefill, "fp8_decode_stacked": fp8_decode_stacked,
            "mx_decode": mx_decode, "mx_decode_stacked": mx_decode_stacked,
-           "mx_prefill": mx_prefill, "mx_prefill_csm4": mx_prefill_csm4}
+           "mx_prefill": mx_prefill, "mx_prefill_csm4": mx_prefill_csm4,
+           "mx_general": mx_general}
 
 
 def pool_bytes(pool) -> int:

@@ -252,10 +252,15 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
     elif kv is not None:
         T = kv.shape[3]
         if per_slot:
-            # per-slot offsets (continuous-batching decode, speculative verify)
+            # per-slot offsets (continuous-batching decode, speculative verify).
+            # An idle slot's stale offset may run past the cache: JAX drops
+            # those rows of its scatter; here they land on the stripe's last
+            # row, which no active slot holds (the engine finishes a slot
+            # before its length reaches max_seq_len - 1)
             bidx = torch.arange(B, device=x.device)[:, None]
-            kv[layer_idx, 0].index_put_((bidx, pos), k.to(kv.dtype))
-            kv[layer_idx, 1].index_put_((bidx, pos), v.to(kv.dtype))
+            wpos = pos.clamp(max=T - 1)
+            kv[layer_idx, 0].index_put_((bidx, wpos), k.to(kv.dtype))
+            kv[layer_idx, 1].index_put_((bidx, wpos), v.to(kv.dtype))
         else:
             start = int(cache_len)
             if not 0 <= start <= T - S:

@@ -67,13 +67,19 @@ def init_paged_kv(cfg, batch: int, page_size: int = 128, total_pages: int = 0,
 def paged_write(kv: PagedKV, layer_idx: int, k, v, pos) -> PagedKV:
     """Scatter ``k``/``v`` (B, S, Hkv, D) into the pages, in place, at the
     per-token cache positions ``pos`` (B, S) through the block table.
+    Positions past the table's last page write to page 0.
 
     ``pages[layer, 0][:, pg, off]`` keeps the adjacent advanced indices in
     place in PyTorch, so the slice is (Hkv, B, S, D); numpy and JAX put the
     (B, S) dims in front of the same expression with the layer index in it."""
     ps = kv.page_size
     pos = pos.long()
-    pg = torch.gather(kv.table.long(), 1, pos // ps)          # (B, S) page ids
+    idx = pos // ps
+    pps = kv.table.shape[1]
+    # an idle slot's stale offset may run past its table (JAX drops those
+    # rows of its scatter): they go to page 0, the engine's trash page
+    pg = torch.gather(kv.table.long(), 1, idx.clamp(max=pps - 1))   # (B, S) page ids
+    pg = torch.where(idx < pps, pg, torch.zeros_like(pg))
     off = pos % ps
     kv.pages[layer_idx, 0][:, pg, off] = k.to(kv.pages.dtype).permute(2, 0, 1, 3)
     kv.pages[layer_idx, 1][:, pg, off] = v.to(kv.pages.dtype).permute(2, 0, 1, 3)

@@ -31,9 +31,13 @@ micro-scaled x (csm 4) at 64 < M < 4096 goes in as e4m3 codes and group
 scales (``prefill_mx_csm4``); everywhere else it is fake-quantized with
 plain torch ops (JAX does this in XLA) and the layer routes as csm 0:
 decode at M <= 64 (NVFP4: prefill, as in JAX), prefill below 4096, the MX
-form of the dequantize kernel then a dense matmul from 4096. An MX layer
-that JAX does not fold runs on JAX's general fused kernel, whose MX codecs
-(row 5-MX) are not ported, and takes ``dense_fallback`` from M 4096.
+form of the dequantize kernel then a dense matmul from 4096. An fp4 MX
+layer that JAX does not fold takes ``general_fused`` below M 4096, on the
+port's general MX kernel (``ops/mx.mx_general``), where JAX runs its general
+fused kernel or, for most such shapes, its oracle (a route difference: the
+same function on a kernel), and ``dense_fallback`` from M 4096, as in JAX.
+An fp8-coded one has no kernel below 4096 in either package and raises on
+the card.
 
 On the card a layer that no kernel serves raises ``NotImplementedError``
 naming the form: no plain version of a kernel ever runs there. On the CPU
@@ -51,7 +55,7 @@ from .dequantize import can_use_dequantize, dequantize_full, dequantize_weights
 from .fp8 import fp8_coded, fp8_decode, fp8_prefill, serves_fp8
 from .fused import can_use_fused, fused_gemm
 from .int8_decode import can_use_int8_decode, int8_decode
-from .mx import jax_folds, mx_coded, mx_decode, mx_prefill, mx_refusal
+from .mx import jax_folds, mx_coded, mx_decode, mx_general, mx_prefill, mx_refusal
 from .prefill import can_use_prefill, prefill_matmul
 from ..quant import scale_activations_mx
 from .reference import fake_quant_activations, forward_meta
@@ -98,7 +102,9 @@ def _mx_route(meta, M: int):
     if meta.channel_scale_mode == 4 and 64 < M < 4096 and jax_folds(meta):
         return "prefill_mx_csm4"
     if not jax_folds(meta):
-        return "dense_fallback" if M >= 4096 else None
+        if M >= 4096:
+            return "dense_fallback"
+        return "general_fused" if meta.W_nbits == 4 else None
     if M >= 4096:
         return "dequantize"
     if M <= 64 and meta.input_dtype != DType.NVFP4.value:
@@ -154,7 +160,8 @@ def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> to
     on_cpu = x.device.type == "cpu"
     if route is None:
         if not on_cpu:
-            why = (mx_refusal(meta._replace(channel_scale_mode=0), M) if mx_coded(meta)
+            why = (mx_refusal(meta._replace(channel_scale_mode=0), M,
+                              "prefill" if jax_folds(meta) else "general") if mx_coded(meta)
                    else "csm 4 belongs to MX input dtypes, and fp8 codes need K and N "
                         "multiples of 128 and one group or none")
             raise NotImplementedError(f"no kernel serves M={M} with {meta}: {why}")
@@ -170,6 +177,8 @@ def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> to
             meta = meta._replace(channel_scale_mode=0)
         if route in ("decode", "prefill"):
             return (mx_decode if route == "decode" else mx_prefill)(x, W_q, scales, scales_x, meta)
+        if route == "general_fused":
+            return mx_general(x, W_q, scales, scales_x, meta)
     if route == "int8_exact":
         return int8_decode(x, W_q, scales, zeros, scales_x, meta)
     if fp8_coded(meta) and route in ("decode", "prefill"):

@@ -25,11 +25,19 @@ CPU tensor a wrapper runs it; on a CUDA tensor it launches the kernel or
 raises. ``decode_plan`` and ``prefill_plan`` own the kernels' grids and
 rings: the CUDA side only checks that what it is given fits.
 
-The kernels take the layers the JAX package folds into its plane layout
-(``jax_folds``: K and N multiples of 128), with bf16 activations and output.
-A layer JAX does not fold runs on its general fused kernel there, whose MX
-codecs (row 5-MX) are not ported: on the card it raises, as does an fp16
-(MXFP16) layer, for which no instance is built.
+    general          M < 4096, fp4 layers of any K (a multiple of 8) and N,
+                     entry ``gl_mx_general``: replaces the MX codecs of
+                     ``gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul``
+                     (``:53-80``, scale codecs ``:116-120``) under the route
+                     name ``general_fused``
+
+The decode and prefill kernels take the layers the JAX package folds into its
+plane layout (``jax_folds``: K and N multiples of 128), with bf16 activations
+and output. A layer JAX does not fold runs on its general fused kernel there
+or on its oracle, and on the general kernel here when its codes are fp4. An
+fp8-coded layer off the fold rule has no kernel in either package (JAX runs
+its oracle): on the card it raises, as does an fp16 (MXFP16) layer, for which
+no instance is built.
 """
 
 import ctypes
@@ -44,7 +52,7 @@ from .reference import mx_forward_ref
 
 __all__ = ["DecodeMxPlan", "PrefillMxPlan", "mx_coded", "jax_folds", "mx_refusal", "serves_mx",
            "decode_plan", "prefill_plan", "prefill_smem", "mx_decode", "mx_decode_stacked",
-           "mx_prefill", "mx_prefill_csm4", "w_kind"]
+           "mx_prefill", "mx_prefill_csm4", "mx_general", "w_kind"]
 
 BK = 128                   # the decode stage
 TILE = 128                 # output columns a block
@@ -88,8 +96,8 @@ def jax_folds(meta) -> bool:
 
 
 def mx_refusal(meta, M: Optional[int] = None, route: str = "prefill") -> Optional[str]:
-    """Why the MX kernel of ``route`` ("decode", "prefill" or "prefill_csm4")
-    does not take ``meta`` at M rows, or None."""
+    """Why the MX kernel of ``route`` ("decode", "prefill", "prefill_csm4" or
+    "general") does not take ``meta`` at M rows, or None."""
     if not mx_coded(meta):
         return "it is not an MX layer"
     nvfp4 = _nvfp4(meta)
@@ -110,17 +118,28 @@ def mx_refusal(meta, M: Optional[int] = None, route: str = "prefill") -> Optiona
         return (f"group {meta.group_size} with scales of DType {meta.meta_dtype}: e8m0 MX "
                 "layers take groups of 32 with uint8 exponent bits")
     if not jax_folds(meta):
-        return (f"K {meta.in_features} / N {meta.out_features} off the JAX fold rule: JAX "
-                "runs such MX layers on its general fused kernel (row 5-MX, "
-                "pallas_gemm.py:294; its oracle for fp8 codes and csm 4), whose MX codecs "
-                "are not ported yet")
+        if meta.W_nbits != 4:
+            return (f"fp8 codes with K {meta.in_features} / N {meta.out_features} off the JAX "
+                    "fold rule: JAX has no kernel for such a layer, only its oracle (its "
+                    "general fused kernel refuses fp8 codes, pallas_gemm.py:225-231), and the "
+                    "port has none either")
+        if route != "general":
+            return (f"K {meta.in_features} / N {meta.out_features} off the JAX fold rule: "
+                    "such fp4 layers take the general kernel (route general_fused)")
     if meta.input_dtype == DType.MXFP16.value or meta.output_dtype != DType.BF16.value:
         return (f"input DType {meta.input_dtype} -> output DType {meta.output_dtype}: the MX "
                 "kernels are built for bf16 activations and output only (no fp16 instance)")
     csm = meta.channel_scale_mode
     if csm not in (0, 2, 4) or (csm == 2 and meta.input_dtype != DType.MXFP8.value):
         return f"csm {csm} with input DType {meta.input_dtype}"
-    if route == "decode":
+    if route == "general":
+        if csm == 4:
+            return "csm 4 x reaches the general kernel fake-quantized (csm 0)"
+        if meta.W_nbits != 4:
+            return "the general kernel takes fp4 codes only"
+        if M is not None and not 0 < M < 4096:
+            return f"M {M}: the general kernel takes M < 4096 (above it a dense matmul)"
+    elif route == "decode":
         if nvfp4:
             return ("NVFP4 has no decode form: JAX sends its M <= 64 calls to the prefill "
                     "kernel, and so does the port")
@@ -419,3 +438,29 @@ def mx_prefill_csm4(codes: torch.Tensor, group_scales: torch.Tensor, W_q, scales
 
 
 mx_prefill_csm4.launches = 0
+
+
+def mx_general(x: torch.Tensor, W_q, scales, scales_x, meta) -> torch.Tensor:
+    """out (M, N) bf16 = x (M, K) @ W, times the per-token scales (csm 2), for
+    M < 4096 and an fp4 layer of any K and N: the layers JAX does not fold.
+    x is bf16, or e4m3 per token for csm 2; micro-scaled x (csm 4) arrives
+    fake-quantized with csm 0, as the router hands it over."""
+    if x.device.type == "cpu":
+        return mx_forward_ref(x, W_q, scales, None, scales_x, meta)
+    M = x.shape[0]
+    N, K = meta.out_features, meta.in_features
+    _check(meta, M, "general")
+    x, x_code = _x(x, meta, M)
+    W_q, s = _weights(W_q, scales, meta)
+    sx = _sx(scales_x, meta, M)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    err = _fn("gl_mx_general", 5, 5)(
+        x.data_ptr(), W_q.data_ptr(), s.data_ptr(), None if sx is None else sx.data_ptr(),
+        out.data_ptr(), M, N, K, x_code, int(_nvfp4(meta)),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, "mx_gemm (general)")
+    mx_general.launches += 1
+    return out
+
+
+mx_general.launches = 0

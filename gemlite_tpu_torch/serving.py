@@ -45,15 +45,32 @@
   Prefill stays unrolled. Every stacked linear must be one the stacked kernel
   takes at ``max_batch`` rows; the engine checks that at construction and
   raises ``ValueError`` otherwise (an A8W8 model, for one).
-* On the card the engine checks after every prefill and eager decode step,
-  and at every capture, that each quantized linear ran on a hand-written
-  kernel (``KERNEL_ROUTES``: decode, prefill, dequantize, int8_exact,
-  general_fused or decode_stacked) and that no attention ran a plain version
-  (``ATTENTION_TRACE``).
+* Speculative decoding (``draft=(draft_params, draft_cfg)``, ``spec_tokens``
+  = gamma, as in the JAX engine): the draft keeps a dense cache of its own
+  (even when the target's is paged) and is prefilled beside the target on
+  the same padded tokens. While every active slot has room for gamma + 1
+  more rows, an engine step is one burst (``_spec_step``, the counterpart of
+  the JAX engine's ``_spec_impl``): gamma draft decode steps, one more that
+  writes the last drafted token's k/v, one verify step of the target over
+  (B, gamma + 1) positions, then rejection sampling (``spec_accept``: token
+  i is kept with probability min(1, p_i / q_i), the first rejected one is
+  drawn from the residual (p - q)+, or from p when all are kept; greedy
+  slots use one-hot p and q, which is exact greedy prefix matching). The
+  burst packs drafts, fix tokens and accepted counts in one int32 tensor,
+  the one download of a burst. On the card it is captured in one CUDA graph
+  per live-KV bucket from the same pool, as the decode step is. Near the
+  cache end the engine takes plain decode steps, which the draft cache
+  misses, as in JAX. Prefix caching is off while a draft is attached;
+  ``scan_layers`` refuses a draft.
+* On the card the engine checks after every prefill, eager decode step and
+  eager burst, and at every capture, that each quantized linear ran on a
+  hand-written kernel (``KERNEL_ROUTES``: decode, prefill, dequantize,
+  int8_exact, general_fused, decode_stacked or prefill_mx_csm4) and that no
+  attention ran a plain version (``ATTENTION_TRACE``).
 
-The speculative draft and mesh sharding are not ported yet and raise.
-Sampling is greedy, or temperature sampling by the Gumbel-max trick from a
-``torch.Generator`` seeded with ``seed`` (it does not reproduce JAX's stream).
+Mesh sharding is not ported yet and raises. Sampling is greedy, or
+temperature sampling by the Gumbel-max trick from a ``torch.Generator``
+seeded with ``seed`` (it does not reproduce JAX's stream).
 """
 
 import itertools
@@ -67,14 +84,16 @@ import torch
 
 from .core import resolve_device
 from .graphs import CapturedStep, pool_bytes
-from .models.llama import init_kv_cache, llama_decode_step_batched, llama_forward
+from .models.llama import (init_kv_cache, llama_decode_step_batched, llama_forward,
+                           llama_verify_step)
 from .models.paged_kv import init_paged_kv
 from .models.scan_llama import llama_decode_step_scan, stack_blocks
 from .ops.attention import ATTENTION_TRACE
 from .ops.dispatch import KERNEL_ROUTES, KERNEL_TRACE
 from .ops.scan import stacked_decode_refusal
 
-__all__ = ["Request", "ContinuousBatchingEngine", "GenerationResult", "sample_tokens"]
+__all__ = ["Request", "ContinuousBatchingEngine", "GenerationResult", "sample_tokens",
+           "spec_dist", "spec_accept"]
 
 
 @dataclass
@@ -109,6 +128,46 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor, generator: torch.Ge
     return torch.where(temps > 0, sampled, greedy)
 
 
+def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def spec_dist(logits: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
+    """Per-slot proposal / verification distribution (B, V) float32:
+    softmax(logits / T) for sampled slots (T > 0), the one-hot argmax for
+    greedy ones (``gemlite_tpu/serving.py:_spec_dist``)."""
+    logits = logits.to(torch.float32)
+    soft = torch.softmax(logits / torch.clamp(temps, min=1e-6)[:, None], dim=-1)
+    hard = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1),
+                                       logits.shape[-1]).to(torch.float32)
+    return torch.where((temps > 0)[:, None], soft, hard)
+
+
+def spec_accept(p, q, drafts, u, noise, temps):
+    """Rejection sampling of a burst (``gemlite_tpu/serving.py:515-535``):
+    target distributions p (B, g + 1, V), draft distributions q (B, g, V),
+    drafted tokens (B, g), uniforms u (B, g) and Gumbel noise (B, V) for the
+    fix token's draw. Draft i is kept while u_i q_i(d_i) < p_i(d_i); the
+    first rejected position's fix token is drawn from (p - q)+ + 1e-30, or
+    from p when all g are kept, by Gumbel-max for sampled slots and argmax for
+    greedy ones. Returns (n_acc (B,) int32, fix (B,) int32)."""
+    B, g = drafts.shape
+    V = p.shape[-1]
+    d = drafts.to(torch.long)[..., None]
+    p_d = torch.gather(p[:, :g], 2, d)[..., 0]
+    q_d = torch.gather(q, 2, d)[..., 0]
+    acc = (u * q_d < p_d).to(torch.int32)
+    n_acc = torch.cumprod(acc, dim=1).sum(dim=1)
+    at = n_acc.to(torch.long)[:, None, None].expand(B, 1, V)
+    qz = torch.cat([q, torch.zeros((B, 1, V), dtype=q.dtype, device=q.device)], dim=1)
+    res = torch.clamp(torch.gather(p, 1, at)[:, 0] - torch.gather(qz, 1, at)[:, 0], min=0.0)
+    res = res + 1e-30
+    sampled = torch.argmax(torch.log(res) + noise, dim=-1)
+    fix = torch.where(temps > 0, sampled, torch.argmax(res, dim=-1))
+    return n_acc.to(torch.int32), fix.to(torch.int32)
+
+
 def _next_bucket(n: int, buckets) -> int:
     for b in buckets:
         if n <= b:
@@ -119,32 +178,39 @@ def _next_bucket(n: int, buckets) -> int:
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a quantized Llama param dict.
 
-    ``graphs``: capture the decode step in CUDA graphs (the default on the
-    card) or run it eagerly (``False``, the counterpart of
-    ``jax.disable_jit``); ``True`` on the CPU raises."""
+    ``graphs``: capture the decode step and the speculative burst in CUDA
+    graphs (the default on the card) or run them eagerly (``False``, the
+    counterpart of ``jax.disable_jit``); ``True`` on the CPU raises.
+    ``draft=(draft_params, draft_cfg)``: a smaller model of the same
+    vocabulary that proposes ``spec_tokens`` tokens a burst."""
 
     def __init__(self, params, cfg, max_batch: int = 8, eos_id: Optional[int] = None,
                  prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048), seed: int = 0,
-                 prefill_chunk: Optional[int] = None, draft=None, paged: bool = True,
-                 page_size: int = 128, total_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None, draft=None, spec_tokens: int = 4,
+                 paged: bool = True, page_size: int = 128, total_pages: Optional[int] = None,
                  prefix_cache: bool = True, mesh=None, scan_layers: bool = False,
                  device=None, graphs: Optional[bool] = None):
-        if draft is not None:
-            raise NotImplementedError("queued: speculative decoding (draft=)")
         if mesh is not None:
             raise NotImplementedError("queued: mesh-sharded serving (mesh=)")
         if scan_layers and paged:
             raise ValueError("scan_layers requires paged=False (the paged decode kernel "
                              "takes no layer index)")
+        if scan_layers and draft is not None:
+            raise ValueError("scan_layers does not cover the speculative verify step; "
+                             "drop draft=")
+        if draft is not None and draft[1].max_seq_len < cfg.max_seq_len:
+            raise ValueError(f"draft max_seq_len {draft[1].max_seq_len} must cover the target "
+                             f"cache ({cfg.max_seq_len})")
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         if graphs and not on_card:
             raise ValueError("graphs=True needs the card: the CPU has no CUDA graphs, and the "
                              "engine runs its decode step there eagerly")
         self.graphs = on_card if graphs is None else bool(graphs)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, the engine on "
-                             f"{self.device}")
+        for what, p in (("params", params), ("draft params", draft and draft[0])):
+            if p and p["embed"].device.type != self.device.type:
+                raise ValueError(f"{what} live on {p['embed'].device}, the engine on "
+                                 f"{self.device}")
         self._stacked = stack_blocks(params) if scan_layers else None
         if self._stacked is not None:
             for grp in ("attn", "mlp"):
@@ -183,7 +249,13 @@ class ContinuousBatchingEngine:
             self._table_dirty = False
         else:
             self.kv = init_kv_cache(cfg, max_batch, device=self.device)
-        self.use_prefix = bool(prefix_cache) and paged
+        # speculative decoding: the draft's own dense cache, on every engine
+        self.draft = draft
+        self.spec_tokens = spec_tokens if draft is not None else 0
+        self.draft_kv = (init_kv_cache(draft[1], max_batch, device=self.device)
+                         if draft is not None else None)
+        # a draft would miss the prefix that a cached prompt skips
+        self.use_prefix = bool(prefix_cache) and paged and draft is None
         # hash -> (page id, page tokens): the tokens are compared on a match,
         # so a hash collision never attaches another prompt's KV
         self.prefix_cache: "OrderedDict[int, tuple]" = OrderedDict()
@@ -200,11 +272,22 @@ class ContinuousBatchingEngine:
                         "lens": torch.zeros(max_batch, dtype=torch.int32, device=dev),
                         "temps": torch.zeros(max_batch, dtype=torch.float32, device=dev),
                         "active": torch.zeros(max_batch, dtype=torch.int32, device=dev)}
+        # the burst's static inputs and its packed result
+        # [drafts (B * g) | fix (B) | n_acc (B)]
+        self._spec_static = None if draft is None else {
+            "tokens": torch.zeros((max_batch, 1), dtype=torch.int32, device=dev),
+            "lens": torch.zeros(max_batch, dtype=torch.int32, device=dev),
+            "temps": torch.zeros(max_batch, dtype=torch.float32, device=dev),
+            "packed": torch.zeros(max_batch * (self.spec_tokens + 2), dtype=torch.int32,
+                                  device=dev)}
         self._dev_dirty = True
-        self._graphs: Dict[Optional[int], CapturedStep] = {}     # by t_active bucket
+        # decode graphs by t_active bucket, bursts by ("spec", t_active)
+        self._graphs: Dict[Any, CapturedStep] = {}
         self._capture_stream = torch.cuda.Stream(dev) if self.graphs else None
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
-        self.last_logits: Optional[torch.Tensor] = None          # (B, V) of the last step
+        # the last decode step's (B, V) logits, or the last burst's verify
+        # logits (B, g + 1, V)
+        self.last_logits: Optional[torch.Tensor] = None
 
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_len = np.zeros(max_batch, np.int32)        # valid cache length
@@ -214,7 +297,7 @@ class ContinuousBatchingEngine:
         self.queue: List[Request] = []
         self.finished: List[GenerationResult] = []
         self._req_times: Dict[int, List[Optional[float]]] = {}
-        self._counters = {"steps": 0, "decode_steps": 0, "prefills": 0,
+        self._counters = {"steps": 0, "decode_steps": 0, "spec_steps": 0, "prefills": 0,
                           "prefill_chunks": 0, "tokens_out": 0, "graph_captures": 0,
                           "graph_replays": 0, "capture_s": 0.0, "start": time.monotonic()}
 
@@ -379,6 +462,13 @@ class ContinuousBatchingEngine:
                                   cache_len=cache_len)
         return logits[:, true_len - 1, :]
 
+    def _dprefill(self, tokens: np.ndarray, slot: int, cache_len):
+        """The draft's prefill of the same padded piece into its own dense
+        cache (the logits are discarded)."""
+        t = torch.as_tensor(tokens, device=self.device)
+        self._checked(llama_forward, self.draft[0], self.draft[1], t,
+                      kv=self.draft_kv[:, :, slot:slot + 1], cache_len=cache_len)
+
     def _decode_step(self, t_active):
         """The decode step: every slot advances one token from the static
         buffers (``t_active``: the live-KV bucket of the dense cache, None on
@@ -398,29 +488,76 @@ class ContinuousBatchingEngine:
         st["lens"].add_(st["active"])
         return logits
 
-    def _decode(self, t_active):
-        """One decode step: replay the bucket's graph; at the bucket's first
-        step, run the step eagerly on the capture stream (its result is this
-        step's) and capture it; with graphs off, run it eagerly."""
+    def _spec_step(self, t_active):
+        """The speculative burst over every slot from the static buffers
+        (``t_active``: the live-KV bucket, on both caches): gamma draft decode
+        steps, each drafting a token from q = ``spec_dist`` of the draft's
+        logits (Gumbel-max over log(q + 1e-30), argmax for greedy slots), one
+        more draft step that writes the last drafted token's k/v, one verify
+        step of the target over the slot's token and its g drafts, then
+        ``spec_accept``. Writes the packed [drafts | fix | n_acc] into
+        ``packed``; reads nothing on the host. Returns the verify logits
+        (B, g + 1, V)."""
+        st = self._spec_static
+        g, (dparams, dcfg) = self.spec_tokens, self.draft
+        tokens, lens, temps = st["tokens"], st["lens"], st["temps"]
+        B, dev = tokens.shape[0], tokens.device
+        tok, dl, drafts, qs = tokens, lens, [], []
+        for _ in range(g):
+            dlogits, _ = llama_decode_step_batched(dparams, dcfg, tok, self.draft_kv, dl,
+                                                   t_active=t_active)
+            q = spec_dist(dlogits[:, 0], temps)
+            sampled = torch.argmax(torch.log(q + 1e-30) + _gumbel(q.shape, self.generator, dev),
+                                   dim=-1)
+            tok = torch.where(temps > 0, sampled, torch.argmax(q, dim=-1)).to(torch.int32)[:, None]
+            drafts.append(tok)
+            qs.append(q)
+            dl = dl + 1
+        # the last drafted token's k/v into the draft cache: after a full
+        # acceptance the next burst starts past it
+        llama_decode_step_batched(dparams, dcfg, tok, self.draft_kv, dl, t_active=t_active)
+        drafts = torch.cat(drafts, dim=1)                                    # (B, g)
+        logits, _ = llama_verify_step(self.params, self.cfg, torch.cat([tokens, drafts], dim=1),
+                                      self.kv, lens, t_active=t_active)     # (B, g + 1, V)
+        V = logits.shape[-1]
+        p = spec_dist(logits.reshape(B * (g + 1), V),
+                      temps.repeat_interleave(g + 1)).reshape(B, g + 1, V)
+        u = torch.rand((B, g), generator=self.generator, device=dev)
+        n_acc, fix = spec_accept(p, torch.stack(qs, dim=1), drafts, u,
+                                 _gumbel((B, V), self.generator, dev), temps)
+        st["packed"].copy_(torch.cat([drafts.reshape(-1), fix, n_acc]))
+        return logits
+
+    def _run_step(self, key, fn):
+        """Run one step function: replay its graph; at its first call run it
+        eagerly on the capture stream (its result is this call's) and capture
+        it; with graphs off, run it eagerly."""
         if not self.graphs:
-            out = self._checked(self._decode_step, t_active)
-        elif t_active in self._graphs:
-            out = self._graphs[t_active].replay()
+            out = self._checked(fn)
+        elif key in self._graphs:
+            out = self._graphs[key].replay()
             self._counters["graph_replays"] += 1
         else:
             main, side = torch.cuda.current_stream(self.device), self._capture_stream
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                out = self._checked(self._decode_step, t_active)
-                graph = CapturedStep(lambda: self._decode_step(t_active), side, self._pool,
-                                     self.generator, self._check_routes)
+                out = self._checked(fn)
+                graph = CapturedStep(fn, side, self._pool, self.generator, self._check_routes)
             main.wait_stream(side)
             out.record_stream(main)
-            self._graphs[t_active] = graph
+            self._graphs[key] = graph
             self._counters["graph_captures"] += 1
             self._counters["capture_s"] += graph.capture_s
         self.last_logits = out
         return out
+
+    def _decode(self, t_active):
+        """One decode step, a graph for each live-KV bucket."""
+        return self._run_step(t_active, lambda: self._decode_step(t_active))
+
+    def _spec(self, t_active):
+        """One speculative burst, a graph for each live-KV bucket."""
+        return self._run_step(("spec", t_active), lambda: self._spec_step(t_active))
 
     # ------------------------------------------------------------------
     # host-side scheduler
@@ -490,6 +627,8 @@ class ContinuousBatchingEngine:
             padded[0, :len(prompt)] = prompt
             self._claim(slot, req, len(prompt), None)
             logits = self._prefill(padded, slot, 0, len(prompt))
+            if self.draft is not None:
+                self._dprefill(padded, slot, 0)
             self._counters["prefills"] += 1
             self._first_token(slot, logits)
 
@@ -515,13 +654,18 @@ class ContinuousBatchingEngine:
             self._sync_table()
             offset = torch.tensor(int(self.slot_len[slot]), dtype=torch.int32)   # a runtime offset
             logits = self._prefill(padded, slot, offset, len(chunk))
+            if self.draft is not None:
+                self._dprefill(padded, slot, offset)
             self._counters["prefill_chunks"] += 1
             self.slot_len[slot] += len(chunk)
+            # the decode step's lens still hold this slot's offset before the
+            # chunk: its stale write there would land on a prompt row now
+            # (the JAX engine keeps them, and overwrites that row)
+            self._dev_dirty = True
             if len(rest):
                 self.slot_pending[slot] = rest
                 continue
             self.slot_pending[slot] = None
-            self._dev_dirty = True           # slot joins the decode batch
             self._first_token(slot, logits)
 
     def _mark_first_token(self, req: Request):
@@ -569,22 +713,26 @@ class ContinuousBatchingEngine:
             return
         # position of the token being decoded: prompt_len + generated - 1
         lens = self.slot_len + np.array([max(len(o) - 1, 0) for o in self.slot_out], np.int32)
+        temps = [r.temperature if r is not None else 0.0 for r in self.slot_req]
+        g = self.spec_tokens
+        max_len = int(lens[active].max())
+        if g and max_len + g + 1 < self.cfg.max_seq_len:
+            self._burst(active, lens, temps, g, max_len)
+            return
         for slot in range(self.max_batch):
             if active[slot]:
                 self._ensure_pages(slot, int(lens[slot]) + 1)
         self._sync_table()
         # paged decode reads each slot's own pages up to its length; the dense
         # cache reads the live-KV bucket
-        t_act = (None if self.paged
-                 else _next_bucket(int(lens[active].max()) + 1, self.decode_buckets))
+        t_act = None if self.paged else _next_bucket(max_len + 1, self.decode_buckets)
         st = self._static
         if self._dev_dirty:
             # after an admission or a finish the host's values replace the
             # ones the last step left in the static buffers
             st["tokens"].copy_(torch.from_numpy(self.slot_last.reshape(-1, 1)))
             st["lens"].copy_(torch.from_numpy(lens))
-            st["temps"].copy_(torch.tensor([r.temperature if r is not None else 0.0
-                                            for r in self.slot_req], dtype=torch.float32))
+            st["temps"].copy_(torch.tensor(temps, dtype=torch.float32))
             st["active"].copy_(torch.from_numpy(active.astype(np.int32)))
             self._dev_dirty = False
         self._decode(t_act)
@@ -598,6 +746,36 @@ class ContinuousBatchingEngine:
             self.slot_last[slot] = tok
             self._counters["tokens_out"] += 1
             self._maybe_finish(slot, tok)
+
+    def _burst(self, active, lens, temps, g: int, max_len: int):
+        """One speculative burst: room for g + 1 rows in every active slot's
+        pages, the host's tokens, lengths and temperatures into the burst's
+        buffers, the burst, one download, then each slot's kept drafts and
+        fix token through ``_maybe_finish``, stopping at a finish."""
+        for slot in range(self.max_batch):
+            if active[slot]:
+                self._ensure_pages(slot, int(lens[slot]) + g + 1)
+        self._sync_table()
+        st = self._spec_static
+        st["tokens"].copy_(torch.from_numpy(self.slot_last.reshape(-1, 1)))
+        st["lens"].copy_(torch.from_numpy(lens))
+        st["temps"].copy_(torch.tensor(temps, dtype=torch.float32))
+        self._spec(_next_bucket(max_len + g + 1, self.decode_buckets))
+        packed = st["packed"].tolist()                      # the one download of a burst
+        B = self.max_batch
+        self._counters["spec_steps"] += 1
+        self._dev_dirty = True              # the decode step's buffers are stale now
+        for slot in range(B):
+            if not active[slot]:
+                continue
+            na = packed[B * g + B + slot]
+            for tok in packed[slot * g:slot * g + na] + [packed[B * g + slot]]:
+                self.slot_out[slot].append(tok)
+                self.slot_last[slot] = tok
+                self._counters["tokens_out"] += 1
+                self._maybe_finish(slot, tok)
+                if self.slot_req[slot] is None:         # finished mid-burst
+                    break
 
     def stats(self) -> Dict[str, Any]:
         """Engine counters since construction, with host-clock throughput."""

@@ -14,6 +14,9 @@ Card-only: each test skips where no CUDA device is present. On the card:
 * A replay makes no host sync (``torch.cuda.set_sync_debug_mode("error")``)
   and leaves the split scratch's int32 part 0.
 * A capture that fails raises.
+* The speculative burst (``draft=``): captured bursts give the eager ones'
+  tokens, greedy and sampled; a burst's replay makes no host sync, and a
+  burst downloads one tensor.
 
 The model: ``LlamaConfig.tiny`` widened to hidden 1024, intermediate 2048 and
 head_dim 128, so that the decode kernel splits K and the paged decode kernel
@@ -196,3 +199,51 @@ def test_a_capture_that_fails_raises(models, monkeypatch):
     torch.cuda.synchronize()                       # the card still runs work
     other = _engine(models, "dense")
     assert len(other.generate([[4, 5, 6]], max_new_tokens=3)[0]) == 3
+
+
+@pytest.mark.parametrize("case", ["dense", "paged"])
+def test_captured_burst_equals_eager_burst(models, case):
+    """Speculative decoding with a 1-layer draft of the same widths: the
+    captured bursts give the eager bursts' tokens (greedy, and sampled from
+    one seed), each burst one graph per live-KV bucket from the shared pool."""
+    cfg, params = models
+    dcfg = LlamaConfig.tiny(**{**CFG, "num_layers": 1})
+    draft = (quantize_llama(init_llama(dcfg, seed=1, device="cuda"), group_size=64,
+                            device="cuda"), dcfg)
+    rounds = _rounds(cfg.vocab_size)[:2]
+    runs = {}
+    for graphs in (False, True):
+        for temp in (0.0, 0.8):
+            eng = _engine(models, case, graphs=graphs, draft=draft, spec_tokens=4, seed=3)
+            runs[graphs, temp] = (eng, [eng.generate(p, max_new_tokens=12, temperature=temp)
+                                        for p in rounds])
+    for temp in (0.0, 0.8):
+        assert runs[True, temp][1] == runs[False, temp][1]
+    captured = runs[True, 0.0][0]
+    st = captured.stats()
+    assert st["spec_steps"] > 0 and st["graph_captures"] >= 1
+    assert st["graph_replays"] == st["spec_steps"] + st["decode_steps"] - st["graph_captures"]
+    assert any(k[0] == "spec" for k in captured._graphs if isinstance(k, tuple))
+
+
+def test_burst_replay_has_no_host_sync_and_one_download(models, monkeypatch):
+    cfg, params = models
+    eng = _engine(models, "paged", draft=(params[False], cfg), spec_tokens=4)
+    for p in _rounds(cfg.vocab_size)[0]:
+        eng.submit(Request(prompt_tokens=p, max_new_tokens=40))
+    eng.step()                                     # admissions, then the burst's capture
+    (key, graph), = [(k, g) for k, g in eng._graphs.items() if isinstance(k, tuple)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            eng._spec(key[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    downloads = []
+    tolist = torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "tolist", lambda t: downloads.append(t.shape) or tolist(t))
+    before = eng.stats()["spec_steps"]
+    eng.step()
+    assert eng.stats()["spec_steps"] == before + 1
+    assert downloads == [torch.Size([3 * (4 + 2)])]

@@ -26,6 +26,12 @@
   shapes for M 65-4095.
 * The JAX package's ``quantize_llama`` raises a TypeError for the A4W4
   processors; the port quantizes them (ROADMAP Queue C).
+* Layers off the JAX fold rule (SmolLM2-360M's 2560x960 and 960x2560) of the
+  four fp4 processors compute within the same bounds of JAX at M 1 / 64 / 65
+  / 4096. JAX runs them on its general fused kernel (2560x960 at M <= 64) or
+  its oracle (the rest below 4096), the port on its general MX kernel
+  (``plain_general_fused`` here) at every M below 4096: a route difference,
+  the same function on a kernel. From 4096 both take ``dense_fallback``.
 """
 
 import types
@@ -48,6 +54,7 @@ from gemlite_tpu.utils import m_bucket
 from gemlite_tpu_torch import GemLiteLinear, LayerMeta, mx as tmx, quant as tq
 from gemlite_tpu_torch.models import llama as tllama
 from gemlite_tpu_torch.ops import dispatch as tdispatch
+from gemlite_tpu_torch.ops import mx as tmx_ops
 
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -311,3 +318,60 @@ def test_jax_quantize_llama_a4w4_defect_is_not_copied(name):
     q = tllama.quantize_llama(tllama.init_llama(tcfg, device="cpu"), processor=tp(device="cpu"))
     lin = q["blocks"][0]["attn"]["wq"]
     assert isinstance(lin, GemLiteLinear) and lin.channel_scale_mode == 4
+
+
+UNFOLDED_MS = (1, 64, 65, 4096)
+# JAX's routes on unfolded fp4 layers at UNFOLDED_MS, by (N, K)
+JAX_UNFOLDED_ROUTES = {(2560, 960): ["general_fused", "general_fused", "oracle", "dense_fallback"],
+                       (960, 2560): ["oracle", "oracle", "oracle", "dense_fallback"]}
+
+
+@pytest.mark.parametrize("nk", sorted(JAX_UNFOLDED_ROUTES))
+@pytest.mark.parametrize("name", ["A16W4_MXFP", "A8W4_MXFP_dynamic", "A4W4_MXFP_dynamic",
+                                  "A4W4_NVFP_dynamic"])
+def test_unfolded_fp4_layers_route_general_and_match_jax(name, nk):
+    n, k = nk
+    jp, tp = PROCESSORS[name]
+    w = _weights(3, n=n, k=k)
+    jl = jp().from_linear(types.SimpleNamespace(weight=w, bias=None), del_orig=False)
+    tl = tp(device="cpu").from_linear(types.SimpleNamespace(weight=torch.from_numpy(w), bias=None),
+                                      del_orig=False)
+    assert tl.get_meta_args() == jl.get_meta_args()
+    assert not tmx_ops.jax_folds(tl.meta)
+    rng = np.random.default_rng(6)
+    jroutes, troutes = [], []
+    for M in UNFOLDED_MS:
+        x = (rng.normal(size=(M, k)) * 0.5).astype(np.float32)
+        jdispatch.KERNEL_TRACE.clear()
+        tdispatch.KERNEL_TRACE.clear()
+        want = jl(jnp.asarray(x, jnp.bfloat16))
+        got = tl(torch.from_numpy(x).to(torch.bfloat16))
+        jroutes += jdispatch.KERNEL_TRACE
+        troutes += tdispatch.KERNEL_TRACE
+        # JAX's general fused kernel rounds NVFP4's scaled weights to bf16
+        on_kernel = name == "A4W4_NVFP_dynamic" and jroutes[-1] == "general_fused"
+        assert _rel(got, want) < (TOL_NVFP4_KERNEL if on_kernel else TOL), M
+    assert jroutes == JAX_UNFOLDED_ROUTES[nk]
+    # the route difference: JAX's oracle runs on the port's general kernel
+    assert troutes == ["plain_" + ("dense_fallback" if r == "dense_fallback" else "general_fused")
+                       for r in jroutes]
+
+
+def test_unfolded_fp8_layer_has_no_kernel():
+    """An fp8-coded MX layer off the fold rule: JAX runs its oracle, the port
+    its plain version on the CPU and, on the card, raises (no kernel)."""
+    jp, tp = PROCESSORS["A16W8_MXFP"]
+    w = _weights(4, n=960, k=960)
+    jl = jp().from_linear(types.SimpleNamespace(weight=w, bias=None), del_orig=False)
+    tl = tp(device="cpu").from_linear(types.SimpleNamespace(weight=torch.from_numpy(w), bias=None),
+                                      del_orig=False)
+    x = (np.random.default_rng(7).normal(size=(8, 960)) * 0.5).astype(np.float32)
+    jdispatch.KERNEL_TRACE.clear()
+    tdispatch.KERNEL_TRACE.clear()
+    want = jl(jnp.asarray(x, jnp.bfloat16))
+    got = tl(torch.from_numpy(x).to(torch.bfloat16))
+    assert jdispatch.KERNEL_TRACE == ["oracle"] and tdispatch.KERNEL_TRACE == ["plain_oracle"]
+    assert _rel(got, want) < TOL
+    assert tdispatch._route(tl.meta, 8) is None
+    why = tmx_ops.mx_refusal(tl.meta, 8, "general")
+    assert "oracle" in why and "fp8" in why

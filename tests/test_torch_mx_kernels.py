@@ -10,7 +10,9 @@ result (``ops/reference.mx_forward_ref``), the JAX kernel tests' bound; the
 stacked decode entry equals the per-layer one bit for bit, the dequantize
 kernel equals ``dequantize_full`` bit for bit (one product and one rounding
 a value in both), and the csm-4 form equals the bf16 form fed
-``fake_quant_activations(x)`` bit for bit.
+``fake_quant_activations(x)`` bit for bit. The general entry (fp4 layers off
+the JAX fold rule: K and N not multiples of 128) is held to the same 5e-3
+at SmolLM2-360M's shapes, gpt-oss-20b's 2880 and ragged ones.
 """
 
 import pytest
@@ -21,7 +23,8 @@ from gemlite_tpu_torch.mx import (A16W4_MXFP, A16W8_MXFP, A4W4_MXFP_dynamic, A4W
                                   A8W4_MXFP_dynamic, A8W8_MXFP_dynamic)
 from gemlite_tpu_torch.ops import build, dispatch
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
-from gemlite_tpu_torch.ops.mx import mx_decode, mx_decode_stacked, mx_prefill, mx_prefill_csm4
+from gemlite_tpu_torch.ops.mx import (mx_decode, mx_decode_stacked, mx_general, mx_prefill,
+                                     mx_prefill_csm4)
 from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
 from gemlite_tpu_torch.quant import scale_activations_mx, scale_activations_per_token
 
@@ -241,3 +244,38 @@ def test_patch_model_and_warmup_mx(gen):
         dispatch.KERNEL_TRACE.clear()
         warmup(proc, [(4096, 4096)], device="cuda")
         assert set(dispatch.KERNEL_TRACE) == set(routes.values())
+
+
+GENERAL_FORMS = ["a16w4_mxfp", "a8w4_mxfp", "a4w4_mxfp", "a4w4_nvfp"]
+# (N, K): SmolLM2-360M's block linears, gpt-oss-20b's hidden width, and ragged
+# shapes whose N ends inside a 16-column tile
+GENERAL_SHAPES = [(960, 960), (320, 960), (2560, 960), (960, 2560), (2880, 2880), (1000, 1024),
+                  (37, 224)]
+
+
+@pytest.mark.parametrize("form", GENERAL_FORMS)
+@pytest.mark.parametrize("N,K", GENERAL_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 128, 1024, 4095])
+def test_mx_general_matches_plain(gen, form, N, K, M):
+    layer = _layer(gen, form, N, K)
+    x, sx, meta = _inputs(gen, layer, M)
+    out = mx_general(x, layer.W_q, layer.scales, sx, meta)
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    assert _rel(out, _plain(layer, x, sx, meta)) <= REL
+
+
+def test_mx_general_one_launch_a_call_and_routes(gen):
+    """One kernel a call; an unfolded fp4 layer routes general_fused below M
+    4096 and dense_fallback from it; an unfolded fp8-coded layer raises."""
+    layer = _layer(gen, "a16w4_mxfp", 2560, 960)
+    x = torch.randn((8, 960), generator=gen, device="cuda").to(torch.bfloat16)
+    assert build.graph_ops(lambda: mx_general(x, layer.W_q, layer.scales, None,
+                                              layer.meta)) == ["kernel"]
+    dispatch.KERNEL_TRACE.clear()
+    for M in (1, 64, 65, 1024, 4096):
+        xm = (torch.randn((M, 960), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        assert _rel(layer(xm), _layer_plain(layer, xm)) <= REL, M
+    assert dispatch.KERNEL_TRACE == ["general_fused"] * 4 + ["dense_fallback"]
+    fp8 = _layer(gen, "a16w8_mxfp_e4m3", 2560, 960)
+    with pytest.raises(NotImplementedError, match="oracle"):
+        fp8(x)

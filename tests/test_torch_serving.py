@@ -151,12 +151,29 @@ def test_sampling_is_deterministic_per_seed(model):
     assert all(0 <= t < cfg.vocab_size for out in run(6) for t in out)
 
 
-@pytest.mark.parametrize("kwargs", [{"draft": ("p", "c")},
-                                    {"scan_layers": True}, {"mesh": object()}])
+@pytest.mark.parametrize("paged", [False, True])
+def test_chunks_beside_a_decoding_slot_keep_their_rows(model, paged):
+    """Prompts prefilled in chunks of 8 while another slot decodes. A chunk
+    moves its slot's offset past the one the decode step's device lens hold
+    for that idle slot; the engine uploads the host's lens again after every
+    chunk, so the idle slot's stale write lands past its prompt, not on the
+    chunk's first row. The tokens equal one-shot prefills'. (The JAX engine
+    keeps its device lens across chunks and overwrites that row: ROADMAP
+    Queue C.)"""
+    params, cfg, _, _ = model
+    prompts = _prompts(3, (21, 6, 30), cfg.vocab_size)
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=4, prefill_chunk=8,
+                                   prefill_buckets=(8, 16, 32), paged=paged, device="cpu")
+    got = eng.generate(prompts, max_new_tokens=4)
+    assert eng.stats()["prefill_chunks"] == 7
+    assert got == [reference_generate(params, cfg, p, 4) for p in prompts]
+
+
+@pytest.mark.parametrize("kwargs", [{"scan_layers": True}, {"mesh": object()}])
 def test_queued_options_raise(model, kwargs):
-    """draft= and mesh= are queued; scan_layers=True is ported for the dense
-    cache only (tests/test_torch_scan.py), so with the default paged=True it
-    raises as the JAX engine does."""
+    """mesh= is queued; scan_layers=True is ported for the dense cache only
+    (tests/test_torch_scan.py), so with the default paged=True it raises as
+    the JAX engine does. draft= is ported (tests/test_torch_spec.py)."""
     params, cfg, _, _ = model
     if "scan_layers" in kwargs:
         with pytest.raises(ValueError, match="paged=False"):
