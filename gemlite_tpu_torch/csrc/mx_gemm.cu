@@ -6,7 +6,7 @@
 // per-token scale (csm 2). One launch a call. The plain version is
 // ops/reference.mx_forward_ref.
 //
-// Four entries share three bodies:
+// Four entries share two bodies:
 //   gl_mx_decode          M <= 64, e8m0 layers: replaces gemlite_tpu/ops/
 //                         pallas_decode.py:pallas_decode_matmul on MX layers
 //                         (fp4 codes and fp8 codes with block scales);
@@ -24,7 +24,22 @@
 //                         off the multiples of 128): replaces the MX codecs of
 //                         gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul
 //                         (:53-80, scale codecs :116-120), under the route
-//                         name general_fused, bf16 or per-token e4m3 x.
+//                         name general_fused, bf16 or per-token e4m3 x, on
+//                         the ragged instances of the two bodies: the decode
+//                         body for M <= 64 with e8m0 scales, the prefill body
+//                         for NVFP4 and above M 64 (ops/mx.general_plan).
+//
+// Each body is a template whose compile-time flag R makes its ragged
+// instance: the last column tile may hang past N and the last stage past K.
+// The folded instances (R false) compile as they did without it; the ragged
+// ones read what lies past N or K as zeros, words, scales and x alike (so no
+// stale value meets a zero weight), and write no column past N. The real
+// unfolded shapes (N and K among 320, 960, 2560, 2880) keep 16-byte copies
+// and TMA; odd N falls back to narrower copies at the edge only. Like the
+// folded layers, the ragged ones are bound by their weight bytes below M
+// about 300 and by 2 M N K bf16 operations above: the decode body reads each
+// weight once per call and stages x once a stage for 128 columns, the
+// prefill body reuses each decoded weight tile for 128 rows of x.
 //
 // The weights (csrc/mx_common.cuh): fp4 codes become bf16 by byte permutes
 // from a register table, fp8 codes exactly through fp16. The decode kernel
@@ -139,7 +154,50 @@ __device__ __forceinline__ int w_idx(int r, int c) { return r * BN + (c ^ ((r & 
 template <int XB>
 __device__ __forceinline__ int x_off(int m, int c) { return m * BK * XB + ((c ^ (m & 7)) << 4); }
 
-template <int XB, int W>
+// The ragged instance's words and scales of a stage: what lies past N or K
+// reads as zeros (cp.async with no source bytes, or a zero stored). 16-byte
+// copies where the rows allow them (N % 4 for the words, N % 16 for the
+// scales), else 4-byte word copies and the scales byte by byte.
+template <int W>
+__device__ __forceinline__ void d_load_edge(const DParams& p, const uint32_t* wq,
+                                            const uint8_t* sc, uint32_t* ws, unsigned char* ss,
+                                            int n0, int k0) {
+    constexpr int epw = mx::per_word(W), wr = BK / epw;
+    const int t = threadIdx.x;
+    const int wrows = min(wr, (p.K - k0) / epw), srows = min(SROWS, (p.K - k0) / 32);
+    const int cols = min(BN, p.N - n0);
+    const uint32_t* wg = wq + (size_t)(k0 / epw) * p.N + n0;
+    const uint8_t* sg = sc + (size_t)(k0 / 32) * p.N + n0;
+    if (p.N % 4 == 0) {
+        for (int i = t; i < wr * (BN / 4); i += BN) {
+            const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+            const bool ok = r < wrows && c < cols;
+            cp_async16(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : wq, ok ? 16 : 0);
+        }
+    } else {
+        for (int i = t; i < wr * BN; i += BN) {
+            const int r = i / BN, c = i % BN;
+            const bool ok = r < wrows && c < cols;
+            gl::cp_async4(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : wq,
+                          ok ? 4 : 0);
+        }
+    }
+    if (p.N % 16 == 0) {
+        if (t < SROWS * (BN / 16)) {
+            const int r = t / (BN / 16), c = (t % (BN / 16)) * 16;
+            const bool ok = r < srows && c < cols;
+            cp_async16(smem_u32(ss + r * BN + c), ok ? sg + (size_t)r * p.N + c : sc, ok ? 16 : 0);
+        }
+    } else {
+        for (int i = t; i < SROWS * BN; i += BN) {
+            const int r = i / BN, c = i % BN;
+            ss[i] = r < srows && c < cols ? __ldg(sg + (size_t)r * p.N + c) : 0;
+        }
+    }
+}
+
+// R: the ragged instance (any N, K a multiple of 32)
+template <int XB, int W, bool R>
 __device__ __forceinline__ void d_load_stage(const DParams& p, const uint32_t* wq,
                                              const uint8_t* sc, unsigned char* st, int rows,
                                              int n0, int k0) {
@@ -148,20 +206,24 @@ __device__ __forceinline__ void d_load_stage(const DParams& p, const uint32_t* w
     uint32_t* ws = reinterpret_cast<uint32_t*>(st);
     unsigned char* ss = st + d_words_bytes(W);
     unsigned char* xs = ss + SROWS * BN;
-    const uint32_t* wg = wq + (size_t)(k0 / epw) * p.N + n0;
-    for (int i = t; i < wr * (BN / 4); i += BN) {
-        const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
-        cp_async16(smem_u32(ws + w_idx(r, c)), wg + (size_t)r * p.N + c, 16);
-    }
-    if (t < SROWS * (BN / 16)) {
-        const int r = t / (BN / 16), c = (t % (BN / 16)) * 16;
-        cp_async16(smem_u32(ss + r * BN + c), sc + (size_t)(k0 / 32 + r) * p.N + n0 + c, 16);
+    if constexpr (R) {
+        d_load_edge<W>(p, wq, sc, ws, ss, n0, k0);
+    } else {
+        const uint32_t* wg = wq + (size_t)(k0 / epw) * p.N + n0;
+        for (int i = t; i < wr * (BN / 4); i += BN) {
+            const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+            cp_async16(smem_u32(ws + w_idx(r, c)), wg + (size_t)r * p.N + c, 16);
+        }
+        if (t < SROWS * (BN / 16)) {
+            const int r = t / (BN / 16), c = (t % (BN / 16)) * 16;
+            cp_async16(smem_u32(ss + r * BN + c), sc + (size_t)(k0 / 32 + r) * p.N + n0 + c, 16);
+        }
     }
     constexpr int CH = BK * XB / 16;     // 16-byte chunks a row
     const unsigned char* x = static_cast<const unsigned char*>(p.x);
     for (int i = t; i < rows * CH; i += BN) {
         const int m = i / CH, c = i % CH;
-        const bool ok = m < p.M;
+        const bool ok = m < p.M && (!R || k0 + 16 / XB * c < p.K);
         cp_async16(smem_u32(xs + x_off<XB>(m, c)),
                    ok ? x + ((size_t)m * p.K + k0) * XB + 16 * c : x, ok ? 16 : 0);
     }
@@ -234,14 +296,18 @@ __device__ __forceinline__ void d_compute_stage(const unsigned char* st, int nt,
 // The block's sums, staged as tile[m][BN]: into the output (times the
 // per-token scale), or with K split the block's partial, and the last block
 // of the column tile adds the partials in split order and leaves its counter
-// at 0. Not inlined: one copy serves every instance.
+// at 0. Not inlined: one copy serves the folded instances, one the ragged
+// ones, whose partials have rows of whole tiles and whose columns past N are
+// not written.
+template <bool R>
 __device__ __noinline__ void d_finish(const DParams p, const float* tile, int* flag) {
     const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
-    const size_t MN = (size_t)p.M * p.N;
+    const int ld = R ? gridDim.x * BN : p.N;         // a row of the partials
+    const size_t MN = (size_t)p.M * ld;
     if (nsplit > 1) {
         for (int e = threadIdx.x * 4; e < p.M * BN; e += blockDim.x * 4) {
             const int m = e / BN, n = n0 + e % BN;
-            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)m * p.N + n) =
+            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)m * ld + n) =
                 *reinterpret_cast<const float4*>(tile + e);
         }
         __threadfence();
@@ -253,7 +319,8 @@ __device__ __noinline__ void d_finish(const DParams p, const float* tile, int* f
     }
     for (int e = threadIdx.x * 4; e < p.M * BN; e += blockDim.x * 4) {
         const int m = e / BN, n = n0 + e % BN;
-        const size_t idx = (size_t)m * p.N + n;
+        if (R && n >= p.N) continue;
+        const size_t idx = (size_t)m * ld + n;
         float v[4];
         if (nsplit == 1) {
             const float4 tv = *reinterpret_cast<const float4*>(tile + e);
@@ -282,15 +349,20 @@ __device__ __noinline__ void d_finish(const DParams p, const float* tile, int* f
 #pragma unroll
             for (int i = 0; i < 4; ++i) v[i] = __fmul_rn(v[i], s);
         }
+        bf16* o = p.out + (size_t)m * p.N + n;
+        if (R && p.N % 4) {              // rows off 8-byte alignment: one value at a time
+            for (int i = 0; i < 4 && n + i < p.N; ++i) o[i] = __float2bfloat16_rn(v[i]);
+            continue;
+        }
         uint2 pk;
         pk.x = mx::bf16x2(v[0], v[1]);
         pk.y = mx::bf16x2(v[2], v[3]);
-        *reinterpret_cast<uint2*>(p.out + idx) = pk;
+        *reinterpret_cast<uint2*>(o) = pk;
     }
     if (nsplit > 1 && threadIdx.x == 0) p.counters[blockIdx.x] = 0;
 }
 
-template <int NT, int X, int W>
+template <int NT, int X, int W, bool R>
 __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, const uint8_t* sc) {
     constexpr int XB = X == kXbf16 ? 2 : 1;
     extern __shared__ __align__(128) unsigned char smem[];
@@ -300,7 +372,8 @@ __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, con
     const int lane = threadIdx.x & 31, wn0 = (threadIdx.x >> 5) * 32;
     const int g = lane >> 2, t = lane & 3;
     const int n0 = blockIdx.x * BN, k_begin = blockIdx.y * p.k_per_split;
-    const int steps = (min(p.K, k_begin + p.k_per_split) - k_begin) / BK;
+    const int span = min(p.K, k_begin + p.k_per_split) - k_begin;
+    const int steps = R ? (span + BK - 1) / BK : span / BK;   // ragged: the last partly past K
     const int nt = rows / 8;
 
     float acc[2][NT][4];
@@ -312,7 +385,7 @@ __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, con
             for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
     for (int s = 0; s < S - 1; ++s) {
-        if (s < steps) d_load_stage<XB, W>(p, wq, sc, smem + s * SB, rows, n0, k_begin + s * BK);
+        if (s < steps) d_load_stage<XB, W, R>(p, wq, sc, smem + s * SB, rows, n0, k_begin + s * BK);
         cp_async_commit();
     }
     for (int it = 0; it < steps; ++it) {
@@ -320,7 +393,7 @@ __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, con
         __syncthreads();                 // and every warp is done with stage it - 1
         const int nxt = it + S - 1;
         if (nxt < steps)
-            d_load_stage<XB, W>(p, wq, sc, smem + (nxt % S) * SB, rows, n0, k_begin + nxt * BK);
+            d_load_stage<XB, W, R>(p, wq, sc, smem + (nxt % S) * SB, rows, n0, k_begin + nxt * BK);
         cp_async_commit();
         d_compute_stage<NT, X, W>(smem + (it % S) * SB, nt, wn0, lane, acc);
     }
@@ -339,12 +412,12 @@ __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, con
             }
         }
     __syncthreads();
-    d_finish(p, tile, &last_flag);
+    d_finish<R>(p, tile, &last_flag);
 }
 
-template <int NT, int X, int W>
+template <int NT, int X, int W, bool R>
 __global__ void __launch_bounds__(BN, kDecodeMinBlocks) mx_decode_kernel(DParams p) {
-    d_body<NT, X, W>(p, p.wq, p.scales);
+    d_body<NT, X, W, R>(p, p.wq, p.scales);
 }
 
 // wq (L, K / per_word, N), scales (L, K / 32, N); *layer_idx in [0, L)
@@ -352,31 +425,39 @@ template <int NT, int X, int W>
 __global__ void __launch_bounds__(BN, kDecodeMinBlocks) mx_decode_stacked_kernel(DParams p) {
     const int l = __ldg(p.layer_idx);
     if (l < 0 || l >= p.L) __trap();     // the caller's index is out of the stack
-    d_body<NT, X, W>(p, p.wq + (size_t)l * (p.K / mx::per_word(W)) * p.N,
-                  p.scales + (size_t)l * (p.K / 32) * p.N);
+    d_body<NT, X, W, false>(p, p.wq + (size_t)l * (p.K / mx::per_word(W)) * p.N,
+                            p.scales + (size_t)l * (p.K / 32) * p.N);
 }
 
-template <int NT, int X, int W>
+template <int NT, int X, int W, bool R>
 cudaError_t d_launch(const DParams& p, int splits, cudaStream_t stream) {
     static std::atomic<unsigned> ready{0}, ready_stacked{0};
     constexpr int XB = X == kXbf16 ? 2 : 1;
-    cudaError_t err = sm90::allow_smem(mx_decode_kernel<NT, X, W>, kDecodeSmemMax, ready);
+    cudaError_t err = sm90::allow_smem(mx_decode_kernel<NT, X, W, R>, kDecodeSmemMax, ready);
     if (err != cudaSuccess) return err;
-    err = sm90::allow_smem(mx_decode_stacked_kernel<NT, X, W>, kDecodeSmemMax, ready_stacked);
-    if (err != cudaSuccess) return err;
+    if constexpr (!R) {
+        err = sm90::allow_smem(mx_decode_stacked_kernel<NT, X, W>, kDecodeSmemMax, ready_stacked);
+        if (err != cudaSuccess) return err;
+    }
     const int rows = (p.M + 7) / 8 * 8;
     const int ring = p.stages * d_stage_bytes(W, rows, XB), tile = p.M * BN * 4;
     const int bytes = ring > tile ? ring : tile;
     if (bytes > kDecodeSmemMax) return cudaErrorInvalidValue;
-    const dim3 grid(p.N / BN, splits);
-    if (p.layer_idx) mx_decode_stacked_kernel<NT, X, W><<<grid, BN, bytes, stream>>>(p);
-    else mx_decode_kernel<NT, X, W><<<grid, BN, bytes, stream>>>(p);
+    const dim3 grid((p.N + BN - 1) / BN, splits);
+    if constexpr (!R) {
+        if (p.layer_idx) {
+            mx_decode_stacked_kernel<NT, X, W><<<grid, BN, bytes, stream>>>(p);
+            return cudaGetLastError();
+        }
+    }
+    mx_decode_kernel<NT, X, W, R><<<grid, BN, bytes, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <int X, int W>
+template <int X, int W, bool R>
 cudaError_t d_launch_rows(const DParams& p, int splits, cudaStream_t stream) {
-    return p.M <= 8 ? d_launch<1, X, W>(p, splits, stream) : d_launch<8, X, W>(p, splits, stream);
+    return p.M <= 8 ? d_launch<1, X, W, R>(p, splits, stream)
+                    : d_launch<8, X, W, R>(p, splits, stream);
 }
 
 // x_code: DType 2 (bf16) or 3 (e4m3); w_kind: mx::WKind
@@ -395,13 +476,15 @@ int d_run(DParams p, int x_code, int splits, cudaStream_t stream) {
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err;
     if (x_code == gl::kBF16) {
-        if (p.wkind == mx::kFp4) err = d_launch_rows<kXbf16, mx::kFp4>(p, splits, stream);
-        else if (p.wkind == mx::kE4m3) err = d_launch_rows<kXbf16, mx::kE4m3>(p, splits, stream);
-        else err = d_launch_rows<kXbf16, mx::kE5m2>(p, splits, stream);
+        if (p.wkind == mx::kFp4) err = d_launch_rows<kXbf16, mx::kFp4, false>(p, splits, stream);
+        else if (p.wkind == mx::kE4m3)
+            err = d_launch_rows<kXbf16, mx::kE4m3, false>(p, splits, stream);
+        else err = d_launch_rows<kXbf16, mx::kE5m2, false>(p, splits, stream);
     } else {
-        if (p.wkind == mx::kFp4) err = d_launch_rows<kXe4m3, mx::kFp4>(p, splits, stream);
-        else if (p.wkind == mx::kE4m3) err = d_launch_rows<kXe4m3, mx::kE4m3>(p, splits, stream);
-        else err = d_launch_rows<kXe4m3, mx::kE5m2>(p, splits, stream);
+        if (p.wkind == mx::kFp4) err = d_launch_rows<kXe4m3, mx::kFp4, false>(p, splits, stream);
+        else if (p.wkind == mx::kE4m3)
+            err = d_launch_rows<kXe4m3, mx::kE4m3, false>(p, splits, stream);
+        else err = d_launch_rows<kXe4m3, mx::kE5m2, false>(p, splits, stream);
     }
     return static_cast<int>(err);
 }
@@ -424,9 +507,11 @@ struct PParams {
     const float* xs;                          // (M, K / ags) group scales of the codes, or null
     const float* sx;                          // (M) per-token scales, or null
     bf16* out;                                // (M, N)
-    float* part;                              // (splits, M, N)
+    float* part;                              // (splits, M, N); ragged: (splits, M, tiles 128)
     int* counters;                            // one per output tile, 0 between calls
     int M, N, K, k_per_split, stages, wkind, gs, ags;
+    const uint32_t* wq;                       // the words and scales, for the ragged
+    const uint8_t* scales;                    // instance's copies where TMA cannot go
 };
 
 struct PMaps {
@@ -455,17 +540,48 @@ __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The ragged instance's words (N % 4 != 0) or scales (N % 16 != 0) of a
+// stage, whose rows TMA cannot take (its global strides are multiples of 16
+// bytes), copied by the producer's 128 threads; what lies past N or K is
+// stored as zeros, as TMA fills it.
+template <int W>
+__device__ __forceinline__ void p_copy_edge(const PParams& p, uint8_t* wt, uint8_t* st, int n0,
+                                            int k0, bool words, bool scales) {
+    constexpr int epw = mx::per_word(W), wr = PBK / epw;
+    const int tid = threadIdx.x - kConsumers, cols = min(BN, p.N - n0);
+    if (words) {
+        const int rows = min(wr, (p.K - k0) / epw);
+        const uint32_t* wg = p.wq + (size_t)(k0 / epw) * p.N + n0;
+        uint32_t* w = reinterpret_cast<uint32_t*>(wt);
+        for (int i = tid; i < wr * BN; i += 128) {
+            const int r = i / BN, c = i % BN;
+            w[i] = r < rows && c < cols ? __ldg(wg + (size_t)r * p.N + c) : 0u;
+        }
+    }
+    if (scales) {
+        const int sr = PBK / p.gs, rows = min(sr, (p.K - k0) / p.gs);
+        const uint8_t* sg = p.scales + (size_t)(k0 / p.gs) * p.N + n0;
+        for (int i = tid; i < sr * BN; i += 128) {
+            const int r = i / BN, c = i % BN;
+            st[i] = r < rows && c < cols ? __ldg(sg + (size_t)r * p.N + c) : 0;
+        }
+    }
+}
+
 // The producer warpgroup: per stage, once the consumers have released it,
 // the x tile (bf16 by TMA; or codes turned into bf16 by the 128 threads, then
 // made visible to the async proxy), then the words and scales by TMA on the
-// stage's full mbarrier, armed by thread 0 after the x tile is written.
-template <int XC, int W>
+// stage's full mbarrier, armed by thread 0 after the x tile is written. The
+// ragged instance (R) reads codes past K as zeros and copies the words or
+// scales itself where their rows are no multiple of 16 bytes.
+template <int XC, int W, bool R>
 __device__ __forceinline__ void p_produce(const PParams& p, const PMaps& maps, uint8_t* g,
                                           uint32_t base, const PLayout& L, int n0, int m0,
                                           int k_begin, int steps) {
     const int tid = threadIdx.x - kConsumers;
     const uint32_t bars = base + L.bars;
     const int wb = p_w_bytes(W), sb = PBK / p.gs * BN;
+    const bool w_tma = !R || p.N % 4 == 0, s_tma = !R || p.N % 16 == 0;
     for (int it = 0; it < steps; ++it) {
         const int st = it % p.stages, k0 = k_begin + it * PBK;
         const uint32_t full = sm90::bar_addr(bars, st);
@@ -484,7 +600,7 @@ __device__ __forceinline__ void p_produce(const PParams& p, const PMaps& maps, u
                 const int u = tid + 128 * i, row = m0 + (u >> 3), k = k0 + 8 * (u & 7);
                 raw[i] = make_uint2(0u, 0u);
                 sc[i] = 1.f;
-                if (row < p.M) {
+                if (row < p.M && (!R || k < p.K)) {
                     raw[i] = __ldg(reinterpret_cast<const uint2*>(p.xc + (size_t)row * p.K + k));
                     if (p.xs != nullptr) sc[i] = __ldg(p.xs + (size_t)row * groups + k / p.ags);
                 }
@@ -506,11 +622,20 @@ __device__ __forceinline__ void p_produce(const PParams& p, const PMaps& maps, u
             fence_proxy_async();
             sm90::named_sync<2, 128>();
         }
+        if constexpr (R) {
+            if (!w_tma || !s_tma) {
+                p_copy_edge<W>(p, g + L.w + st * wb, g + L.s + st * kSStage, n0, k0, !w_tma,
+                               !s_tma);
+                sm90::named_sync<2, 128>();
+            }
+        }
         if (tid == 0) {
-            sm90::mbar_expect_tx(full, (XC ? 0 : kXStage) + wb + sb);
+            sm90::mbar_expect_tx(full, (XC ? 0 : kXStage) + (w_tma ? wb : 0) + (s_tma ? sb : 0));
             if constexpr (!XC) sm90::tma_load_2d(base + st * kXStage, &maps.x, full, k0, m0);
-            sm90::tma_load_2d(base + L.w + st * wb, &maps.w, full, n0, k0 / mx::per_word(W));
-            sm90::tma_load_2d(base + L.s + st * kSStage, &maps.s, full, n0, k0 / p.gs);
+            if (w_tma)
+                sm90::tma_load_2d(base + L.w + st * wb, &maps.w, full, n0, k0 / mx::per_word(W));
+            if (s_tma)
+                sm90::tma_load_2d(base + L.s + st * kSStage, &maps.s, full, n0, k0 / p.gs);
         }
     }
 }
@@ -544,17 +669,20 @@ __device__ __forceinline__ void p_build(uint32_t (&a)[4][4], const uint8_t* g, i
 // The block's sums, staged as tile[m][kTileStride] for rows m0 .. m0 + 127:
 // into the output (times the per-token scale), or with K split the block's
 // partial, and the last block of the tile adds the partials in split order.
-// Consumer threads only. Not inlined.
+// Consumer threads only. Not inlined. The ragged instance's partials have
+// rows of whole tiles, and its columns past N are not written.
+template <bool R>
 __device__ __noinline__ void p_finish(const PParams p, const float* tile, int* flag, int m0) {
     const int tid = threadIdx.x, n0 = blockIdx.y * BN;
     const int split = blockIdx.z, nsplit = gridDim.z;
     const int ctr = blockIdx.x + gridDim.x * blockIdx.y;
     const int rows = min(PBM, p.M - m0);
-    const size_t MN = (size_t)p.M * p.N;
+    const int ld = R ? gridDim.y * BN : p.N;         // a row of the partials
+    const size_t MN = (size_t)p.M * ld;
     if (nsplit > 1) {
         for (int e = tid * 4; e < rows * BN; e += kConsumers * 4) {
             const int m = e / BN, c = e % BN;
-            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)(m0 + m) * p.N + n0 + c) =
+            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)(m0 + m) * ld + n0 + c) =
                 *reinterpret_cast<const float4*>(tile + m * kTileStride + c);
         }
         __threadfence();
@@ -566,7 +694,8 @@ __device__ __noinline__ void p_finish(const PParams p, const float* tile, int* f
     }
     for (int e = tid * 8; e < rows * BN; e += kConsumers * 8) {
         const int m = e / BN, c = e % BN, n = n0 + c;
-        const size_t idx = (size_t)(m0 + m) * p.N + n;
+        if (R && n >= p.N) continue;
+        const size_t idx = (size_t)(m0 + m) * ld + n;
         float v[8];
         if (nsplit == 1) {
 #pragma unroll
@@ -599,12 +728,17 @@ __device__ __noinline__ void p_finish(const PParams p, const float* tile, int* f
 #pragma unroll
             for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(v[i], s);
         }
+        bf16* o = p.out + (size_t)(m0 + m) * p.N + n;
+        if (R && p.N % 8) {              // rows off 16-byte alignment: one value at a time
+            for (int i = 0; i < 8 && n + i < p.N; ++i) o[i] = __float2bfloat16_rn(v[i]);
+            continue;
+        }
         uint4 pk;
         pk.x = mx::bf16x2(v[0], v[1]);
         pk.y = mx::bf16x2(v[2], v[3]);
         pk.z = mx::bf16x2(v[4], v[5]);
         pk.w = mx::bf16x2(v[6], v[7]);
-        *reinterpret_cast<uint4*>(p.out + idx) = pk;
+        *reinterpret_cast<uint4*>(o) = pk;
     }
     if (nsplit > 1 && tid == 0) p.counters[ctr] = 0;
 }
@@ -653,7 +787,7 @@ __device__ __forceinline__ void p_step(const PConsumer<W>& c, float (&acc)[64],
     c.release(j);
 }
 
-template <int W>
+template <int W, bool R>
 __device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t base,
                                           const PLayout& L, int wg, int m0, int steps, int* flag) {
     const int lane = threadIdx.x % 32, t = lane % 4;
@@ -681,10 +815,10 @@ __device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t
         for (int e = 0; e < 4; ++e)
             tile[(8 * n8 + 2 * t + (e & 1)) * kTileStride + col + 8 * (e >> 1)] = acc[4 * n8 + e];
     sm90::named_sync<1, kConsumers>();
-    p_finish(p, tile, flag, m0);
+    p_finish<R>(p, tile, flag, m0);
 }
 
-template <int XC, int W>
+template <int XC, int W, bool R>
 __global__ void __launch_bounds__(kThreads, 1)
 mx_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
     extern __shared__ uint8_t smem_raw[];
@@ -693,7 +827,8 @@ mx_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
     uint8_t* g = smem_raw + (base - sm90::smem_addr(smem_raw));
     const int n0 = blockIdx.y * BN, m0 = blockIdx.x * PBM;
     const int k_begin = blockIdx.z * p.k_per_split;
-    const int steps = (min(p.K, k_begin + p.k_per_split) - k_begin) / PBK;
+    const int span = min(p.K, k_begin + p.k_per_split) - k_begin;
+    const int steps = R ? (span + PBK - 1) / PBK : span / PBK;   // ragged: the last partly past K
     if (threadIdx.x == 0) {
         for (int s = 0; s < p.stages; ++s) {
             sm90::mbar_init(sm90::bar_addr(bars, s), 1);
@@ -703,9 +838,9 @@ mx_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
     }
     __syncthreads();
     if (sm90::warpgroup() == 2) {
-        p_produce<XC, W>(p, maps, g, base, L, n0, m0, k_begin, steps);
+        p_produce<XC, W, R>(p, maps, g, base, L, n0, m0, k_begin, steps);
     } else {
-        p_consume<W>(p, g, base, L, sm90::warpgroup(), m0, steps,
+        p_consume<W, R>(p, g, base, L, sm90::warpgroup(), m0, steps,
                      reinterpret_cast<int*>(g + L.flag));
     }
 }
@@ -725,7 +860,7 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* 
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int XC, int W>
+template <int XC, int W, bool R>
 cudaError_t p_launch(const void* x, const uint32_t* wq, const uint8_t* scales, const PParams& p,
                      int splits, cudaStream_t stream) {
     static std::atomic<unsigned> ready{0};
@@ -737,132 +872,20 @@ cudaError_t p_launch(const void* x, const uint32_t* wq, const uint8_t* scales, c
                          CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorInvalidValue;
     if (XC) maps.x = CUtensorMap{};
-    if (!make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, wq, p.K / epw, p.N, PBK / epw, BN,
-                  CU_TENSOR_MAP_SWIZZLE_NONE) ||
-        !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, scales, p.K / p.gs, p.N, PBK / p.gs,
-                  BN, CU_TENSOR_MAP_SWIZZLE_NONE))
+    // the ragged instance's producer copies what TMA cannot take (p_copy_edge)
+    const bool w_tma = !R || p.N % 4 == 0, s_tma = !R || p.N % 16 == 0;
+    maps.w = maps.s = CUtensorMap{};
+    if ((w_tma && !make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, wq, p.K / epw, p.N,
+                            PBK / epw, BN, CU_TENSOR_MAP_SWIZZLE_NONE)) ||
+        (s_tma && !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, scales, p.K / p.gs, p.N,
+                            PBK / p.gs, BN, CU_TENSOR_MAP_SWIZZLE_NONE)))
         return cudaErrorInvalidValue;
-    const cudaError_t err = sm90::allow_smem(mx_prefill_kernel<XC, W>, kPrefillSmemMax, ready);
+    const cudaError_t err = sm90::allow_smem(mx_prefill_kernel<XC, W, R>, kPrefillSmemMax, ready);
     if (err != cudaSuccess) return err;
     // row tiles fastest: the blocks of one column tile share its words in L2
-    const dim3 grid((p.M + PBM - 1) / PBM, p.N / BN, splits);
-    mx_prefill_kernel<XC, W><<<grid, kThreads, L.bytes, stream>>>(maps, p);
+    const dim3 grid((p.M + PBM - 1) / PBM, (p.N + BN - 1) / BN, splits);
+    mx_prefill_kernel<XC, W, R><<<grid, kThreads, L.bytes, stream>>>(maps, p);
     return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// General fp4 layers, M < 4096: any K (a multiple of 8) and any N
-// ---------------------------------------------------------------------------
-// The layers JAX does not fold (K or N off the multiples of 128) run on its
-// general fused kernel with its MX codecs; this is their counterpart. Operands
-// swapped on mma.sync m16n8k16 bf16 as in the decode body: A a 16-column tile
-// of W decoded in registers, B 8 tokens. Lane (g, t) of a 32-deep block takes
-// the whole word 4 kb + t of columns n0 + g and n0 + g + 8 (codes 8t .. 8t + 7;
-// product j takes 4j .. 4j + 3) and the same 8 elements of x, read straight
-// from global memory. Each decoded weight is its code times its group's scale
-// in float32, rounded once to bf16 (exact for e8m0 wherever the product is a
-// normal bf16; NVFP4's e4m3 x 0.05 rounds once, as in the prefill body), so
-// groups of 16 and 32 take the same loop. A block is one 16-column tile by
-// 8 or 64 tokens; its four warps take every fourth 32-deep block and their
-// sums meet in shared memory in warp order. Columns past N read zero words and
-// are not written; a lane whose 8 codes start past K reads zeros.
-
-constexpr int GBN = 16;                 // weight columns a block
-constexpr int GWARPS = 4;               // warps a block, splitting K
-
-struct GParams {
-    const void* x;                      // (M, K) bf16 / e4m3
-    const uint32_t* wq;                 // (K / 8, N) fp4 codes
-    const uint8_t* scales;              // (K / gs, N) e8m0 bits or NVFP4 e4m3
-    const float* sx;                    // (M) per-token scales, or null
-    bf16* out;                          // (M, N)
-    int M, N, K, gs;
-};
-
-template <int NT, int X, bool NV>
-__global__ void __launch_bounds__(32 * GWARPS) mx_general_kernel(GParams p) {
-    __shared__ float red[GWARPS][NT * 8][GBN];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * NT * 8;
-    const int c0 = n0 + g, c1 = n0 + g + 8;
-    const bool in0 = c0 < p.N, in1 = c1 < p.N;
-    const int kblocks = (p.K + 31) / 32;
-
-    float acc[NT][4];
-#pragma unroll
-    for (int jj = 0; jj < NT; ++jj)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[jj][r] = 0.f;
-
-    for (int kb = warp; kb < kblocks; kb += GWARPS) {
-        const int k = 32 * kb + 8 * t;                  // the lane's first code
-        const bool kin = k < p.K;
-        uint32_t w0 = 0, w1 = 0;
-        float s0 = 0.f, s1 = 0.f;
-        if (kin) {
-            const size_t wrow = (size_t)(k >> 3) * p.N, srow = (size_t)(k / p.gs) * p.N;
-            if (in0) w0 = __ldg(p.wq + wrow + c0), s0 = mx::scale_f32(__ldg(p.scales + srow + c0), NV);
-            if (in1) w1 = __ldg(p.wq + wrow + c1), s1 = mx::scale_f32(__ldg(p.scales + srow + c1), NV);
-        }
-        uint32_t a[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            a[j][0] = mx::decode_pair(w0, 4 * j, mx::kFp4, s0);
-            a[j][1] = mx::decode_pair(w1, 4 * j, mx::kFp4, s1);
-            a[j][2] = mx::decode_pair(w0, 4 * j + 2, mx::kFp4, s0);
-            a[j][3] = mx::decode_pair(w1, 4 * j + 2, mx::kFp4, s1);
-        }
-#pragma unroll
-        for (int jj = 0; jj < NT; ++jj) {
-            if (m0 + 8 * jj >= p.M) break;              // warp-uniform
-            const int m = m0 + 8 * jj + g;
-            uint32_t b[4] = {0u, 0u, 0u, 0u};
-            if (kin && m < p.M) {
-                if constexpr (X == kXbf16) {
-                    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
-                        static_cast<const bf16*>(p.x) + (size_t)m * p.K + k));
-                    b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
-                } else {
-                    const uint2 v = __ldg(reinterpret_cast<const uint2*>(
-                        static_cast<const uint8_t*>(p.x) + (size_t)m * p.K + k));
-                    b[0] = e4m3x2_bf16x2(v.x), b[1] = e4m3x2_bf16x2(v.x >> 16);
-                    b[2] = e4m3x2_bf16x2(v.y), b[3] = e4m3x2_bf16x2(v.y >> 16);
-                }
-            }
-            mma_bf16(acc[jj], a[0], b[0], b[1]);
-            mma_bf16(acc[jj], a[1], b[2], b[3]);
-        }
-    }
-    // d fragment: column g + 8 (r / 2), token 8 jj + 2t + r % 2
-#pragma unroll
-    for (int jj = 0; jj < NT; ++jj)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) red[warp][8 * jj + 2 * t + (r & 1)][g + 8 * (r >> 1)] = acc[jj][r];
-    __syncthreads();
-    for (int e = threadIdx.x; e < NT * 8 * GBN; e += 32 * GWARPS) {
-        const int mm = e / GBN, cc = e % GBN, m = m0 + mm, n = n0 + cc;
-        if (m >= p.M || n >= p.N) continue;
-        float v = red[0][mm][cc];
-#pragma unroll
-        for (int w = 1; w < GWARPS; ++w) v = __fadd_rn(v, red[w][mm][cc]);
-        if (p.sx != nullptr) v = __fmul_rn(v, p.sx[m]);
-        p.out[(size_t)m * p.N + n] = __float2bfloat16_rn(v);
-    }
-}
-
-template <int NT, int X>
-cudaError_t g_launch(const GParams& p, bool nvfp4, cudaStream_t stream) {
-    const dim3 grid((p.N + GBN - 1) / GBN, (p.M + NT * 8 - 1) / (NT * 8));
-    if (nvfp4) mx_general_kernel<NT, X, true><<<grid, 32 * GWARPS, 0, stream>>>(p);
-    else mx_general_kernel<NT, X, false><<<grid, 32 * GWARPS, 0, stream>>>(p);
-    return cudaGetLastError();
-}
-
-template <int X>
-cudaError_t g_launch_rows(const GParams& p, bool nvfp4, cudaStream_t stream) {
-    return p.M <= 8 ? g_launch<1, X>(p, nvfp4, stream) : g_launch<8, X>(p, nvfp4, stream);
 }
 
 }  // namespace
@@ -928,42 +951,76 @@ extern "C" int gl_mx_prefill(const void* x, const void* xs, const void* wq, cons
     const PParams p{codes ? static_cast<const uint8_t*>(x) : nullptr, static_cast<const float*>(xs),
                     static_cast<const float*>(sx), static_cast<bf16*>(out),
                     static_cast<float*>(part), static_cast<int*>(counters), M, N, K, k_per_split,
-                    stages, w_kind, gs, xs != nullptr ? ags : 32};
+                    stages, w_kind, gs, xs != nullptr ? ags : 32,
+                    static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales)};
     const uint32_t* w = static_cast<const uint32_t*>(wq);
     const uint8_t* s = static_cast<const uint8_t*>(scales);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     cudaError_t err;
     if (w_kind == mx::kFp4)
-        err = codes ? p_launch<1, mx::kFp4>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kFp4>(x, w, s, p, splits, stream);
+        err = codes ? p_launch<1, mx::kFp4, false>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kFp4, false>(x, w, s, p, splits, stream);
     else if (w_kind == mx::kE4m3)
-        err = codes ? p_launch<1, mx::kE4m3>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kE4m3>(x, w, s, p, splits, stream);
+        err = codes ? p_launch<1, mx::kE4m3, false>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kE4m3, false>(x, w, s, p, splits, stream);
     else
-        err = codes ? p_launch<1, mx::kE5m2>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kE5m2>(x, w, s, p, splits, stream);
+        err = codes ? p_launch<1, mx::kE5m2, false>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kE5m2, false>(x, w, s, p, splits, stream);
     return static_cast<int>(err);
 }
 
+// General fp4 layers (off the JAX fold rule), on the ragged instances (R) of
+// the two bodies: the last column tile hangs past N and the last stage past
+// K; what lies past either reads as zeros (words, scales and x alike, so no
+// stale value meets a zero weight) and is not written.
+//
 // Launch on `stream` (M < 4096). x (M, K): bf16 (x_code 2) or per-token e4m3
 // (x_code 3, with sx (M) float32; else sx null); wq (K / 8, N) fp4 codes;
 // scales (K / 16, N) NVFP4 e4m3 (nvfp4 1) or (K / 32, N) e8m0 bits (nvfp4 0).
-// K a multiple of 8 and of the group, any N >= 1; x 16-byte aligned. No
-// scratch: one launch, nothing left between calls.
+// K a multiple of 8 and of the group, any N >= 1; x, wq, scales and out
+// 16-byte aligned. M <= 64 with e8m0 scales runs the decode body (stages of
+// 128), else the prefill body (stages of 64); K is cut into `splits` ranges
+// of `k_per_split` (a multiple of the stage, none empty) and `stages` is the
+// ring, both from ops/mx.general_plan. With splits > 1 the call needs `part`,
+// (splits, M, 128 ceil(N / 128)) floats, and `counters`, one int32 per output
+// tile, all 0, which the kernel leaves 0.
 extern "C" int gl_mx_general(const void* x, const void* wq, const void* scales, const void* sx,
-                             void* out, int M, int N, int K, int x_code, int nvfp4,
+                             void* part, void* counters, void* out, int M, int N, int K,
+                             int x_code, int nvfp4, int splits, int k_per_split, int stages,
                              void* stream_ptr) {
     const int gs = nvfp4 ? 16 : 32;
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
+                            reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(out);
     const bool ok = M >= 1 && M < 4096 && N >= 1 && K >= gs && K % 8 == 0 && K % gs == 0 &&
                     (x_code == gl::kBF16 || x_code == 3) && (nvfp4 == 0 || nvfp4 == 1) &&
                     x != nullptr && wq != nullptr && scales != nullptr && out != nullptr &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(wq) % 4 == 0 && (x_code == gl::kBF16) == (sx == nullptr);
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    const GParams p{x, static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales),
-                    static_cast<const float*>(sx), static_cast<bf16*>(out), M, N, K, gs};
+                    bases % 16 == 0 && (x_code == gl::kBF16) == (sx == nullptr);
+    const bool decode = M <= 64 && !nvfp4;
+    const int bk = decode ? BK : PBK;
+    const bool split_ok = splits >= 1 && k_per_split > 0 && k_per_split % bk == 0 &&
+                          (long long)(splits - 1) * k_per_split < K &&
+                          (long long)splits * k_per_split >= K &&
+                          (splits == 1 || (part != nullptr && counters != nullptr));
+    if (!ok || !split_ok || stages < 2 || stages > kMaxStages)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const uint32_t* w = static_cast<const uint32_t*>(wq);
+    const uint8_t* s = static_cast<const uint8_t*>(scales);
+    const bool codes = x_code == 3;
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const cudaError_t err = x_code == gl::kBF16 ? g_launch_rows<kXbf16>(p, nvfp4, stream)
-                                               : g_launch_rows<kXe4m3>(p, nvfp4, stream);
+    cudaError_t err;
+    if (decode) {
+        const DParams p{x, w, s, static_cast<const float*>(sx), nullptr, 1,
+                        static_cast<bf16*>(out), static_cast<float*>(part),
+                        static_cast<int*>(counters), M, N, K, k_per_split, stages, mx::kFp4};
+        err = codes ? d_launch_rows<kXe4m3, mx::kFp4, true>(p, splits, stream)
+                    : d_launch_rows<kXbf16, mx::kFp4, true>(p, splits, stream);
+    } else {
+        const PParams p{codes ? static_cast<const uint8_t*>(x) : nullptr, nullptr,
+                        static_cast<const float*>(sx), static_cast<bf16*>(out),
+                        static_cast<float*>(part), static_cast<int*>(counters), M, N, K,
+                        k_per_split, stages, mx::kFp4, gs, 32, w, s};
+        err = codes ? p_launch<1, mx::kFp4, true>(x, w, s, p, splits, stream)
+                    : p_launch<0, mx::kFp4, true>(x, w, s, p, splits, stream);
+    }
     return static_cast<int>(err);
 }

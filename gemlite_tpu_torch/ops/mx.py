@@ -22,14 +22,18 @@ At M >= 4096 the router dequantizes MX layers (``ops/dequantize.py``, the MX
 form of ``csrc/dequantize.cu``) and runs a dense bf16 matmul, as JAX does.
 The plain version of every entry is ``ops/reference.mx_forward_ref``. On a
 CPU tensor a wrapper runs it; on a CUDA tensor it launches the kernel or
-raises. ``decode_plan`` and ``prefill_plan`` own the kernels' grids and
-rings: the CUDA side only checks that what it is given fits.
+raises. ``decode_plan``, ``prefill_plan`` and ``general_plan`` own the
+kernels' grids and rings: the CUDA side only checks that what it is given
+fits.
 
-    general          M < 4096, fp4 layers of any K (a multiple of 8) and N,
-                     entry ``gl_mx_general``: replaces the MX codecs of
-                     ``gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul``
-                     (``:53-80``, scale codecs ``:116-120``) under the route
-                     name ``general_fused``
+    general          M < 4096, fp4 layers of any N and of K a multiple of 8
+                     and of the group, entry ``gl_mx_general``: replaces the
+                     MX codecs of ``gemlite_tpu/ops/pallas_gemm.py:
+                     pallas_fused_matmul`` (``:53-80``, scale codecs
+                     ``:116-120``) under the route name ``general_fused``, on
+                     the ragged instances of the decode body (M <= 64, e8m0)
+                     and of the prefill body (NVFP4, and M > 64), as
+                     ``general_plan`` picks them
 
 The decode and prefill kernels take the layers the JAX package folds into its
 plane layout (``jax_folds``: K and N multiples of 128), with bf16 activations
@@ -50,9 +54,10 @@ from . import build
 from .prefill import estimate_us
 from .reference import mx_forward_ref
 
-__all__ = ["DecodeMxPlan", "PrefillMxPlan", "mx_coded", "jax_folds", "mx_refusal", "serves_mx",
-           "decode_plan", "prefill_plan", "prefill_smem", "mx_decode", "mx_decode_stacked",
-           "mx_prefill", "mx_prefill_csm4", "mx_general", "w_kind"]
+__all__ = ["DecodeMxPlan", "PrefillMxPlan", "GeneralMxPlan", "mx_coded", "jax_folds",
+           "mx_refusal", "serves_mx", "decode_plan", "prefill_plan", "prefill_smem",
+           "general_plan", "mx_decode", "mx_decode_stacked", "mx_prefill", "mx_prefill_csm4",
+           "mx_general", "w_kind"]
 
 BK = 128                   # the decode stage
 TILE = 128                 # output columns a block
@@ -160,7 +165,8 @@ def serves_mx(meta, M: Optional[int] = None, route: str = "prefill") -> bool:
 
 
 class DecodeMxPlan(NamedTuple):
-    """The decode kernel's grid: ``tiles`` blocks of 128 columns, each summing
+    """The decode kernel's grid: ``tiles`` blocks of 128 columns (the last may
+    hang past N in the ragged instance), each summing
     all M rows over ``splits`` K ranges of ``k_per_split`` (the last may be
     shorter), in one launch; a ring of ``stages`` 128-deep stages; ``smem``
     bytes of shared memory."""
@@ -181,10 +187,11 @@ def _words_bytes(kind: int, depth: int) -> int:
 
 def decode_plan(M: int, N: int, K: int, kind: int, x_bytes: int) -> DecodeMxPlan:
     """K cut in units of 256 so that about ``TARGET_BLOCKS`` blocks run at
-    once; the split depends on N and K only, so the stacked entry equals
+    once (a split is whole stages: the ragged instance's K may end inside
+    one); the split depends on N and K only, so the stacked entry equals
     the per-layer one. A stage: the word rows, four scale rows and M rounded
     up to 8 rows of x (the kernel's ``d_stage_bytes``)."""
-    tiles = N // TILE
+    tiles = -(-N // TILE)
     unit = 2 * BK
     units = -(-K // unit)
     splits = max(1, min(units, -(-TARGET_BLOCKS // tiles)))
@@ -194,13 +201,14 @@ def decode_plan(M: int, N: int, K: int, kind: int, x_bytes: int) -> DecodeMxPlan
     stage = _words_bytes(kind, BK) + BK // 32 * TILE + rows * BK * x_bytes
     stages = max(2, min(MAX_STAGES, DECODE_BUDGET // stage))
     smem = max(stages * stage, M * TILE * 4)
-    return DecodeMxPlan(tiles, splits, min(K, per * unit), stages, smem)
+    return DecodeMxPlan(tiles, splits, min(-(-K // BK) * BK, per * unit), stages, smem)
 
 
 class PrefillMxPlan(NamedTuple):
     """The prefill kernel's grid: ``tiles_n`` blocks of 128 weight columns by
     ``tiles_m`` blocks of ``bm`` rows, each summing ``splits`` K ranges of
-    ``k_per_split``, in one launch; a ring of ``stages`` stages of ``bk``;
+    ``k_per_split`` (the last may be shorter, and in the ragged instance end
+    inside a stage), in one launch; a ring of ``stages`` stages of ``bk``;
     ``smem`` bytes of shared memory."""
     bm: int
     bk: int
@@ -232,10 +240,11 @@ def prefill_smem(kind: int, stages: int) -> int:
 def prefill_plan(M: int, N: int, K: int, kind: int) -> PrefillMxPlan:
     """The K split of least ``ops/prefill.estimate_us`` over whole 64-deep
     stages, and the deepest ring that fits. It does not depend on the form
-    of x, so the csm-4 form sums in the bf16 form's order."""
+    of x, so the csm-4 form sums in the bf16 form's order. A last stage
+    partly past K (the ragged instance) counts as a whole one."""
     bm, bk = PREFILL_BM, PREFILL_BK
-    tiles_n, tiles_m = N // TILE, -(-M // bm)
-    steps = K // bk
+    tiles_n, tiles_m = -(-N // TILE), -(-M // bm)
+    steps = -(-K // bk)
     best = None
     for s in range(1, steps + 1):
         per = -(-steps // s)
@@ -249,6 +258,44 @@ def prefill_plan(M: int, N: int, K: int, kind: int) -> PrefillMxPlan:
                  if prefill_smem(kind, s) <= PREFILL_SMEM_MAX)
     return PrefillMxPlan(bm, bk, tiles_n, tiles_m, splits, per * bk, stages,
                          prefill_smem(kind, stages))
+
+
+class GeneralMxPlan(NamedTuple):
+    """The general entry's plan: ``body`` "decode" (the MX decode body's
+    ragged instance: one block of all M rows, rounded up to 8, a column tile)
+    or "prefill" (the MX prefill body's ragged instance: blocks of ``bm``
+    rows); ``tiles_n`` column tiles of 128 (the last may hang past N) by
+    ``tiles_m`` row tiles; ``splits`` K ranges of ``k_per_split`` (a multiple
+    of ``bk``; the last may be shorter and end inside a stage); a ring of
+    ``stages`` stages of ``bk``; ``smem`` bytes of shared memory, enough for
+    bf16 and e4m3 x alike."""
+    body: str
+    bm: int
+    bk: int
+    tiles_n: int
+    tiles_m: int
+    splits: int
+    k_per_split: int
+    stages: int
+    smem: int
+
+    @property
+    def launches(self) -> int:
+        return 1
+
+
+def general_plan(M: int, N: int, K: int, nvfp4: bool) -> GeneralMxPlan:
+    """M <= 64 with e8m0 scales: the decode body with ``decode_plan``'s split
+    and the ring for bf16 x (e4m3 x needs less). NVFP4 at every M, and e8m0
+    above M 64: the prefill body with ``prefill_plan``'s split, as the folded
+    NVFP4 layers run from M 1. It does not depend on the form of x."""
+    if M <= 64 and not nvfp4:
+        d = decode_plan(M, N, K, 0, 2)
+        return GeneralMxPlan("decode", -(-M // 8) * 8, BK, d.tiles, 1, d.splits, d.k_per_split,
+                             d.stages, d.smem)
+    p = prefill_plan(M, N, K, 0)
+    return GeneralMxPlan("prefill", p.bm, p.bk, p.tiles_n, p.tiles_m, p.splits, p.k_per_split,
+                         p.stages, p.smem)
 
 
 def _fn(name: str, pointers: int, ints: int):
@@ -442,9 +489,10 @@ mx_prefill_csm4.launches = 0
 
 def mx_general(x: torch.Tensor, W_q, scales, scales_x, meta) -> torch.Tensor:
     """out (M, N) bf16 = x (M, K) @ W, times the per-token scales (csm 2), for
-    M < 4096 and an fp4 layer of any K and N: the layers JAX does not fold.
-    x is bf16, or e4m3 per token for csm 2; micro-scaled x (csm 4) arrives
-    fake-quantized with csm 0, as the router hands it over."""
+    M < 4096 and an fp4 layer of any N and K: the layers JAX does not fold,
+    on the body ``general_plan`` picks. x is bf16, or e4m3 per token for csm
+    2; micro-scaled x (csm 4) arrives fake-quantized with csm 0, as the router
+    hands it over."""
     if x.device.type == "cpu":
         return mx_forward_ref(x, W_q, scales, None, scales_x, meta)
     M = x.shape[0]
@@ -453,11 +501,16 @@ def mx_general(x: torch.Tensor, W_q, scales, scales_x, meta) -> torch.Tensor:
     x, x_code = _x(x, meta, M)
     W_q, s = _weights(W_q, scales, meta)
     sx = _sx(scales_x, meta, M)
+    nvfp4 = _nvfp4(meta)
+    p = general_plan(M, N, K, nvfp4)
+    stream = torch.cuda.current_stream().cuda_stream
+    part, cnt = _split("mx_general", p.splits * M * p.tiles_n * TILE if p.splits > 1 else 0,
+                       p.tiles_n * p.tiles_m, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = _fn("gl_mx_general", 5, 5)(
-        x.data_ptr(), W_q.data_ptr(), s.data_ptr(), None if sx is None else sx.data_ptr(),
-        out.data_ptr(), M, N, K, x_code, int(_nvfp4(meta)),
-        torch.cuda.current_stream().cuda_stream)
+    err = _fn("gl_mx_general", 7, 8)(
+        x.data_ptr(), W_q.data_ptr(), s.data_ptr(), None if sx is None else sx.data_ptr(), part,
+        cnt, out.data_ptr(), M, N, K, x_code, int(nvfp4), p.splits, p.k_per_split, p.stages,
+        stream)
     build.check(err, "mx_gemm (general)")
     mx_general.launches += 1
     return out

@@ -3,6 +3,7 @@
 """Time design variants of the port's MX kernels on one NVIDIA card.
 
     python3 scripts/torch_mx_variants.py [--variants committed weight_scale ...]
+                                         [--old-source DIR]
 
 Each variant is the committed ``gemlite_tpu_torch/csrc/mx_gemm.cu`` with a few
 lines replaced (the text substitutions in ``VARIANTS``), built with the
@@ -20,6 +21,15 @@ layers (fp4 codes, e8m0 scales of 32, bf16 x):
   no_decode     the raw words handed to the tensor cores as bf16 pairs, with
                 no decode and no prefill scale (the result is wrong): the
                 cost of the decode, against the copies and the products.
+
+With ``--old-source DIR`` (an earlier tree's ``gemlite_tpu_torch/csrc``,
+e.g. unpacked by ``git archive`` into ``_archive/``) it also builds that
+tree's ``mx_gemm.cu`` beside the committed one (``chip_smoke.start_old_mx_build``)
+and times the general entry (``gl_mx_general``, fp4 layers off the JAX fold
+rule) of both trees on the same A16W4_MXFP layers and inputs: SmolLM2-360M's
+block linears and gpt-oss-20b's 2880x2880 at M 1 / 8 / 64 / 128 / 1024, the
+committed entry's ``general_plan`` and a dense bf16 matmul on the
+dequantized weight beside them (variant "general").
 
 Before the decoders were instantiated per weight kind (their first version
 branched on the kind in the inner loops), a variant that fixed the kind at
@@ -52,6 +62,8 @@ SOURCE = build.SRC_DIR / "mx_gemm.cu"
 OUT_DIR = build.BUILD_DIR / "variants"
 SHAPES = ((14336, 4096), (4096, 4096))     # (N, K)
 CASES = [(M, N, K) for N, K in SHAPES for M in (1, 8, 64, 128, 1024)]
+GENERAL_SHAPES = ((2560, 960), (2880, 2880), (960, 960), (320, 960), (960, 2560))
+GENERAL_CASES = [(M, N, K) for N, K in GENERAL_SHAPES for M in (1, 8, 64, 128, 1024)]
 
 _DECODE_A = ("                    a[j][i][h] = mx::raw_pair(w, 0, W);\n"
              "                    a[j][i][2 + h] = mx::raw_pair(w, 2, W);")
@@ -138,9 +150,39 @@ def call(lib, layer, x):
     return out
 
 
+def general_rows(timer, old, gen) -> None:
+    """The committed general entry against an earlier tree's (``old``), one
+    JSON line a case."""
+    import chip_smoke as smoke
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full
+    from gemlite_tpu_torch.ops.reference import mx_forward_ref
+
+    for N, K in GENERAL_SHAPES:
+        layer = smoke.mx_layer("a16w4_mxfp", N, K, gen)
+        meta = layer.meta
+        dense = dequantize_full(layer.W_q, layer.scales, None, meta)
+        for M in (m for m, n, k in GENERAL_CASES if (n, k) == (N, K)):
+            x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            want = mx_forward_ref(x, layer.W_q, layer.scales, None, None, smoke.with_f32_out(meta))
+            got = mod.mx_general(x, layer.W_q, layer.scales, None, meta)
+            was = old(x, layer.W_q, layer.scales, None, meta)
+            torch.cuda.synchronize()
+            row = {"variant": "general", "form": "a16w4_mxfp", "M": M, "N": N, "K": K,
+                   "plan": mod.general_plan(M, N, K, False)._asdict(),
+                   "rel_err": smoke.rel_err(got, want), "old_rel_err": smoke.rel_err(was, want),
+                   "ms": timer.ms(lambda: mod.mx_general(x, layer.W_q, layer.scales, None, meta)),
+                   "old_ms": timer.ms(lambda: old(x, layer.W_q, layer.scales, None, meta)),
+                   "dense_ms": timer.ms(lambda: torch.matmul(x, dense))}
+            print(json.dumps(row), flush=True)
+        del layer, dense
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
+    ap.add_argument("--old-source", type=Path, default=None,
+                    help="an earlier tree's gemlite_tpu_torch/csrc, for the general entry")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mx_variants: no CUDA device; this script runs only on the card",
@@ -151,11 +193,14 @@ def main() -> int:
 
     for name in args.variants:                      # fail on a stale substitution first
         variant_source(name)
+    old = smoke.start_old_mx_build(args.old_source) if args.old_source else None
     libs = build_variants(args.variants)
     timer = smoke.Timer()
     gen = torch.Generator(device="cuda").manual_seed(13)
+    if old is not None:
+        general_rows(timer, old(), gen)
     layers = {}
-    for M, N, K in CASES:
+    for M, N, K in CASES if libs else ():
         if (N, K) not in layers:
             layers.clear()
             torch.cuda.empty_cache()
