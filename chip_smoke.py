@@ -113,11 +113,12 @@ Phases, each printing one JSON line:
   kernels_mx   the MX kernels (csrc/mx_gemm.cu, the MX form of
            csrc/dequantize.cu) against their plain version
            (ops/reference.mx_forward_ref) within 5e-3: decode at M 1 / 8 / 64
-           and prefill at M 128 / 1024 on the four 8B shapes for A16W4_MXFP,
-           A16W8_MXFP (e4m3; e5m2 on 14336x4096) and A8W8_MXFP_dynamic, NVFP4
-           on the prefill kernel at M 8 / 128; the csm-4 form (e4m3 codes and
-           group scales in) at M 128 / 1024 for MXFP4 and NVFP4, equal bit for
-           bit to the bf16 form fed fake_quant_activations; the MX dequantize
+           and prefill at M 128 / 1024 on the four 8B shapes (and M 256 / 2048
+           on 14336x4096) for A16W4_MXFP, A16W8_MXFP (e4m3; e5m2 on
+           14336x4096) and A8W8_MXFP_dynamic, NVFP4 on the prefill kernel at
+           M 8 / 128; the csm-4 form (e4m3 codes and group scales in) at M
+           128 / 256 / 1024 / 2048 for MXFP4 and NVFP4, equal bit for bit to
+           the bf16 form fed fake_quant_activations; the MX dequantize
            on 14336x4096 equal to dequantize_full bit for bit; the stacked
            decode over a 32-layer A16W4_MXFP stack at layers 0 / 17 / 31,
            equal to the per-layer kernel bit for bit. Plans, one device
@@ -133,7 +134,9 @@ Phases, each printing one JSON line:
            2880x2880, M 1 / 8 / 64 / 128 / 1024, for A16W4_MXFP,
            A8W4_MXFP_dynamic, A4W4_MXFP_dynamic (fake-quantized x) and
            A4W4_NVFP_dynamic; with --old-mx-source DIR (an earlier tree's
-           csrc) each row also times that tree's general entry (old_ms);
+           csrc) each prefill, csm-4 and general row also times that tree's
+           entry (old_ms), bit for bit equal to the current one where both
+           take the same rows and split;
   serve_mxfp4, serve_nvfp4  the 4-layer model quantized with A16W4_MXFP
            and A4W4_NVFP_dynamic, served as in "serve": tokens equal the bare
            loop, the linears run only on the MX routes, launches equal the
@@ -1387,6 +1390,7 @@ def phase_serve_fp8(card: str, cfg, dense) -> dict:
 MX_GROUPS = {"mx_decode_kernel": ("mx_decode",), "mx_prefill_kernel": ("mx_prefill",)}
 MX_DECODE_MS = (1, 8, 64)
 MX_PREFILL_MS = (128, 1024)
+MX_PREFILL_WIDE_MS = (128, 256, 1024, 2048)   # on MX_SHAPE: the 256-row blocks from M 129
 MX_NVFP4_MS = (8, 128)               # NVFP4 has no decode form: M <= 64 runs the prefill kernel
 MX_SHAPE = (14336, 4096)             # the kernels line's MX rows
 # the general entry: SmolLM2-360M's block linears (hidden 960, intermediate
@@ -1432,11 +1436,16 @@ def start_old_mx_build(src_dir: Path):
     and its headers, e.g. that tree's ``gemlite_tpu_torch/csrc`` unpacked
     under ``_archive/``) into ``gemlite_tpu_torch/_build/old/``, beside the
     current build. Returns a function that waits for it and returns that
-    tree's general MX entry as ``(x, W_q, scales, sx, meta) -> out``, called
-    with the signature it had before the entry took a split scratch; the
-    current entry is timed against it in the same call."""
+    tree's entries with the signatures and plans they had before the prefill
+    body took 256-row blocks (128 rows a block, the bf16 form's ring for both
+    forms of x): ``prefill(x, W_q, scales, sx, meta)``, ``csm4(codes,
+    group_scales, W_q, scales, meta)``, ``general(x, W_q, scales, sx, meta)``,
+    and ``plan(kernel, M, N, K, meta)``, the (rows, splits, k_per_split) that
+    tree's call took. The current entries are timed against them in the same
+    call."""
     import atexit
     import ctypes
+    from types import SimpleNamespace
     from gemlite_tpu_torch.ops import build
     out_dir = build.BUILD_DIR / "old"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1447,35 +1456,89 @@ def start_old_mx_build(src_dir: Path):
     atexit.register(proc.kill)
 
     def ready():
+        from gemlite_tpu_torch import DType
+        from gemlite_tpu_torch.ops import mx
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"the earlier mx_gemm.cu failed to build:\n{log[-4000:]}")
-        fn = ctypes.CDLL(str(so)).gl_mx_general
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(so))
+        for fn, ptrs, ints in (("gl_mx_prefill", 8, 10), ("gl_mx_general", 7, 8)):
+            getattr(lib, fn).argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                                         + [ctypes.c_void_p])
+            getattr(lib, fn).restype = ctypes.c_int
 
-        def call(x, W_q, scales, sx, meta):
-            from gemlite_tpu_torch import DType
+        def plan(kernel, M, N, K, meta):
+            nvfp4 = meta.input_dtype == DType.NVFP4.value
+            if kernel == "mx_general" and M <= 64 and not nvfp4:
+                d = mx.decode_plan(M, N, K, 0, 2)
+                return -(-M // 8) * 8, d.splits, d.k_per_split, d.stages
+            p = mx.prefill_plan(M, N, K, mx.w_kind(meta), bm=128)
+            return p.bm, p.splits, p.k_per_split, p.stages
+
+        def scratch(kernel, M, N, splits, tiles):
+            stream = torch.cuda.current_stream().cuda_stream
+            part, cnt = mx._split("old_" + kernel, splits * M * N if splits > 1 else 0, tiles,
+                                  torch.device("cuda"), stream)
+            return part, cnt, stream
+
+        def prefill(x, W_q, scales, sx, meta, xs=None):
             M, N, K = x.shape[0], meta.out_features, meta.in_features
+            bm, splits, kps, stages = plan("mx_prefill", M, N, K, meta)
+            part, cnt, stream = scratch("mx_prefill", M, N, splits, -(-M // bm) * (N // 128))
             out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-            err = fn(x.data_ptr(), W_q.data_ptr(), scales.view(torch.uint8).data_ptr(),
-                     None if sx is None else sx.data_ptr(), out.data_ptr(), M, N, K,
-                     3 if x.dtype == torch.float8_e4m3fn else 2,
-                     int(meta.input_dtype == DType.NVFP4.value),
-                     torch.cuda.current_stream().cuda_stream)
+            codes = x.dtype == torch.float8_e4m3fn
+            err = lib.gl_mx_prefill(
+                x.data_ptr(), None if xs is None else xs.data_ptr(), W_q.data_ptr(),
+                scales.view(torch.uint8).data_ptr(), None if sx is None else sx.data_ptr(), part,
+                cnt, out.data_ptr(), M, N, K, 3 if codes else 2,
+                0 if xs is None else K // xs.shape[1], mx.w_kind(meta), meta.group_size, splits,
+                kps, stages, stream)
+            build.check(err, "the earlier gl_mx_prefill")
+            return out
+
+        def general(x, W_q, scales, sx, meta):
+            M, N, K = x.shape[0], meta.out_features, meta.in_features
+            bm, splits, kps, stages = plan("mx_general", M, N, K, meta)
+            tiles_n = -(-N // 128)
+            part, cnt, stream = scratch("mx_general", M, tiles_n * 128, splits,
+                                        -(-M // bm) * tiles_n)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+            err = lib.gl_mx_general(x.data_ptr(), W_q.data_ptr(), scales.view(torch.uint8).data_ptr(),
+                                    None if sx is None else sx.data_ptr(), part, cnt,
+                                    out.data_ptr(), M, N, K,
+                                    3 if x.dtype == torch.float8_e4m3fn else 2,
+                                    int(meta.input_dtype == DType.NVFP4.value), splits, kps, stages,
+                                    stream)
             build.check(err, "the earlier gl_mx_general")
             return out
-        return call
+
+        return SimpleNamespace(
+            prefill=prefill, general=general, plan=plan,
+            csm4=lambda codes, gscales, W_q, scales, meta: prefill(codes, W_q, scales, None, meta,
+                                                                   xs=gscales))
     return ready
 
 
-def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
+def same_plan(old, kernel, M, N, K, meta, x_codes=False) -> bool:
+    """True when the current entry takes the earlier tree's rows and split
+    (``start_old_mx_build``), so that both sum in one order."""
+    from gemlite_tpu_torch import DType
+    from gemlite_tpu_torch.ops import mx
+    if kernel == "mx_general":
+        p = mx.general_plan(M, N, K, meta.input_dtype == DType.NVFP4.value)
+    else:
+        p = mx.prefill_plan(M, N, K, mx.w_kind(meta), x_codes=x_codes)
+    return (p.bm, p.splits, p.k_per_split) == old.plan(kernel, M, N, K, meta)[:3]
+
+
+def phase_kernels_mx(card: str, peak, timer: Timer, old_mx=None) -> dict:
     """The MX kernels (csrc/mx_gemm.cu, the MX form of csrc/dequantize.cu)
     against their plain version (ops/reference.mx_forward_ref, float32 result)
     within 5e-3: decode at M 1 / 8 / 64 and prefill at M 128 / 1024 on the
     four 8B shapes for A16W4_MXFP, A16W8_MXFP (e4m3; e5m2 on 14336x4096) and
-    A8W8_MXFP_dynamic (per-token e4m3 x); NVFP4 on the prefill kernel at M 8 /
-    128; the csm-4 form at M 128 / 1024 for A4W4_MXFP and A4W4_NVFP on
+    A8W8_MXFP_dynamic (per-token e4m3 x), and on 14336x4096 at M 256 / 2048
+    too (the 256-row blocks); NVFP4 on the prefill kernel at M 8 / 128; the
+    csm-4 form at M 128 / 256 / 1024 / 2048 for A4W4_MXFP and A4W4_NVFP on
     14336x4096, equal bit for bit to the bf16 form fed fake_quant_activations;
     the stacked decode over a 32-layer A16W4_MXFP stack of 14336x4096 at
     layers 0 / 17 / 31, equal to the per-layer kernel bit for bit; the MX
@@ -1484,9 +1547,11 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
     CUDA-event time with the L2 flushed, bound (bytes over 3.35 TB/s or 2 M N
     K over the bf16 rate) and a dense bf16 matmul on the dequantized weight
     as the yardstick. The general entry's rows carry ``general_plan`` (the
-    body, split and ring) and, given ``old_general`` (``start_old_mx_build``),
-    an earlier tree's general entry timed on the same inputs (``old_ms``).
-    Returns the kernels line's rows."""
+    body, split and ring). Given ``old_mx`` (``start_old_mx_build``), every
+    prefill, csm-4 and general row also times an earlier tree's entry on the
+    same inputs (``old_ms``), and where both take the same rows and split its
+    output must equal the current one bit for bit. Returns the kernels line's
+    rows."""
     from gemlite_tpu_torch.ops import mx
     from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
     from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
@@ -1494,22 +1559,26 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     rows = []
+    old = old_mx() if old_mx is not None else None
 
     def record(row, got, want, exact=False):
         emit(row)
         if exact and not torch.equal(got, want):
             raise RuntimeError(f"{row['kernel']} differs from its reference bit for bit: {row}")
+        if row.get("equals_old") is False:
+            raise RuntimeError(f"{row['kernel']} differs from the earlier tree's entry on the "
+                               f"same plan: {row}")
         if not row["rel_err"] <= REL_TOL:
             raise RuntimeError(f"{row['kernel']} disagrees with its plain version: {row}")
         if row.get("device_ops_per_call", 1) != 1:
             raise RuntimeError(f"{row['kernel']}: one call took several device operations: {row}")
         rows.append(row)
 
-    def call_row(name, form, layer, M, kern, x, sx, meta, plan, timed=True, old=None):
+    def call_row(name, form, layer, M, kern, x, sx, meta, plan, timed=True, old_fn=None):
         N, K = layer.out_features, layer.in_features
         args = (x, layer.W_q, layer.scales, sx)
         got = kern(*args, meta)
-        old_out = old(*args, meta) if old is not None else None
+        old_out = old_fn(*args, meta) if old_fn is not None else None
         want = mx_forward_ref(x, layer.W_q, layer.scales, None, sx, with_f32_out(meta))
         dense = dequantize_full(layer.W_q, layer.scales, None, meta)
         xb = x.to(torch.bfloat16)
@@ -1527,9 +1596,12 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
                "plan": plan._asdict() if plan is not None else None,
                "device_ops_per_call": device_ops_per_call(lambda: kern(*args, meta)),
                "card": card}
-        if old is not None:
+        if old_fn is not None:
             row["old_rel_err"] = rel_err(old_out, want)
-            row["old_ms"] = timer.ms(lambda: old(*args, meta))
+            row["old_ms"] = timer.ms(lambda: old_fn(*args, meta))
+            row["old_plan"] = old.plan(name, M, N, K, meta)
+            if same_plan(old, name, M, N, K, meta, x.dtype == torch.float8_e4m3fn):
+                row["equals_old"] = bool(torch.equal(got, old_out))
         record(row, got, want)
 
     for form in ("a16w4_mxfp", "a16w8_mxfp", "a8w8_mxfp", "a4w4_nvfp", "a16w8_mxfp_e5m2"):
@@ -1541,10 +1613,12 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
                     x, sx, meta = mx_inputs(layer, M, gen)
                     call_row("mx_decode", form, layer, M, mx.mx_decode, x, sx, meta,
                              mx.decode_plan(M, N, K, kind, x.element_size()))
-            for M in (MX_NVFP4_MS if form == "a4w4_nvfp" else MX_PREFILL_MS):
+            wide = MX_PREFILL_WIDE_MS if (N, K) == MX_SHAPE else MX_PREFILL_MS
+            for M in (MX_NVFP4_MS if form == "a4w4_nvfp" else wide):
                 x, sx, meta = mx_inputs(layer, M, gen)
                 call_row("mx_prefill", form, layer, M, mx.mx_prefill, x, sx, meta,
-                         mx.prefill_plan(M, N, K, kind))
+                         mx.prefill_plan(M, N, K, kind, x.dtype == torch.float8_e4m3fn),
+                         old_fn=old.prefill if old is not None else None)
             del layer
     torch.cuda.empty_cache()
 
@@ -1555,7 +1629,7 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
         layer = mx_layer(form, N, K, gen)
         meta, meta0 = layer.meta, layer.meta._replace(channel_scale_mode=0)
         dense = dequantize_full(layer.W_q, layer.scales, None, meta0)
-        for M in MX_PREFILL_MS:
+        for M in MX_PREFILL_WIDE_MS:
             xr = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
             codes, s = scale_activations_mx(xr, meta.input_dtype)
             fq = fake_quant_activations(xr, meta.input_dtype)
@@ -1577,10 +1651,16 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": timer.ms(lambda: torch.matmul(fq, dense)),
                    "library": "dense bf16 matmul of the fake-quantized x on the dequantized weight",
-                   "plan": mx.prefill_plan(M, N, K, 0)._asdict(),
+                   "plan": mx.prefill_plan(M, N, K, 0, x_codes=True)._asdict(),
                    "device_ops_per_call": device_ops_per_call(
                        lambda: mx.mx_prefill_csm4(codes, s, layer.W_q, layer.scales, meta)),
                    "card": card}
+            if old is not None:
+                was = old.csm4(codes, s, layer.W_q, layer.scales, meta)
+                row["old_ms"] = timer.ms(lambda: old.csm4(codes, s, layer.W_q, layer.scales, meta))
+                row["old_plan"] = old.plan("mx_prefill_csm4", M, N, K, meta)
+                if same_plan(old, "mx_prefill_csm4", M, N, K, meta, True):
+                    row["equals_old"] = bool(torch.equal(got, was))
             record(row, got, fed, exact=True)
         del layer, dense
 
@@ -1656,14 +1736,14 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_general=None) -> dict:
     # the general entry (row 5-MX): fp4 layers off the JAX fold rule at
     # SmolLM2-360M's shapes and gpt-oss-20b's 2880, on the ragged decode or
     # prefill body as general_plan picks
-    old = old_general() if old_general is not None else None
     for form in MX_GENERAL_FORMS:
         for N, K in MX_GENERAL_SHAPES:
             layer = mx_layer(form, N, K, gen)
             for M in MX_GENERAL_MS:
                 x, sx, meta = mx_inputs(layer, M, gen)
                 call_row("mx_general", form, layer, M, mx.mx_general, x, sx, meta,
-                         mx.general_plan(M, N, K, form == "a4w4_nvfp"), old=old)
+                         mx.general_plan(M, N, K, form == "a4w4_nvfp"),
+                         old_fn=old.general if old is not None else None)
             del layer
     emit({"phase": "kernels_mx", "ok": True, "checked": len(rows), "card": card})
     pick = {"mx_decode": ("a16w4_mxfp", 8), "mx_prefill": ("a16w4_mxfp", 128),
@@ -3185,7 +3265,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch port once on one NVIDIA card.")
     ap.add_argument("--old-mx-source", type=Path, default=None,
                     help="an earlier tree's gemlite_tpu_torch/csrc: kernels_mx also times its "
-                         "general MX entry beside the current one (old_ms)")
+                         "MX prefill, csm-4 and general entries beside the current ones (old_ms)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3201,7 +3281,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peak_bytes_per_s": peak[0], "peak_bf16_flops": peak[1]})
     t_start = time.perf_counter()
-    old_general = start_old_mx_build(args.old_mx_source) if args.old_mx_source else None
+    old_mx = start_old_mx_build(args.old_mx_source) if args.old_mx_source else None
     phase_build()
     timer = Timer()
     picked = phase_kernels(card, peak, timer)
@@ -3220,7 +3300,7 @@ def main() -> int:
     picked.update(phase_kernels_fp8(card, peak, timer))
     fp8_layer_counts = phase_layer_fp8(card)
     fp8_counts = phase_serve_fp8(card, cfg, dense)
-    picked.update(phase_kernels_mx(card, peak, timer, old_general))
+    picked.update(phase_kernels_mx(card, peak, timer, old_mx))
     mx_layer_counts = phase_layer_mx(card)
     mxfp4_counts = phase_serve_mx(card, cfg, dense, "a16w4_mxfp")
     nvfp4_counts = phase_serve_mx(card, cfg, dense, "a4w4_nvfp")

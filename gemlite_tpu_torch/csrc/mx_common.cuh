@@ -8,10 +8,15 @@
 // e4m3 scale times 0.05 in float32), and their product rounded once to
 // bf16. That is the plain version's arithmetic
 // (ops/reference.mx_dequantize_weight_ref, then one cast), so a decoded
-// weight equals dequantize_full's bit for bit. With an e8m0 scale the
-// product is exact wherever it is a normal bf16; NVFP4's is rounded once.
-// The decode kernel takes the unscaled pairs (raw_pair) and scales each
-// group's float32 sum instead.
+// weight equals dequantize_full's bit for bit. An e8m0 scale is a power of
+// two with float32's exponent range, which bf16 shares: as a bf16x2 (e in
+// the exponent bits of both halves) it multiplies an exactly decoded bf16x2
+// pair in one instruction (mul_bf16x2, no flush of subnormals), whose one
+// rounding of the exact product gives the float32 path's bits at every
+// exponent 0-254 (the prefill kernel's decode_e8m0_pair). NVFP4's scale is no
+// power of two and keeps the float32 multiply (decode_pair). The decode
+// kernel takes the unscaled pairs (raw_pair) and scales each group's float32
+// sum instead.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -93,6 +98,23 @@ __device__ __forceinline__ uint32_t raw_pair(uint32_t word, int e, int wkind) {
 __device__ __forceinline__ uint32_t decode_pair(uint32_t word, int e, int wkind, float s) {
     const float2 f = pair_f32(word, e, wkind);
     return bf16x2(__fmul_rn(f.x, s), __fmul_rn(f.y, s));
+}
+
+// an e8m0 scale byte as the bf16x2 2^(e - 127) in both halves (e 0 -> 0.0)
+__device__ __forceinline__ uint32_t e8m0_bf16x2(uint32_t s) { return (s & 0xFFu) * 0x00800080u; }
+
+// a * b per half, the exact product rounded once to bf16 (sm_90; bf16
+// arithmetic keeps subnormals)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+    uint32_t d;
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+    return d;
+}
+
+// codes e and e + 1 (e even) of a word times the e8m0 scale byte s, as
+// bf16x2: the bits of decode_pair(word, e, wkind, scale_f32(s, false))
+__device__ __forceinline__ uint32_t decode_e8m0_pair(uint32_t word, int e, int wkind, uint32_t s) {
+    return mul_bf16x2(raw_pair(word, e, wkind), e8m0_bf16x2(s));
 }
 
 }  // namespace mx

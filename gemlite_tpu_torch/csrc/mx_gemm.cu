@@ -39,21 +39,23 @@
 // folded layers, the ragged ones are bound by their weight bytes below M
 // about 300 and by 2 M N K bf16 operations above: the decode body reads each
 // weight once per call and stages x once a stage for 128 columns, the
-// prefill body reuses each decoded weight tile for 128 rows of x.
+// prefill body reuses each decoded weight tile for 128 or 256 rows of x.
 //
 // The weights (csrc/mx_common.cuh): fp4 codes become bf16 by byte permutes
 // from a register table, fp8 codes exactly through fp16. The decode kernel
 // sums each 32-deep group's unscaled products in a fresh float32 fragment and
 // adds it times the group's e8m0 scale, a power of two, so exactly; the
-// prefill kernel multiplies each decoded weight by its group's scale in
-// float32 and rounds once to bf16, which is exact for e8m0 scales wherever
-// the product is a normal bf16. Either way the products run on the bf16
-// tensor cores with float32 sums, and the kernels compute the plain
-// version's function up to the order of the sums; NVFP4's e4m3 x 0.05 scale
-// is no power of two, and its weights round once to bf16 (the plain version
-// keeps them in float32), as the JAX package's prefill kernel rounds them.
-// Both decoders are instantiated per weight kind: a run-time branch on the
-// kind in the inner loops cost 40% (measured with scripts/torch_mx_variants.py).
+// prefill kernel multiplies each exactly decoded bf16x2 pair by its group's
+// e8m0 scale as one bf16x2 multiply, one rounding of the exact product: the
+// bits of the float32 product rounded once, at every exponent 0-254. Either
+// way the products run on the bf16 tensor cores with float32 sums, and the
+// kernels compute the plain version's function up to the order of the sums;
+// NVFP4's e4m3 x 0.05 scale is no power of two, and its weights are the
+// float32 product rounded once to bf16 (the plain version keeps them in
+// float32), as the JAX package's prefill kernel rounds them. Both decoders
+// are instantiated per weight kind (and the prefill's per scale form): a
+// run-time branch on the kind in the inner loops cost 40% (measured with
+// scripts/torch_mx_variants.py).
 //
 // The decode body (what bounds it: the weight bytes, K N / 2 for fp4 plus K N /
 // 32 of scales, 0.0093 ms at 3.35 TB/s for 14336 x 4096) is the W4 decode
@@ -71,15 +73,30 @@
 //
 // The prefill body (what bounds it: operations, 2 M N K over 989 TFLOP/s bf16,
 // from M about 300; the weight bytes below) is the W4 prefill kernel's design
-// (prefill_gemm.cu): a producer warpgroup fills a ring of 64-deep stages (words
-// and scales by TMA; x by TMA with the 128-byte swizzle when it is bf16, or
-// read as e4m3 codes, times their group scale in float32 and rounded once to
-// bf16 into the same swizzled tile, when it is 1-byte), two consumer warpgroups
-// of 64 weight columns run wgmma m64n128k16 with the decoded weights as the
-// register A operand and the x tile as the K-major shared B operand, 128 rows
-// of x a block, stage j + 1's weights decoded while stage j's products run. The
-// csm-4 tile equals fake_quant_activations(x) bit for bit, so the code form and
-// the bf16 form fed the fake-quantized x give the same output. K is split by
+// (prefill_gemm.cu): two consumer warpgroups of 64 weight columns run wgmma
+// m64n128k16 with the decoded weights as the register A operand and the x tile
+// as the K-major shared B operand, 128 rows of x a block up to M 128 and 256
+// above (ops/prefill.row_tile), where each A fragment feeds two products, so a
+// weight tile is decoded once for 256 rows; setmaxnreg moves registers from
+// the producer warpgroup to them. A consumer queues stage j + 1's products
+// behind stage j's and builds stage j + 2's fragments while they run. One lane
+// of the producer's first warp keeps a ring of 64-deep stages in flight by
+// TMA: the words, the scales and x, either the bf16 box in the 128-byte
+// swizzle or, for 1-byte x, the box of e4m3 codes and their group scales. The
+// code form has a second producer warpgroup, and its seven other producer
+// warps convert inside the ring: once a stage has landed and its tile is free
+// ("x free" mbarrier), each code times its group scale in float32, rounded
+// once to bf16 (by one bf16x2 multiply where it is a power of two), into one
+// of three swizzled bf16 tiles, on whose "x ready" mbarrier the consumers
+// wait. So no copy waits for a conversion, and the
+// csm-4 tile equals fake_quant_activations(x) bit for bit: the code form and
+// the bf16 form fed the fake-quantized x take the same plan and give the same
+// output. The conversion still costs the code form 1.3-1.6 times the bf16
+// form's time (NVIDIA H100, PERF.md): the first version, which loaded and
+// converted x in the producer before it issued a stage's copies, took 2.3
+// times; three converting warps (scripts/torch_mx_variants.py), the
+// consumers converting, or pairs of blocks sharing the conversion in a
+// cluster were slower than seven warps (PERF.md). K is split by
 // ops/mx.prefill_plan and merged in the same launch.
 #include <cuda_fp8.h>
 
@@ -494,16 +511,28 @@ int d_run(DParams p, int x_code, int splits, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 constexpr int PBK = 64;                       // K a stage: one 128-byte row of bf16 x
-constexpr int PBM = 128;                      // rows of x a block
 constexpr int kConsumers = 256;               // two warpgroups of 64 columns
-constexpr int kThreads = kConsumers + 128;    // and one producer warpgroup
+// registers a thread after setmaxnreg (producer, consumer): bf16 x, 384
+// threads; e4m3 codes, 512
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kCodeProducerRegs = 40, kCodeConsumerRegs = 216;
 constexpr int kPrefillSmemMax = 227 * 1024;
 constexpr int kTileStride = BN + 4;           // floats a row of the epilogue tile
-constexpr int kXStage = PBM * PBK * 2;        // the bf16 x tile of a stage
 constexpr int kSStage = 512;                  // a stage's scale rows (2 or 4 of 128 bytes)
+constexpr int kXBufs = 3;                     // the code form's bf16 x tiles
+constexpr int kConverters = 224;              // the code form's converting threads: producer warps 1-7
+
+// the block: two consumer warpgroups and one producer warpgroup, or for the
+// code form two (one loading warp and seven converting warps)
+__host__ __device__ constexpr int p_threads(int xc) { return kConsumers + (xc ? 256 : 128); }
+
+// a stage's bf16 x tile, e4m3 codes and x group scales (4 floats a row), for
+// NB blocks of 128 rows
+__host__ __device__ constexpr int p_x_bytes(int nb) { return nb * 128 * PBK * 2; }
+__host__ __device__ constexpr int p_c_bytes(int nb) { return nb * 128 * PBK; }
+__host__ __device__ constexpr int p_xs_bytes(int nb) { return nb * 128 * 16; }
 
 struct PParams {
-    const uint8_t* xc;                        // (M, K) e4m3 codes, or null (bf16 x by TMA)
     const float* xs;                          // (M, K / ags) group scales of the codes, or null
     const float* sx;                          // (M) per-token scales, or null
     bf16* out;                                // (M, N)
@@ -514,24 +543,31 @@ struct PParams {
     const uint8_t* scales;                    // instance's copies where TMA cannot go
 };
 
+// x: bf16 (128-byte swizzle) or e4m3 codes; xs: the codes' group scales
 struct PMaps {
-    CUtensorMap x, w, s;
+    CUtensorMap x, xs, w, s;
 };
 
 __host__ __device__ inline int p_w_bytes(int wkind) { return PBK / mx::per_word(wkind) * BN * 4; }
 
-// shared memory from a 1024-byte aligned base: the x ring, the word ring,
-// the scale ring, the epilogue tile over them once they are free, the
-// mbarriers (full, then empty, one a stage) and the last-block flag.
-// ops/mx.prefill_smem mirrors `bytes`.
+// Shared memory from a 1024-byte aligned base: the bf16 x tiles (one a stage
+// for bf16 x, kXBufs for the code form), the word ring, the scale ring, and
+// for the code form the codes ring and the x scale ring; the epilogue tile
+// over them once they are free; the mbarriers (full and empty, one a stage;
+// the code form's "x ready" and "x free", one each a tile) and the last-block
+// flag. ops/mx.prefill_smem mirrors `bytes`.
 struct PLayout {
-    int w, s, bars, flag, bytes;
-    __host__ __device__ PLayout(int wkind, int stages) {
-        w = stages * kXStage;
+    int xbufs, w, s, c, xs, bars, flag, bytes;
+    __host__ __device__ PLayout(int wkind, int stages, int nb, bool codes) {
+        xbufs = codes ? kXBufs : stages;
+        w = xbufs * p_x_bytes(nb);
         s = w + stages * p_w_bytes(wkind);
-        const int ring = s + stages * kSStage, tile = PBM * kTileStride * 4;
+        c = s + stages * kSStage;
+        xs = c + (codes ? stages * p_c_bytes(nb) : 0);
+        const int ring = xs + (codes ? stages * p_xs_bytes(nb) : 0);
+        const int tile = nb * 128 * kTileStride * 4;
         bars = ring > tile ? ring : tile;
-        flag = bars + 16 * stages;
+        flag = bars + 8 * (2 * stages + (codes ? 2 * kXBufs : 0));
         bytes = flag + 16 + 1024;
     }
 };
@@ -542,18 +578,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // The ragged instance's words (N % 4 != 0) or scales (N % 16 != 0) of a
 // stage, whose rows TMA cannot take (its global strides are multiples of 16
-// bytes), copied by the producer's 128 threads; what lies past N or K is
+// bytes), copied by the loading warp's lanes; what lies past N or K is
 // stored as zeros, as TMA fills it.
 template <int W>
 __device__ __forceinline__ void p_copy_edge(const PParams& p, uint8_t* wt, uint8_t* st, int n0,
-                                            int k0, bool words, bool scales) {
+                                            int k0, bool words, bool scales, int lane) {
     constexpr int epw = mx::per_word(W), wr = PBK / epw;
-    const int tid = threadIdx.x - kConsumers, cols = min(BN, p.N - n0);
+    const int cols = min(BN, p.N - n0);
     if (words) {
         const int rows = min(wr, (p.K - k0) / epw);
         const uint32_t* wg = p.wq + (size_t)(k0 / epw) * p.N + n0;
         uint32_t* w = reinterpret_cast<uint32_t*>(wt);
-        for (int i = tid; i < wr * BN; i += 128) {
+        for (int i = lane; i < wr * BN; i += 32) {
             const int r = i / BN, c = i % BN;
             w[i] = r < rows && c < cols ? __ldg(wg + (size_t)r * p.N + c) : 0u;
         }
@@ -561,82 +597,123 @@ __device__ __forceinline__ void p_copy_edge(const PParams& p, uint8_t* wt, uint8
     if (scales) {
         const int sr = PBK / p.gs, rows = min(sr, (p.K - k0) / p.gs);
         const uint8_t* sg = p.scales + (size_t)(k0 / p.gs) * p.N + n0;
-        for (int i = tid; i < sr * BN; i += 128) {
+        for (int i = lane; i < sr * BN; i += 32) {
             const int r = i / BN, c = i % BN;
             st[i] = r < rows && c < cols ? __ldg(sg + (size_t)r * p.N + c) : 0;
         }
     }
 }
 
-// The producer warpgroup: per stage, once the consumers have released it,
-// the x tile (bf16 by TMA; or codes turned into bf16 by the 128 threads, then
-// made visible to the async proxy), then the words and scales by TMA on the
-// stage's full mbarrier, armed by thread 0 after the x tile is written. The
-// ragged instance (R) reads codes past K as zeros and copies the words or
-// scales itself where their rows are no multiple of 16 bytes.
-template <int XC, int W, bool R>
-__device__ __forceinline__ void p_produce(const PParams& p, const PMaps& maps, uint8_t* g,
-                                          uint32_t base, const PLayout& L, int n0, int m0,
-                                          int k_begin, int steps) {
-    const int tid = threadIdx.x - kConsumers;
+// The loading warp (producer warp 0): per stage, once the consumers have
+// released it, one lane arms the stage's full mbarrier and issues every copy
+// by TMA: the bf16 x box, or the e4m3 code box and the codes' group scales;
+// the word rows; the scale rows. No copy waits for a conversion, so the ring
+// keeps `stages` stages of copies in flight. The ragged instance's lanes copy
+// the words or scales themselves where their rows are no multiple of 16
+// bytes, and each arrives on the full mbarrier once its stores are done.
+template <int XC, int W, int NB, bool R>
+__device__ __forceinline__ void p_load(const PParams& p, const PMaps& maps, uint8_t* g,
+                                       uint32_t base, const PLayout& L, int n0, int m0,
+                                       int k_begin, int steps) {
+    const int lane = threadIdx.x % 32, S = p.stages;
     const uint32_t bars = base + L.bars;
     const int wb = p_w_bytes(W), sb = PBK / p.gs * BN;
     const bool w_tma = !R || p.N % 4 == 0, s_tma = !R || p.N % 16 == 0;
+    const bool xs = XC && p.xs != nullptr;
+    const uint32_t bytes = (XC ? p_c_bytes(NB) + (xs ? p_xs_bytes(NB) : 0) : p_x_bytes(NB)) +
+                           (w_tma ? wb : 0) + (s_tma ? sb : 0);
     for (int it = 0; it < steps; ++it) {
-        const int st = it % p.stages, k0 = k_begin + it * PBK;
+        const int st = it % S, k0 = k_begin + it * PBK;
         const uint32_t full = sm90::bar_addr(bars, st);
-        if (it >= p.stages)
-            sm90::mbar_wait(sm90::bar_addr(bars, p.stages + st), ((it / p.stages) & 1) ^ 1);
-        if constexpr (XC) {
-            // 8 rows of 8 codes a thread (row m = u / 8, chunk c = u % 8 of
-            // unit u = tid + 128 i): every load issued before the first
-            // conversion, so that they are in flight together
-            uint8_t* xt = g + st * kXStage;
-            const int groups = p.K / p.ags;
-            uint2 raw[8];
-            float sc[8];
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const int u = tid + 128 * i, row = m0 + (u >> 3), k = k0 + 8 * (u & 7);
-                raw[i] = make_uint2(0u, 0u);
-                sc[i] = 1.f;
-                if (row < p.M && (!R || k < p.K)) {
-                    raw[i] = __ldg(reinterpret_cast<const uint2*>(p.xc + (size_t)row * p.K + k));
-                    if (p.xs != nullptr) sc[i] = __ldg(p.xs + (size_t)row * groups + k / p.ags);
-                }
+        if (it >= S) sm90::mbar_wait(sm90::bar_addr(bars, S + st), ((it / S) & 1) ^ 1);
+        if (lane == 0) {
+            sm90::mbar_expect_tx(full, bytes);
+            if constexpr (XC) {
+                sm90::tma_load_2d(base + L.c + st * p_c_bytes(NB), &maps.x, full, k0, m0);
+                if (xs)   // 4 groups from a 16-byte aligned one, the stage's among them
+                    sm90::tma_load_2d(base + L.xs + st * p_xs_bytes(NB), &maps.xs, full,
+                                      k0 / p.ags & ~3, m0);
+            } else {
+                sm90::tma_load_2d(base + st * p_x_bytes(NB), &maps.x, full, k0, m0);
             }
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const int u = tid + 128 * i, m = u >> 3, c = u & 7;
-                const uint32_t w[2] = {raw[i].x, raw[i].y};
-                uint4 pk;
-                uint32_t* o = reinterpret_cast<uint32_t*>(&pk);
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const uint32_t two = w[q >> 1] >> (16 * (q & 1));
-                    o[q] = mx::bf16x2(__fmul_rn(mx::fp8_f32(two, false), sc[i]),
-                                      __fmul_rn(mx::fp8_f32(two >> 8, false), sc[i]));
-                }
-                *reinterpret_cast<uint4*>(xt + m * 128 + ((c ^ (m & 7)) << 4)) = pk;
-            }
-            fence_proxy_async();
-            sm90::named_sync<2, 128>();
-        }
-        if constexpr (R) {
-            if (!w_tma || !s_tma) {
-                p_copy_edge<W>(p, g + L.w + st * wb, g + L.s + st * kSStage, n0, k0, !w_tma,
-                               !s_tma);
-                sm90::named_sync<2, 128>();
-            }
-        }
-        if (tid == 0) {
-            sm90::mbar_expect_tx(full, (XC ? 0 : kXStage) + (w_tma ? wb : 0) + (s_tma ? sb : 0));
-            if constexpr (!XC) sm90::tma_load_2d(base + st * kXStage, &maps.x, full, k0, m0);
             if (w_tma)
                 sm90::tma_load_2d(base + L.w + st * wb, &maps.w, full, n0, k0 / mx::per_word(W));
             if (s_tma)
                 sm90::tma_load_2d(base + L.s + st * kSStage, &maps.s, full, n0, k0 / p.gs);
         }
+        if constexpr (R) {
+            if (!w_tma || !s_tma)
+                p_copy_edge<W>(p, g + L.w + st * wb, g + L.s + st * kSStage, n0, k0, !w_tma,
+                               !s_tma, lane);
+            sm90::mbar_arrive(full);
+        }
+    }
+}
+
+// How the code form scales its codes: NVFP4's group scale (e4m3 x 0.05) in
+// float32, then one rounding to bf16; an e8m0 group scale (a power of two,
+// MXFP4 / MXFP8 x) by one bf16x2 multiply of the exact pair, the same bits;
+// per-token codes not at all (their scale is applied to the sums).
+enum XScale { kXScaleF32 = 0, kXScalePow2 = 1, kXScaleNone = 2 };
+
+// The code form's converting warps (producer warps 1-7), inside the ring:
+// per stage, once its copies have landed and its bf16 tile is free (its "x
+// free" mbarrier: the consumers released the stage kXBufs before), each
+// 16-code piece of the code box times its row's group scale, rounded once to
+// bf16 into the 128-byte swizzled tile: the bits of fake_quant_activations.
+// Then made visible to the async proxy,
+// and one arrival a warp on the tile's "x ready" mbarrier, which the
+// consumers wait for before their products. While stage j is converted, the
+// copies of the stages after it are in flight.
+template <int NB, int XS>
+__device__ __forceinline__ void p_convert(const PParams& p, uint8_t* g, uint32_t base,
+                                          const PLayout& L, int k_begin, int steps) {
+    // piece i of this thread: row m = ctid / 4 + kStep i, codes 16 c .. 16 c
+    // + 15 (c = ctid % 4), into the tile's 16-byte chunks 2 c and 2 c + 1 of
+    // row m; kStep is a multiple of 8 rows, so c, m % 8 and the swizzle stay
+    // fixed and every address moves by a constant
+    constexpr int kRows = NB * 128;
+    constexpr int kStep = kConverters / 4, kPieces = (kRows + kStep - 1) / kStep;
+    static_assert(kStep % 8 == 0, "the swizzle repeats every 8 rows");
+    const int ctid = threadIdx.x - kConsumers - 32, S = p.stages;
+    const int c = ctid % 4, m0 = ctid / 4;
+    const int sw0 = ((2 * c) ^ (m0 % 8)) << 4, sw1 = ((2 * c + 1) ^ (m0 % 8)) << 4;
+    const uint32_t bars = base + L.bars;
+    const int gsh = p.ags == 32 ? 5 : 4;                    // log2 ags
+    for (int it = 0; it < steps; ++it) {
+        const int st = it % S, xb = it % kXBufs;
+        if (it >= kXBufs)
+            sm90::mbar_wait(sm90::bar_addr(bars, 2 * S + kXBufs + xb), (it / kXBufs - 1) & 1);
+        sm90::mbar_wait(sm90::bar_addr(bars, st), (it / S) & 1);
+        // the stage's first group in its scale box, then this thread's group
+        const int gi = ((k_begin + it * PBK) >> gsh & 3) + (c << 4 >> gsh);
+        const uint8_t* cs = g + L.c + st * p_c_bytes(NB) + m0 * PBK + 16 * c;
+        const float* ss = reinterpret_cast<const float*>(g + L.xs + st * p_xs_bytes(NB)) + 4 * m0 + gi;
+        uint8_t* xt = g + xb * p_x_bytes(NB) + m0 * 128;
+#pragma unroll
+        for (int i = 0; i < kPieces; ++i) {
+            if (m0 + kStep * i >= kRows) break;
+            const uint4 raw = *reinterpret_cast<const uint4*>(cs + kStep * PBK * i);
+            const float sc = XS == kXScaleNone ? 1.f : ss[4 * kStep * i];
+            const uint32_t s2 = (__float_as_uint(sc) >> 16) * 0x00010001u;   // exact for 2^k
+            const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+            uint32_t o[8];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+                const float2 f = mx::fp8x2_f32x2(w[q >> 1] >> (16 * (q & 1)), false);
+                if constexpr (XS == kXScaleF32)
+                    o[q] = mx::bf16x2(__fmul_rn(f.x, sc), __fmul_rn(f.y, sc));
+                else if constexpr (XS == kXScalePow2)
+                    o[q] = mx::mul_bf16x2(mx::bf16x2(f.x, f.y), s2);
+                else
+                    o[q] = mx::bf16x2(f.x, f.y);
+            }
+            *reinterpret_cast<uint4*>(xt + 128 * kStep * i + sw0) = make_uint4(o[0], o[1], o[2], o[3]);
+            *reinterpret_cast<uint4*>(xt + 128 * kStep * i + sw1) = make_uint4(o[4], o[5], o[6], o[7]);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) sm90::mbar_arrive(sm90::bar_addr(bars, 2 * S + xb));
     }
 }
 
@@ -644,39 +721,45 @@ __device__ __forceinline__ void p_produce(const PParams& p, const PMaps& maps, u
 // a[kk][2 half + h] = the decoded weights at k 16 kk + 8 half + 2t, + 1 of
 // column col + 8 h: fp4 nibbles 2t, 2t + 1 of word row 2 kk + half, fp8 bytes
 // 2 (t & 1), + 1 of word row 4 kk + 2 half + t / 2; the group's scale row is
-// (16 kk) / gs.
-template <int W>
+// (16 kk) / gs. Each pair is decoded exactly to bf16x2, then times its e8m0
+// scale by one bf16x2 multiply (NV: NVFP4's float32 scale, one float32
+// multiply a weight and one rounding).
+template <int W, bool NV>
 __device__ __forceinline__ void p_build(uint32_t (&a)[4][4], const uint8_t* g, int wofs, int sofs,
-                                        int gs, int col, int t) {
+                                        int col, int t) {
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(g + wofs) + col;
     const uint8_t* ss = g + sofs + col;
     constexpr bool fp4 = W == mx::kFp4;
-    const bool nvfp4 = gs == 16;
+    constexpr int gs = NV ? 16 : 32;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            const float s = mx::scale_f32(ss[(16 * kk / gs) * BN + 8 * h], nvfp4);
+            const uint32_t sbyte = ss[(16 * kk / gs) * BN + 8 * h];
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 const uint32_t w = fp4 ? ws[(2 * kk + half) * BN + 8 * h] >> (8 * t)
                                        : ws[(4 * kk + 2 * half + (t >> 1)) * BN + 8 * h] >> (16 * (t & 1));
-                a[kk][2 * half + h] = mx::decode_pair(w, 0, W, s);
+                if constexpr (NV)
+                    a[kk][2 * half + h] = mx::decode_pair(w, 0, W, mx::scale_f32(sbyte, true));
+                else
+                    a[kk][2 * half + h] = mx::decode_e8m0_pair(w, 0, W, sbyte);
             }
         }
 }
 
-// The block's sums, staged as tile[m][kTileStride] for rows m0 .. m0 + 127:
+// The block's sums, staged as tile[m][kTileStride] for rows m0 .. m0 + bm - 1:
 // into the output (times the per-token scale), or with K split the block's
 // partial, and the last block of the tile adds the partials in split order.
 // Consumer threads only. Not inlined. The ragged instance's partials have
 // rows of whole tiles, and its columns past N are not written.
 template <bool R>
-__device__ __noinline__ void p_finish(const PParams p, const float* tile, int* flag, int m0) {
+__device__ __noinline__ void p_finish(const PParams p, const float* tile, int* flag, int m0,
+                                      int bm) {
     const int tid = threadIdx.x, n0 = blockIdx.y * BN;
     const int split = blockIdx.z, nsplit = gridDim.z;
     const int ctr = blockIdx.x + gridDim.x * blockIdx.y;
-    const int rows = min(PBM, p.M - m0);
+    const int rows = min(bm, p.M - m0);
     const int ld = R ? gridDim.y * BN : p.N;         // a row of the partials
     const size_t MN = (size_t)p.M * ld;
     if (nsplit > 1) {
@@ -744,104 +827,172 @@ __device__ __noinline__ void p_finish(const PParams p, const float* tile, int* f
 }
 
 // What a consumer thread needs across the steps of its pipeline.
-template <int W>
+template <int XC, int W, bool NV, int NB>
 struct PConsumer {
     uint8_t* g;
     uint32_t base, bars;
     const PLayout* L;
-    int S, col, t, lane, gs;
+    int S, col, t, lane;
 
     __device__ __forceinline__ void full(int it) const {
         sm90::mbar_wait(sm90::bar_addr(bars, it % S), (it / S) & 1);
     }
+    // the code form's bf16 tile of stage it is written
+    __device__ __forceinline__ void x_ready(int it) const {
+        if constexpr (XC)
+            sm90::mbar_wait(sm90::bar_addr(bars, 2 * S + it % kXBufs), (it / kXBufs) & 1);
+    }
+    // the stage is free for the producer, and the code form's tile for the
+    // converting warps: one arrival a warp each
     __device__ __forceinline__ void release(int it) const {
         __syncwarp();
-        if (lane == 0) sm90::mbar_arrive(sm90::bar_addr(bars, S + it % S));
+        if (lane == 0) {
+            sm90::mbar_arrive(sm90::bar_addr(bars, S + it % S));
+            if constexpr (XC) sm90::mbar_arrive(sm90::bar_addr(bars, 2 * S + kXBufs + it % kXBufs));
+        }
     }
     __device__ __forceinline__ uint64_t x_desc(int it) const {
-        return sm90::sw128_desc(base + it % S * kXStage, 16, 1024);
+        return sm90::sw128_desc(base + it % L->xbufs * p_x_bytes(NB), 16, 1024);
     }
     __device__ __forceinline__ void build(uint32_t (&a)[4][4], int it) const {
-        p_build<W>(a, g, L->w + it % S * p_w_bytes(W), L->s + it % S * kSStage, gs, col, t);
+        p_build<W, NV>(a, g, L->w + it % S * p_w_bytes(W), L->s + it % S * kSStage, col, t);
     }
 };
 
-// One stage j: issue its products from buffer CUR, decode stage j + 1's
-// weights into the other buffer while they run, wait, release the stage. No
-// product is in flight where a step ends, so the steps may sit under a branch.
-template <int CUR, int W>
-__device__ __forceinline__ void p_step(const PConsumer<W>& c, float (&acc)[64],
-                                       uint32_t (&a)[2][4][4], int j, int steps) {
-    const uint64_t dx = c.x_desc(j);
-    sm90::pin(a[CUR]);
+// One stage's products: for each 16-deep step, NB n128 wgmmas over the x
+// rows (128 rows of 128 bytes apart), 32 bytes into each swizzle row a step;
+// each A fragment of decoded weights serves all NB of them. The accumulators
+// are pinned only where no product is in flight (any instruction that
+// touches them while one is makes ptxas serialize the wgmmas, note C7514);
+// the fragments just built are pinned here.
+template <int NB>
+__device__ __forceinline__ void p_issue(float (&acc)[NB][64], uint32_t (&a)[4][4], uint64_t dx) {
+    sm90::pin(a);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::wgmma_rs_n128<0>(acc, a[CUR][kk], dx + ((kk * 32) >> 4), 1);
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+            sm90::wgmma_rs_n128<0>(acc[nb], a[kk], dx + ((nb * 128 * 128 + kk * 32) >> 4), 1);
     sm90::wgmma_commit();
-    if (j + 1 < steps) {
-        c.full(j + 1);
-        c.build(a[1 - CUR], j + 1);
-    }
-    sm90::wgmma_wait<0>();
-    sm90::pin(acc);
-    c.release(j);
 }
 
-template <int W, bool R>
+// One step of the consumer pipeline: stage j's products are in flight;
+// queue stage j + 1's behind them (buffer ISSUE), wait for stage j alone,
+// release it, and build stage j + 2's A fragments into stage j's buffer
+// while stage j + 1's run. Every call issues: a wgmma under a branch leaves
+// ptxas copying in-flight accumulators where the paths meet (note C7514), so
+// the tail is unrolled.
+template <int ISSUE, int XC, int W, bool NV, int NB>
+__device__ __forceinline__ void p_step(const PConsumer<XC, W, NV, NB>& c, float (&acc)[NB][64],
+                                       uint32_t (&a)[2][4][4], int j, int steps) {
+    c.x_ready(j + 1);
+    p_issue<NB>(acc, a[ISSUE], c.x_desc(j + 1));
+    sm90::wgmma_wait<1>();
+    sm90::pin(a[1 - ISSUE]);
+    c.release(j);
+    if (j + 2 < steps) {
+        c.full(j + 2);
+        c.build(a[1 - ISSUE], j + 2);
+    }
+}
+
+// The consumer warpgroups: 64 weight columns each, all the block's rows.
+template <int XC, int W, bool NV, int NB, bool R>
 __device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t base,
                                           const PLayout& L, int wg, int m0, int steps, int* flag) {
+    if constexpr (XC)
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kCodeConsumerRegs));
+    else
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int lane = threadIdx.x % 32, t = lane % 4;
     const int col = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;   // and col + 8
-    const PConsumer<W> c{g, base, base + L.bars, &L, p.stages, col, t, lane, p.gs};
+    const PConsumer<XC, W, NV, NB> c{g, base, base + L.bars, &L, p.stages, col, t, lane};
 
-    float acc[64];
+    float acc[NB][64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[nb][i] = 0.f;
     uint32_t a[2][4][4];                      // stage s in buffer s % 2
     c.full(0);
     c.build(a[0], 0);
-    int j = 0;
-    for (; j + 1 < steps; j += 2) {
-        p_step<0, W>(c, acc, a, j, steps);
-        p_step<1, W>(c, acc, a, j + 1, steps);
+    c.x_ready(0);
+    p_issue<NB>(acc, a[0], c.x_desc(0));
+    if (steps > 1) {
+        c.full(1);
+        c.build(a[1], 1);
     }
-    if (j < steps) p_step<0, W>(c, acc, a, j, steps);
+    int j = 0;
+    for (; j + 2 < steps; j += 2) {
+        p_step<1>(c, acc, a, j, steps);
+        p_step<0>(c, acc, a, j + 1, steps);
+    }
+    if (j + 1 < steps) {                      // the last stage; both paths drain
+        p_step<1>(c, acc, a, j, steps);
+        sm90::wgmma_wait<0>();
+    } else {
+        sm90::wgmma_wait<0>();
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) sm90::pin(acc[nb]);
 
     sm90::named_sync<1, kConsumers>();        // both warpgroups are done with the ring
     float* tile = reinterpret_cast<float*>(g);
 #pragma unroll
-    for (int n8 = 0; n8 < 16; ++n8)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-            tile[(8 * n8 + 2 * t + (e & 1)) * kTileStride + col + 8 * (e >> 1)] = acc[4 * n8 + e];
+        for (int n8 = 0; n8 < 16; ++n8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                tile[(nb * 128 + 8 * n8 + 2 * t + (e & 1)) * kTileStride + col + 8 * (e >> 1)] =
+                    acc[nb][4 * n8 + e];
     sm90::named_sync<1, kConsumers>();
-    p_finish<R>(p, tile, flag, m0);
+    p_finish<R>(p, tile, flag, m0, NB * 128);
 }
 
-template <int XC, int W, bool R>
-__global__ void __launch_bounds__(kThreads, 1)
+// XC: x as e4m3 codes; W: the weight codes; NV: NVFP4 scales (else e8m0);
+// NB: 128-row blocks of x a block; R: the ragged instance.
+template <int XC, int W, bool NV, int NB, bool R>
+__global__ void __launch_bounds__(p_threads(XC), 1)
 mx_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
     extern __shared__ uint8_t smem_raw[];
-    const PLayout L(p.wkind, p.stages);
+    const PLayout L(W, p.stages, NB, XC);
     const uint32_t base = sm90::smem_base(smem_raw), bars = base + L.bars;
     uint8_t* g = smem_raw + (base - sm90::smem_addr(smem_raw));
-    const int n0 = blockIdx.y * BN, m0 = blockIdx.x * PBM;
+    const int n0 = blockIdx.y * BN, m0 = blockIdx.x * NB * 128;
     const int k_begin = blockIdx.z * p.k_per_split;
     const int span = min(p.K, k_begin + p.k_per_split) - k_begin;
     const int steps = R ? (span + PBK - 1) / PBK : span / PBK;   // ragged: the last partly past K
     if (threadIdx.x == 0) {
         for (int s = 0; s < p.stages; ++s) {
-            sm90::mbar_init(sm90::bar_addr(bars, s), 1);
+            sm90::mbar_init(sm90::bar_addr(bars, s), R ? 33 : 1);   // the TMA lane (and the copying lanes)
             sm90::mbar_init(sm90::bar_addr(bars, p.stages + s), kConsumers / 32);
         }
+        if (XC)
+            for (int b = 0; b < kXBufs; ++b) {
+                sm90::mbar_init(sm90::bar_addr(bars, 2 * p.stages + b), kConverters / 32);
+                sm90::mbar_init(sm90::bar_addr(bars, 2 * p.stages + kXBufs + b), kConsumers / 32);
+            }
         sm90::mbar_init_fence();
     }
     __syncthreads();
-    if (sm90::warpgroup() == 2) {
-        p_produce<XC, W, R>(p, maps, g, base, L, n0, m0, k_begin, steps);
+    const int wg = sm90::warpgroup();
+    if (wg >= 2) {
+        if constexpr (XC)
+            asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kCodeProducerRegs));
+        else
+            asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+        if (threadIdx.x < kConsumers + 32) {
+            p_load<XC, W, NB, R>(p, maps, g, base, L, n0, m0, k_begin, steps);
+        } else if constexpr (XC) {
+            if (p.xs == nullptr) p_convert<NB, kXScaleNone>(p, g, base, L, k_begin, steps);
+            else if (p.ags == 32) p_convert<NB, kXScalePow2>(p, g, base, L, k_begin, steps);
+            else p_convert<NB, kXScaleF32>(p, g, base, L, k_begin, steps);
+        }
     } else {
-        p_consume<W, R>(p, g, base, L, sm90::warpgroup(), m0, steps,
-                     reinterpret_cast<int*>(g + L.flag));
+        p_consume<XC, W, NV, NB, R>(p, g, base, L, wg, m0, steps,
+                                    reinterpret_cast<int*>(g + L.flag));
     }
 }
 
@@ -860,32 +1011,58 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* 
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int XC, int W, bool R>
-cudaError_t p_launch(const void* x, const uint32_t* wq, const uint8_t* scales, const PParams& p,
-                     int splits, cudaStream_t stream) {
+template <int XC, int W, bool NV, int NB, bool R>
+cudaError_t p_launch(const void* x, const PParams& p, int splits, cudaStream_t stream) {
     static std::atomic<unsigned> ready{0};
-    const PLayout L(p.wkind, p.stages);
+    constexpr int bm = NB * 128, epw = mx::per_word(W);
+    const PLayout L(W, p.stages, NB, XC);
     if (L.bytes > kPrefillSmemMax) return cudaErrorInvalidValue;
-    PMaps maps;
-    constexpr int epw = mx::per_word(W);
-    if (!XC && !make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.M, p.K, PBM, PBK,
-                         CU_TENSOR_MAP_SWIZZLE_128B))
-        return cudaErrorInvalidValue;
-    if (XC) maps.x = CUtensorMap{};
-    // the ragged instance's producer copies what TMA cannot take (p_copy_edge)
+    PMaps maps{};
+    // x: boxes of 64 k by the block's rows; the codes' scales: 4 a row from a
+    // 16-byte aligned group (TMA's least box row and its alignment), of which
+    // a stage of groups of 32 uses 2
+    const bool x_ok =
+        XC ? make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x, p.M, p.K, bm, PBK,
+                      CU_TENSOR_MAP_SWIZZLE_NONE) &&
+                 (p.xs == nullptr || make_map(&maps.xs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.xs,
+                                              p.M, p.K / p.ags, bm, 4, CU_TENSOR_MAP_SWIZZLE_NONE))
+           : make_map(&maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, p.M, p.K, bm, PBK,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+    if (!x_ok) return cudaErrorInvalidValue;
+    // the ragged instance's loading lanes copy what TMA cannot take (p_copy_edge)
     const bool w_tma = !R || p.N % 4 == 0, s_tma = !R || p.N % 16 == 0;
-    maps.w = maps.s = CUtensorMap{};
-    if ((w_tma && !make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, wq, p.K / epw, p.N,
+    if ((w_tma && !make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, p.wq, p.K / epw, p.N,
                             PBK / epw, BN, CU_TENSOR_MAP_SWIZZLE_NONE)) ||
-        (s_tma && !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, scales, p.K / p.gs, p.N,
+        (s_tma && !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.scales, p.K / p.gs, p.N,
                             PBK / p.gs, BN, CU_TENSOR_MAP_SWIZZLE_NONE)))
         return cudaErrorInvalidValue;
-    const cudaError_t err = sm90::allow_smem(mx_prefill_kernel<XC, W, R>, kPrefillSmemMax, ready);
+    const cudaError_t err =
+        sm90::allow_smem(mx_prefill_kernel<XC, W, NV, NB, R>, kPrefillSmemMax, ready);
     if (err != cudaSuccess) return err;
     // row tiles fastest: the blocks of one column tile share its words in L2
-    const dim3 grid((p.M + PBM - 1) / PBM, (p.N + BN - 1) / BN, splits);
-    mx_prefill_kernel<XC, W, R><<<grid, kThreads, L.bytes, stream>>>(maps, p);
+    const dim3 grid((p.M + bm - 1) / bm, (p.N + BN - 1) / BN, splits);
+    mx_prefill_kernel<XC, W, NV, NB, R><<<grid, p_threads(XC), L.bytes, stream>>>(maps, p);
     return cudaGetLastError();
+}
+
+template <int XC, int W, bool NV, bool R>
+cudaError_t p_rows(const void* x, const PParams& p, int bm, int splits, cudaStream_t stream) {
+    return bm == 128 ? p_launch<XC, W, NV, 1, R>(x, p, splits, stream)
+                     : p_launch<XC, W, NV, 2, R>(x, p, splits, stream);
+}
+
+// the instance of the weight kind, the scale form (gs 16: NVFP4) and the
+// plan's rows; the ragged instances take fp4 codes only
+template <int XC, bool R>
+cudaError_t p_run(const void* x, const PParams& p, int bm, int splits, cudaStream_t stream) {
+    if (p.gs == 16) return p_rows<XC, mx::kFp4, true, R>(x, p, bm, splits, stream);
+    if constexpr (R) {
+        return p_rows<XC, mx::kFp4, false, R>(x, p, bm, splits, stream);
+    } else {
+        if (p.wkind == mx::kFp4) return p_rows<XC, mx::kFp4, false, R>(x, p, bm, splits, stream);
+        if (p.wkind == mx::kE4m3) return p_rows<XC, mx::kE4m3, false, R>(x, p, bm, splits, stream);
+        return p_rows<XC, mx::kE5m2, false, R>(x, p, bm, splits, stream);
+    }
 }
 
 }  // namespace
@@ -923,49 +1100,41 @@ extern "C" int gl_mx_decode_stacked(const void* x, const void* wq, const void* s
     return d_run(p, x_code, splits, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// Launch on `stream` (M < 4096). x (M, K): bf16 (x_code 2, read by TMA), or
-// e4m3 codes (x_code 3) with `xs` (M, K / ags) float32 group scales (csm 4;
-// ags 16 or 32) or null (per-token codes: csm 2, with sx (M) float32); wq and
-// w_kind as for gl_mx_decode; scales (K / gs, N): e8m0 bits (gs 32) or NVFP4
-// e4m3 (gs 16). 128 rows of x a block, stages of 64 k; K cut into `splits`
-// ranges of `k_per_split` (a multiple of 64) and `stages` from
-// ops/mx.prefill_plan.
+// Launch on `stream` (M < 4096). x (M, K): bf16 (x_code 2), or e4m3 codes
+// (x_code 3) with `xs` (M, K / ags) float32 group scales (csm 4; ags 16 or
+// 32) or null (per-token codes: csm 2, with sx (M) float32), all read by TMA;
+// wq and w_kind as for gl_mx_decode; scales (K / gs, N): e8m0 bits (gs 32) or
+// NVFP4 e4m3 (gs 16). `bm` (128 or 256) rows of x a block, stages of 64 k; K
+// cut into `splits` ranges of `k_per_split` (a multiple of 64); `bm`, the
+// split and `stages` (at least 3 for codes) from ops/mx.prefill_plan.
 extern "C" int gl_mx_prefill(const void* x, const void* xs, const void* wq, const void* scales,
                              const void* sx, void* part, void* counters, void* out, int M, int N,
-                             int K, int x_code, int ags, int w_kind, int gs, int splits,
+                             int K, int x_code, int ags, int w_kind, int gs, int bm, int splits,
                              int k_per_split, int stages, void* stream_ptr) {
     const bool codes = x_code == 3;
     const bool shape_ok = M >= 1 && N >= BN && N % BN == 0 && K >= 128 && K % 128 == 0 &&
                           (x_code == gl::kBF16 || codes) && w_kind >= mx::kFp4 &&
                           w_kind <= mx::kE5m2 && (gs == 32 || (gs == 16 && w_kind == mx::kFp4)) &&
-                          (xs == nullptr || (codes && (ags == 16 || ags == 32)));
+                          (xs == nullptr || (codes && (ags == 16 || ags == 32))) &&
+                          (bm == 128 || bm == 256);
     const bool split_ok = splits >= 1 && k_per_split > 0 && k_per_split % PBK == 0 &&
                           (long long)(splits - 1) * k_per_split < K &&
                           (long long)splits * k_per_split >= K &&
                           (splits == 1 || (part != nullptr && counters != nullptr));
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
-                            reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(out);
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(xs) |
+                            reinterpret_cast<uintptr_t>(wq) | reinterpret_cast<uintptr_t>(scales) |
+                            reinterpret_cast<uintptr_t>(out);
     if (!shape_ok || !split_ok || scales == nullptr || stages < 2 || stages > kMaxStages ||
         bases % 16)
         return static_cast<int>(cudaErrorInvalidValue);
-    const PParams p{codes ? static_cast<const uint8_t*>(x) : nullptr, static_cast<const float*>(xs),
-                    static_cast<const float*>(sx), static_cast<bf16*>(out),
-                    static_cast<float*>(part), static_cast<int*>(counters), M, N, K, k_per_split,
-                    stages, w_kind, gs, xs != nullptr ? ags : 32,
-                    static_cast<const uint32_t*>(wq), static_cast<const uint8_t*>(scales)};
-    const uint32_t* w = static_cast<const uint32_t*>(wq);
-    const uint8_t* s = static_cast<const uint8_t*>(scales);
+    const PParams p{static_cast<const float*>(xs), static_cast<const float*>(sx),
+                    static_cast<bf16*>(out), static_cast<float*>(part),
+                    static_cast<int*>(counters), M, N, K, k_per_split, stages, w_kind, gs,
+                    xs != nullptr ? ags : 32, static_cast<const uint32_t*>(wq),
+                    static_cast<const uint8_t*>(scales)};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    cudaError_t err;
-    if (w_kind == mx::kFp4)
-        err = codes ? p_launch<1, mx::kFp4, false>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kFp4, false>(x, w, s, p, splits, stream);
-    else if (w_kind == mx::kE4m3)
-        err = codes ? p_launch<1, mx::kE4m3, false>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kE4m3, false>(x, w, s, p, splits, stream);
-    else
-        err = codes ? p_launch<1, mx::kE5m2, false>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kE5m2, false>(x, w, s, p, splits, stream);
+    const cudaError_t err = codes ? p_run<1, false>(x, p, bm, splits, stream)
+                                  : p_run<0, false>(x, p, bm, splits, stream);
     return static_cast<int>(err);
 }
 
@@ -979,15 +1148,16 @@ extern "C" int gl_mx_prefill(const void* x, const void* xs, const void* wq, cons
 // scales (K / 16, N) NVFP4 e4m3 (nvfp4 1) or (K / 32, N) e8m0 bits (nvfp4 0).
 // K a multiple of 8 and of the group, any N >= 1; x, wq, scales and out
 // 16-byte aligned. M <= 64 with e8m0 scales runs the decode body (stages of
-// 128), else the prefill body (stages of 64); K is cut into `splits` ranges
-// of `k_per_split` (a multiple of the stage, none empty) and `stages` is the
-// ring, both from ops/mx.general_plan. With splits > 1 the call needs `part`,
+// 128), else the prefill body (stages of 64, `bm` 128 or 256 rows of x a
+// block; the decode body ignores `bm`); K is cut into `splits` ranges of
+// `k_per_split` (a multiple of the stage, none empty) and `stages` is the
+// ring, all from ops/mx.general_plan. With splits > 1 the call needs `part`,
 // (splits, M, 128 ceil(N / 128)) floats, and `counters`, one int32 per output
 // tile, all 0, which the kernel leaves 0.
 extern "C" int gl_mx_general(const void* x, const void* wq, const void* scales, const void* sx,
                              void* part, void* counters, void* out, int M, int N, int K,
-                             int x_code, int nvfp4, int splits, int k_per_split, int stages,
-                             void* stream_ptr) {
+                             int x_code, int nvfp4, int bm, int splits, int k_per_split,
+                             int stages, void* stream_ptr) {
     const int gs = nvfp4 ? 16 : 32;
     const uintptr_t bases = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wq) |
                             reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(out);
@@ -1001,7 +1171,8 @@ extern "C" int gl_mx_general(const void* x, const void* wq, const void* scales, 
                           (long long)(splits - 1) * k_per_split < K &&
                           (long long)splits * k_per_split >= K &&
                           (splits == 1 || (part != nullptr && counters != nullptr));
-    if (!ok || !split_ok || stages < 2 || stages > kMaxStages)
+    if (!ok || !split_ok || stages < 2 || stages > kMaxStages ||
+        (!decode && bm != 128 && bm != 256))
         return static_cast<int>(cudaErrorInvalidValue);
     const uint32_t* w = static_cast<const uint32_t*>(wq);
     const uint8_t* s = static_cast<const uint8_t*>(scales);
@@ -1015,12 +1186,11 @@ extern "C" int gl_mx_general(const void* x, const void* wq, const void* scales, 
         err = codes ? d_launch_rows<kXe4m3, mx::kFp4, true>(p, splits, stream)
                     : d_launch_rows<kXbf16, mx::kFp4, true>(p, splits, stream);
     } else {
-        const PParams p{codes ? static_cast<const uint8_t*>(x) : nullptr, nullptr,
-                        static_cast<const float*>(sx), static_cast<bf16*>(out),
+        const PParams p{nullptr, static_cast<const float*>(sx), static_cast<bf16*>(out),
                         static_cast<float*>(part), static_cast<int*>(counters), M, N, K,
                         k_per_split, stages, mx::kFp4, gs, 32, w, s};
-        err = codes ? p_launch<1, mx::kFp4, true>(x, w, s, p, splits, stream)
-                    : p_launch<0, mx::kFp4, true>(x, w, s, p, splits, stream);
+        err = codes ? p_run<1, true>(x, p, bm, splits, stream)
+                    : p_run<0, true>(x, p, bm, splits, stream);
     }
     return static_cast<int>(err);
 }

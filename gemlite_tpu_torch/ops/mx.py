@@ -51,7 +51,7 @@ import torch
 
 from ..dtypes import DType, is_mx_dtype, to_torch_dtype
 from . import build
-from .prefill import estimate_us
+from .prefill import estimate_us, row_tile
 from .reference import mx_forward_ref
 
 __all__ = ["DecodeMxPlan", "PrefillMxPlan", "GeneralMxPlan", "mx_coded", "jax_folds",
@@ -65,9 +65,10 @@ SMS = 132                  # H100 SXM streaming multiprocessors
 TARGET_BLOCKS = 4 * SMS    # decode: about four blocks an SM
 DECODE_BUDGET = 72 * 1024  # decode: one block's ring, three blocks an SM
 MAX_STAGES = 6
-PREFILL_BK, PREFILL_BM = 64, 128
+PREFILL_BK = 64
 PREFILL_STAGES = 5
 PREFILL_SMEM_MAX = 227 * 1024
+PREFILL_XBUFS = 3          # the code form's bf16 x tiles (the kernel's kXBufs)
 FP8_CODES = {DType.FP8.value: 1, DType.FP8e5.value: 2}     # w_code_dtype -> w_kind
 
 
@@ -228,21 +229,32 @@ class PrefillMxPlan(NamedTuple):
         return 1
 
 
-def prefill_smem(kind: int, stages: int) -> int:
-    """Shared memory of a block (the kernel's PLayout): the rings of bf16 x
-    tiles (128 rows of 128 bytes), word rows and 512-byte scale rows, the
-    float32 epilogue tile over them, the mbarriers, the flag and 1024 bytes of
-    slack to align the base."""
-    stage = PREFILL_BM * PREFILL_BK * 2 + _words_bytes(kind, PREFILL_BK) + 512
-    return max(stages * stage, PREFILL_BM * (TILE + 4) * 4) + 16 * stages + 16 + 1024
+def prefill_smem(kind: int, stages: int, bm: int = 128, x_codes: bool = False) -> int:
+    """Shared memory of a block (the kernel's PLayout): the bf16 x tiles (bm
+    rows of 128 bytes; one a stage, or ``PREFILL_XBUFS`` for e4m3 x), the
+    rings of word rows and 512-byte scale rows, for e4m3 x the rings of code
+    boxes (bm rows of 64 bytes) and of their group scales (bm rows of 16
+    bytes); the float32 epilogue tile (rows of 128 + 4 floats) over them; the
+    mbarriers (two a stage, and two a bf16 tile for e4m3 x), the flag and
+    1024 bytes of slack to align the base."""
+    xbufs = PREFILL_XBUFS if x_codes else stages
+    ring = xbufs * bm * PREFILL_BK * 2 + stages * (_words_bytes(kind, PREFILL_BK) + 512)
+    if x_codes:
+        ring += stages * (bm * PREFILL_BK + bm * 16)
+    bars = 2 * stages + (2 * PREFILL_XBUFS if x_codes else 0)
+    return max(ring, bm * (TILE + 4) * 4) + 8 * bars + 16 + 1024
 
 
-def prefill_plan(M: int, N: int, K: int, kind: int) -> PrefillMxPlan:
-    """The K split of least ``ops/prefill.estimate_us`` over whole 64-deep
-    stages, and the deepest ring that fits. It does not depend on the form
-    of x, so the csm-4 form sums in the bf16 form's order. A last stage
-    partly past K (the ragged instance) counts as a whole one."""
-    bm, bk = PREFILL_BM, PREFILL_BK
+def prefill_plan(M: int, N: int, K: int, kind: int, x_codes: bool = False,
+                 bm: Optional[int] = None) -> PrefillMxPlan:
+    """``bm`` rows of x a block (``ops/prefill.row_tile``: 128 up to M 128,
+    256 above, unless given), the K split of least ``ops/prefill.estimate_us``
+    over whole 64-deep stages, and the deepest ring that fits for the form of
+    x (``x_codes``: e4m3 codes). The rows and the split do not depend on the
+    form of x, so the code form sums in the bf16 form's order. A last stage
+    partly past K (the ragged instance) counts as a whole one. ``bm`` is
+    given only to time an earlier tree's kernel, which took 128 rows."""
+    bm, bk = bm or row_tile(M), PREFILL_BK
     tiles_n, tiles_m = -(-N // TILE), -(-M // bm)
     steps = -(-K // bk)
     best = None
@@ -255,9 +267,9 @@ def prefill_plan(M: int, N: int, K: int, kind: int) -> PrefillMxPlan:
             best = (t, s, per)
     _, splits, per = best
     stages = max(s for s in range(2, PREFILL_STAGES + 1)
-                 if prefill_smem(kind, s) <= PREFILL_SMEM_MAX)
+                 if prefill_smem(kind, s, bm, x_codes) <= PREFILL_SMEM_MAX)
     return PrefillMxPlan(bm, bk, tiles_n, tiles_m, splits, per * bk, stages,
-                         prefill_smem(kind, stages))
+                         prefill_smem(kind, stages, bm, x_codes))
 
 
 class GeneralMxPlan(NamedTuple):
@@ -287,15 +299,16 @@ class GeneralMxPlan(NamedTuple):
 def general_plan(M: int, N: int, K: int, nvfp4: bool) -> GeneralMxPlan:
     """M <= 64 with e8m0 scales: the decode body with ``decode_plan``'s split
     and the ring for bf16 x (e4m3 x needs less). NVFP4 at every M, and e8m0
-    above M 64: the prefill body with ``prefill_plan``'s split, as the folded
-    NVFP4 layers run from M 1. It does not depend on the form of x."""
+    above M 64: the prefill body with ``prefill_plan``'s rows, split and ring,
+    as the folded NVFP4 layers run from M 1. It does not depend on the form
+    of x."""
     if M <= 64 and not nvfp4:
         d = decode_plan(M, N, K, 0, 2)
         return GeneralMxPlan("decode", -(-M // 8) * 8, BK, d.tiles, 1, d.splits, d.k_per_split,
                              d.stages, d.smem)
     p = prefill_plan(M, N, K, 0)
     return GeneralMxPlan("prefill", p.bm, p.bk, p.tiles_n, p.tiles_m, p.splits, p.k_per_split,
-                         p.stages, p.smem)
+                         p.stages, max(prefill_smem(0, p.stages, p.bm, c) for c in (False, True)))
 
 
 def _fn(name: str, pointers: int, ints: int):
@@ -434,19 +447,19 @@ def _prefill(x, x_scales, W_q, scales, scales_x, meta, route: str):
         if not (x_scales.is_cuda and x_scales.dtype == torch.float32
                 and tuple(x_scales.shape) == (M, K // ags)):
             raise ValueError(f"group scales: want a CUDA ({M}, {K // ags}) float32 tensor")
-        x, x_code, xs, sx = _aligned(x), 3, x_scales.contiguous(), None
+        x, x_code, xs, sx = _aligned(x), 3, _aligned(x_scales), None
     else:
         x, x_code = _x(x, meta, M)
         xs, sx = None, _sx(scales_x, meta, M)
-    p = prefill_plan(M, N, K, w_kind(meta))
+    p = prefill_plan(M, N, K, w_kind(meta), x_codes=x_code == 3)
     stream = torch.cuda.current_stream().cuda_stream
     part, cnt = _split("mx_prefill", p.splits * M * N if p.splits > 1 else 0,
                        p.tiles_n * p.tiles_m, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = _fn("gl_mx_prefill", 8, 10)(
+    err = _fn("gl_mx_prefill", 8, 11)(
         x.data_ptr(), None if xs is None else xs.data_ptr(), W_q.data_ptr(), s.data_ptr(),
         None if sx is None else sx.data_ptr(), part, cnt, out.data_ptr(), M, N, K, x_code, ags,
-        w_kind(meta), meta.group_size, p.splits, p.k_per_split, p.stages, stream)
+        w_kind(meta), meta.group_size, p.bm, p.splits, p.k_per_split, p.stages, stream)
     build.check(err, f"mx_gemm ({route})")
     return out
 
@@ -507,10 +520,10 @@ def mx_general(x: torch.Tensor, W_q, scales, scales_x, meta) -> torch.Tensor:
     part, cnt = _split("mx_general", p.splits * M * p.tiles_n * TILE if p.splits > 1 else 0,
                        p.tiles_n * p.tiles_m, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = _fn("gl_mx_general", 7, 8)(
+    err = _fn("gl_mx_general", 7, 9)(
         x.data_ptr(), W_q.data_ptr(), s.data_ptr(), None if sx is None else sx.data_ptr(), part,
-        cnt, out.data_ptr(), M, N, K, x_code, int(nvfp4), p.splits, p.k_per_split, p.stages,
-        stream)
+        cnt, out.data_ptr(), M, N, K, x_code, int(nvfp4), p.bm, p.splits, p.k_per_split,
+        p.stages, stream)
     build.check(err, "mx_gemm (general)")
     mx_general.launches += 1
     return out

@@ -20,6 +20,7 @@ linears, gpt-oss-20b's hidden width and two ragged shapes, at M 1-4095:
 import pytest
 
 from gemlite_tpu_torch.ops import mx
+from gemlite_tpu_torch.ops.prefill import row_tile
 
 # (N, K): SmolLM2-360M's q / o, k / v, gate / up and down; gpt-oss-20b's
 # hidden width; a ragged N that keeps 16-byte word rows; an odd N with K
@@ -61,7 +62,7 @@ def test_tiles(form, N, K, M):
     if p.body == "decode":
         assert p.tiles_m == 1 and p.bm == -(-M // 8) * 8      # one block of all M rows
     else:
-        assert p.bm == mx.PREFILL_BM and p.tiles_m == -(-M // p.bm)
+        assert p.bm == row_tile(M) and p.tiles_m == -(-M // p.bm)
 
 
 @cases
@@ -107,7 +108,7 @@ def test_ring_fits_the_block(form, N, K, M):
     if p.body == "decode":
         assert p.smem <= DECODE_SMEM_MAX
     else:
-        assert p.smem == mx.prefill_smem(0, p.stages)
+        assert p.smem == max(mx.prefill_smem(0, p.stages, p.bm, codes) for codes in (False, True))
 
 
 @cases
@@ -116,10 +117,16 @@ def test_ring_fits_the_block(form, N, K, M):
 def test_one_plan_for_bf16_and_e4m3_x(form, N, K, M):
     """The plan takes no form of x: the decode body's split equals
     ``decode_plan``'s for 1- and 2-byte x, and its ring (sized for bf16 x)
-    holds either form's stages; the prefill body's x tile is bf16 for both."""
+    holds either form's stages; the prefill body's rows, split and ring are
+    ``prefill_plan``'s for bf16 x and for e4m3 codes alike, and its shared
+    memory holds either form's layout."""
     p = _plan(M, N, K, form)
     if p.body == "prefill":
-        assert tuple(p)[3:] == tuple(mx.prefill_plan(M, N, K, 0))[2:]
+        for codes in (False, True):
+            q = mx.prefill_plan(M, N, K, 0, x_codes=codes)
+            assert (p.bm, p.tiles_n, p.tiles_m, p.splits, p.k_per_split, p.stages) == (
+                q.bm, q.tiles_n, q.tiles_m, q.splits, q.k_per_split, q.stages)
+            assert q.smem <= p.smem
         return
     rows = -(-M // 8) * 8
     for x_bytes in (1, 2):
@@ -139,4 +146,4 @@ def test_folded_shapes_keep_their_plans():
                                                                  d.k_per_split, d.stages, d.smem)
         for M in (65, 1024):
             p = mx.prefill_plan(M, N, K, 0)
-            assert tuple(mx.general_plan(M, N, K, False))[3:] == tuple(p)[2:]
+            assert tuple(mx.general_plan(M, N, K, False))[1:-1] == tuple(p)[:-1]

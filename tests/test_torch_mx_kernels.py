@@ -10,7 +10,11 @@ result (``ops/reference.mx_forward_ref``), the JAX kernel tests' bound; the
 stacked decode entry equals the per-layer one bit for bit, the dequantize
 kernel equals ``dequantize_full`` bit for bit (one product and one rounding
 a value in both), and the csm-4 form equals the bf16 form fed
-``fake_quant_activations(x)`` bit for bit. The general entry (fp4 layers off
+``fake_quant_activations(x)`` bit for bit. The prefill kernel's decoded
+weights (e8m0 scales applied as one bf16x2 multiply) are probed with one-hot
+rows of x over scales that sweep every exponent 0-254: its output equals
+``dequantize_full``'s bf16 weights bit for bit. The 256-row blocks (M above
+128) are held at ragged M. The general entry (fp4 layers off
 the JAX fold rule: K and N not multiples of 128) is held to the same 5e-3
 at SmolLM2-360M's shapes, gpt-oss-20b's 2880 and ragged ones, on both of
 its bodies (``ops/mx.general_plan``: the ragged decode body at M <= 64 with
@@ -28,7 +32,7 @@ from gemlite_tpu_torch.mx import (A16W4_MXFP, A16W8_MXFP, A4W4_MXFP_dynamic, A4W
 from gemlite_tpu_torch.ops import build, dispatch
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
 from gemlite_tpu_torch.ops.mx import (general_plan, mx_decode, mx_decode_stacked, mx_general,
-                                     mx_prefill, mx_prefill_csm4)
+                                     mx_prefill, mx_prefill_csm4, prefill_plan, w_kind)
 from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
 from gemlite_tpu_torch.quant import scale_activations_mx, scale_activations_per_token
 
@@ -106,8 +110,90 @@ def test_mx_prefill_matches_plain(gen, form, M):
     assert _rel(out, _plain(layer, x, sx, meta)) <= REL
 
 
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("M", [129, 255, 257, 383, 1000, 2047, 4095])
+def test_mx_prefill_256_rows_ragged_m(gen, form, M):
+    """The 256-row instances (bf16 x, per-token e4m3 codes, every weight
+    kind, NVFP4) at M that end inside a block, against the plain version."""
+    layer = _layer(gen, form, 1024, 2048)
+    x, sx, meta = _inputs(gen, layer, M)
+    assert prefill_plan(M, 1024, 2048, w_kind(meta), x.dtype == torch.float8_e4m3fn).bm == 256
+    out = mx_prefill(x, layer.W_q, layer.scales, sx, meta)
+    assert _rel(out, _plain(layer, x, sx, meta)) <= REL
+
+
+# value of each fp4 code (bit 3 the sign), and each kind's code of 1.0
+FP4_VALUES = [0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0]
+FP4_VALUES = FP4_VALUES + [-v for v in FP4_VALUES]
+ONE = {"a16w4_mxfp": 2, "a16w8_mxfp_e4m3": 0x38, "a16w8_mxfp_e5m2": 0x3C}
+
+
+def _probe_weights(form, K, N, seed):
+    """(W_q, scales) of a (K, N) layer: random finite codes and e8m0 scales
+    (K / 32, N) sweeping exponents 0-254 across the groups, each code whose
+    value times its scale would pass bf16's largest finite value replaced by
+    the code of 1.0 (a one-hot product with an infinite weight is NaN)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    fp4 = form == "a16w4_mxfp"
+    codes = rng.integers(0, 16 if fp4 else 256, size=(K, N))
+    if fp4:
+        values = np.array(FP4_VALUES)[codes]
+    else:
+        fp8 = torch.float8_e4m3fn if form == "a16w8_mxfp_e4m3" else torch.float8_e5m2
+        values = torch.from_numpy(codes.astype(np.uint8)).view(fp8).float().numpy()
+    exps = (np.arange(K // 32 * N) % 255).reshape(K // 32, N)
+    bound = np.ldexp(1.0, 255 - np.repeat(exps, 32, axis=0))     # |v| 2^(e - 127) < 2^128
+    bad = ~np.isfinite(values) | (np.abs(values) >= bound)
+    codes = np.where(bad, ONE[form], codes)
+    bits, epw = (4, 8) if fp4 else (8, 4)
+    words = np.zeros((K // epw, N), np.uint64)
+    for e in range(epw):
+        words |= codes[e::epw].astype(np.uint64) << np.uint64(bits * e)
+    W_q = torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda()
+    return W_q, torch.from_numpy(exps.astype(np.uint8)).cuda()
+
+
+@pytest.mark.parametrize("form", ["a16w4_mxfp", "a16w8_mxfp_e4m3", "a16w8_mxfp_e5m2"])
+@pytest.mark.parametrize("M", [128, 256])
+def test_mx_prefill_one_hot_decodes_dequantize_full(gen, form, M):
+    """x = the identity (M = K rows of one-hot vectors), so out = the decoded
+    weights, bf16 after float32 sums of one product and zeros: bit for bit
+    ``dequantize_full``'s, at every e8m0 exponent 0-254 (the subnormal edge
+    included), on the 128-row and the 256-row instance."""
+    K, N = M, 256
+    layer = _layer(gen, form, N, K)
+    W_q, scales = _probe_weights(form, K, N, seed=M)
+    assert W_q.shape == layer.W_q.shape and scales.shape == layer.scales.shape
+    x = torch.eye(M, K, device="cuda", dtype=torch.bfloat16)
+    assert prefill_plan(M, N, K, w_kind(layer.meta)).bm == M
+    out = mx_prefill(x, W_q, scales, None, layer.meta)
+    want = dequantize_full(W_q, scales, None, layer.meta)
+    assert want.dtype == torch.bfloat16 and tuple(want.shape) == (K, N)
+    assert bool(want.float().abs().isfinite().all())
+    bad = (out != want).nonzero()
+    assert bad.numel() == 0, (f"{bad.shape[0]} weights differ, first at (k, n) "
+                              f"{bad[0].tolist()}: {out[tuple(bad[0])]} != {want[tuple(bad[0])]}, "
+                              f"exponent {int(scales[bad[0, 0] // 32, bad[0, 1]])}")
+
+
 @pytest.mark.parametrize("form", ["a4w4_mxfp", "a4w4_nvfp"])
-@pytest.mark.parametrize("M", [65, 128, 300, 1024])
+@pytest.mark.parametrize("N", [384, 640])
+@pytest.mark.parametrize("M", [65, 300])
+def test_csm4_form_odd_column_tiles(gen, form, N, M):
+    """An odd number of column tiles: the code form runs unclustered (each
+    block converts all its rows), still bit for bit the fake-quant-fed form."""
+    layer = _layer(gen, form, N, 1024)
+    x = (torch.randn((M, 1024), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    codes, scales = scale_activations_mx(x, layer.input_dtype)
+    got = mx_prefill_csm4(codes, scales, layer.W_q, layer.scales, layer.meta)
+    fq = fake_quant_activations(x, layer.input_dtype)
+    want = mx_prefill(fq, layer.W_q, layer.scales, None, layer.meta._replace(channel_scale_mode=0))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", ["a4w4_mxfp", "a4w4_nvfp"])
+@pytest.mark.parametrize("M", [65, 128, 129, 256, 300, 1024, 2048])
 def test_csm4_form_equals_fake_quant_fed_form(gen, form, M):
     layer = _layer(gen, form, 1024, 2048)
     x = (torch.randn((M, 2048), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
