@@ -2,7 +2,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Drive the PyTorch port (gemlite_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--old-mx-source DIR]
+    python3 chip_smoke.py [--old-mx-source DIR] [--old-fp8-source DIR]
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
@@ -95,8 +95,12 @@ Phases, each printing one JSON line:
   profile_a16w8 device time by kernel over a short A16W8 serving run;
   kernels_fp8  the fp8 kernels (csrc/fp8_gemm.cu) against their plain
            version (ops/reference.forward_fp8_ref) within 5e-3: decode at M 1
-           / 8 / 64 and prefill at M 128 / 1024 on the four 8B shapes, for
-           A8W8_FP8 (e4m3 x) and A16W8_FP8 (bf16 x); the fp8 dequantize on
+           / 8 / 64 and prefill at M 128 / 256 / 1024 / 2048 on the four 8B
+           shapes, for A8W8_FP8 (e4m3 x) and A16W8_FP8 (bf16 x); with
+           --old-fp8-source DIR (an earlier tree's csrc) each decode and
+           prefill row also times that tree's entry (old_ms), bit for bit
+           equal to the current one where both take the same K split; the fp8
+           dequantize on
            14336x4096, equal to dequantize_full bit for bit; the stacked
            decode over a 32-layer A16W8_FP8 stack at layers 0 / 17 / 31, each
            equal to the per-layer kernel bit for bit; the float path with fp8
@@ -1109,7 +1113,7 @@ def phase_serve_a8w8(card: str, cfg, dense) -> dict:
 
 FP8_GROUPS = {"fp8_decode_kernel": ("fp8_decode",), "fp8_prefill_kernel": ("fp8_prefill",)}
 FP8_DECODE_MS = (1, 8, 64)
-FP8_PREFILL_MS = (128, 1024)
+FP8_PREFILL_MS = (128, 256, 1024, 2048)
 FP8_FLOAT_MS = (8, 128)              # row 5f with fp8 x (A8W4 gs 64)
 FP8_SHAPE = (14336, 4096)            # the kernels line's fp8 rows
 
@@ -1157,11 +1161,15 @@ def fp8_bytes(layer, M: int) -> float:
     return layer_bytes(layer) + M * layer.in_features * xb + 4 * M + 2 * M * layer.out_features
 
 
-def phase_kernels_fp8(card: str, peak, timer: Timer) -> dict:
+def phase_kernels_fp8(card: str, peak, timer: Timer, old_fp8=None) -> dict:
     """The fp8 kernels against their plain versions (ops/reference.
     forward_fp8_ref, float32 result) within 5e-3, at the four 8B shapes:
-    decode at M 1 / 8 / 64 and prefill at M 128 / 1024 for A8W8_FP8 (fp8 x)
-    and A16W8_FP8 (bf16 x); the fp8 form of the dequantize kernel on
+    decode at M 1 / 8 / 64 and prefill at M 128 / 256 / 1024 / 2048 for
+    A8W8_FP8 (fp8 x) and A16W8_FP8 (bf16 x); given ``old_fp8``
+    (``start_old_fp8_build``), each decode and prefill row also times the
+    earlier tree's entry on the same inputs (``old_ms``) and, where both take
+    the same K split, requires its output bit for bit; the fp8 form of the
+    dequantize kernel on
     14336x4096, equal to dequantize_full bit for bit; the stacked decode
     entry on a 32-layer A16W8_FP8 stack of 14336x4096 at layers 0 / 17 / 31,
     equal to the per-layer kernel bit for bit; row 5f with fp8 x (A8W4 gs
@@ -1180,11 +1188,15 @@ def phase_kernels_fp8(card: str, peak, timer: Timer) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = []
+    old = old_fp8() if old_fp8 is not None else None
 
     def record(row, got, want, exact=False):
         emit(row)
         if exact and not torch.equal(got, want):
             raise RuntimeError(f"{row['kernel']} differs from its reference bit for bit: {row}")
+        if row.get("equals_old") is False:
+            raise RuntimeError(f"{row['kernel']} differs from the earlier tree's entry on the "
+                               f"same split: {row}")
         if not row["rel_err"] <= REL_TOL:
             raise RuntimeError(f"{row['kernel']} disagrees with its plain version: {row}")
         if row.get("device_ops_per_call", 1) != 1:
@@ -1231,6 +1243,16 @@ def phase_kernels_fp8(card: str, peak, timer: Timer) -> dict:
                            "plan": plan(M, N, K, 1 if kind == "a8w8_fp8" else 2)._asdict(),
                            "device_ops_per_call": device_ops_per_call(lambda: kern(*args, meta)),
                            "card": card}
+                    if old is not None:
+                        old_fn = getattr(old, name[4:])
+                        old_out = old_fn(*args, meta)
+                        xb = 1 if kind == "a8w8_fp8" else 2
+                        row["old_plan"] = old_fp8_plan(name, M, N, K, xb)
+                        row["old_rel_err"] = rel_err(old_out, want)
+                        row["old_ms"] = timer.ms(lambda: old_fn(*args, meta))
+                        p = plan(M, N, K, xb)
+                        if (p.splits, p.k_per_split) == row["old_plan"][1:3]:
+                            row["equals_old"] = bool(torch.equal(got, old_out))
                     record(row, got, want)
             if (N, K) == FP8_SHAPE and kind == "a8w8_fp8":
                 got = dequantize_weights(layer.W_q, layer.scales, None, meta)
@@ -1517,6 +1539,87 @@ def start_old_mx_build(src_dir: Path):
             csm4=lambda codes, gscales, W_q, scales, meta: prefill(codes, W_q, scales, None, meta,
                                                                    xs=gscales))
     return ready
+
+
+def old_fp8_plan(kernel: str, M: int, N: int, K: int, x_bytes: int):
+    """The plan an earlier tree's fp8 entry took before the fp8-x prefill took
+    256-row blocks and the decode grid one wave (``start_old_fp8_build``): the prefill's rows (128 with fp8 x, 256 with
+    bf16 x from M 129), split and ring as ``ops/fp8.prefill_plan`` gives them
+    for those rows; the decode's 128-column blocks, K cut in units of 256 so
+    that about 4 x 132 blocks run, and a ring of 72 KB. Returns (rows or
+    column tiles, splits, k_per_split, stages)."""
+    from gemlite_tpu_torch.ops import fp8
+    if kernel == "fp8_prefill":
+        p = fp8.prefill_plan(M, N, K, x_bytes, bm=128 if x_bytes == 1 or M <= 128 else 256)
+        return p.bm, p.splits, p.k_per_split, p.stages
+    tiles, unit = N // 128, 256
+    units = -(-K // unit)
+    splits = max(1, min(units, -(-4 * 132 // tiles)))
+    per = -(-units // splits)
+    rows = next(nt for nt in (1, 2, 4, 8) if M <= 8 * nt)
+    stages = max(2, min(6, 72 * 1024 // (16384 + rows * 8 * 128 * x_bytes)))
+    return tiles, -(-units // per), min(K, per * unit), stages
+
+
+def start_old_fp8_build(src_dir: Path):
+    """Start nvcc on an earlier tree's ``fp8_gemm.cu`` (``src_dir`` holds it
+    and its headers, e.g. that tree's ``gemlite_tpu_torch/csrc`` unpacked
+    under ``_archive/``) into ``gemlite_tpu_torch/_build/old/``, beside the
+    current build. Returns a function that waits for it and returns that
+    tree's entries with the plans it took (``old_fp8_plan``):
+    ``decode(x, W_q, scales, sx, meta)`` and ``prefill(x, W_q, scales, sx,
+    meta)``. The current entries are timed against them in the same call."""
+    import atexit
+    import ctypes
+    from types import SimpleNamespace
+    from gemlite_tpu_torch.ops import build
+    out_dir = build.BUILD_DIR / "old"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "fp8_gemm_old.so"
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
+                             str(src_dir / "fp8_gemm.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)
+
+    def ready():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the earlier fp8_gemm.cu failed to build:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(so))
+        for fn, ptrs, ints in (("gl_fp8_decode", 7, 11), ("gl_fp8_prefill", 7, 12)):
+            getattr(lib, fn).argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                                         + [ctypes.c_void_p])
+            getattr(lib, fn).restype = ctypes.c_int
+        return SimpleNamespace(
+            decode=lambda *a: old_fp8_call(lib, "fp8_decode", *a),
+            prefill=lambda *a: old_fp8_call(lib, "fp8_prefill", *a))
+    return ready
+
+
+def old_fp8_call(lib, kernel: str, x, W_q, scales, sx, meta, plan=None):
+    """One launch of a built ``fp8_gemm.cu`` (an earlier tree's, or a variant
+    of one) with the C signatures the fp8 entries have kept: ``plan`` (rows or column
+    tiles, splits, k_per_split, stages), by default ``old_fp8_plan``'s."""
+    from gemlite_tpu_torch import DType
+    from gemlite_tpu_torch.ops import build, fp8
+    M, N, K = x.shape[0], meta.out_features, meta.in_features
+    xb = 2 if meta.input_dtype == DType.BF16.value else 1
+    lead, splits, kps, stages = plan or old_fp8_plan(kernel, M, N, K, xb)
+    tiles = lead if kernel == "fp8_decode" else -(-M // lead) * (N // 128)
+    stream = torch.cuda.current_stream().cuda_stream
+    part, cnt = fp8._split("old_" + kernel, splits * M * N if splits > 1 else 0, tiles, x.device,
+                           stream)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    s_code = DType.FP32.value if scales.dtype == torch.float32 else DType.BF16.value
+    head = (x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), None if sx is None else sx.data_ptr(),
+            part, cnt, out.data_ptr(), M, N, K, meta.input_dtype, meta.w_code_dtype,
+            meta.W_group_mode, meta.channel_scale_mode, s_code)
+    if kernel == "fp8_decode":
+        err = lib.gl_fp8_decode(*head, splits, kps, stages, stream)
+    else:
+        err = lib.gl_fp8_prefill(*head, lead, splits, kps, stages, stream)
+    build.check(err, f"the earlier gl_{kernel}")
+    return out
 
 
 def same_plan(old, kernel, M, N, K, meta, x_codes=False) -> bool:
@@ -3266,6 +3369,9 @@ def main() -> int:
     ap.add_argument("--old-mx-source", type=Path, default=None,
                     help="an earlier tree's gemlite_tpu_torch/csrc: kernels_mx also times its "
                          "MX prefill, csm-4 and general entries beside the current ones (old_ms)")
+    ap.add_argument("--old-fp8-source", type=Path, default=None,
+                    help="an earlier tree's gemlite_tpu_torch/csrc: kernels_fp8 also times its "
+                         "fp8 decode and prefill entries beside the current ones (old_ms)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3282,6 +3388,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "peak_bytes_per_s": peak[0], "peak_bf16_flops": peak[1]})
     t_start = time.perf_counter()
     old_mx = start_old_mx_build(args.old_mx_source) if args.old_mx_source else None
+    old_fp8 = start_old_fp8_build(args.old_fp8_source) if args.old_fp8_source else None
     phase_build()
     timer = Timer()
     picked = phase_kernels(card, peak, timer)
@@ -3297,7 +3404,7 @@ def main() -> int:
     phase_layer_a8w8(card)
     a8_counts = phase_serve_a8w8(card, cfg, dense)
     a16_counts = phase_serve_a16w8(card, cfg, dense)
-    picked.update(phase_kernels_fp8(card, peak, timer))
+    picked.update(phase_kernels_fp8(card, peak, timer, old_fp8))
     fp8_layer_counts = phase_layer_fp8(card)
     fp8_counts = phase_serve_fp8(card, cfg, dense)
     picked.update(phase_kernels_mx(card, peak, timer, old_mx))

@@ -29,8 +29,11 @@
 // operands swapped (out^T = W^T . x^T: A a 16-column tile of W, B the M <= 64
 // tokens as n8 tiles), a cp.async ring of 128-deep stages (the words column-
 // swizzled so that a warp's 4-byte reads hit 32 banks, x rows swizzled in
-// 16-byte chunks), K split over gridDim.y so that about four blocks run per
-// SM, the splits merged by the last block of each column tile in split order
+// 16-byte chunks), K split over gridDim.y so that the grid fits the card in
+// one wave of kDecodeMinBlocks blocks an SM (ops/fp8.decode_plan: a longer
+// grid ran its last 13-29% of blocks on an idle card; 256-column blocks, with
+// 1 KB runs a word row, streamed no faster; PERF.md), the splits merged by the
+// last block of each column tile in split order
 // (arrival counters left at 0). fp8 x runs mma.sync m16n8k32 with e4m3 /
 // e5m2 operands (all four type pairs); bf16 x two m16n8k16 bf16 products a
 // 32-deep block, the k order permuted inside it so that a lane converts whole
@@ -40,18 +43,24 @@
 // fresh fragment that is then added to the float32 sums.
 //
 // The prefill body (what bounds it: operations, 2 M N K over 1,979 TFLOP/s
-// fp8 or 989 bf16) is row 2's design after PR 10: a producer lane brings the
-// x box (TMA, 128-byte swizzle, rows past M read as zeros) and the stage's
-// word rows (TMA) into a ring, two consumer warpgroups of 64 weight columns
-// run wgmma with the weights as the register A operand and x as the K-major
-// shared B operand, the block's rows one (fp8 x: 128) or two (bf16 x: 256
-// from M 129) n128 products. fp8 x: 128-deep stages of m64n128k32 e4m3 /
-// e5m2 products into a fresh accumulator, added to the float32 sums after
-// each stage (the same promotion as the decode body); bf16 x: 64-deep stages
-// of m64n128k16 bf16 products on the converted codes. A stage's A fragments
+// fp8 or 989 bf16) is row 2's design: a producer lane brings the x box (TMA,
+// 128-byte swizzle, rows past M read as zeros) and the stage's word rows (one
+// TMA box; with fp8 x four 32-column groups in the 128-byte swizzle,
+// w_groups) into a ring; two consumer warpgroups of 64 weight columns run
+// wgmma with the weights as the register A operand and x as the K-major
+// shared B operand, the block's rows one (128) or two (256, as
+// ops/fp8.prefill_rows picks) n128 products an A fragment. With fp8 x a
+// warp's A rows take the weight columns p_col gives, so that with the
+// groups' swizzle the 32 lanes of every A-fragment read hit 32 banks. fp8 x:
+// 128-deep stages of m64n128k32 e4m3 / e5m2 products into a fresh
+// accumulator, added to the float32 sums after each stage (the same
+// promotion as the decode body; with 256 rows the first 128 rows' products,
+// then the second's, in the one fresh fragment); bf16 x: 64-deep stages of
+// m64n128k16 bf16 products on the converted codes. A stage's A fragments
 // for the next stage are read (fp8) or built (bf16) while its products run.
 // K is split by ops/fp8.prefill_plan and merged in the same launch. The grid
-// runs a column tile's row tiles side by side, so they share its words in L2.
+// runs a column tile's row tiles side by side, so they share its words in
+// L2.
 #include <cuda_fp8.h>
 
 #include <atomic>
@@ -137,7 +146,7 @@ __device__ __forceinline__ void mma_fp8(float (&d)[4], const uint32_t (&a)[4], u
 constexpr int BK = 128;                  // K per ring stage
 constexpr int BN = 128;                  // output columns per block: 4 warps of 32
 constexpr int WR = BK / 4;               // word rows a stage
-constexpr int kDecodeMinBlocks = 3;
+constexpr int kDecodeMinBlocks = 3;      // blocks an SM: ops/fp8.DECODE_BLOCKS_PER_SM
 constexpr int kMaxStages = 6;
 constexpr int kDecodeSmemMax = 112 * 1024;
 
@@ -459,9 +468,14 @@ int d_run(DParams p, int x_code, int w_code, int mode, int splits, cudaStream_t 
 
 constexpr int kConsumers = 256;               // two warpgroups of 64 columns
 constexpr int kThreads = kConsumers + 128;    // and one producer warpgroup
-constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+// 384 threads of 168 registers at launch: 2 x 128 x 240 + 128 x 24 of them
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr int kPrefillSmemMax = 227 * 1024;
 constexpr int kTileStride = BN + 4;           // floats a row of the epilogue tile
+
+struct PMaps {
+    CUtensorMap x, w;
+};
 
 struct PParams {
     const void* scales;                       // (N) or null
@@ -472,19 +486,21 @@ struct PParams {
     int M, N, K, k_per_split, stages;
 };
 
-struct PMaps {
-    CUtensorMap x, w;
-};
-
 // K of a stage: one 128-byte swizzle row of x (64 bf16 or 128 fp8)
 template <int X> __host__ __device__ constexpr int p_bk() { return X == kXbf16 ? 64 : 128; }
 template <int X> __host__ __device__ constexpr int p_x_bytes(int nb) { return nb * 128 * 128; }
 template <int X> __host__ __device__ constexpr int p_w_bytes() { return p_bk<X>() / 4 * BN * 4; }
+// How a stage's words land, in one TMA box either way: with fp8 x four
+// groups of 32 columns in the 128-byte swizzle, so that the A-fragment reads
+// hit 32 banks; with bf16 x rows of 128 words, whose reads (lanes t on rows t
+// / 2) are 2-way conflicted: the groups made that form 4-6% slower
+// (scripts/torch_fp8_variants.py, PERF.md).
+template <int X> __host__ __device__ constexpr bool w_groups() { return X != kXbf16; }
 
-// shared memory from a 1024-byte aligned base: the x ring, the word ring,
-// the epilogue tile over them once they are free, the mbarriers (full, then
-// empty, one a stage) and the last-block flag. ops/fp8.prefill_smem mirrors
-// `bytes`.
+// shared memory from a 1024-byte aligned base: the x ring, the word ring
+// (each stage four 32-column boxes, 1024-byte aligned), the epilogue tile
+// over them once they are free, the mbarriers (full, then empty, one a
+// stage) and the last-block flag. ops/fp8.prefill_smem mirrors `bytes`.
 template <int X>
 struct PLayout {
     int w, bars, flag, bytes;
@@ -531,8 +547,9 @@ __device__ __forceinline__ void wgmma_fp8_n128(float (&d)[64], const uint32_t (&
 }
 #undef GL_WGMMA_FP8
 
-// The producer lane: per stage, the x box and the word rows by TMA on the
-// stage's full mbarrier, once the consumers have released it.
+// The producer lane: per stage, once the consumers have released it, the x
+// box and the stage's word rows (one box, w_groups' layout) by TMA on the
+// stage's full mbarrier.
 template <int X, int NB>
 __device__ __forceinline__ void p_produce(const PMaps& maps, uint32_t base, const PLayout<X>& L,
                                           int stages, int n0, int m0, int k_begin, int steps) {
@@ -545,19 +562,42 @@ __device__ __forceinline__ void p_produce(const PMaps& maps, uint32_t base, cons
             sm90::mbar_wait(sm90::bar_addr(bars, stages + st), ((it / stages) & 1) ^ 1);
         sm90::mbar_expect_tx(full, p_x_bytes<X>(NB) + p_w_bytes<X>());
         sm90::tma_load_2d(base + st * p_x_bytes<X>(NB), &maps.x, full, k0, m0);
-        sm90::tma_load_2d(base + L.w + st * p_w_bytes<X>(), &maps.w, full, n0, k0 / 4);
+        if constexpr (w_groups<X>())
+            sm90::tma_load_3d(base + L.w + st * p_w_bytes<X>(), &maps.w, full, 0, k0 / 4, n0 / 32);
+        else
+            sm90::tma_load_2d(base + L.w + st * p_w_bytes<X>(), &maps.w, full, n0, k0 / 4);
     }
 }
 
-// The A fragments of one stage for this lane (column col, and col + 8).
-// fp8 x: a[kk] for the 32-deep step kk, the words as stored (rows 8 kk + t
-// and 8 kk + 4 + t). bf16 x: a[kk][2 half + h] = the codes at k 16 kk + 8 half
-// + 2t, + 1 of column col + 8 h, converted (bytes 2 (t & 1), + 1 of word row
-// 4 kk + 2 half + t / 2).
+// Word (r, c) of a stage as TMA lands it: group c / 32 of 32-column rows of
+// 128 bytes, 16-byte piece (c / 4) % 8 of row r at piece ((c / 4) % 8) ^ (r %
+// 8); or row r of 128 words.
+template <int X>
+__device__ __forceinline__ int p_widx(int r, int c) {
+    if constexpr (!w_groups<X>()) return r * BN + c;
+    return (c >> 5) * (p_bk<X>() / 4) * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// The weight column of A row g + 8 h of consumer warp w (0 .. 7). With the
+// groups (fp8 x): bits 0-1 from g, 2 from h, 3 from w, 4 from g, 5-6 from w;
+// in a read, lane (g, t) takes word row t (+ a constant), and the swizzle
+// spreads the 32 lanes over 32 banks. Else 16 w + g + 8 h.
+template <int X>
+__device__ __forceinline__ int p_col(int w, int g, int h) {
+    if constexpr (!w_groups<X>()) return 16 * w + g + 8 * h;
+    return 32 * (w >> 1) + 16 * (g >> 2) + 8 * (w & 1) + 4 * h + (g & 3);
+}
+
+// The A fragments of one stage for this lane (rows g, g + 8 of its warp's
+// A tile: columns p_col(w, g, 0) and p_col(w, g, 1)). fp8 x: a[kk] for the
+// 32-deep step kk, the words as stored (rows 8 kk + t and 8 kk + 4 + t).
+// bf16 x: a[kk][2 half + h] = the codes at k 16 kk + 8 half + 2t, + 1 of
+// column p_col(w, g, h), converted (bytes 2 (t & 1), + 1 of word row 4 kk +
+// 2 half + t / 2).
 template <int X, int W>
-__device__ __forceinline__ void p_build(uint32_t (&a)[4][4], const uint8_t* g, int wofs, int col,
-                                        int t) {
-    const uint32_t* ws = reinterpret_cast<const uint32_t*>(g + wofs) + col;
+__device__ __forceinline__ void p_build(uint32_t (&a)[4][4], const uint8_t* g, int wofs,
+                                        const int (&cols)[2], int t) {
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(g + wofs);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -565,10 +605,10 @@ __device__ __forceinline__ void p_build(uint32_t (&a)[4][4], const uint8_t* g, i
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 if constexpr (X == kXbf16) {
-                    const uint32_t w = ws[(4 * kk + 2 * half + (t >> 1)) * BN + 8 * h];
+                    const uint32_t w = ws[p_widx<X>(4 * kk + 2 * half + (t >> 1), cols[h])];
                     a[kk][2 * half + h] = fp8x2_bf16x2<W>(w >> (16 * (t & 1)));
                 } else {
-                    a[kk][2 * half + h] = ws[(8 * kk + 4 * half + t) * BN + 8 * h];
+                    a[kk][2 * half + h] = ws[p_widx<X>(8 * kk + 4 * half + t, cols[h])];
                 }
             }
 }
@@ -647,7 +687,7 @@ struct PConsumer {
     uint8_t* g;
     uint32_t base, bars;
     const PLayout<X>* L;
-    int S, col, t, lane;
+    int S, cols[2], t, lane;
 
     __device__ __forceinline__ void full(int it) const {
         sm90::mbar_wait(sm90::bar_addr(bars, it % S), (it / S) & 1);
@@ -662,32 +702,48 @@ struct PConsumer {
     __device__ __forceinline__ int w_ofs(int it) const { return L->w + it % S * p_w_bytes<X>(); }
 };
 
+// One fp8 stage's products for rows 128 nb .. 128 nb + 127 of the block into
+// the fresh fragment d (the first overwrites it)
+template <int X, int W>
+__device__ __forceinline__ void p_fp8_products(float (&d)[64], const uint32_t (&a)[4][4],
+                                               uint64_t dx, int nb) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+        wgmma_fp8_n128<W, X>(d, a[kk], dx + ((nb * 128 * 128 + kk * 32) >> 4), kk);
+    sm90::wgmma_commit();
+}
+
 // One stage j: issue its products from buffer CUR, build stage j + 1's A
 // fragments into the other buffer while they run, wait, release the stage
-// and (fp8) add its sums into the float32 accumulators. No product is in
-// flight where a step ends, so the steps may sit under a branch.
+// and (fp8) add its sums into the float32 accumulators. fp8 x with 256 rows:
+// the fragment serves the first 128 rows' products, whose sums are added,
+// then the second's, in the same fresh fragment; the next stage's fragments
+// are read after both, so that one buffer's registers serve both (acc, tmp
+// and one buffer fill the 240 registers; the other warpgroup's products
+// cover the reads). No product is in flight where a step ends, so the steps
+// may sit under a branch.
 template <int X, int W, int NB, int CUR>
 __device__ __forceinline__ void p_step(const PConsumer<X, NB>& c, float (&acc)[NB][64],
                                        float (&tmp)[64], uint32_t (&a)[2][4][4], int j, int steps) {
+    constexpr bool kTwoHalves = X != kXbf16 && NB == 2;
+    constexpr int USE = kTwoHalves ? 0 : CUR, NEXT = kTwoHalves ? 0 : 1 - CUR;   // one buffer
     const uint64_t dx = c.x_desc(j);
-    sm90::pin(a[CUR]);
+    sm90::pin(a[USE]);
     sm90::wgmma_fence();
     if constexpr (X == kXbf16) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
             for (int nb = 0; nb < NB; ++nb)
-                sm90::wgmma_rs_n128<0>(acc[nb], a[CUR][kk], dx + ((nb * 128 * 128 + kk * 32) >> 4),
+                sm90::wgmma_rs_n128<0>(acc[nb], a[USE][kk], dx + ((nb * 128 * 128 + kk * 32) >> 4),
                                        1);
+        sm90::wgmma_commit();
     } else {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-            wgmma_fp8_n128<W, X>(tmp, a[CUR][kk], dx + ((kk * 32) >> 4), kk);
+        p_fp8_products<X, W>(tmp, a[USE], dx, 0);
     }
-    sm90::wgmma_commit();
-    if (j + 1 < steps) {
+    if (!kTwoHalves && j + 1 < steps) {
         c.full(j + 1);
-        p_build<X, W>(a[1 - CUR], c.g, c.w_ofs(j + 1), c.col, c.t);
+        p_build<X, W>(a[NEXT], c.g, c.w_ofs(j + 1), c.cols, c.t);
     }
     sm90::wgmma_wait<0>();
     if constexpr (X == kXbf16) {
@@ -696,21 +752,32 @@ __device__ __forceinline__ void p_step(const PConsumer<X, NB>& c, float (&acc)[N
     } else {
         sm90::pin(tmp);
     }
-    c.release(j);
-    if constexpr (X != kXbf16) {
+    if constexpr (kTwoHalves) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[0][i] += tmp[i];
+        sm90::wgmma_fence();
+        p_fp8_products<X, W>(tmp, a[USE], dx, 1);
+        sm90::wgmma_wait<0>();
+        sm90::pin(tmp);
+    }
+    c.release(j);
+    if (kTwoHalves && j + 1 < steps) {
+        c.full(j + 1);
+        p_build<X, W>(a[NEXT], c.g, c.w_ofs(j + 1), c.cols, c.t);
+    }
+    if constexpr (X != kXbf16) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[NB - 1][i] += tmp[i];
     }
 }
 
 template <int X, int W, int NB>
 __device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t base,
-                                          const PLayout<X>& L, int wg, int m0, int steps,
-                                          int* flag) {
+                                          const PLayout<X>& L, int m0, int steps, int* flag) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int lane = threadIdx.x % 32, t = lane % 4;
-    const int col = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;   // and col + 8
-    const PConsumer<X, NB> c{g, base, base + L.bars, &L, p.stages, col, t, lane};
+    const int lane = threadIdx.x % 32, t = lane % 4, w = threadIdx.x / 32;
+    const PConsumer<X, NB> c{g, base, base + L.bars, &L, p.stages,
+                             {p_col<X>(w, lane / 4, 0), p_col<X>(w, lane / 4, 1)}, t, lane};
 
     float acc[NB][64];
     float tmp[64];
@@ -722,7 +789,7 @@ __device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t
     for (int i = 0; i < 64; ++i) tmp[i] = 0.f;
     uint32_t a[2][4][4];                      // stage s in buffer s % 2
     c.full(0);
-    p_build<X, W>(a[0], g, c.w_ofs(0), col, t);
+    p_build<X, W>(a[0], g, c.w_ofs(0), c.cols, t);
     int j = 0;
     for (; j + 1 < steps; j += 2) {
         p_step<X, W, NB, 0>(c, acc, tmp, a, j, steps);
@@ -738,7 +805,7 @@ __device__ __forceinline__ void p_consume(const PParams& p, uint8_t* g, uint32_t
         for (int n8 = 0; n8 < 16; ++n8)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                tile[(nb * 128 + 8 * n8 + 2 * t + (e & 1)) * kTileStride + col + 8 * (e >> 1)] =
+                tile[(nb * 128 + 8 * n8 + 2 * t + (e & 1)) * kTileStride + c.cols[e >> 1]] =
                     acc[nb][4 * n8 + e];
     sm90::named_sync<1, kConsumers>();
     p_finish(p, tile, flag, m0, NB * 128);
@@ -765,9 +832,10 @@ fp8_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
     const int wg = sm90::warpgroup();
     if (wg == 2) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-        if (threadIdx.x == kConsumers) p_produce<X, NB>(maps, base, L, p.stages, n0, m0, k_begin, steps);
+        if (threadIdx.x == kConsumers)
+            p_produce<X, NB>(maps, base, L, p.stages, n0, m0, k_begin, steps);
     } else {
-        p_consume<X, W, NB>(p, g, base, L, wg, m0, steps, reinterpret_cast<int*>(g + L.flag));
+        p_consume<X, W, NB>(p, g, base, L, m0, steps, reinterpret_cast<int*>(g + L.flag));
     }
 }
 
@@ -786,17 +854,34 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* 
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// 3-d map over the (rows, cols) int32 words as (32 columns, rows, cols / 32
+// groups of 32 columns): a box of (32, box_rows, 4) lands the groups one
+// after another, each box_rows rows of 128 bytes in the 128-byte swizzle
+// (p_widx), in one copy
+bool make_word_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+    const sm90::EncodeTiled encode = sm90::encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {32, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(cols / 32)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4, 128};
+    const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), BN / 32};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<void*>(ptr), dims, strides, box,
+                  unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int X, int W, int NB>
-cudaError_t p_launch(const void* x, const uint32_t* wq, const PParams& p, int splits, cudaStream_t stream) {
+cudaError_t p_launch(const void* x, const uint32_t* wq, const PParams& p, int splits,
+                     cudaStream_t stream) {
     static std::atomic<unsigned> ready{0};
-    constexpr int BKX = p_bk<X>();
     const PLayout<X> L(NB, p.stages);
     if (L.bytes > kPrefillSmemMax) return cudaErrorInvalidValue;
     PMaps maps;
     if (!make_map(&maps.x, X == kXbf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                  X == kXbf16 ? 2 : 1, x, p.M, p.K, NB * 128, BKX, CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, wq, p.K / 4, p.N, BKX / 4, BN,
-                  CU_TENSOR_MAP_SWIZZLE_NONE))
+                  X == kXbf16 ? 2 : 1, x, p.M, p.K, NB * 128, p_bk<X>(), CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !(w_groups<X>() ? make_word_map(&maps.w, wq, p.K / 4, p.N, p_bk<X>() / 4)
+                        : make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, wq, p.K / 4, p.N,
+                                   p_bk<X>() / 4, BN, CU_TENSOR_MAP_SWIZZLE_NONE)))
         return cudaErrorInvalidValue;
     const cudaError_t err = sm90::allow_smem(fp8_prefill_kernel<X, W, NB>, kPrefillSmemMax, ready);
     if (err != cudaSuccess) return err;
@@ -806,6 +891,13 @@ cudaError_t p_launch(const void* x, const uint32_t* wq, const PParams& p, int sp
     const dim3 grid((p.M + NB * 128 - 1) / (NB * 128), p.N / BN, splits);
     fp8_prefill_kernel<X, W, NB><<<grid, kThreads, L.bytes, stream>>>(maps, p);
     return cudaGetLastError();
+}
+
+template <int X, int W>
+cudaError_t p_launch_rows(const void* x, const uint32_t* wq, const PParams& p, int bm, int splits,
+                          cudaStream_t stream) {
+    return bm == 128 ? p_launch<X, W, 1>(x, wq, p, splits, stream)
+                     : p_launch<X, W, 2>(x, wq, p, splits, stream);
 }
 
 }  // namespace
@@ -844,7 +936,7 @@ extern "C" int gl_fp8_decode_stacked(const void* x, const void* wq, const void* 
 }
 
 // Launch on `stream` (64 < M < 4096): the operands of gl_fp8_decode; `bm`
-// (128, or 256 with bf16 x) rows of x a block; K cut into `splits` ranges of
+// (128 or 256) rows of x a block; K cut into `splits` ranges of
 // `k_per_split` (a multiple of the stage: 64 k with bf16 x, 128 with fp8 x);
 // `stages` from ops/fp8.prefill_plan.
 extern "C" int gl_fp8_prefill(const void* x, const void* wq, const void* scales, const void* sx,
@@ -855,7 +947,7 @@ extern "C" int gl_fp8_prefill(const void* x, const void* wq, const void* scales,
     const int bk = X == kXbf16 ? 64 : 128;
     const Epi epi{scales, static_cast<const float*>(sx), s_code, mode == 2, csm};
     const bool shape_ok = M >= 1 && N >= BN && N % BN == 0 && K >= bk && K % bk == 0 && X >= 0 &&
-                          W >= 0 && (bm == 128 || (bm == 256 && X == kXbf16));
+                          W >= 0 && (bm == 128 || bm == 256);
     const bool split_ok = splits >= 1 && k_per_split > 0 && k_per_split % bk == 0 &&
                           (long long)(splits - 1) * k_per_split < K &&
                           (long long)splits * k_per_split >= K &&
@@ -870,13 +962,11 @@ extern "C" int gl_fp8_prefill(const void* x, const void* wq, const void* scales,
     const uint32_t* w = static_cast<const uint32_t*>(wq);
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     cudaError_t err;
-    if (X == kXbf16) {
-        if (bm == 128) err = W ? p_launch<kXbf16, 1, 1>(x, w, p, splits, stream) : p_launch<kXbf16, 0, 1>(x, w, p, splits, stream);
-        else err = W ? p_launch<kXbf16, 1, 2>(x, w, p, splits, stream) : p_launch<kXbf16, 0, 2>(x, w, p, splits, stream);
-    } else if (X == kXe4m3) {
-        err = W ? p_launch<kXe4m3, 1, 1>(x, w, p, splits, stream) : p_launch<kXe4m3, 0, 1>(x, w, p, splits, stream);
-    } else {
-        err = W ? p_launch<kXe5m2, 1, 1>(x, w, p, splits, stream) : p_launch<kXe5m2, 0, 1>(x, w, p, splits, stream);
-    }
+    if (X == kXbf16)
+        err = W ? p_launch_rows<kXbf16, 1>(x, w, p, bm, splits, stream) : p_launch_rows<kXbf16, 0>(x, w, p, bm, splits, stream);
+    else if (X == kXe4m3)
+        err = W ? p_launch_rows<kXe4m3, 1>(x, w, p, bm, splits, stream) : p_launch_rows<kXe4m3, 0>(x, w, p, bm, splits, stream);
+    else
+        err = W ? p_launch_rows<kXe5m2, 1>(x, w, p, bm, splits, stream) : p_launch_rows<kXe5m2, 0>(x, w, p, bm, splits, stream);
     return static_cast<int>(err);
 }

@@ -70,6 +70,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// one box of a 3-d tensor map at element coordinates (c0, c1, c2) into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
 // one box of a 4-d tensor map at element coordinates (c0 .. c3) into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int c0, int c1, int c2, int c3) {

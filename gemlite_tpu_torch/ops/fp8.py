@@ -31,7 +31,7 @@ import torch
 
 from ..dtypes import DType, is_mx_dtype, to_torch_dtype
 from . import build
-from .prefill import estimate_us
+from .prefill import STAGE_US, estimate_us
 from .reference import forward_fp8_ref
 
 __all__ = ["DecodeFp8Plan", "PrefillFp8Plan", "fp8_coded", "serves_fp8", "fp8_refusal",
@@ -41,11 +41,15 @@ __all__ = ["DecodeFp8Plan", "PrefillFp8Plan", "fp8_coded", "serves_fp8", "fp8_re
 BK = 128                   # the decode stage; the prefill stage with fp8 x (64 with bf16 x)
 TILE = 128                 # output columns a block
 SMS = 132                  # H100 SXM streaming multiprocessors
-TARGET_BLOCKS = 4 * SMS    # decode: about four blocks an SM
-DECODE_BUDGET = 72 * 1024  # decode: one block's ring, three blocks an SM
+DECODE_BLOCKS_PER_SM = 3   # the decode kernel's kDecodeMinBlocks (its launch bounds)
+DECODE_BUDGET = 72 * 1024  # decode: one block's shared memory, so that three fit an SM's 228 KB
+DECODE_RESIDENT = DECODE_BLOCKS_PER_SM * SMS   # decode blocks the card holds at once
 MAX_STAGES = 6
 PREFILL_STAGES = 5
 PREFILL_SMEM_MAX = 227 * 1024
+# fp8 x: a 256-row stage's time over a 128-row one's (scripts/torch_fp8_variants.py
+# rows_128 / rows_256 on 14336x4096 and 4096x14336, NVIDIA H100 80GB HBM3; PERF.md)
+ROWS_256_STAGE = 1.87
 CODES = (DType.FP8.value, DType.FP8e5.value)
 X_DTYPES = (DType.BF16.value,) + CODES
 
@@ -113,20 +117,20 @@ def _x_bytes(meta) -> int:
 
 
 def decode_plan(M: int, N: int, K: int, x_bytes: int) -> DecodeFp8Plan:
-    """K cut in units of 256 so that about ``TARGET_BLOCKS`` blocks run at
-    once. The split depends on N and K only, never on M, so a row's sum runs
-    in the same order at any batch and the stacked entry equals the
-    per-layer one."""
-    tiles = N // TILE
-    unit = 2 * BK
-    units = -(-K // unit)
-    splits = max(1, min(units, -(-TARGET_BLOCKS // tiles)))
-    per = -(-units // splits)
-    splits = -(-units // per)
+    """K cut in 128-deep stages, at least two a split, into the most splits
+    that keep the grid within whole waves of ``DECODE_RESIDENT`` blocks (one
+    wave wherever the column tiles fit it): a fractional last wave ran its
+    blocks on an otherwise idle card. The split depends on N and K only,
+    never on M, so a row's sum runs in the same order at any batch and the
+    stacked entry equals the per-layer one."""
+    tiles, steps = N // TILE, K // BK
+    waves = -(-tiles // DECODE_RESIDENT)
+    splits = max(1, min(steps // 2, waves * DECODE_RESIDENT // tiles))
+    per = -(-steps // splits)
     stage = BK // 4 * TILE * 4 + _row_tiles(M) * 8 * BK * x_bytes
     stages = max(2, min(MAX_STAGES, DECODE_BUDGET // stage))
     smem = max(stages * stage, M * TILE * 4)
-    return DecodeFp8Plan(tiles, splits, min(K, per * unit), stages, smem)
+    return DecodeFp8Plan(tiles, -(-steps // per), per * BK, stages, smem)
 
 
 class PrefillFp8Plan(NamedTuple):
@@ -154,19 +158,17 @@ class PrefillFp8Plan(NamedTuple):
 
 def prefill_smem(bm: int, bk: int, x_bytes: int, stages: int) -> int:
     """Shared memory of a block (the kernel's PLayout): the ring of x boxes
-    (128-byte rows) and word rows, the float32 epilogue tile over it, the
-    mbarriers, the flag and 1024 bytes of slack to align the base."""
+    (128-byte rows) and word rows (one box a stage; with fp8 x four groups of
+    32 columns in the 128-byte swizzle), the float32 epilogue tile over it,
+    the mbarriers, the flag and 1024 bytes of slack to align the base."""
     stage = bm * bk * x_bytes + bk // 4 * TILE * 4
     return max(stages * stage, bm * (TILE + 4) * 4) + 16 * stages + 16 + 1024
 
 
-def prefill_plan(M: int, N: int, K: int, x_bytes: int) -> PrefillFp8Plan:
-    """Row tile, K split (the least ``ops/prefill.estimate_us`` over whole
-    stages a split; a 128-deep fp8 stage costs about what a 64-deep bf16
-    one does) and ring. fp8 x takes 128 rows a block, bf16 x 256 from M
-    129."""
-    bk = 128 if x_bytes == 1 else 64
-    bm = 128 if (x_bytes == 1 or M <= 128) else 256
+def _prefill_split(M: int, N: int, K: int, bm: int, bk: int):
+    """(tiles_n, tiles_m, splits, stages a split): the K split of least
+    ``ops/prefill.estimate_us`` over whole stages a split (a 128-deep fp8
+    stage costs about what a 64-deep bf16 one does)."""
     tiles_n, tiles_m = N // TILE, -(-M // bm)
     steps = K // bk
     best = None
@@ -177,7 +179,41 @@ def prefill_plan(M: int, N: int, K: int, x_bytes: int) -> PrefillFp8Plan:
         t = estimate_us(M, N, tiles_n * tiles_m, steps, s, bm)
         if best is None or t < best[0]:
             best = (t, s, per)
-    _, splits, per = best
+    return tiles_n, tiles_m, best[1], best[2]
+
+
+def _prefill_us(M: int, N: int, K: int, bm: int, bk: int) -> float:
+    """``ops/prefill.estimate_us`` of the fp8-x kernel on ``bm`` rows a block
+    at its split, a 256-row stage at ``ROWS_256_STAGE`` times a 128-row one
+    (its two products share the A fragment) in place of twice."""
+    tiles_n, tiles_m, splits, per = _prefill_split(M, N, K, bm, bk)
+    waves = -(-tiles_n * tiles_m * splits // SMS)
+    t = estimate_us(M, N, tiles_n * tiles_m, K // bk, splits, bm)
+    if bm == 256:
+        t -= waves * per * (STAGE_US[256] - ROWS_256_STAGE * STAGE_US[128])
+    return t
+
+
+def prefill_rows(M: int, N: int, K: int, x_bytes: int) -> int:
+    """Rows of x a block: 128 up to M 128. Above, bf16 x takes 256 (two
+    products share each A fragment and its conversion); fp8 x the rows of
+    least ``_prefill_us``: 256 rows halve the blocks but take 1.87 times as
+    long, so 128 win where their grid fills its last wave better (as at M
+    1024 on 14336x4096) or needs fewer splits."""
+    if M <= 128:
+        return 128
+    if x_bytes == 2:
+        return 256
+    return min((128, 256), key=lambda bm: _prefill_us(M, N, K, bm, BK))
+
+
+def prefill_plan(M: int, N: int, K: int, x_bytes: int, bm: Optional[int] = None) -> PrefillFp8Plan:
+    """Rows (``prefill_rows``, unless ``bm`` is given: to time an earlier
+    tree's kernel or a variant, or to hold the 256-row instances in the card
+    tests), K split (``_prefill_split``) and the deepest ring that fits."""
+    bk = 128 if x_bytes == 1 else 64
+    bm = bm or prefill_rows(M, N, K, x_bytes)
+    tiles_n, tiles_m, splits, per = _prefill_split(M, N, K, bm, bk)
     stages = max(s for s in range(2, PREFILL_STAGES + 1)
                  if prefill_smem(bm, bk, x_bytes, s) <= PREFILL_SMEM_MAX)
     return PrefillFp8Plan(bm, bk, tiles_n, tiles_m, splits, per * bk, stages,
@@ -302,20 +338,27 @@ def fp8_prefill(x: torch.Tensor, W_q, scales, scales_x, meta) -> torch.Tensor:
     codes."""
     if x.device.type == "cpu":
         return forward_fp8_ref(x, W_q, scales, scales_x, meta)
-    M = x.shape[0]
-    N, K = meta.out_features, meta.in_features
+    M, N, K = x.shape[0], meta.out_features, meta.in_features
+    out = _prefill(x, W_q, scales, scales_x, meta, prefill_plan(M, N, K, _x_bytes(meta)))
+    fp8_prefill.launches += 1
+    return out
+
+
+def _prefill(x, W_q, scales, scales_x, meta, p: PrefillFp8Plan) -> torch.Tensor:
+    """One launch of the prefill kernel on the plan ``p`` (``fp8_prefill``
+    gives ``prefill_plan``'s; the card tests force 256 rows with it)."""
+    M, N = x.shape[0], meta.out_features
     x, s_ptr, s_code, sx = _operands(x, W_q, scales, scales_x, meta, M)
-    p = prefill_plan(M, N, K, _x_bytes(meta))
     stream = torch.cuda.current_stream().cuda_stream
     part, cnt = _split("fp8_prefill", p.splits * M * N if p.splits > 1 else 0,
                        p.tiles_n * p.tiles_m, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = _fn("gl_fp8_prefill", 7, 12)(
         x.data_ptr(), W_q.data_ptr(), s_ptr, None if sx is None else sx.data_ptr(), part, cnt,
-        out.data_ptr(), M, N, K, meta.input_dtype, meta.w_code_dtype, meta.W_group_mode,
-        meta.channel_scale_mode, s_code, p.bm, p.splits, p.k_per_split, p.stages, stream)
+        out.data_ptr(), M, N, meta.in_features, meta.input_dtype, meta.w_code_dtype,
+        meta.W_group_mode, meta.channel_scale_mode, s_code, p.bm, p.splits, p.k_per_split,
+        p.stages, stream)
     build.check(err, "fp8_gemm (prefill)")
-    fp8_prefill.launches += 1
     return out
 
 

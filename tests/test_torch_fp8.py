@@ -33,7 +33,7 @@ from gemlite_tpu.ops import dispatch as jdispatch
 from gemlite_tpu.quant import scale_activations_per_token as j_scale
 from gemlite_tpu_torch import GemLiteLinear, helper as th
 from gemlite_tpu_torch.ops import dispatch
-from gemlite_tpu_torch.ops.fp8 import decode_plan, prefill_plan, serves_fp8
+from gemlite_tpu_torch.ops.fp8 import decode_plan, prefill_plan, prefill_rows, serves_fp8
 from gemlite_tpu_torch.quant import scale_activations_per_token as t_scale
 
 from test_torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -226,7 +226,10 @@ def test_fp8_gate_and_plans():
                 p = prefill_plan(m, n, k, xb)
                 assert p.smem <= 227 * 1024 and p.k_per_split % p.bk == 0
                 assert p.splits * p.k_per_split >= k > (p.splits - 1) * p.k_per_split
-                assert p.bm == (128 if xb == 1 or m <= 128 else 256)
+                if m <= 128 or xb == 2:
+                    assert p.bm == (128 if m <= 128 else 256)
+                else:      # fp8 x: the rows of least modelled time
+                    assert p.bm == prefill_rows(m, n, k, xb) in (128, 256)
 
 
 def test_a8wn_from_hqqlinear_and_patch_model_need_hqq():

@@ -9,7 +9,9 @@ Tolerance: max|a-b| / max|b| <= 5e-3 against the plain version's float32
 result (``ops/reference.forward_fp8_ref``), the JAX kernel tests' bound; the
 stacked decode entry equals the per-layer one bit for bit, and the
 dequantize kernel equals ``dequantize_full`` bit for bit (one product and
-one rounding a value in both).
+one rounding a value in both). The 256-row prefill blocks with fp8 x are
+held at ragged M on 14336x4096, on the plan forced to 256 rows where
+``prefill_plan`` would take 128.
 """
 
 import pytest
@@ -20,7 +22,8 @@ from gemlite_tpu_torch.helper import (A16W8_FP8, A8W4_HQQ_INT_dynamic, A8W8_FP8_
                                       _warmup_quantize)
 from gemlite_tpu_torch.ops import build, dispatch
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
-from gemlite_tpu_torch.ops.fp8 import fp8_decode, fp8_decode_stacked, fp8_prefill
+from gemlite_tpu_torch.ops.fp8 import (_prefill, decode_plan, fp8_decode, fp8_decode_stacked,
+                                       fp8_prefill, prefill_plan)
 from gemlite_tpu_torch.ops.fused import fused_gemm_float, fused_matmul_plain
 from gemlite_tpu_torch.ops.reference import forward_fp8_ref
 from gemlite_tpu_torch.quant import scale_activations_per_token
@@ -113,6 +116,58 @@ def test_fp8_stacked_equals_per_layer(gen, M):
         idx = torch.tensor(i, dtype=torch.int32, device="cuda")
         stacked = fp8_decode_stacked(x, W, S, lyr.meta, idx)
         assert torch.equal(stacked, fp8_decode(x, lyr.W_q, lyr.scales, None, lyr.meta))
+
+
+@pytest.mark.parametrize("M", [129, 256, 300, 1024, 2048, 4095])
+@pytest.mark.parametrize("form", ["a8w8_e4m3", "a8w8_e5m2"])
+def test_fp8_prefill_256_rows(gen, form, M):
+    """fp8 x (e4m3 and e5m2 codes and x) on 256-row blocks at ragged M: rows
+    past M read as zeros and are never written."""
+    layer = _layer(gen, form, 14336, 4096)
+    x, sx = _inputs(gen, layer, M)
+    out = _prefill(x, layer.W_q, layer.scales, sx, layer.meta,
+                   prefill_plan(M, 14336, 4096, 1, bm=256))
+    assert out.shape == (M, 14336)
+    assert _rel(out, _plain(layer, x, sx)) <= REL
+
+
+@pytest.mark.parametrize("N,K", SHAPES_8B)
+@pytest.mark.parametrize("form", ["a8w8_e4m3", "a16w8_e4m3"])
+def test_fp8_prefill_swizzled_ring_8b_shapes(gen, form, N, K):
+    """The word ring (fp8 x: four 32-column groups in the 128-byte swizzle,
+    read on p_col's columns; bf16 x: rows of 128 words) at the 8B shapes, at
+    M 256 and 2048 (M 128 and 1024 in test_fp8_kernels_8b_shapes), on the
+    rows the plan picks."""
+    layer = _layer(gen, form, N, K)
+    for M in (256, 2048):
+        x, sx = _inputs(gen, layer, M)
+        err = _rel(fp8_prefill(x, layer.W_q, layer.scales, sx, layer.meta), _plain(layer, x, sx))
+        assert err <= REL, (M, err)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_fp8_stacked_equals_per_layer_8b(gen, M):
+    """The stacked decode equals the per-layer decode bit for bit on the
+    whole-wave plan of 14336x4096 (three splits)."""
+    layers = [_layer(gen, "a16w8_e4m3", 14336, 4096) for _ in range(2)]
+    assert decode_plan(M, 14336, 4096, 2).splits == 3
+    W = torch.stack([l.W_q for l in layers])
+    S = torch.stack([l.scales for l in layers])
+    x, _ = _inputs(gen, layers[0], M)
+    for i, lyr in enumerate(layers):
+        idx = torch.tensor(i, dtype=torch.int32, device="cuda")
+        stacked = fp8_decode_stacked(x, W, S, lyr.meta, idx)
+        assert torch.equal(stacked, fp8_decode(x, lyr.W_q, lyr.scales, None, lyr.meta))
+
+
+@pytest.mark.parametrize("form", ["a8w8_e4m3", "a16w8_e4m3"])
+def test_fp8_prefill_one_launch_256_rows(gen, form):
+    layer = _layer(gen, form, 14336, 4096)
+    for M in (256, 2048):
+        x, sx = _inputs(gen, layer, M)
+        assert prefill_plan(M, 14336, 4096, 1 if sx is not None else 2).bm == 256
+        assert build.graph_ops(lambda: fp8_prefill(x, layer.W_q, layer.scales, sx,
+                                                   layer.meta)) == ["kernel"]
 
 
 @pytest.mark.parametrize("form", ["a8w8_e4m3", "a16w8_e5m2_post", "a16w8_e4m3"])
