@@ -114,6 +114,21 @@ Phases, each printing one JSON line:
            only on the fp8 decode and prefill kernels, launches equal the
            schedule, the first step matches the plain path on the CPU;
   profile_fp8  device time by kernel over a short A8W8_FP8 serving run;
+  kernels_modes  the decode and prefill kernels' mode 1-3 form
+           (gl_decode_modes / gl_prefill_modes) on A8W4 and A8W2 gs 64 (mode
+           3, csm 2, e4m3 x), A8W4 channel-wise with post_scale (mode 1, csm
+           3), channel-wise A16W4 (mode 3) and A16W158 (mode 1, scalar zero)
+           at 14336x4096 and 4096x14336, decode at M 1 / 8 / 64, prefill at
+           M 128 / 1024 / 2048: within 5e-3 of the plain version
+           (forward_f32_epilogue, float32 result), one device operation a
+           call, times and bounds beside a dense bf16 matmul and, in the same
+           call, row 5f (the route these layers took before), and the fp8 x
+           conversion to bf16;
+  serve_a8w4   the 4-layer model quantized with A8W4_HQQ_INT_dynamic(bf16)
+           gs 64, served as in "serve": tokens equal the bare loop, the
+           linears run only on the mode 1-3 decode and prefill forms,
+           launches equal the schedule, the first step matches the plain path
+           on the CPU; profiled in profile_a8w4;
   kernels_mx   the MX kernels (csrc/mx_gemm.cu, the MX form of
            csrc/dequantize.cu) against their plain version
            (ops/reference.mx_forward_ref) within 5e-3: decode at M 1 / 8 / 64
@@ -198,9 +213,11 @@ Phases, each printing one JSON line:
            the first 16 as one batch (M 8192), and those 16 through the plain
            versions on the CPU: |card - CPU| <= 2e-3 nats/byte (1% relative
            for W2 gs 32), beside PARITY.md's JAX-package value, each model
-           quantized on the card equal byte for byte to the CPU's; W4 gs 128,
-           A8W8, A16W8_FP8 and A16W4_MXFP serve 8 held-out prompts (64-400
-           bytes, 32 greedy tokens) on the paged, dense and (W4, A16W8_FP8,
+           quantized on the card equal byte for byte to the CPU's; A8W4 gs 64
+           also on its first 4 windows (M 2048, the mode 1-3 prefill form)
+           against the CPU; W4 gs 128, A8W8, A16W8_FP8, A16W4_MXFP and A8W4
+           gs 64 serve 8 held-out prompts (64-400 bytes, 32 greedy tokens)
+           on the paged, dense and (W4, A16W8_FP8,
            A16W4_MXFP) scan engines, each equal to its bare loop; the W8 gs
            128 model with a W4 gs 128 draft, gamma 4, 96 greedy tokens, on
            the dense and paged speculative engines: tokens equal the plain
@@ -343,12 +360,13 @@ def int4pack_mm(W_q, scales, zeros, K: int):
 def phase_build():
     from gemlite_tpu_torch.ops import build
     t0 = time.perf_counter()
-    reports = build.build()
+    per_source = {}
+    reports = build.build(seconds=per_source)
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln] for name, log in reports.items()}
     emit({"phase": "build", "ok": True, "seconds": seconds, "sources": list(build.KERNEL_SOURCES),
-          "compiled_now": sorted(reports), "ptxas": ptxas})
+          "compiled_now": sorted(reports), "seconds_by_source": per_source, "ptxas": ptxas})
 
 
 def kernel_bound(bytes_moved: float, flops: float, peak, ops_rate=None):
@@ -652,7 +670,7 @@ def device_times(prof, groups) -> dict:
         g = next((g for g, subs in groups.items() if any(sub in key for sub in subs)), "other")
         by_group[g] += us / 1e3
     return {"device_ms": sum(r[0] for r in rows) / 1e3, "device_ms_by_group": by_group,
-            "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": n}
+            "top": [{"kernel": k[:240], "device_ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:12]]}
 
 
@@ -1407,6 +1425,129 @@ def phase_serve_fp8(card: str, cfg, dense) -> dict:
     return serve_and_check("serve_fp8", params, cfg, card, time.perf_counter() - t0,
                            "decode", "prefill", "profile_fp8", FP8_GROUPS,
                            kernel_of={"decode": "fp8_decode", "prefill": "fp8_prefill"})[0]
+
+
+MODES_GROUPS = {"decode_modes_kernel": ("decode_modes_kernel",),
+                "prefill_modes_kernel": ("prefill_modes_kernel",),
+                "copies (x to bf16 among them)": ("copy_kernel",)}
+MODES_SHAPES = ((14336, 4096), (4096, 14336))
+MODES_DECODE_MS = (1, 8, 64)
+MODES_PREFILL_MS = (128, 1024, 2048)
+MODES_FORMS = ("a8w4_gs64", "a8w2_gs64", "a8w4_cw_post", "a16w4_cw", "a16w158")
+
+
+def modes_layer(form: str, N: int, K: int, gen: torch.Generator):
+    """A layer of the decode and prefill kernels' mode 1-3 form, from random
+    weights quantized on the card: A8W4 / A8W2_HQQ_INT_dynamic gs 64 (mode 3,
+    csm 2, e4m3 x), A8W4 channel-wise with post_scale (mode 1, csm 3),
+    channel-wise A16W4 (mode 3, csm 0) and A16W158_INT (W2, mode 1, scalar
+    zero, float32 channel scale)."""
+    from gemlite_tpu_torch.helper import (A16W158_INT, A16Wn, A8W2_HQQ_INT_dynamic,
+                                          A8W4_HQQ_INT_dynamic)
+    from gemlite_tpu_torch.quant import quantize_int_weights
+    bf16 = torch.bfloat16
+    if form == "a16w158":
+        w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
+        return A16W158_INT(device="cuda", dtype=bf16).from_weights(w, 0.01)
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    bits, gs = (2, 64) if form == "a8w2_gs64" else (4, 64 if form == "a8w4_gs64" else K)
+    W_q, s, z = quantize_int_weights(w, bits, gs)
+    if form == "a16w4_cw":
+        return A16Wn(device="cuda", dtype=bf16).from_weights(W_q, s, z, bits, gs)
+    proc = A8W2_HQQ_INT_dynamic if bits == 2 else A8W4_HQQ_INT_dynamic
+    return proc(device="cuda", dtype=bf16, post_scale=form == "a8w4_cw_post").from_weights(
+        W_q, s, z)
+
+
+def phase_kernels_modes(card: str, peak, timer: Timer) -> dict:
+    """The decode and prefill kernels' mode 1-3 form (``gl_decode_modes`` /
+    ``gl_prefill_modes``) on MODES_FORMS at 14336x4096 and 4096x14336: decode
+    at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, each within 5e-3 (max
+    form) of its plain version's float32 result (``forward_f32_epilogue``)
+    and reported against ``forward_meta`` (mean form), in one device
+    operation a call; its time beside the bound, a dense bf16 matmul on the
+    dequantized weight (x in bf16) and, in the same call, the general fused
+    kernel's float path on the same layer and x (fp8 codes for A8Wn): the
+    route these layers took before (row 5f). The plain version is timed on
+    the kernels line's rows (A8W4 gs 64, 14336x4096, M 8 and 128)."""
+    from gemlite_tpu_torch.dtypes import to_torch_dtype
+    from gemlite_tpu_torch.ops import decode, prefill
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full
+    from gemlite_tpu_torch.ops.fused import fused_gemm_float
+    from gemlite_tpu_torch.ops.reference import forward_f32_epilogue, forward_meta
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    picked = {("decode_modes", 8), ("prefill_modes", 128)}
+    for form in MODES_FORMS:
+        for N, K in MODES_SHAPES:
+            layer = modes_layer(form, N, K, gen)
+            meta = layer.meta
+            dense = dequantize_full(layer.W_q, layer.scales, layer.zeros, meta).to(torch.bfloat16)
+            fp8 = meta.scaled_activations
+            for M in MODES_DECODE_MS + MODES_PREFILL_MS:
+                kernel = "decode_modes" if M <= 64 else "prefill_modes"
+                fn = decode.decode_modes if M <= 64 else prefill.prefill_modes
+                xb = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+                xq, sx = (scale_activations_per_token(xb, to_torch_dtype(meta.input_dtype))
+                          if fp8 else (xb, None))
+                x = xq.to(torch.bfloat16)
+                args = (layer.W_q, layer.scales, layer.zeros, sx)
+                got = fn(x, *args, meta)
+                want = forward_f32_epilogue(xq, *args, with_f32_out(meta))
+                meta_ref = forward_meta(xq, *args, with_f32_out(meta))
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                x_bytes = M * K * (1 if fp8 else 2) + (4 * M if fp8 else 0)
+                bound, by = kernel_bound(layer_bytes(layer) + x_bytes + 2 * M * N,
+                                         2.0 * M * N * K, peak)
+                timed_plain = form == "a8w4_gs64" and (N, K) == MODES_SHAPES[0] and \
+                    (kernel, M) in picked
+                row = {"kernel": kernel, "form": form, "mode": meta.W_group_mode,
+                       "csm": meta.channel_scale_mode, "M": M, "N": N, "K": K,
+                       "rel_err": err, "max_abs_err": max_abs(got, want),
+                       "forward_meta_mean_rel": _mean_max(got, meta_ref)["mean_rel"],
+                       "ms": timer.ms(lambda: fn(x, *args, meta)),
+                       "row_5f_ms": timer.ms(lambda: fused_gemm_float(xq, *args, meta)),
+                       "x_to_bf16_ms": timer.ms(lambda: xq.to(torch.bfloat16)) if fp8 else None,
+                       "plain_ms": timer.ms(lambda: forward_f32_epilogue(xq, *args, meta), iters=3)
+                       if timed_plain else None,
+                       "bound_ms": bound, "bound_by": by,
+                       "library_ms": timer.ms(lambda: torch.matmul(x, dense)),
+                       "library": "dense bf16 matmul on the dequantized weight (x in bf16)",
+                       "plan": (decode.modes_plan(M, meta) if M <= 64 else
+                                prefill.plan(M, N, K, meta.group_size, meta.W_nbits))._asdict(),
+                       "device_ops_per_call": device_ops_per_call(lambda: fn(x, *args, meta)),
+                       "card": card}
+                emit(row)
+                if not err <= REL_TOL:
+                    raise RuntimeError(f"{kernel} disagrees with its plain version: {row}")
+                if row["device_ops_per_call"] != 1:
+                    raise RuntimeError(f"{kernel}: one call took several device operations: {row}")
+                rows.append(row)
+            del layer, dense
+            torch.cuda.empty_cache()
+    emit({"phase": "kernels_modes", "ok": True, "checked": len(rows), "card": card})
+    return {r["kernel"]: r for r in rows if r["plain_ms"] is not None}
+
+
+def phase_serve_a8w4(card: str, cfg, dense) -> dict:
+    """The 4-layer model quantized with A8W4_HQQ_INT_dynamic(bf16) gs 64
+    (mode 3 with bf16 scales and zeros, e4m3 activations per token) served
+    as in "serve": every linear on the decode kernel's mode 1-3 form up to M
+    64 and on the prefill kernel's above, fp8 x going in as its bf16 image."""
+    from gemlite_tpu_torch import quantize_llama
+    from gemlite_tpu_torch.helper import A8W4_HQQ_INT_dynamic
+
+    t0 = time.perf_counter()
+    params = quantize_llama(dense, processor=A8W4_HQQ_INT_dynamic(device="cuda",
+                                                                  dtype=torch.bfloat16),
+                            group_size=64)
+    torch.cuda.synchronize()
+    return serve_and_check("serve_a8w4", params, cfg, card, time.perf_counter() - t0,
+                           "decode", "prefill", "profile_a8w4", MODES_GROUPS,
+                           kernel_of={"decode": "decode_modes", "prefill": "prefill_modes"})[0]
 
 
 MX_GROUPS = {"mx_decode_kernel": ("mx_decode",), "mx_prefill_kernel": ("mx_prefill",)}
@@ -2561,9 +2702,15 @@ PARITY_NLL = {"dense_bf16": 0.1972, "a16w8": 0.1976, "w8_gs128": 0.1973, "w4_gs1
               "w4_gs64": 0.2740, "w2_gs32": 2.7584, "a8w8": None, "a16w8_fp8": None,
               "a8w8_fp8": None, "a8w4_gs64": None, "a16w4_mxfp": None, "a8w8_mxfp": None,
               "a4w4_nvfp": None}
-# the engines serve these (the stacked kernel takes W4, A16W8_FP8 and A16W4_MXFP)
-RW_SERVED = {"w4_gs128": True, "a8w8": False, "a16w8_fp8": True, "a16w4_mxfp": True}
+# the engines serve these (the stacked kernel takes W4, A16W8_FP8 and A16W4_MXFP;
+# A8W4 serves on the decode and prefill kernels' mode 1-3 form)
+RW_SERVED = {"w4_gs128": True, "a8w8": False, "a16w8_fp8": True, "a16w4_mxfp": True,
+             "a8w4_gs64": False}
 EVAL_WINDOWS, EVAL_SEQ, EVAL_BATCH, EVAL_CHECKED = 256, 512, 4, 16
+# the configurations whose M 2048 batches (the first 4 windows) are held to
+# the CPU plain port too: A8W4's run the prefill kernel's mode 1-3 form there,
+# and its M 8192 batch the general fused kernel
+RW_GATED_M2048 = ("a8w4_gs64",)
 RW_PROMPT_LENS = (64, 100, 150, 200, 256, 300, 350, 400)
 RW_PROMPT_START = 140_000   # past the eval's 256 x 512 bytes
 
@@ -2644,9 +2791,12 @@ def phase_real_weights(card: str) -> None:
     there): |card - CPU| <= 2e-3 nats/byte (1% relative for W2 gs 32). The
     layers quantized on the card must equal, byte for byte, those quantized
     from the same weights on the CPU (which equal the JAX package's:
-    tests/test_torch_real_weights.py).
-    Then W4 gs 128, A8W8, A16W8_FP8 and A16W4_MXFP serve 8 held-out prompts
-    of 64-400 bytes, 32 greedy tokens each, on the paged, dense and (W4,
+    tests/test_torch_real_weights.py). A8W4 gs 64 (RW_GATED_M2048) is also
+    held to the CPU on its first 4 windows at M 2048, where its linears run
+    the prefill kernel's mode 1-3 form (its M 8192 batch runs row 5f).
+    Then W4 gs 128, A8W8, A16W8_FP8, A16W4_MXFP and A8W4 gs 64 serve 8
+    held-out prompts of 64-400 bytes, 32 greedy tokens each, on the paged,
+    dense and (W4,
     A16W8_FP8, A16W4_MXFP) scan engines, each equal to its bare loop, and
     the W8 gs 128 model with its W4 gs 128 draft on the speculative engines
     (``serve_real_spec``). Every kernel of the kernels line but the general
@@ -2680,15 +2830,22 @@ def phase_real_weights(card: str) -> None:
                 nll = eval_nll(params, cfg, windows, EVAL_BATCH)
                 nll16 = eval_nll(params, cfg, windows[:EVAL_CHECKED], EVAL_CHECKED)
             eval_s = time.perf_counter() - t0
+            nll4 = eval_nll(params, cfg, windows[:EVAL_BATCH], EVAL_BATCH)
             with RouteLog() as cpu_routes:
                 nll16_cpu = eval_nll(params_cpu, cfg, checked_cpu, EVAL_CHECKED)
+                nll4_cpu = eval_nll(params_cpu, cfg, checked_cpu[:EVAL_BATCH], EVAL_BATCH)
         gap = abs(nll16 - nll16_cpu)
         bound = NLL_REL_TOL_W2 * nll16_cpu if name == "w2_gs32" else NLL_TOL
+        if name in RW_GATED_M2048:
+            gap = max(gap, abs(nll4 - nll4_cpu))
         plain_on_card = [r for r in card_routes.linears | card_routes.attention
                          if r.startswith("plain")]
         rows[name] = {"nll": nll, "bits_per_byte": nll / float(np.log(2)),
                       "nll_first16_m8192": nll16, "nll_first16_cpu_plain": nll16_cpu,
                       "card_minus_cpu": nll16 - nll16_cpu, "gate": bound,
+                      "nll_first4_m2048": nll4, "nll_first4_cpu_plain": nll4_cpu,
+                      "card_minus_cpu_m2048": nll4 - nll4_cpu,
+                      "gated_at_m2048": name in RW_GATED_M2048,
                       "jax_package_parity_md": PARITY_NLL[name],
                       "packed_on_card_equals_cpu": same_bytes,
                       "routes_card": card_routes.report(), "routes_cpu": cpu_routes.report(),
@@ -3407,6 +3564,8 @@ def main() -> int:
     picked.update(phase_kernels_fp8(card, peak, timer, old_fp8))
     fp8_layer_counts = phase_layer_fp8(card)
     fp8_counts = phase_serve_fp8(card, cfg, dense)
+    picked.update(phase_kernels_modes(card, peak, timer))
+    modes_counts = phase_serve_a8w4(card, cfg, dense)
     picked.update(phase_kernels_mx(card, peak, timer, old_mx))
     mx_layer_counts = phase_layer_mx(card)
     mxfp4_counts = phase_serve_mx(card, cfg, dense, "a16w4_mxfp")
@@ -3462,6 +3621,12 @@ def main() -> int:
                                          "gemlite_tpu/ops/pallas_gemm.py:294",
                                          rw_counts["a8w4_gs64"], "real_weights (a8w4_gs64)",
                                          "fused_gemm_float"),
+               "decode_modes": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+                                "gemlite_tpu/ops/pallas_decode.py:619", modes_counts,
+                                "serve_a8w4", "decode_modes"),
+               "prefill_modes": ("gemlite_tpu_torch/csrc/prefill_gemm.cu",
+                                 "gemlite_tpu/ops/pallas_prefill.py:570", modes_counts,
+                                 "serve_a8w4", "prefill_modes"),
                "mx_decode": (mx_src, "gemlite_tpu/ops/pallas_decode.py:619", mxfp4_counts,
                              "serve_mxfp4", "mx_decode"),
                "mx_decode_stacked": (mx_src, "gemlite_tpu/ops/pallas_scan.py:70",

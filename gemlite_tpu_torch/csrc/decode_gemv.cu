@@ -1,12 +1,24 @@
 // SPDX-License-Identifier: Apache-2.0
 // W1/W2/W4 decode for M <= 64: out = x @ dequant(W_q), bf16 out, float32
 // sums on the bf16 tensor cores, W_group_mode 4 with bf16 group scales and
-// pre-folded zeros, one launch a call.
+// pre-folded zeros, or modes 1-3 with a channel-scale epilogue, one launch a
+// call.
 //
-// Two entries share one body:
+// Three entries share one body:
 //   gl_decode          one layer: replaces the TPU kernel
 //                      gemlite_tpu/ops/pallas_decode.py:pallas_decode_matmul
 //                      on the mode-4 layers the serving path runs;
+//   gl_decode_modes    one layer in W_group_mode 1, 2 or 3 (bf16 group
+//                      scales, grouped bf16 or scalar int32 zeros) with csm
+//                      0-3: the same TPU kernel on the A8Wn, channel-wise
+//                      A16Wn and BitNet layers (fp8 x comes in as its bf16
+//                      image, exact). Its instances (template flag M3) build
+//                      w = (q - z) * s in three bf16x2 fmas a code pair,
+//                      rounded as the plain version rounds, and multiply the
+//                      finished float32 sums by the per-token and channel
+//                      scales; a channel-wise layer (gs = K) reads its one
+//                      metadata row at every k, so its K split is planned in
+//                      units of 256 like a grouped layer's;
 //   gl_decode_stacked  layer l of an L-layer stack (L, K / epw, N): replaces
 //                      gemlite_tpu/ops/pallas_scan.py:pallas_decode_matmul_stacked.
 //                      The TPU kernel reads l as a scalar-prefetch operand in
@@ -88,6 +100,7 @@ struct Params {
     int wvec, mvec;                      // copy sizes of words (16 / 4) and metadata (16 / 4 / 2)
 };
 
+
 __host__ __device__ constexpr int word_rows(int bits) { return BK * bits / 32; }
 __host__ __device__ constexpr int words_bytes(int bits) { return word_rows(bits) * BN * 4; }
 __host__ __device__ constexpr int x_bytes(int nt) { return nt * 8 * BK * 2; }
@@ -117,10 +130,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // one ring stage: the words, x and metadata of k0 .. k0 + BK - 1 of the
 // range ending at k_end; copies past M, N or k_end fill zeros (a zero code
 // with a zero scale and zero is a zero weight, against a zero x)
-template <int NT, int BITS>
-__device__ __forceinline__ void load_stage(const Params& p, const uint32_t* wq, const bf16* sc,
-                                           const bf16* ze, unsigned char* st, int n0, int k0,
-                                           int k_end) {
+template <int NT, int BITS, bool M3>
+__device__ __forceinline__ void load_stage(const Params& p, const Modes& m, const uint32_t* wq,
+                                           const bf16* sc, const bf16* ze, unsigned char* st,
+                                           int n0, int k0, int k_end) {
     constexpr int EPW = 32 / BITS, WR = word_rows(BITS), XR = NT * 8;
     uint32_t* ws = reinterpret_cast<uint32_t*>(st);
     bf16* xs = reinterpret_cast<bf16*>(st + words_bytes(BITS));
@@ -152,6 +165,8 @@ __device__ __forceinline__ void load_stage(const Params& p, const uint32_t* wq, 
     const int g0 = k0 / p.gs, gv = min(p.mrows, (k_end - 1) / p.gs - g0 + 1);
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
+        if constexpr (M3)
+            if (!(a ? m.has_z : m.has_s)) continue;  // a constant of the mode 1-3 form
         const bf16* src = (a ? ze : sc) + (size_t)g0 * p.N + n0;
         bf16* dst = reinterpret_cast<bf16*>(st + words_bytes(BITS) + x_bytes(NT) +
                                             a * meta_bytes(p.mrows));
@@ -165,7 +180,8 @@ __device__ __forceinline__ void load_stage(const Params& p, const uint32_t* wq, 
             for (int i = t; i < p.mrows * (BN / e); i += BN) {
                 const int r = i / (BN / e), c = (i % (BN / e)) * e;
                 const bool ok = r < gv && n0 + c < p.N;
-                const void* s = ok ? (const void*)(src + (size_t)r * p.N + c) : (const void*)sc;
+                const void* s = ok ? (const void*)(src + (size_t)r * p.N + c)
+                                   : (const void*)(M3 ? (a ? ze : sc) : sc);
                 if (e == 8) cp_async16(smem_u32(dst + r * BN + c), s, ok ? 16 : 0);
                 else cp_async4(smem_u32(dst + r * BN + c), s, ok ? 4 : 0);
             }
@@ -181,9 +197,12 @@ __device__ __forceinline__ void load_stage(const Params& p, const uint32_t* wq, 
 // feeds mma e / 2, its low-k registers for even e, its high-k ones for odd
 // e, so element (j, f) of a lane's fragments (f = 0..3: logical k 2t, 2t + 1,
 // 2t + 8, 2t + 9) is code 2j + f / 2 + 4 (f % 2); x is paired to match.
-template <int NT, int BITS>
-__device__ __forceinline__ void compute_stage(const Params& p, const unsigned char* st, int k0,
-                                              int k_end, int nt, int wn0, int lane,
+// M3: the mode 1-3 dequantization, z2 holding -z and nz2 the constant -z of
+// a layer without a zero row.
+template <int NT, int BITS, bool M3>
+__device__ __forceinline__ void compute_stage(const Params& p, const Modes& m,
+                                              const unsigned char* st, int k0, int k_end, int nt,
+                                              int wn0, int lane, uint32_t nz2,
                                               float (&acc)[2][NT][4]) {
     constexpr int EPW = 32 / BITS;
     constexpr uint32_t MASK2 = ((1u << BITS) - 1u) * 0x00010001u;
@@ -204,9 +223,14 @@ __device__ __forceinline__ void compute_stage(const Params& p, const unsigned ch
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int c = wn0 + 16 * i + 8 * h + g;
-                    s2[i][h] = ss[gr * BN + c] * 0x00010001u;
-                    z2[i][h] = zs[gr * BN + c] * 0x00010001u;
-                    m2[i][h] = minus128(s2[i][h]);
+                    if constexpr (M3) {
+                        s2[i][h] = m.has_s ? ss[gr * BN + c] * 0x00010001u : 0x3F803F80u;
+                        z2[i][h] = m.has_z ? (zs[gr * BN + c] ^ 0x8000u) * 0x00010001u : nz2;
+                    } else {
+                        s2[i][h] = ss[gr * BN + c] * 0x00010001u;
+                        z2[i][h] = zs[gr * BN + c] * 0x00010001u;
+                        m2[i][h] = minus128(s2[i][h]);
+                    }
                 }
         }
         const int r = kl / EPW, shift = BITS * (kl % EPW);
@@ -222,7 +246,10 @@ __device__ __forceinline__ void compute_stage(const Params& p, const unsigned ch
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const uint32_t v = ((u >> (BITS * e)) & MASK2) | 0x43004300u;   // 128 + q
-                    a[e >> 1][i][2 * (e & 1) + h] = dequant_pair(v, s2[i][h], m2[i][h], z2[i][h]);
+                    if constexpr (M3)
+                        a[e >> 1][i][2 * (e & 1) + h] = dequant_pair_shift(v, s2[i][h], z2[i][h]);
+                    else
+                        a[e >> 1][i][2 * (e & 1) + h] = dequant_pair(v, s2[i][h], m2[i][h], z2[i][h]);
                 }
             }
 #pragma unroll
@@ -246,8 +273,11 @@ __device__ __forceinline__ void compute_stage(const Params& p, const unsigned ch
 // or with K split the block's partial, and the last block of the column
 // tile adds the partials in split order and leaves its counter at 0. Four
 // columns a thread where rows allow, and eight splits' loads in flight
-// before they are added. Not inlined: one copy serves every instance.
-__device__ __noinline__ void finish(const Params p, const float* tile, int* flag) {
+// before they are added. M3: the channel-scale epilogue of the mode 1-3
+// form on the finished sums (md points at its kernel argument).
+template <bool M3>
+__device__ __forceinline__ void finish_body(const Params& p, const Modes* md, const float* tile,
+                                            int* flag) {
     const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
     const size_t MN = (size_t)p.M * p.N;
     const int V = p.N % 4 == 0 ? 4 : 1;
@@ -296,6 +326,12 @@ __device__ __noinline__ void finish(const Params p, const float* tile, int* flag
                 }
             }
         }
+        if constexpr (M3) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                if (i < V)
+                    v[i] = gl::channel_scale(v[i], md->csm, md->cs, md->cs_code, md->sx, m, n + i);
+        }
         if (V == 4) {
             const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
             const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
@@ -310,9 +346,19 @@ __device__ __noinline__ void finish(const Params p, const float* tile, int* flag
     if (nsplit > 1 && threadIdx.x == 0) p.counters[blockIdx.x] = 0;
 }
 
-template <int NT, int BITS>
-__device__ __forceinline__ void decode_body(const Params& p, const uint32_t* wq, const bf16* sc,
-                                            const bf16* ze) {
+// Not inlined: one copy serves every instance of a form.
+__device__ __noinline__ void finish(const Params p, const float* tile, int* flag) {
+    finish_body<false>(p, nullptr, tile, flag);
+}
+
+__device__ __noinline__ void finish_modes(const Params p, const Modes* md, const float* tile,
+                                          int* flag) {
+    finish_body<true>(p, md, tile, flag);
+}
+
+template <int NT, int BITS, bool M3>
+__device__ __forceinline__ void decode_body(const Params& p, const Modes& md, const uint32_t* wq,
+                                            const bf16* sc, const bf16* ze) {
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ int last_flag;
     const int S = p.stages, SB = stage_bytes(BITS, NT, p.mrows);
@@ -322,6 +368,7 @@ __device__ __forceinline__ void decode_body(const Params& p, const uint32_t* wq,
     const int k_begin = split * p.k_per_split, k_end = min(p.K, k_begin + p.k_per_split);
     const int steps = (k_end - k_begin + BK - 1) / BK;
     const int nt = (p.M + 7) / 8;
+    const uint32_t nz2 = M3 ? neg_zero2(md.zscalar) : 0u;
 
     float acc[2][NT][4];
 #pragma unroll
@@ -332,7 +379,8 @@ __device__ __forceinline__ void decode_body(const Params& p, const uint32_t* wq,
             for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
     for (int s = 0; s < S - 1; ++s) {
-        if (s < steps) load_stage<NT, BITS>(p, wq, sc, ze, smem + s * SB, n0, k_begin + s * BK, k_end);
+        if (s < steps)
+            load_stage<NT, BITS, M3>(p, md, wq, sc, ze, smem + s * SB, n0, k_begin + s * BK, k_end);
         cp_async_commit();
     }
     for (int it = 0; it < steps; ++it) {
@@ -341,9 +389,11 @@ __device__ __forceinline__ void decode_body(const Params& p, const uint32_t* wq,
         __syncthreads();
         const int nxt = it + S - 1;
         if (nxt < steps)
-            load_stage<NT, BITS>(p, wq, sc, ze, smem + (nxt % S) * SB, n0, k_begin + nxt * BK, k_end);
+            load_stage<NT, BITS, M3>(p, md, wq, sc, ze, smem + (nxt % S) * SB, n0,
+                                     k_begin + nxt * BK, k_end);
         cp_async_commit();
-        compute_stage<NT, BITS>(p, smem + (it % S) * SB, k_begin + it * BK, k_end, nt, wn0, lane, acc);
+        compute_stage<NT, BITS, M3>(p, md, smem + (it % S) * SB, k_begin + it * BK, k_end, nt,
+                                    wn0, lane, nz2, acc);
     }
     cp_async_wait_n(0);
     __syncthreads();                                     // the ring is free
@@ -360,12 +410,20 @@ __device__ __forceinline__ void decode_body(const Params& p, const uint32_t* wq,
             }
         }
     __syncthreads();
-    finish(p, tile, &last_flag);
+    if constexpr (M3) finish_modes(p, &md, tile, &last_flag);
+    else finish(p, tile, &last_flag);
 }
 
 template <int NT, int BITS>
 __global__ void __launch_bounds__(BN, kMinBlocks) decode_mma_kernel(Params p) {
-    decode_body<NT, BITS>(p, p.wq, p.scales, p.zeros);
+    decode_body<NT, BITS, false>(p, Modes{}, p.wq, p.scales, p.zeros);
+}
+
+// the mode 1-3 form: md a grid constant, so finish_modes reads it in place
+template <int NT, int BITS>
+__global__ void __launch_bounds__(BN, kMinBlocks)
+decode_modes_kernel(Params p, const __grid_constant__ Modes md) {
+    decode_body<NT, BITS, true>(p, md, p.wq, p.scales, p.zeros);
 }
 
 // wq (L, K / epw, N), scales and zeros (L, K / gs, N); *layer_idx in [0, L).
@@ -375,7 +433,8 @@ __global__ void __launch_bounds__(BN, kMinBlocks) decode_mma_stacked_kernel(Para
     const int l = __ldg(p.layer_idx);                    // the same 4 bytes for every thread
     if (l < 0 || l >= p.L) __trap();                     // the caller's index is out of the stack
     const size_t words = (size_t)(p.K / (32 / BITS)) * p.N, groups = (size_t)(p.K / p.gs) * p.N;
-    decode_body<NT, BITS>(p, p.wq + l * words, p.scales + l * groups, p.zeros + l * groups);
+    decode_body<NT, BITS, false>(p, Modes{}, p.wq + l * words, p.scales + l * groups,
+                                 p.zeros + l * groups);
 }
 
 __host__ int smem_bytes(int bits, int nt, int mrows, int stages, int M) {
@@ -383,35 +442,44 @@ __host__ int smem_bytes(int bits, int nt, int mrows, int stages, int M) {
     return ring > tile ? ring : tile;
 }
 
-template <int NT, int BITS>
-cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
+template <int NT, int BITS, bool M3>
+cudaError_t launch(const Params& p, const Modes& md, int splits, cudaStream_t stream) {
     static std::atomic<unsigned> ready{0};               // a bit per device: attributes set
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (!(ready.load() & (1u << dev))) {
-        err = cudaFuncSetAttribute(decode_mma_kernel<NT, BITS>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(decode_mma_stacked_kernel<NT, BITS>,
+        if constexpr (M3) {
+            err = cudaFuncSetAttribute(decode_modes_kernel<NT, BITS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+        } else {
+            err = cudaFuncSetAttribute(decode_mma_kernel<NT, BITS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+            if (err == cudaSuccess)
+                err = cudaFuncSetAttribute(decode_mma_stacked_kernel<NT, BITS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+        }
         if (err != cudaSuccess) return err;
         ready.fetch_or(1u << dev);
     }
     const int bytes = smem_bytes(BITS, NT, p.mrows, p.stages, p.M);
     if (bytes > kSmemMax) return cudaErrorInvalidValue;
     const dim3 grid((p.N + BN - 1) / BN, splits);
-    if (p.layer_idx) decode_mma_stacked_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
-    else decode_mma_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
+    if constexpr (M3) {
+        decode_modes_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p, md);
+    } else {
+        if (p.layer_idx) decode_mma_stacked_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
+        else decode_mma_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
+    }
     return cudaGetLastError();
 }
 
-template <int BITS>
-cudaError_t launch_rows(const Params& p, int splits, cudaStream_t stream) {
-    if (p.M <= 8) return launch<1, BITS>(p, splits, stream);
-    if (p.M <= 16) return launch<2, BITS>(p, splits, stream);
-    if (p.M <= 32) return launch<4, BITS>(p, splits, stream);
-    return launch<8, BITS>(p, splits, stream);
+template <int BITS, bool M3>
+cudaError_t launch_rows(const Params& p, const Modes& md, int splits, cudaStream_t stream) {
+    if (p.M <= 8) return launch<1, BITS, M3>(p, md, splits, stream);
+    if (p.M <= 16) return launch<2, BITS, M3>(p, md, splits, stream);
+    if (p.M <= 32) return launch<4, BITS, M3>(p, md, splits, stream);
+    return launch<8, BITS, M3>(p, md, splits, stream);
 }
 
 // group rows that one 128-deep stage can touch: the least mrows the ring may
@@ -421,26 +489,30 @@ int groups_per_stage(int gs) {
     return BK % gs == 0 ? BK / gs : BK / gs + 2;
 }
 
-int run(Params p, int bits, int splits, cudaStream_t stream) {
+template <bool M3>
+int run(Params p, const Modes& md, int bits, int splits, cudaStream_t stream) {
     const int epw = bits > 0 ? 32 / bits : 0;
     const bool shape_ok = p.M >= 1 && p.M <= 64 && p.N >= 1 && (bits == 1 || bits == 2 || bits == 4) &&
                           p.gs > 0 && p.gs % (epw > 8 ? epw : 8) == 0 && p.K % p.gs == 0;
-    const bool split_ok = splits >= 1 && p.k_per_split > 0 && p.k_per_split % p.gs == 0 &&
+    // a split starts on a group row; one group (gs = K) has the same row everywhere
+    const bool one_group = p.gs == p.K;
+    const bool split_ok = splits >= 1 && p.k_per_split > 0 &&
+                          (p.k_per_split % p.gs == 0 || one_group) &&
                           (splits == 1 || p.k_per_split % BK == 0) &&
                           (long long)(splits - 1) * p.k_per_split < p.K &&
                           (long long)splits * p.k_per_split >= p.K &&
                           (splits == 1 || (p.part != nullptr && p.counters != nullptr));
     if (!shape_ok || !split_ok || p.stages < 2 || p.stages > kMaxStages ||
-        p.mrows < groups_per_stage(p.gs) || reinterpret_cast<uintptr_t>(p.x) % 16)
+        p.mrows < (one_group ? 1 : groups_per_stage(p.gs)) || reinterpret_cast<uintptr_t>(p.x) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     // 16-byte pieces need 16-byte rows and bases (every layer of a stack too)
     p.wvec = p.N % 4 == 0 && reinterpret_cast<uintptr_t>(p.wq) % 16 == 0 ? 16 : 4;
     const uintptr_t meta_base = reinterpret_cast<uintptr_t>(p.scales) | reinterpret_cast<uintptr_t>(p.zeros);
     p.mvec = p.N % 8 == 0 && meta_base % 16 == 0 ? 16 : (p.N % 2 == 0 && meta_base % 4 == 0 ? 4 : 2);
     cudaError_t err;
-    if (bits == 4) err = launch_rows<4>(p, splits, stream);
-    else if (bits == 2) err = launch_rows<2>(p, splits, stream);
-    else err = launch_rows<1>(p, splits, stream);
+    if (bits == 4) err = launch_rows<4, M3>(p, md, splits, stream);
+    else if (bits == 2) err = launch_rows<2, M3>(p, md, splits, stream);
+    else err = launch_rows<1, M3>(p, md, splits, stream);
     return static_cast<int>(err);
 }
 
@@ -459,7 +531,7 @@ extern "C" int gl_decode(const void* x, const void* wq, const void* scales, cons
                    static_cast<const bf16*>(scales), static_cast<const bf16*>(zeros), nullptr, 1,
                    static_cast<bf16*>(out), static_cast<float*>(part), static_cast<int*>(counters),
                    M, N, K, gs, k_per_split, stages, mrows, 0, 0};
-    return run(p, bits, splits, static_cast<cudaStream_t>(stream_ptr));
+    return run<false>(p, Modes{}, bits, splits, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The same for layer *layer_idx (a device pointer to one int32) of the
@@ -475,5 +547,29 @@ extern "C" int gl_decode_stacked(const void* x, const void* wq, const void* scal
                    static_cast<const int*>(layer_idx), L, static_cast<bf16*>(out),
                    static_cast<float*>(part), static_cast<int*>(counters),
                    M, N, K, gs, k_per_split, stages, mrows, 0, 0};
-    return run(p, bits, splits, static_cast<cudaStream_t>(stream_ptr));
+    return run<false>(p, Modes{}, bits, splits, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// One layer in W_group_mode 1, 2 or 3 with csm 0-3, as gl_decode otherwise.
+// `scales` (K / gs, N) bf16 group scales or null (scale 1); `zeros` (K / gs,
+// N) bf16 zeros z (not folded) or null; `zscalar` one int32 zero on the
+// device or null (no zero row: z = the scalar, or 0); `sx` (M) float32
+// per-token scales for csm 2 / 3 and `cs` (N) channel scales for csm 1 / 3,
+// float32 (code 0) or bf16 (code 2). gs = K (channel-wise) takes any split.
+extern "C" int gl_decode_modes(const void* x, const void* wq, const void* scales,
+                               const void* zeros, const void* zscalar, const void* sx,
+                               const void* cs, void* part, void* counters, void* out, int M, int N,
+                               int K, int gs, int bits, int splits, int k_per_split, int stages,
+                               int mrows, int csm, int cs_code, void* stream_ptr) {
+    const bool codes_ok = cs_code == gl::kF32 || cs_code == gl::kBF16;
+    if (csm < 0 || csm > 3 || !codes_ok || ((csm & 2) && sx == nullptr) ||
+        ((csm & 1) && cs == nullptr) || (zeros != nullptr && zscalar != nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Params p{static_cast<const bf16*>(x), static_cast<const uint32_t*>(wq),
+                   static_cast<const bf16*>(scales), static_cast<const bf16*>(zeros), nullptr, 1,
+                   static_cast<bf16*>(out), static_cast<float*>(part), static_cast<int*>(counters),
+                   M, N, K, gs, k_per_split, stages, mrows, 0, 0};
+    const Modes md{scales != nullptr, zeros != nullptr, static_cast<const int*>(zscalar),
+                   static_cast<const float*>(sx), cs, csm, cs_code};
+    return run<true>(p, md, bits, splits, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -2,11 +2,18 @@
 // W1/W2/W4 prefill for 64 < M < 4096, for Hopper: out (M, N) bf16 =
 // x (M, K) bf16 . dequant(W_q), float32 sums on the bf16 tensor cores,
 // W_group_mode 4 with bf16 (K / gs, N) group scales and pre-folded zeros,
-// one launch a call.
+// one launch a call (gl_prefill); or W_group_mode 1, 2 or 3 with a
+// channel-scale epilogue (gl_prefill_modes).
 //
 // Replaces the TPU kernel gemlite_tpu/ops/pallas_prefill.py:pallas_prefill_matmul
-// on the mode-4 bf16 layers of W1, W2 and W4 codes, which the JAX router
-// sends to it.
+// on the bf16 layers of W1, W2 and W4 codes which the JAX router sends to
+// it: mode 4, and in the mode 1-3 form the A8Wn layers (fp8 x comes in as
+// its bf16 image, exact), channel-wise A16Wn and BitNet. The mode 1-3
+// instances (template flag M3) build w = (q - z) * s in three bf16x2 fmas a
+// code pair, rounded as the plain version rounds, from a scale row (or 1)
+// and a zero row (or the scalar zero, or 0), and multiply the finished
+// float32 sums by the per-token and channel scales (csm 1-3); a channel-wise
+// layer (gs = K) reads its one metadata row in every stage.
 //
 // What bounds it: operations. From M = 128 on, a 4-bit weight byte feeds
 // 4 M flops, above the card's ~295 flops per byte, so the bound is 2 M N K
@@ -131,22 +138,27 @@ __device__ __forceinline__ void load_words(const Params& p, uint32_t dst, int n0
 
 // The stage's group row of scales, then of zeros (128 bf16 each): 4-byte
 // pieces, or plain 2-byte loads for odd N; zeros past N.
-__device__ __forceinline__ void load_meta(const Params& p, uint8_t* g, uint32_t base, int moff,
-                                          int n0, int k0, int lane) {
+template <bool M3>
+__device__ __forceinline__ void load_meta(const Params& p, const Modes& md, uint8_t* g,
+                                          uint32_t base, int moff, int n0, int k0, int lane) {
     const size_t g0 = (size_t)(k0 / p.gs) * p.N + n0;
     if (p.mvec == 2) {
         uint16_t* dst = reinterpret_cast<uint16_t*>(g + moff);
         for (int i = lane; i < 2 * BN; i += 32) {
             const int a = i / BN, c = i % BN;
+            if constexpr (M3)
+                if (!(a ? md.has_z : md.has_s)) continue;   // a constant of the mode 1-3 form
             const bf16* src = (a ? p.zeros : p.scales) + g0 + c;
             dst[i] = n0 + c < p.N ? __bfloat16_as_ushort(*src) : 0;
         }
     } else {
         for (int i = lane; i < BN; i += 32) {      // 2 rows of 64 pairs
             const int a = i / (BN / 2), c = i % (BN / 2) * 2;
+            if constexpr (M3)
+                if (!(a ? md.has_z : md.has_s)) continue;
             const bool ok = n0 + c < p.N;
             const void* src = ok ? (const void*)((a ? p.zeros : p.scales) + g0 + c)
-                                 : (const void*)p.scales;
+                                 : (const void*)(M3 ? (a ? p.zeros : p.scales) : p.scales);
             gl::cp_async4(base + moff + (a * BN + c) * 2, src, ok ? 4 : 0);
         }
     }
@@ -155,13 +167,14 @@ __device__ __forceinline__ void load_meta(const Params& p, uint8_t* g, uint32_t 
 // The producer warp: per stage, the x box, the word rows and the group row
 // of scales and zeros, by TMA (or, where N is no multiple of 8, the words and
 // metadata by cp.async), all on the stage's full mbarrier.
-template <int BITS, int NB>
-__device__ __forceinline__ void produce(const Maps& maps, const Params& p, uint8_t* g,
-                                        uint32_t base, const Layout& L, int n0, int m0,
+template <int BITS, bool M3, int NB>
+__device__ __forceinline__ void produce(const Maps& maps, const Params& p, const Modes& md,
+                                        uint8_t* g, uint32_t base, const Layout& L, int n0, int m0,
                                         int k_begin, int steps) {
     constexpr int EPW = 32 / BITS;
     const int lane = threadIdx.x % 32, S = p.stages;
-    const uint32_t bytes = x_bytes(NB) + (p.tma_wm ? words_bytes(BITS) + kMetaBytes : 0);
+    const uint32_t meta = M3 ? (md.has_s + md.has_z) * BN * 2 : kMetaBytes;
+    const uint32_t bytes = x_bytes(NB) + (p.tma_wm ? words_bytes(BITS) + meta : 0);
     const uint32_t bars = base + L.bars;
     for (int it = 0; it < steps; ++it) {
         const int st = it % S, k0 = k_begin + it * BK;
@@ -173,13 +186,13 @@ __device__ __forceinline__ void produce(const Maps& maps, const Params& p, uint8
             tma_load_2d(base + st * x_bytes(NB), &maps.x, full, k0, m0);
             if (p.tma_wm) {
                 tma_load_2d(wdst, &maps.w, full, n0, k0 / EPW);
-                tma_load_2d(base + moff, &maps.s, full, n0, k0 / p.gs);
-                tma_load_2d(base + moff + BN * 2, &maps.z, full, n0, k0 / p.gs);
+                if (!M3 || md.has_s) tma_load_2d(base + moff, &maps.s, full, n0, k0 / p.gs);
+                if (!M3 || md.has_z) tma_load_2d(base + moff + BN * 2, &maps.z, full, n0, k0 / p.gs);
             }
         }
         if (!p.tma_wm) {
             load_words<BITS>(p, wdst, n0, k0, lane);
-            load_meta(p, g, base, moff, n0, k0, lane);
+            load_meta<M3>(p, md, g, base, moff, n0, k0, lane);
         }
         mbar_arrive_cp_async(full);           // when this lane's copies have landed
         mbar_arrive(full);                    // its plain stores, released
@@ -203,11 +216,16 @@ __device__ __forceinline__ uint32_t code_pair(uint32_t w, int shift, uint32_t se
 
 // The A fragments of one stage for this lane: a[kk][r] for the 16-deep step
 // kk, register r = 2 half + h at k 16 kk + 8 half + 2t (and + 1) of column
-// col + 8 h, dequantized.
-template <int BITS>
+// col + 8 h, dequantized. M3: the mode 1-3 form, `mc` its constants.
+struct ModeConsts {
+    int has_s, has_z;
+    uint32_t nz2;                             // -z of a layer without a zero row
+};
+
+template <int BITS, bool M3>
 __device__ __forceinline__ void build_stage(uint32_t (&a)[4][4], const uint8_t* g,
                                             const Layout& L, int st, int col, int t,
-                                            uint32_t sel) {
+                                            uint32_t sel, const ModeConsts& mc) {
     constexpr int EPW = 32 / BITS;
     const uint32_t* ws =
         reinterpret_cast<const uint32_t*>(g + L.w + st * words_bytes(BITS)) + col;
@@ -215,9 +233,14 @@ __device__ __forceinline__ void build_stage(uint32_t (&a)[4][4], const uint8_t* 
     uint32_t s2[2], z2[2], m2[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        s2[h] = ms[8 * h] * 0x00010001u;
-        z2[h] = ms[BN + 8 * h] * 0x00010001u;
-        m2[h] = minus128(s2[h]);
+        if constexpr (M3) {
+            s2[h] = mc.has_s ? ms[8 * h] * 0x00010001u : 0x3F803F80u;
+            z2[h] = mc.has_z ? (ms[BN + 8 * h] ^ 0x8000u) * 0x00010001u : mc.nz2;
+        } else {
+            s2[h] = ms[8 * h] * 0x00010001u;
+            z2[h] = ms[BN + 8 * h] * 0x00010001u;
+            m2[h] = minus128(s2[h]);
+        }
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -228,8 +251,12 @@ __device__ __forceinline__ void build_stage(uint32_t (&a)[4][4], const uint8_t* 
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const uint32_t w = ws[kl / EPW * BN + 8 * h];
-                a[kk][2 * half + h] =
-                    dequant_pair(code_pair<BITS>(w, shift, sel), s2[h], m2[h], z2[h]);
+                if constexpr (M3)
+                    a[kk][2 * half + h] = dequant_pair_shift(code_pair<BITS>(w, shift, sel), s2[h],
+                                                             z2[h]);
+                else
+                    a[kk][2 * half + h] =
+                        dequant_pair(code_pair<BITS>(w, shift, sel), s2[h], m2[h], z2[h]);
             }
         }
 }
@@ -256,8 +283,11 @@ __device__ __forceinline__ void issue_stage(float (&acc)[NB][64], uint32_t (&a)[
 // The block's sums, staged as tile[m][kTileStride] for rows m0 .. m0 + bm - 1:
 // into the output, or with K split the block's partial, and the last block
 // of the tile adds the partials in split order and leaves its counter at 0.
-// Consumer threads only. Not inlined: one copy serves every instance.
-__device__ __noinline__ void finish(const Params p, const float* tile, int* flag, int m0, int bm) {
+// Consumer threads only. M3: the channel-scale epilogue of the mode 1-3
+// form on the finished sums (md points at its kernel argument).
+template <bool M3>
+__device__ __forceinline__ void finish_body(const Params& p, const Modes* md, const float* tile,
+                                            int* flag, int m0, int bm) {
     const int tid = threadIdx.x, n0 = blockIdx.x * BN;
     const int split = blockIdx.z, nsplit = gridDim.z;
     const int ctr = blockIdx.x + gridDim.x * blockIdx.y;
@@ -316,6 +346,13 @@ __device__ __noinline__ void finish(const Params p, const float* tile, int* flag
                 }
             }
         }
+        if constexpr (M3) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                if (i < V)
+                    v[i] = gl::channel_scale(v[i], md->csm, md->cs, md->cs_code, md->sx, m0 + m,
+                                             n + i);
+        }
         if (V == 8) {
             uint4 pk;
             uint32_t* w = reinterpret_cast<uint32_t*>(&pk);
@@ -332,6 +369,16 @@ __device__ __noinline__ void finish(const Params p, const float* tile, int* flag
     if (nsplit > 1 && tid == 0) p.counters[ctr] = 0;
 }
 
+// Not inlined: one copy serves every instance of a form.
+__device__ __noinline__ void finish(const Params p, const float* tile, int* flag, int m0, int bm) {
+    finish_body<false>(p, nullptr, tile, flag, m0, bm);
+}
+
+__device__ __noinline__ void finish_modes(const Params p, const Modes* md, const float* tile,
+                                          int* flag, int m0, int bm) {
+    finish_body<true>(p, md, tile, flag, m0, bm);
+}
+
 // What a consumer thread needs across the steps of its pipeline.
 struct Consumer {
     uint8_t* g;
@@ -339,6 +386,7 @@ struct Consumer {
     const Layout* L;
     int S, col, t, lane;
     uint32_t sel;
+    ModeConsts mc;
 
     __device__ __forceinline__ void full(int it) const {
         mbar_wait(bar_addr(bars, it % S), (it / S) & 1);
@@ -360,7 +408,7 @@ struct Consumer {
 // while stage j + 1's run. Every call issues: a wgmma under a branch leaves
 // ptxas copying in-flight accumulators where the paths meet (note C7514), so
 // the tail is unrolled.
-template <int BITS, int NB, int ISSUE>
+template <int BITS, bool M3, int NB, int ISSUE>
 __device__ __forceinline__ void pipe_step(const Consumer& c, float (&acc)[NB][64],
                                           uint32_t (&a)[2][4][4], int j, int steps) {
     issue_stage<NB>(acc, a[ISSUE], c.x_desc<NB>(j + 1));
@@ -369,19 +417,21 @@ __device__ __forceinline__ void pipe_step(const Consumer& c, float (&acc)[NB][64
     c.release(j);
     if (j + 2 < steps) {
         c.full(j + 2);
-        build_stage<BITS>(a[1 - ISSUE], c.g, *c.L, (j + 2) % c.S, c.col, c.t, c.sel);
+        build_stage<BITS, M3>(a[1 - ISSUE], c.g, *c.L, (j + 2) % c.S, c.col, c.t, c.sel, c.mc);
     }
 }
 
 // The consumer warpgroups: 64 weight columns each, all the block's rows.
-template <int BITS, int NB>
-__device__ __forceinline__ void consume(const Params& p, uint8_t* g, uint32_t base,
-                                        const Layout& L, int wg, int m0, int steps, int* flag) {
+template <int BITS, bool M3, int NB>
+__device__ __forceinline__ void consume(const Params& p, const Modes& md, uint8_t* g,
+                                        uint32_t base, const Layout& L, int wg, int m0, int steps,
+                                        int* flag) {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int lane = threadIdx.x % 32, t = lane % 4;
     const int col = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;   // and col + 8
     const Consumer c{g, base, base + L.bars, &L, p.stages, col, t, lane,
-                     static_cast<uint32_t>(t | (t + 4) << 8)};
+                     static_cast<uint32_t>(t | (t + 4) << 8),
+                     {md.has_s, md.has_z, M3 ? neg_zero2(md.zscalar) : 0u}};
 
     float acc[NB][64];
 #pragma unroll
@@ -390,19 +440,19 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* g, uint32_t ba
         for (int i = 0; i < 64; ++i) acc[nb][i] = 0.f;
     uint32_t a[2][4][4];                      // stage s in buffer s % 2
     c.full(0);
-    build_stage<BITS>(a[0], g, L, 0, col, t, c.sel);
+    build_stage<BITS, M3>(a[0], g, L, 0, col, t, c.sel, c.mc);
     issue_stage<NB>(acc, a[0], c.x_desc<NB>(0));
     if (steps > 1) {
         c.full(1);
-        build_stage<BITS>(a[1], g, L, 1 % c.S, col, t, c.sel);
+        build_stage<BITS, M3>(a[1], g, L, 1 % c.S, col, t, c.sel, c.mc);
     }
     int j = 0;
     for (; j + 2 < steps; j += 2) {
-        pipe_step<BITS, NB, 1>(c, acc, a, j, steps);
-        pipe_step<BITS, NB, 0>(c, acc, a, j + 1, steps);
+        pipe_step<BITS, M3, NB, 1>(c, acc, a, j, steps);
+        pipe_step<BITS, M3, NB, 0>(c, acc, a, j + 1, steps);
     }
     if (j + 1 < steps) {                      // the last stage; both paths drain
-        pipe_step<BITS, NB, 1>(c, acc, a, j, steps);
+        pipe_step<BITS, M3, NB, 1>(c, acc, a, j, steps);
         wgmma_wait<0>();
     } else {
         wgmma_wait<0>();
@@ -421,12 +471,12 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* g, uint32_t ba
                 tile[(nb * 128 + 8 * n8 + 2 * t + (e & 1)) * kTileStride + col + 8 * (e >> 1)] =
                     acc[nb][4 * n8 + e];
     named_sync<1, kConsumers>();
-    finish(p, tile, flag, m0, NB * 128);
+    if constexpr (M3) finish_modes(p, &md, tile, flag, m0, NB * 128);
+    else finish(p, tile, flag, m0, NB * 128);
 }
 
-template <int BITS, int NB>
-__global__ void __launch_bounds__(kThreads, 1)
-prefill_wgmma_kernel(const __grid_constant__ Maps maps, const Params p) {
+template <int BITS, bool M3, int NB>
+__device__ __forceinline__ void prefill_body(const Maps& maps, const Params& p, const Modes& md) {
     extern __shared__ uint8_t smem_raw[];
     const Layout L(BITS, NB, p.stages);
     const uint32_t base = smem_base(smem_raw), bars = base + L.bars;
@@ -446,10 +496,25 @@ prefill_wgmma_kernel(const __grid_constant__ Maps maps, const Params p) {
     if (wg == 2) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
         if (threadIdx.x < kConsumers + 32)
-            produce<BITS, NB>(maps, p, g, base, L, n0, m0, k_begin, steps);
+            produce<BITS, M3, NB>(maps, p, md, g, base, L, n0, m0, k_begin, steps);
     } else {
-        consume<BITS, NB>(p, g, base, L, wg, m0, steps, reinterpret_cast<int*>(g + L.flag));
+        consume<BITS, M3, NB>(p, md, g, base, L, wg, m0, steps,
+                              reinterpret_cast<int*>(g + L.flag));
     }
+}
+
+template <int BITS, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_wgmma_kernel(const __grid_constant__ Maps maps, const Params p) {
+    prefill_body<BITS, false, NB>(maps, p, Modes{});
+}
+
+// the mode 1-3 form: md a grid constant, so finish_modes reads it in place
+template <int BITS, int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_modes_kernel(const __grid_constant__ Maps maps, const Params p,
+                     const __grid_constant__ Modes md) {
+    prefill_body<BITS, true, NB>(maps, p, md);
 }
 
 // 2-d map over a contiguous (rows, cols) array, dims innermost first; a box
@@ -467,8 +532,9 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* 
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BITS, int NB>
-cudaError_t launch(const void* x, const Params& p, int splits, cudaStream_t stream) {
+template <int BITS, bool M3, int NB>
+cudaError_t launch(const void* x, const Params& p, const Modes& md, int splits,
+                   cudaStream_t stream) {
     static std::atomic<unsigned> ready{0};
     const Layout L(BITS, NB, p.stages);
     if (L.bytes > kSmemMax) return cudaErrorInvalidValue;
@@ -480,21 +546,61 @@ cudaError_t launch(const void* x, const Params& p, int splits, cudaStream_t stre
     if (p.tma_wm &&
         (!make_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, p.wq, p.K * BITS / 32, p.N,
                    BK * BITS / 32, BN, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-         !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.scales, p.K / p.gs, p.N, 1, BN,
-                   CU_TENSOR_MAP_SWIZZLE_NONE) ||
-         !make_map(&maps.z, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.zeros, p.K / p.gs, p.N, 1, BN,
-                   CU_TENSOR_MAP_SWIZZLE_NONE)))
+         ((!M3 || md.has_s) &&
+          !make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.scales, p.K / p.gs, p.N, 1, BN,
+                    CU_TENSOR_MAP_SWIZZLE_NONE)) ||
+         ((!M3 || md.has_z) &&
+          !make_map(&maps.z, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.zeros, p.K / p.gs, p.N, 1, BN,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))))
         return cudaErrorInvalidValue;
-    const cudaError_t err = allow_smem(prefill_wgmma_kernel<BITS, NB>, kSmemMax, ready);
-    if (err != cudaSuccess) return err;
     const dim3 grid((p.N + BN - 1) / BN, (p.M + NB * 128 - 1) / (NB * 128), splits);
-    prefill_wgmma_kernel<BITS, NB><<<grid, kThreads, L.bytes, stream>>>(maps, p);
+    if constexpr (M3) {
+        const cudaError_t err = allow_smem(prefill_modes_kernel<BITS, NB>, kSmemMax, ready);
+        if (err != cudaSuccess) return err;
+        prefill_modes_kernel<BITS, NB><<<grid, kThreads, L.bytes, stream>>>(maps, p, md);
+    } else {
+        const cudaError_t err = allow_smem(prefill_wgmma_kernel<BITS, NB>, kSmemMax, ready);
+        if (err != cudaSuccess) return err;
+        prefill_wgmma_kernel<BITS, NB><<<grid, kThreads, L.bytes, stream>>>(maps, p);
+    }
     return cudaGetLastError();
 }
 
-template <int BITS>
-cudaError_t launch_rows(const void* x, const Params& p, int bm, int splits, cudaStream_t stream) {
-    return bm == 128 ? launch<BITS, 1>(x, p, splits, stream) : launch<BITS, 2>(x, p, splits, stream);
+template <int BITS, bool M3>
+cudaError_t launch_rows(const void* x, const Params& p, const Modes& md, int bm, int splits,
+                        cudaStream_t stream) {
+    return bm == 128 ? launch<BITS, M3, 1>(x, p, md, splits, stream)
+                     : launch<BITS, M3, 2>(x, p, md, splits, stream);
+}
+
+// The checks and launch both entries share; `p` holds the pointers, with
+// tma_wm, wvec and mvec set here.
+template <bool M3>
+int run(const void* x, Params p, const Modes& md, int bits, int bm, int splits,
+        cudaStream_t stream) {
+    const int M = p.M, N = p.N, K = p.K, gs = p.gs, k_per_split = p.k_per_split;
+    const bool shape_ok = M >= 1 && N >= 1 && K > 0 && K % BK == 0 && gs > 0 && gs % BK == 0 &&
+                          K % gs == 0 && (bits == 1 || bits == 2 || bits == 4) &&
+                          (bm == 128 || bm == 256);
+    const bool split_ok = splits >= 1 && k_per_split > 0 && k_per_split % BK == 0 &&
+                          (long long)(splits - 1) * k_per_split < K &&
+                          (long long)splits * k_per_split >= K &&
+                          (splits == 1 || (p.part != nullptr && p.counters != nullptr));
+    if (!shape_ok || !split_ok || p.stages < 2 || p.stages > kMaxStages ||
+        reinterpret_cast<uintptr_t>(x) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    // TMA and 16-byte pieces need 16-byte rows and bases
+    const uintptr_t meta_base = reinterpret_cast<uintptr_t>(p.scales) |
+                                reinterpret_cast<uintptr_t>(p.zeros);
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(p.wq) | meta_base;
+    p.tma_wm = N % 8 == 0 && bases % 16 == 0;
+    p.wvec = N % 4 == 0 && reinterpret_cast<uintptr_t>(p.wq) % 16 == 0 ? 16 : 4;
+    p.mvec = N % 2 == 0 && meta_base % 4 == 0 ? 4 : 2;
+    cudaError_t err;
+    if (bits == 4) err = launch_rows<4, M3>(x, p, md, bm, splits, stream);
+    else if (bits == 2) err = launch_rows<2, M3>(x, p, md, bm, splits, stream);
+    else err = launch_rows<1, M3>(x, p, md, bm, splits, stream);
+    return static_cast<int>(err);
 }
 
 }  // namespace
@@ -509,30 +615,32 @@ extern "C" int gl_prefill(const void* x, const void* wq, const void* scales, con
                           void* part, void* counters, void* out, int M, int N, int K, int gs,
                           int bits, int bm, int splits, int k_per_split, int stages,
                           void* stream_ptr) {
-    const bool shape_ok = M >= 1 && N >= 1 && K > 0 && K % BK == 0 && gs > 0 && gs % BK == 0 &&
-                          K % gs == 0 && (bits == 1 || bits == 2 || bits == 4) &&
-                          (bm == 128 || bm == 256);
-    const bool split_ok = splits >= 1 && k_per_split > 0 && k_per_split % BK == 0 &&
-                          (long long)(splits - 1) * k_per_split < K &&
-                          (long long)splits * k_per_split >= K &&
-                          (splits == 1 || (part != nullptr && counters != nullptr));
-    if (!shape_ok || !split_ok || stages < 2 || stages > kMaxStages ||
-        reinterpret_cast<uintptr_t>(x) % 16)
+    const Params p{static_cast<const uint32_t*>(wq), static_cast<const bf16*>(scales),
+                   static_cast<const bf16*>(zeros), static_cast<bf16*>(out), static_cast<float*>(part),
+                   static_cast<int*>(counters), M, N, K, gs, k_per_split, stages, 0, 0, 0};
+    return run<false>(x, p, Modes{}, bits, bm, splits, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// One layer in W_group_mode 1, 2 or 3 with csm 0-3, as gl_prefill otherwise.
+// `scales` (K / gs, N) bf16 group scales or null (scale 1); `zeros` (K / gs,
+// N) bf16 zeros z (not folded) or null; `zscalar` one int32 zero on the
+// device or null (no zero row: z = the scalar, or 0); `sx` (M) float32
+// per-token scales for csm 2 / 3 and `cs` (N) channel scales for csm 1 / 3,
+// float32 (code 0) or bf16 (code 2).
+extern "C" int gl_prefill_modes(const void* x, const void* wq, const void* scales,
+                                const void* zeros, const void* zscalar, const void* sx,
+                                const void* cs, void* part, void* counters, void* out, int M,
+                                int N, int K, int gs, int bits, int bm, int splits,
+                                int k_per_split, int stages, int csm, int cs_code,
+                                void* stream_ptr) {
+    const bool codes_ok = cs_code == gl::kF32 || cs_code == gl::kBF16;
+    if (csm < 0 || csm > 3 || !codes_ok || ((csm & 2) && sx == nullptr) ||
+        ((csm & 1) && cs == nullptr) || (zeros != nullptr && zscalar != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
-    Params p{static_cast<const uint32_t*>(wq), static_cast<const bf16*>(scales),
-             static_cast<const bf16*>(zeros), static_cast<bf16*>(out), static_cast<float*>(part),
-             static_cast<int*>(counters), M, N, K, gs, k_per_split, stages, 0, 0, 0};
-    // TMA and 16-byte pieces need 16-byte rows and bases
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(wq) | reinterpret_cast<uintptr_t>(scales) |
-                            reinterpret_cast<uintptr_t>(zeros);
-    p.tma_wm = N % 8 == 0 && bases % 16 == 0;
-    p.wvec = N % 4 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0 ? 16 : 4;
-    const uintptr_t meta_base = reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(zeros);
-    p.mvec = N % 2 == 0 && meta_base % 4 == 0 ? 4 : 2;
-    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    cudaError_t err;
-    if (bits == 4) err = launch_rows<4>(x, p, bm, splits, stream);
-    else if (bits == 2) err = launch_rows<2>(x, p, bm, splits, stream);
-    else err = launch_rows<1>(x, p, bm, splits, stream);
-    return static_cast<int>(err);
+    const Params p{static_cast<const uint32_t*>(wq), static_cast<const bf16*>(scales),
+                   static_cast<const bf16*>(zeros), static_cast<bf16*>(out), static_cast<float*>(part),
+                   static_cast<int*>(counters), M, N, K, gs, k_per_split, stages, 0, 0, 0};
+    const Modes md{scales != nullptr, zeros != nullptr, static_cast<const int*>(zscalar),
+                   static_cast<const float*>(sx), cs, csm, cs_code};
+    return run<true>(x, p, md, bits, bm, splits, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -1,7 +1,7 @@
 // SPDX-License-Identifier: Apache-2.0
-// Shared pieces of the mode-4 kernels (decode, prefill, dequantize): the
-// w_layout=0 word format and the bf16x2 dequantization, rounded exactly as
-// the plain PyTorch version rounds it.
+// Shared pieces of the W1/W2/W4 kernels (decode, prefill, dequantize): the
+// w_layout=0 word format and the bf16x2 dequantization of W_group_mode 4
+// and of modes 1-3, rounded exactly as the plain PyTorch version rounds it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,4 +35,36 @@ __device__ __forceinline__ uint32_t minus128(uint32_t s2) {
 __device__ __forceinline__ uint32_t dequant_pair(uint32_t v, uint32_t s2, uint32_t m2,
                                                  uint32_t z2) {
     return fma_bf16x2(fma_bf16x2(v, s2, m2), 0x3F803F80u, z2);
+}
+
+// W_group_mode 3, w = (q - z) * s in bf16, rounded after the subtraction and
+// after the multiply as the plain version rounds (mode 1 is s = 1, mode 2
+// z = 0; a scalar zero is z in every group). For a pair of codes given as
+// v = 128 + q: fma(v, 1, -128) is q exactly, fma(q, 1, -z) rounds q - z
+// once and fma(d, s, -0) rounds d * s once. (The plain version's float32
+// q - z and d * s are exact for codes below 256 and bf16 z and s, so it
+// rounds each once too.) s2: the scale in both halves; nz2: -z.
+__device__ __forceinline__ uint32_t dequant_pair_shift(uint32_t v, uint32_t s2, uint32_t nz2) {
+    const uint32_t q = fma_bf16x2(v, 0x3F803F80u, 0xC300C300u);
+    return fma_bf16x2(fma_bf16x2(q, 0x3F803F80u, nz2), s2, 0x80008000u);
+}
+
+// What the mode 1-3 forms of the decode and prefill kernels read beside
+// their Params (a kernel argument of its own, so that the mode-4 kernels
+// keep theirs): zeros are z itself; a missing scale row reads 1, a missing
+// zero row the scalar zero (or 0).
+struct Modes {
+    int has_s, has_z;                    // scale / zero rows in memory
+    const int* zscalar;                  // the scalar int32 zero, or null
+    const float* sx;                     // (M) float32 per-token scales (csm 2 / 3)
+    const void* cs;                      // (N) channel scales (csm 1 / 3), float32 or bf16
+    int csm, cs_code;                    // cs_code: gl::kF32 or gl::kBF16
+};
+
+// The bf16x2 -z of a scalar int32 zero (exact for |z| <= 256), or -0 for a
+// layer without zeros.
+__device__ __forceinline__ uint32_t neg_zero2(const int* zscalar) {
+    if (zscalar == nullptr) return 0x80008000u;
+    const uint32_t z = __bfloat16_as_ushort(__int2bfloat16_rn(-__ldg(zscalar)));
+    return z * 0x00010001u;
 }

@@ -17,7 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -56,30 +58,44 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNEL_SOURCES) -> dict:
+def build(names=KERNEL_SOURCES, seconds=None) -> dict:
     """Compile every named source that has no up-to-date library, all at once.
 
     Returns ``{name: ptxas report}`` for the sources compiled by this call
-    (registers, shared memory and spills per kernel). Raises on any failure."""
+    (registers, shared memory and spills per kernel); with a dict
+    ``seconds``, also fills it with each of them's wall time. Raises on any
+    failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tempfile.TemporaryFile(mode="w+")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
+        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
+                       log, tmp, out)
+    done = {}
+    while len(done) < len(procs):
+        for name, (proc, *_) in procs.items():
+            if name not in done and proc.poll() is not None:
+                done[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, log, tmp, out) in procs.items():
+        log.seek(0)
+        text = log.read()
+        log.close()
         if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{text}")
             continue
         os.replace(tmp, out)
-        reports[name] = log
+        reports[name] = text
+    if seconds is not None:
+        seconds.update(done)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports

@@ -8,19 +8,24 @@ By the flattened batch size M, in the JAX router's order:
                      general_fused; else (``dense_fallback``) the plain
                      ``dequantize_full`` and a dense ``torch.matmul``
 
-The decode and prefill kernels take mode-4 bf16 layers of W1, W2 and W4
-codes, as the JAX decode and prefill kernels do; the dequantize kernel takes
-W4. Layers of fp8 bit codes (``A16W8_FP8``, ``A8W8_FP8_dynamic``) take the
-fp8 kernels under the same route names (``ops/fp8.py``): decode at M <= 64,
-prefill below 4096, the fp8 form of the dequantize kernel then a dense
-matmul from 4096, and never the general fused kernel, whose JAX gate refuses
-them (``pallas_gemm.py:can_use_pallas``). fp8 x over integer codes
-(``A8Wn_HQQ_INT_dynamic``) runs the general fused kernel's float path at
-every M, where JAX runs its decode, prefill and dequantize kernels (a route
-difference: the same results on a slower kernel). A float layer that the
-JAX package sends to one of its kernels but whose form the port's kernel
-does not cover yet (W8 codes, modes 1-3, channel-wise; W1/W2 at M >= 4096)
-runs on the general fused kernel here;
+The decode and prefill kernels take bf16 layers of W1, W2 and W4 codes in
+W_group_mode 4, and in modes 1-3 with csm 0-3 (their mode 1-3 form,
+``w4.serves_modes``), as the JAX decode and prefill kernels do; the
+dequantize kernel takes W4 in mode 4. Layers of fp8 bit codes
+(``A16W8_FP8``, ``A8W8_FP8_dynamic``) take the fp8 kernels under the same
+route names (``ops/fp8.py``): decode at M <= 64, prefill below 4096, the fp8
+form of the dequantize kernel then a dense matmul from 4096, and never the
+general fused kernel, whose JAX gate refuses them
+(``pallas_gemm.py:can_use_pallas``). fp8 x over integer codes
+(``A8Wn_HQQ_INT_dynamic``) takes the mode 1-3 form of decode and prefill
+below 4096, x converted to its bf16 image (exact) beside the per-token
+quantization; so do channel-wise ``A16Wn`` and ``A16W158_INT``. From M 4096
+these run the general fused kernel's float path, where JAX dequantizes and
+runs a dense matmul (a route difference: the same results on another
+kernel). A float layer that the JAX package sends to one of its kernels but
+whose form the port's kernels do not cover yet (W8 codes, fp16 x, groups the
+prefill kernel does not take; modes 1-3 and W1/W2 at M >= 4096) runs on the
+general fused kernel here;
 non-packed int8 weights (A16W8) run on it below M 4096 in both packages,
 on its float path (``fused_gemm_float``). ``dense_fallback``
 is kept for the layers that the JAX package itself dequantizes without a
@@ -50,13 +55,13 @@ The scan path's stacked linears (``models/scan_llama.py``) note
 import torch
 
 from ..dtypes import DType, to_torch_dtype
-from .decode import can_use_decode, decode_matmul
+from .decode import can_use_decode, can_use_decode_modes, decode_matmul, decode_modes
 from .dequantize import can_use_dequantize, dequantize_full, dequantize_weights
 from .fp8 import fp8_coded, fp8_decode, fp8_prefill, serves_fp8
 from .fused import can_use_fused, fused_gemm
 from .int8_decode import can_use_int8_decode, int8_decode
 from .mx import jax_folds, mx_coded, mx_decode, mx_general, mx_prefill, mx_refusal
-from .prefill import can_use_prefill, prefill_matmul
+from .prefill import can_use_prefill, can_use_prefill_modes, prefill_matmul, prefill_modes
 from ..quant import scale_activations_mx
 from .reference import fake_quant_activations, forward_meta
 
@@ -128,9 +133,9 @@ def _route(meta, M: int):
     if M <= 64:
         if meta.input_dtype == DType.INT8.value and can_use_int8_decode(meta, M):
             return "int8_exact"
-        if can_use_decode(meta, M):
+        if can_use_decode(meta, M) or can_use_decode_modes(meta, M):
             return "decode"
-    if can_use_prefill(meta, M):
+    if can_use_prefill(meta, M) or can_use_prefill_modes(meta, M):
         return "prefill"
     return "general_fused" if can_use_fused(meta) else None
 
@@ -183,6 +188,11 @@ def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> to
         return int8_decode(x, W_q, scales, zeros, scales_x, meta)
     if fp8_coded(meta) and route in ("decode", "prefill"):
         return (fp8_decode if route == "decode" else fp8_prefill)(x, W_q, scales, scales_x, meta)
+    if route in ("decode", "prefill") and meta.W_group_mode != 4:
+        if x.dtype != torch.bfloat16:
+            x = x.to(torch.bfloat16)              # fp8 codes: their exact bf16 image
+        modes = decode_modes if route == "decode" else prefill_modes
+        return modes(x, W_q, scales, zeros, scales_x, meta)
     if route == "decode":
         return decode_matmul(x, W_q, scales, zeros, meta)
     if route == "prefill":

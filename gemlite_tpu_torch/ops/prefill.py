@@ -1,12 +1,16 @@
 # SPDX-License-Identifier: Apache-2.0
 """Prefill kernel: W1/W2/W4 x bf16 for 64 < M < 4096 on Hopper's ``wgmma``,
-one launch a call (``csrc/prefill_gemm.cu``, entry ``gl_prefill``).
+one launch a call (``csrc/prefill_gemm.cu``, entries ``gl_prefill`` and
+``gl_prefill_modes``).
 
 Replaces ``gemlite_tpu/ops/pallas_prefill.py:pallas_prefill_matmul`` on the
-mode-4 bf16 layers of W1, W2 and W4 codes, as the JAX router sends them to
-its prefill kernel. The plain version is ``ops/reference.forward_meta``. On a
-CPU tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises. ``plan`` owns the kernel's grid and ring: the CUDA side
+bf16 layers of W1, W2 and W4 codes that the JAX router sends to its prefill
+kernel: mode 4 (``prefill_matmul``) and, in the mode 1-3 form
+(``prefill_modes``, the layers of ``w4.serves_modes``), A8Wn, channel-wise
+A16Wn and A16W158. The plain versions are ``ops/reference.forward_meta``
+and, for the mode 1-3 form, ``reference.forward_f32_epilogue``. On a CPU
+tensor a wrapper runs its plain version; on a CUDA tensor it launches the
+kernel or raises. ``plan`` owns the kernel's grid and ring: the CUDA side
 only checks that what it is given fits.
 """
 
@@ -16,10 +20,11 @@ from typing import NamedTuple
 import torch
 
 from . import build, w4
-from .reference import forward_meta
+from .reference import forward_f32_epilogue, forward_meta
 
-__all__ = ["PREFILL_BITS", "PrefillPlan", "can_use_prefill", "plan", "prefill_matmul",
-           "prefill_matmul_plain", "smem_bytes", "workspace"]
+__all__ = ["PREFILL_BITS", "PrefillPlan", "can_use_prefill", "can_use_prefill_modes", "plan",
+           "prefill_matmul", "prefill_matmul_plain", "prefill_modes", "prefill_modes_plain",
+           "smem_bytes", "workspace"]
 
 PREFILL_BITS = (1, 2, 4)
 BK = 64                    # the kernel's K per ring stage; a stage never straddles a group
@@ -39,6 +44,10 @@ PARTIAL_BYTES_PER_US = 3.0e6
 
 def can_use_prefill(meta, M: int) -> bool:
     return 64 < M < 4096 and w4.serves(meta, min_group=BK, bits=PREFILL_BITS)
+
+
+def can_use_prefill_modes(meta, M: int) -> bool:
+    return 64 < M < 4096 and w4.serves_modes(meta, min_group=BK, bits=PREFILL_BITS)
 
 
 class PrefillPlan(NamedTuple):
@@ -137,12 +146,32 @@ def prefill_matmul_plain(x, W_q, scales, zeros, meta):
     return forward_meta(x, W_q, scales, zeros, None, meta)
 
 
+def prefill_modes_plain(x, W_q, scales, zeros, scales_x, meta):
+    return forward_f32_epilogue(x, W_q, scales, zeros, scales_x, meta)
+
+
 def _lib():
     fn = build.load("prefill_gemm").gl_prefill
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_modes():
+    fn = build.load("prefill_gemm").gl_prefill_modes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _split_buffers(M: int, N: int, p: PrefillPlan, device, stream: int):
+    floats, ints = workspace(M, N, p)
+    if not floats:
+        return None, None
+    ibuf, fbuf = build.split_state("prefill_gemm", device, ints, floats, stream)
+    return fbuf.data_ptr(), ibuf.data_ptr()
 
 
 def prefill_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
@@ -157,11 +186,7 @@ def prefill_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
     w4.check_operands(W_q, scales, zeros, meta)
     p = plan(M, N, K, gs, meta.W_nbits)
     stream = w4.stream()
-    floats, ints = workspace(M, N, p)
-    part = cnt = None
-    if floats:
-        ibuf, fbuf = build.split_state("prefill_gemm", x.device, ints, floats, stream)
-        part, cnt = fbuf.data_ptr(), ibuf.data_ptr()
+    part, cnt = _split_buffers(M, N, p, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     err = _lib()(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(), part, cnt,
                  out.data_ptr(), M, N, K, gs, meta.W_nbits, p.bm, p.splits, p.k_per_split,
@@ -172,3 +197,33 @@ def prefill_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
 
 
 prefill_matmul.launches = 0
+
+
+def prefill_modes(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
+    """out (M, N) bf16 = csm(x (M, K) @ dequant(W_q)) for 64 < M < 4096 on a
+    layer in W_group_mode 1-3 (``w4.serves_modes``); x in bf16 (on the CPU
+    also fp8, which the plain version reads exactly). The plan is the
+    mode-4 entry's: the split cost model does not depend on the mode."""
+    if x.device.type == "cpu":
+        return prefill_modes_plain(x, W_q, scales, zeros, scales_x, meta)
+    M = x.shape[0]
+    if not can_use_prefill_modes(meta, M):
+        raise NotImplementedError(f"prefill kernel does not take M={M} with {meta}")
+    N, K, gs = meta.out_features, meta.in_features, meta.group_size
+    x = w4.activations(x, K)
+    s, z, zs, sx, cs = w4.modes_operands(W_q, scales, zeros, scales_x, meta, M)
+    p = plan(M, N, K, gs, meta.W_nbits)
+    stream = w4.stream()
+    part, cnt = _split_buffers(M, N, p, x.device, stream)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    ptr = w4.pointer
+    err = _lib_modes()(x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(cs),
+                       part, cnt, out.data_ptr(), M, N, K, gs, meta.W_nbits, p.bm, p.splits,
+                       p.k_per_split, p.stages, meta.channel_scale_mode, w4.scale_code(cs),
+                       stream)
+    build.check(err, "prefill_gemm")
+    prefill_modes.launches += 1
+    return out
+
+
+prefill_modes.launches = 0

@@ -32,6 +32,7 @@ from ..quant import (NVFP4_META_SCALE, _f32, _pow2_ceil, e8m0_bits_to_f32, fp4_d
                      mx_group_size, round_to_fp4)
 
 __all__ = ["unpack_rows_ref", "dequantize_ref", "int_matmul", "forward_ref", "forward_meta",
+           "forward_f32_epilogue",
            "fp8_values", "forward_fp8_ref", "fake_quant_activations", "mx_scales_f32",
            "mx_codes", "mx_dequantize_weight_ref", "mx_forward_ref"]
 
@@ -187,6 +188,30 @@ def forward_meta(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
         channel_scale_mode=meta.channel_scale_mode, input_dtype=meta.input_dtype,
         output_dtype=meta.output_dtype, acc_dtype=meta.acc_dtype,
         meta_dtype=meta.meta_dtype, zero_is_scalar=bool(meta.zero_is_scalar))
+
+
+def forward_f32_epilogue(x, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
+    """forward_meta of an integer-code layer with its channel scales applied
+    in float32: forward_ref's dequantization and float32 dot, then csm 2 / 3
+    times the per-token scales and csm 1 / 3 times the channel scales
+    (``scales``), each a float32 multiply, and one rounding to the output
+    dtype. This is how the JAX decode and prefill kernels finish
+    (``gemlite_tpu/ops/pallas_decode.py:436-445``) and the plain version of
+    the port's mode 1-3 decode and prefill forms; forward_meta rounds the
+    sums and scales to the meta dtype before it multiplies."""
+    acc = forward_ref(
+        x, W_q, scales, zeros, None,
+        W_nbits=meta.W_nbits, group_size=meta.group_size,
+        elements_per_sample=meta.elements_per_sample, W_group_mode=meta.W_group_mode,
+        channel_scale_mode=0, input_dtype=meta.input_dtype, output_dtype=DType.FP32.value,
+        acc_dtype=meta.acc_dtype, meta_dtype=meta.meta_dtype,
+        zero_is_scalar=bool(meta.zero_is_scalar))
+    csm = meta.channel_scale_mode
+    if csm in (2, 3):
+        acc = acc * scales_x.reshape(-1, 1).to(torch.float32)
+    if csm in (1, 3):
+        acc = acc * scales.reshape(1, -1).to(torch.float32)
+    return acc.to(to_torch_dtype(meta.output_dtype))
 
 
 def fake_quant_activations(x: torch.Tensor, input_dtype,

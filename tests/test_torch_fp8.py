@@ -15,8 +15,9 @@ The same seeded numpy weights and activations go through the JAX package
   their oracle (``test_a8w8_fp8_reaches_plane_kernels``); the route equals
   the JAX ``KERNEL_TRACE`` name (JAX's ``decode_plane`` is the port's
   ``decode``, its ``dense_fallback``, which dequantizes these layers with
-  ``pallas_dequantize``, the port's ``dequantize``), except for A8Wn, whose
-  route difference (the general fused kernel at every M) is asserted as such;
+  ``pallas_dequantize``, the port's ``dequantize``); A8Wn takes the decode
+  and prefill kernels' mode 1-3 form below M 4096 and the general fused
+  kernel at 4096, a route difference asserted as such;
 * layer files cross both ways: a JAX-saved fp8 layer loads in the port with
   equal outputs, and a port-saved one loads in JAX.
 """
@@ -177,10 +178,8 @@ def test_forward_matches_jax(name, M):
     dispatch.KERNEL_TRACE.clear()
     got = tl(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
     route = [r.removeprefix("plain_") for r in dispatch.KERNEL_TRACE]
-    if name.startswith("a8w4"):            # ROADMAP Queue C: the route difference
-        assert route == ["general_fused"]
-        assert jroute == [{True: "decode", False: "prefill"}[M <= 64] if M < 4096
-                          else "dequantize"]
+    if name.startswith("a8w4") and M >= 4096:   # ROADMAP Queue C: the route difference
+        assert route == ["general_fused"] and jroute == ["dequantize"]
     else:
         assert route == jroute == [("decode" if M <= 64 else "prefill") if M < 4096
                                    else "dequantize"]

@@ -93,16 +93,16 @@ def test_forward_matches_jax_dispatch(M, route, fma, W_nbits):
     x = (rng.normal(size=(M, K)) * 0.2).astype(np.float32)
     want, jtrace = _jax_forward(jl, x)
     got, trace = _port_forward(tl, x)
-    # mode 4 is the format of the decode and prefill kernels (W1/W2/W4, as the
-    # JAX decode and prefill kernels) and of the dequantize kernel (W4); the
-    # rest runs on the general fused kernel (at M >= 4096 the JAX package
-    # dequantizes with its Pallas kernel, which the port's dequantize kernel
-    # does not cover)
-    if fma and (route in ("decode", "prefill") or W_nbits == 4):
+    # the decode and prefill kernels take W1/W2/W4 in mode 4 and, in their
+    # mode 1-3 form, mode 3 (fma off), as the JAX decode and prefill kernels
+    # do; the dequantize kernel takes W4 in mode 4; the rest runs on the
+    # general fused kernel (at M >= 4096 the JAX package dequantizes with its
+    # Pallas kernel, which the port's dequantize kernel does not cover)
+    if route in ("decode", "prefill") or (fma and W_nbits == 4):
         assert trace == [f"plain_{route}"]
     else:
         assert trace == ["plain_general_fused"]
-    if fma and route == "decode":
+    if route == "decode":
         assert jtrace == ["decode_plane"]
     assert _rel(got, want) < REL, _rel(got, want)
 

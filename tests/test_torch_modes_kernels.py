@@ -1,0 +1,189 @@
+# SPDX-License-Identifier: Apache-2.0
+"""The decode and prefill kernels' mode 1-3 form against its plain version,
+on the card.
+
+Card-only: each test skips where no CUDA device is present. On the card:
+
+    python -m pytest --noconftest -m requires_cuda tests/test_torch_modes_kernels.py -q
+
+Tolerance: max|a-b| / max|b| <= 5e-3 against the plain version's float32
+result (``ops/reference.forward_f32_epilogue``: forward_meta's per-op bf16
+dequantization and float32 dot, the channel scales in float32), the JAX
+kernel tests' bound; against ``forward_meta`` itself, which rounds the sums
+and the scales to bf16 before it multiplies, mean|a-b| / mean|b| <= 5e-3
+(the form of chip_smoke.py's first-step check: a bf16 rounding of its own a
+value). Forms: A8W4 / A8W2 / A8W1 (grouped mode 3, csm 2; channel-wise
+mode 3 / csm 2 and mode 1 / csm 3; e4m3 and e5m2 x), channel-wise A16W4
+(mode 3 / csm 0, mode 1 / csm 1), A16W158 (W2, mode 1, scalar zero, float32
+channel scale), and packed by hand: mode 2 (scales, no zeros) and mode 3
+with a scalar zero. Shapes: the 8B ones, ragged N (odd columns take the
+2-byte metadata loads) and a K that ends inside a decode stage.
+"""
+
+import pytest
+import torch
+
+from gemlite_tpu_torch import DType, GemLiteLinear
+from gemlite_tpu_torch.dtypes import to_torch_dtype
+from gemlite_tpu_torch.helper import A16W158_INT, A16Wn, A8Wn_HQQ_INT_dynamic
+from gemlite_tpu_torch.ops import build, dispatch
+from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan
+from gemlite_tpu_torch.ops.fused import fused_gemm_float
+from gemlite_tpu_torch.ops.prefill import prefill_modes
+from gemlite_tpu_torch.ops.reference import forward_f32_epilogue, forward_meta
+from gemlite_tpu_torch.quant import quantize_int_weights, scale_activations_per_token
+
+pytestmark = pytest.mark.requires_cuda
+REL = 5e-3
+SHAPES_8B = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]   # (N, K)
+E4M3, E5M2 = torch.float8_e4m3fn, torch.float8_e5m2
+# name -> (bits, gs (0: K), how the layer is packed)
+FORMS = {
+    "a8w4_gs64": (4, 64, "a8"), "a8w4_gs128_e5m2": (4, 128, "a8_e5m2"), "a8w2_gs64": (2, 64, "a8"),
+    "a8w1_gs128": (1, 128, "a8"), "a8w4_cw": (4, 0, "a8"), "a8w4_cw_post": (4, 0, "a8_post"),
+    "a16w4_cw": (4, 0, "a16"), "a16w4_cw_post": (4, 0, "a16_post"), "a16w158": (2, 0, "bitnet"),
+    "w4_mode2_gs64": (4, 64, "mode2"), "w2_mode3_scalar_zero_gs128": (2, 128, "scalar_zero"),
+}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _layer(gen, form, N, K):
+    bits, gs, how = FORMS[form]
+    gs = gs or K
+    if how == "bitnet":
+        w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
+        return A16W158_INT(device="cuda", dtype=torch.bfloat16).from_weights(w, 0.01)
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    W_q, s, z = quantize_int_weights(w, bits, gs)
+    if how.startswith("a8"):
+        return A8Wn_HQQ_INT_dynamic(device="cuda", dtype=torch.bfloat16, W_nbits=bits,
+                                    post_scale=how == "a8_post",
+                                    fp8=E5M2 if how == "a8_e5m2" else E4M3).from_weights(W_q, s, z)
+    if how.startswith("a16"):
+        return A16Wn(device="cuda", dtype=torch.bfloat16, post_scale=how == "a16_post").from_weights(
+            W_q, s, z, bits, gs)
+    layer = GemLiteLinear(bits, gs, K, N, DType.BF16, DType.BF16, device="cuda")
+    s = s.to(torch.bfloat16)
+    W_q = W_q.to(torch.uint8)
+    return layer.pack(W_q, s, None) if how == "mode2" else layer.pack(W_q, s, 2 ** (bits - 1))
+
+
+def _inputs(gen, layer, M):
+    """(x as the kernels take it: bf16, the bf16 image of fp8 codes for a
+    scaled-activation layer; x as the plain versions take it; scales_x)."""
+    x = (torch.randn((M, layer.in_features), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    if not layer.scaled_activations:
+        return x, x, None
+    xq, sx = scale_activations_per_token(x, to_torch_dtype(layer.input_dtype))
+    return xq.to(torch.bfloat16), xq, sx
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _mean_rel(a, b):
+    return float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+
+
+def _check(gen, form, M, N, K):
+    layer = _layer(gen, form, N, K)
+    meta = layer.meta
+    assert meta.W_group_mode in (1, 2, 3)
+    x, xp, sx = _inputs(gen, layer, M)
+    args = (layer.W_q, layer.scales, layer.zeros, sx)
+    out = (decode_modes if M <= 64 else prefill_modes)(x, *args, meta)
+    f32 = meta._replace(output_dtype=DType.FP32.value)
+    want = forward_f32_epilogue(xp, *args, f32)
+    torch.cuda.synchronize()
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert _rel(out, want) <= REL, (form, M, N, K)
+    assert _mean_rel(out, forward_meta(xp, *args, f32)) <= REL
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("M", [1, 7, 8, 33, 64, 65, 128, 300, 1024, 2048])
+def test_modes_match_plain(gen, form, M):
+    _check(gen, form, M, 1024, 2048)
+
+
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a8w4_cw_post", "a16w158"])
+@pytest.mark.parametrize("M", [1, 8, 64, 128, 1024, 2048])
+@pytest.mark.parametrize("N,K", SHAPES_8B)
+def test_modes_8b_shapes(gen, form, M, N, K):
+    _check(gen, form, M, N, K)
+
+
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a8w2_gs64", "a16w4_cw_post", "a16w158"])
+@pytest.mark.parametrize("N", [129, 130, 200])
+@pytest.mark.parametrize("M", [1, 33, 65, 129])
+def test_modes_ragged_columns(gen, form, N, M):
+    _check(gen, form, M, N, 1024)
+
+
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a8w4_cw", "w4_mode2_gs64"])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_decode_modes_k_ends_inside_a_stage(gen, form, M):
+    """K 2112 = 16.5 stages of 128: the last stage is half past the end."""
+    _check(gen, form, M, 512, 2112)
+
+
+@pytest.mark.parametrize("form,M,N,K", [
+    ("a8w4_gs64", 8, 14336, 4096), ("a8w4_cw_post", 8, 4096, 14336), ("a16w158", 1, 4096, 4096),
+    ("a8w4_gs64", 128, 14336, 4096), ("a8w2_gs64", 1024, 4096, 14336),
+    ("a16w4_cw_post", 300, 1024, 4096)])
+def test_modes_one_launch_a_call(gen, form, M, N, K):
+    """One call: one kernel (no memset, no merge launch), no allocation but
+    the output, two calls equal bit for bit, the split state left 0; a
+    channel-wise decode splits K."""
+    layer = _layer(gen, form, N, K)
+    x, _, sx = _inputs(gen, layer, M)
+    fn = decode_modes if M <= 64 else prefill_modes
+    call = (lambda: fn(x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta))
+    want = call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = [call()]
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    assert build.graph_ops(lambda: got.append(call())) == ["kernel"]
+    assert all(torch.equal(g, want) for g in got)
+    for owner in ("decode_gemv", "prefill_gemm"):
+        for key, (ints, _) in build._SPLIT_STATE.items():
+            if key[0] == owner:
+                assert int(ints.abs().sum()) == 0
+    if M <= 64 and layer.meta.group_size == K:
+        assert modes_plan(M, layer.meta).splits > 1
+
+
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a8w2_gs64", "a8w4_cw_post", "a16w4_cw",
+                                  "a16w158"])
+def test_modes_routes_on_the_card(gen, form):
+    """Through the layer: decode at M 1 / 64, prefill at 65 / 4095, and from
+    4096 the general fused kernel's float path, as scheduled; each output
+    within the bound of its route's plain version."""
+    layer = _layer(gen, form, 1024, 2048)
+    routes, counts = [], []
+    for M, route in ((1, "decode"), (64, "decode"), (65, "prefill"), (4095, "prefill"),
+                     (4096, "general_fused")):
+        x = (torch.randn((M, 2048), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        before = (decode_modes.launches, prefill_modes.launches, fused_gemm_float.launches)
+        dispatch.KERNEL_TRACE.clear()
+        out = layer(x)
+        torch.cuda.synchronize()
+        routes.append(dispatch.KERNEL_TRACE[-1])
+        counts.append(tuple(a - b for a, b in zip((decode_modes.launches, prefill_modes.launches,
+                                                    fused_gemm_float.launches), before)))
+        xp, sx = x, None
+        if layer.scaled_activations:
+            xp, sx = scale_activations_per_token(x, to_torch_dtype(layer.input_dtype))
+        want = forward_f32_epilogue(xp, layer.W_q, layer.scales, layer.zeros, sx,
+                                    layer.meta._replace(output_dtype=DType.FP32.value))
+        assert _rel(out, want) <= REL, (form, M)
+    assert routes == ["decode", "decode", "prefill", "prefill", "general_fused"]
+    assert counts == [(1, 0, 0), (1, 0, 0), (0, 1, 0), (0, 1, 0), (0, 0, 1)]
