@@ -7,9 +7,12 @@
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
   build    compile the ten CUDA sources from gemlite_tpu_torch/csrc
-           (decode_gemv.cu holds the per-layer and stacked decode, fp8_gemm.cu
-           the fp8 decode, stacked decode and prefill, mx_gemm.cu the MX
-           decode, stacked decode, prefill and general entries);
+           (decode_gemv.cu holds the per-layer and stacked decode, in mode 4
+           and modes 1-3, fp8_gemm.cu the fp8 decode, stacked decode and
+           prefill, mx_gemm.cu the MX decode, stacked decode, prefill and
+           general entries), one nvcc each at once, fused_float.cu and
+           int8_decode.cu in parts (ops/build.KERNEL_PARTS); the wall and
+           each source's and part's seconds;
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
            (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
            W1 prefill at M 128 on 14336x4096): relative error max|a-b| /
@@ -129,6 +132,12 @@ Phases, each printing one JSON line:
            linears run only on the mode 1-3 decode and prefill forms,
            launches equal the schedule, the first step matches the plain path
            on the CPU; profiled in profile_a8w4;
+  serve_scan_cw  the 4-layer model quantized channel-wise (A16W4 with
+           post_scale: W_group_mode 1, csm 1), served captured on the dense
+           cache unrolled and with scan_layers=True: equal tokens and first
+           two decode steps' logits, the scan run's decode steps on the
+           stacked mode 1-3 entry (decode_modes_stacked), launches and routes
+           as scheduled;
   kernels_mx   the MX kernels (csrc/mx_gemm.cu, the MX form of
            csrc/dequantize.cu) against their plain version
            (ops/reference.mx_forward_ref) within 5e-3: decode at M 1 / 8 / 64
@@ -142,7 +151,9 @@ Phases, each printing one JSON line:
            decode over a 32-layer A16W4_MXFP stack at layers 0 / 17 / 31,
            equal to the per-layer kernel bit for bit. Plans, one device
            operation a call, times, bounds and a dense bf16 matmul on the
-           dequantized weight as the yardstick;
+           dequantized weight as the yardstick; the decode rows on
+           14336x4096 are timed under a read flush of the L2 too
+           ("read_flush_ms": no dirty line written back while they run);
   layer_mx     each of the six MX processors at 4096x4096, M in {1, 64, 65,
            128, 4096}, on the JAX router's routes (decode / prefill /
            prefill_mx_csm4 / dequantize);
@@ -153,9 +164,11 @@ Phases, each printing one JSON line:
            2880x2880, M 1 / 8 / 64 / 128 / 1024, for A16W4_MXFP,
            A8W4_MXFP_dynamic, A4W4_MXFP_dynamic (fake-quantized x) and
            A4W4_NVFP_dynamic; with --old-mx-source DIR (an earlier tree's
-           csrc) each prefill, csm-4 and general row also times that tree's
-           entry (old_ms), bit for bit equal to the current one where both
-           take the same rows and split;
+           csrc, e.g. the parent commit's) each decode, stacked, prefill,
+           csm-4 and general row also times that tree's entry with the plan
+           it took (old_ms; old_read_flush_ms beside read_flush_ms), bit for
+           bit equal to the current one where both take the same rows and
+           split;
   serve_mxfp4, serve_nvfp4  the 4-layer model quantized with A16W4_MXFP
            and A4W4_NVFP_dynamic, served as in "serve": tokens equal the bare
            loop, the linears run only on the MX routes, launches equal the
@@ -177,7 +190,11 @@ Phases, each printing one JSON line:
            (one layer's bytes), a dense bf16 matmul beside them,
            torch._weight_int4pack_mm on the timed layer at W4, the plan and
            one device operation a call, and the per-layer decode kernel at
-           W1/W2;
+           W1/W2; then the stacked mode 1-3 entry over 32-layer channel-wise
+           A16W4 stacks (post_scale at 14336x4096 M 1 / 8 / 64 and 4096x14336
+           M 8, mode 3 at 14336x4096 M 8), each checked layer equal to the
+           per-layer mode 1-3 entry bit for bit and within 5e-3 of
+           forward_f32_epilogue;
   serve_scan    Llama-3-8B at full widths and its full 32 layers, random
            weights drawn and quantized (W4 gs=128) one block at a time on the
            card, apart and fused (wqkv, gate_up), the serve phase's 8
@@ -225,7 +242,8 @@ Phases, each printing one JSON line:
            burst of the W8 model), acceptance and tokens a step beside the
            JAX package's record (SERVING.md section 7); every kernel of the
            kernels line launches but the general MX entry (no linear of the
-           checkpoint is off the fold rule);
+           checkpoint is off the fold rule) and the stacked mode 1-3 entry
+           (no configuration is channel-wise A16Wn: serve_scan_cw runs it);
   patch_model   an nn.Module tree of bf16 nn.Linears at an 8B block's seven
            shapes and an 8B lm_head, patched with A16W8_INT8,
            A8W8_INT8_dynamic and A8W8_FP8_dynamic: the lm_head skipped, each
@@ -288,21 +306,27 @@ class Timer:
     """Median CUDA-event time of fn on the device.
 
     A 64 MiB write before each launch leaves the 50 MB L2 cache cold, as a
-    layer finds it when the other layers' weights have passed through. A spin
-    kernel then holds the stream while the host enqueues fn, so that the
-    events time the device work and not the host's launch overhead."""
+    layer finds it when the other layers' weights have passed through
+    (``flush="read"``: a 64 MiB read instead, which leaves clean lines, so
+    that no dirty line is written back while fn runs). A spin kernel then
+    holds the stream while the host enqueues fn, so that the events time the
+    device work and not the host's launch overhead."""
 
     SPIN_CYCLES = 4_000_000      # about 2 ms at 1.98 GHz
 
     def __init__(self):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, iters: int = 20) -> float:
+    def ms(self, fn, iters: int = 20, flush: str = "write") -> float:
         for _ in range(3):
             fn()
         times = []
+        words = self.flush.view(torch.int64)
         for _ in range(iters):
-            self.flush.zero_()
+            if flush == "read":
+                words.max()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1550,6 +1574,102 @@ def phase_serve_a8w4(card: str, cfg, dense) -> dict:
                            kernel_of={"decode": "decode_modes", "prefill": "prefill_modes"})[0]
 
 
+def channelwise_llama(dense, post: bool = True):
+    """The 4-layer model's block linears quantized channel-wise (W4, each row
+    of a linear one group: quant.quantize_int_weights at gs = K) and packed
+    by ``A16Wn(post_scale=post)``: mode 1 / csm 1 (the channel scale after
+    the K loop), or mode 3 / csm 0."""
+    from gemlite_tpu_torch.helper import A16Wn
+    from gemlite_tpu_torch.quant import quantize_int_weights
+    proc = A16Wn(device="cuda", dtype=torch.bfloat16, post_scale=post)
+    blocks = []
+    for blk in dense["blocks"]:
+        nb = {"attn": {}, "mlp": {}, "ln_attn": blk["ln_attn"], "ln_mlp": blk["ln_mlp"]}
+        for grp in ("attn", "mlp"):
+            for name, w in blk[grp].items():
+                K = w.shape[1]
+                W_q, s, z = quantize_int_weights(w.to(torch.float32), 4, K)
+                nb[grp][name] = proc.from_weights(W_q, s, z, 4, K)
+        blocks.append(nb)
+    return dict(dense, blocks=blocks)
+
+
+def phase_serve_scan_cw(card: str, cfg, dense) -> dict:
+    """The 4-layer model quantized channel-wise (A16W4 with post_scale: mode
+    1 / csm 1) served on the dense cache with its decode step captured,
+    unrolled and with scan_layers=True: the scan engine's decode steps take
+    the stacked mode 1-3 entry (decode_modes_stacked), the unrolled engine's
+    the per-layer one, and the two give the same tokens and the same logits
+    on the first two steps. Launches as scheduled. Returns the scan run's
+    launch counts."""
+    from gemlite_tpu_torch import ContinuousBatchingEngine, Request
+
+    t0 = time.perf_counter()
+    params = channelwise_llama(dense)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    meta = params["blocks"][0]["mlp"]["down"].meta
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_PROMPT_LENS]
+    n_new = 32
+    runs = {}
+    for name, scan in (("captured_unrolled", False), ("captured_scan", True)):
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=8, paged=False, scan_layers=scan,
+                                       device="cuda")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RouteLog() as log:
+            for p in prompts:
+                eng.submit(Request(prompt_tokens=p, max_new_tokens=n_new))
+            logits = []
+            for _ in range(2):
+                eng.step()
+                logits.append(eng.last_logits.clone())
+            results = eng.run()
+            torch.cuda.synchronize()
+        by_prompt = {tuple(r.prompt_tokens): r for r in results}
+        stats = eng.stats()
+        per_fwd, short = 7 * cfg.num_layers, sum(len(p) <= 64 for p in prompts)
+        counts = read_counts()
+        expect = {k: 0 for k in counts}
+        expect["prefill_modes"] = per_fwd * (len(prompts) - short)
+        if scan:
+            expect["decode_modes"] = per_fwd * short
+            expect["decode_modes_stacked"] = per_fwd * stats["decode_steps"]
+        else:
+            expect["decode_modes"] = per_fwd * (short + stats["decode_steps"])
+        runs[name] = {"tokens": [by_prompt[tuple(p)].output_tokens for p in prompts],
+                      "logits": logits, "counts": counts, "expect": expect, "stats": stats,
+                      "routes": log.linears, "wall_s": time.perf_counter() - t0, "scan": scan}
+        del eng
+    same = runs["captured_scan"]["tokens"] == runs["captured_unrolled"]["tokens"]
+    logits_equal = all(torch.equal(a, b) for a, b in zip(runs["captured_scan"]["logits"],
+                                                         runs["captured_unrolled"]["logits"]))
+    counts_ok = all(r["counts"] == r["expect"] for r in runs.values())
+    routes_ok = all(r["routes"] == ({"decode", "prefill", "decode_stacked"} if r["scan"]
+                                    else {"decode", "prefill"}) for r in runs.values())
+    graphs_ok = all(captured_throughout(r["stats"]) for r in runs.values())
+    ok = same and logits_equal and counts_ok and routes_ok and graphs_ok
+    emit({"phase": "serve_scan_cw", "ok": ok,
+          "model": "Llama-3-8B widths, 4 of 32 layers (depth cut), channel-wise A16W4 "
+                   "(post_scale: W_group_mode 1, csm 1)",
+          "meta": {"W_group_mode": meta.W_group_mode, "csm": meta.channel_scale_mode},
+          "requests": len(prompts), "new_tokens": n_new, "setup_s": setup_s,
+          "tokens_equal": same, "first_two_decode_logits_equal": logits_equal,
+          **{name: {"wall_s": r["wall_s"], "tokens_out": r["stats"]["tokens_out"],
+                    "tokens_per_s_host_clock": r["stats"]["tokens_out"] / r["wall_s"],
+                    "decode_steps": r["stats"]["decode_steps"], "graphs": graph_report(r["stats"]),
+                    "launches": r["counts"], "launches_expected": r["expect"],
+                    "routes": sorted(r["routes"])} for name, r in runs.items()},
+          "card": card})
+    if not ok:
+        raise RuntimeError("serve_scan_cw: the channel-wise scan engine failed its checks: "
+                           f"tokens {same}, logits {logits_equal}, launches {counts_ok}, "
+                           f"routes {routes_ok}, graphs {graphs_ok}")
+    return runs["captured_scan"]["counts"]
+
+
 MX_GROUPS = {"mx_decode_kernel": ("mx_decode",), "mx_prefill_kernel": ("mx_prefill",)}
 MX_DECODE_MS = (1, 8, 64)
 MX_PREFILL_MS = (128, 1024)
@@ -1594,18 +1714,36 @@ def mx_inputs(layer, M: int, gen: torch.Generator):
     return x, None, meta
 
 
+def parent_mx_decode_plan(M: int, N: int, K: int, kind: int, x_bytes: int):
+    """The MX decode plan of the tree before the decode body streamed its
+    weights by TMA (``start_old_mx_build``): 128-column blocks, K cut in
+    units of 256 so that about 4 x 132 blocks run, a ring of 128-deep
+    stages in 72 KB (2-6 stages). Returns (column tiles, splits,
+    k_per_split, stages)."""
+    tiles, unit = N // 128, 256
+    units = -(-K // unit)
+    splits = max(1, min(units, -(-4 * 132 // tiles)))
+    per = -(-units // splits)
+    rows = -(-M // 8) * 8
+    stage = 128 // (8 if kind == 0 else 4) * 128 * 4 + 4 * 128 + rows * 128 * x_bytes
+    stages = max(2, min(6, 72 * 1024 // stage))
+    return tiles, -(-units // per), min(K, per * unit), stages
+
+
 def start_old_mx_build(src_dir: Path):
     """Start nvcc on an earlier tree's ``mx_gemm.cu`` (``src_dir`` holds it
-    and its headers, e.g. that tree's ``gemlite_tpu_torch/csrc`` unpacked
-    under ``_archive/``) into ``gemlite_tpu_torch/_build/old/``, beside the
-    current build. Returns a function that waits for it and returns that
-    tree's entries with the signatures and plans they had before the prefill
-    body took 256-row blocks (128 rows a block, the bf16 form's ring for both
-    forms of x): ``prefill(x, W_q, scales, sx, meta)``, ``csm4(codes,
-    group_scales, W_q, scales, meta)``, ``general(x, W_q, scales, sx, meta)``,
-    and ``plan(kernel, M, N, K, meta)``, the (rows, splits, k_per_split) that
-    tree's call took. The current entries are timed against them in the same
-    call."""
+    and its headers, e.g. the parent commit's ``gemlite_tpu_torch/csrc``
+    unpacked under ``_archive/``) into ``gemlite_tpu_torch/_build/old/``,
+    beside the current build. Returns a function that waits for it and
+    returns that tree's entries with the C signatures and plans they had
+    before the decode body streamed its weights by TMA: ``decode(x, W_q,
+    scales, sx, meta)``, ``decode_stacked(x, W_q, scales, meta, layer_idx)``
+    (``parent_mx_decode_plan``), ``prefill(x, W_q, scales, sx, meta)``,
+    ``csm4(codes, group_scales, W_q, scales, meta)`` (``ops/mx.prefill_plan``),
+    ``general(x, W_q, scales, sx, meta)`` (``ops/mx.general_plan``), and
+    ``plan(kernel, M, N, K, meta)``, the (rows or column tiles, splits,
+    k_per_split, stages) that tree's call took. The current entries are timed
+    against them in the same call."""
     import atexit
     import ctypes
     from types import SimpleNamespace
@@ -1625,17 +1763,22 @@ def start_old_mx_build(src_dir: Path):
         if proc.returncode:
             raise RuntimeError(f"the earlier mx_gemm.cu failed to build:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(so))
-        for fn, ptrs, ints in (("gl_mx_prefill", 8, 10), ("gl_mx_general", 7, 8)):
+        for fn, ptrs, ints in (("gl_mx_prefill", 8, 11), ("gl_mx_general", 7, 9),
+                               ("gl_mx_decode", 7, 8), ("gl_mx_decode_stacked", 8, 9)):
             getattr(lib, fn).argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                                          + [ctypes.c_void_p])
             getattr(lib, fn).restype = ctypes.c_int
 
         def plan(kernel, M, N, K, meta):
             nvfp4 = meta.input_dtype == DType.NVFP4.value
-            if kernel == "mx_general" and M <= 64 and not nvfp4:
-                d = mx.decode_plan(M, N, K, 0, 2)
-                return -(-M // 8) * 8, d.splits, d.k_per_split, d.stages
-            p = mx.prefill_plan(M, N, K, mx.w_kind(meta), bm=128)
+            if kernel in ("mx_decode", "mx_decode_stacked"):
+                xb = 1 if meta.channel_scale_mode == 2 else 2
+                return parent_mx_decode_plan(M, N, K, mx.w_kind(meta), xb)
+            if kernel == "mx_general":
+                p = mx.general_plan(M, N, K, nvfp4)
+                return p.bm, p.splits, p.k_per_split, p.stages
+            codes = kernel == "mx_prefill_csm4" or meta.channel_scale_mode == 2
+            p = mx.prefill_plan(M, N, K, mx.w_kind(meta), x_codes=codes)
             return p.bm, p.splits, p.k_per_split, p.stages
 
         def scratch(kernel, M, N, splits, tiles):
@@ -1646,16 +1789,17 @@ def start_old_mx_build(src_dir: Path):
 
         def prefill(x, W_q, scales, sx, meta, xs=None):
             M, N, K = x.shape[0], meta.out_features, meta.in_features
-            bm, splits, kps, stages = plan("mx_prefill", M, N, K, meta)
+            codes = x.dtype == torch.float8_e4m3fn
+            kernel = "mx_prefill_csm4" if xs is not None else "mx_prefill"
+            bm, splits, kps, stages = plan(kernel, M, N, K, meta)
             part, cnt, stream = scratch("mx_prefill", M, N, splits, -(-M // bm) * (N // 128))
             out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-            codes = x.dtype == torch.float8_e4m3fn
             err = lib.gl_mx_prefill(
                 x.data_ptr(), None if xs is None else xs.data_ptr(), W_q.data_ptr(),
                 scales.view(torch.uint8).data_ptr(), None if sx is None else sx.data_ptr(), part,
                 cnt, out.data_ptr(), M, N, K, 3 if codes else 2,
-                0 if xs is None else K // xs.shape[1], mx.w_kind(meta), meta.group_size, splits,
-                kps, stages, stream)
+                0 if xs is None else K // xs.shape[1], mx.w_kind(meta), meta.group_size, bm,
+                splits, kps, stages, stream)
             build.check(err, "the earlier gl_mx_prefill")
             return out
 
@@ -1670,13 +1814,32 @@ def start_old_mx_build(src_dir: Path):
                                     None if sx is None else sx.data_ptr(), part, cnt,
                                     out.data_ptr(), M, N, K,
                                     3 if x.dtype == torch.float8_e4m3fn else 2,
-                                    int(meta.input_dtype == DType.NVFP4.value), splits, kps, stages,
-                                    stream)
+                                    int(meta.input_dtype == DType.NVFP4.value), bm, splits, kps,
+                                    stages, stream)
             build.check(err, "the earlier gl_mx_general")
             return out
 
+        def decode(x, W_q, scales, sx, meta, layer_idx=None):
+            M, N, K = x.shape[0], meta.out_features, meta.in_features
+            tiles, splits, kps, stages = plan("mx_decode", M, N, K, meta)
+            part, cnt, stream = scratch("mx_decode", M, N, splits, tiles)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+            head = (x.data_ptr(), W_q.data_ptr(), scales.view(torch.uint8).data_ptr(),
+                    None if sx is None else sx.data_ptr())
+            tail = (M, N, K, 3 if x.dtype == torch.float8_e4m3fn else 2, mx.w_kind(meta), splits,
+                    kps, stages, stream)
+            if layer_idx is None:
+                err = lib.gl_mx_decode(*head, part, cnt, out.data_ptr(), *tail)
+            else:
+                err = lib.gl_mx_decode_stacked(*head, layer_idx.data_ptr(), part, cnt,
+                                               out.data_ptr(), W_q.shape[0], *tail)
+            build.check(err, "the earlier gl_mx_decode")
+            return out
+
         return SimpleNamespace(
-            prefill=prefill, general=general, plan=plan,
+            prefill=prefill, general=general, plan=plan, decode=decode,
+            decode_stacked=lambda x, W_q, scales, meta, idx: decode(x, W_q, scales, None, meta,
+                                                                    idx),
             csm4=lambda codes, gscales, W_q, scales, meta: prefill(codes, W_q, scales, None, meta,
                                                                    xs=gscales))
     return ready
@@ -1768,6 +1931,9 @@ def same_plan(old, kernel, M, N, K, meta, x_codes=False) -> bool:
     (``start_old_mx_build``), so that both sum in one order."""
     from gemlite_tpu_torch import DType
     from gemlite_tpu_torch.ops import mx
+    if kernel in ("mx_decode", "mx_decode_stacked"):
+        d = mx.decode_plan(M, N, K, mx.w_kind(meta), 1 if x_codes else 2)
+        return (d.tiles, d.splits, d.k_per_split) == old.plan(kernel, M, N, K, meta)[:3]
     if kernel == "mx_general":
         p = mx.general_plan(M, N, K, meta.input_dtype == DType.NVFP4.value)
     else:
@@ -1791,7 +1957,9 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_mx=None) -> dict:
     CUDA-event time with the L2 flushed, bound (bytes over 3.35 TB/s or 2 M N
     K over the bf16 rate) and a dense bf16 matmul on the dequantized weight
     as the yardstick. The general entry's rows carry ``general_plan`` (the
-    body, split and ring). Given ``old_mx`` (``start_old_mx_build``), every
+    body, split and ring). The decode rows on 14336x4096 are also timed
+    under a read flush (``read_flush_ms``). Given ``old_mx``
+    (``start_old_mx_build``), every decode, stacked (the timed layer),
     prefill, csm-4 and general row also times an earlier tree's entry on the
     same inputs (``old_ms``), and where both take the same rows and split its
     output must equal the current one bit for bit. Returns the kernels line's
@@ -1846,6 +2014,11 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_mx=None) -> dict:
             row["old_plan"] = old.plan(name, M, N, K, meta)
             if same_plan(old, name, M, N, K, meta, x.dtype == torch.float8_e4m3fn):
                 row["equals_old"] = bool(torch.equal(got, old_out))
+        if name == "mx_decode" and (N, K) == MX_SHAPE and timed:
+            # the L2 flushed by a read: no dirty line is written back during the call
+            row["read_flush_ms"] = timer.ms(lambda: kern(*args, meta), flush="read")
+            if old_fn is not None:
+                row["old_read_flush_ms"] = timer.ms(lambda: old_fn(*args, meta), flush="read")
         record(row, got, want)
 
     for form in ("a16w4_mxfp", "a16w8_mxfp", "a8w8_mxfp", "a4w4_nvfp", "a16w8_mxfp_e5m2"):
@@ -1856,7 +2029,8 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_mx=None) -> dict:
                 for M in MX_DECODE_MS:
                     x, sx, meta = mx_inputs(layer, M, gen)
                     call_row("mx_decode", form, layer, M, mx.mx_decode, x, sx, meta,
-                             mx.decode_plan(M, N, K, kind, x.element_size()))
+                             mx.decode_plan(M, N, K, kind, x.element_size()),
+                             old_fn=old.decode if old is not None else None)
             wide = MX_PREFILL_WIDE_MS if (N, K) == MX_SHAPE else MX_PREFILL_MS
             for M in (MX_NVFP4_MS if form == "a4w4_nvfp" else wide):
                 x, sx, meta = mx_inputs(layer, M, gen)
@@ -1973,6 +2147,12 @@ def phase_kernels_mx(card: str, peak, timer: Timer, old_mx=None) -> dict:
                    "device_ops_per_call": device_ops_per_call(
                        lambda: mx.mx_decode_stacked(x, W, S, meta, idx)),
                    "card": card}
+            if old is not None and timed:
+                row["old_ms"] = timer.ms(lambda: old.decode_stacked(x, W, S, meta, idx))
+                row["old_plan"] = old.plan("mx_decode_stacked", M, N, K, meta)
+                if same_plan(old, "mx_decode_stacked", M, N, K, meta):
+                    row["equals_old"] = bool(torch.equal(got, old.decode_stacked(x, W, S, meta,
+                                                                                 idx)))
             record(row, got, per_layer, exact=True)
     del checked, W, S, dense
     torch.cuda.empty_cache()
@@ -2430,11 +2610,95 @@ def random_stack(L: int, N: int, K: int, bits: int, gen: torch.Generator):
     return W_q, scales, (-z * scales.float()).to(torch.bfloat16), meta
 
 
+def random_cw_stack(L: int, N: int, K: int, bits: int, post: bool, gen: torch.Generator):
+    """L random channel-wise A16Wn layers stacked as models/scan_llama stacks
+    them (each row of W one group, as ``A16Wn.from_weights`` packs it): with
+    ``post`` mode 1 / csm 1 (the channel scale after the K loop), else mode
+    3 / csm 0; (L, K / epw, N) words of random codes, (L, 1, N) bf16 scales
+    and zeros, and their meta."""
+    from gemlite_tpu_torch import DType, LayerMeta
+    W_q, _, _, _ = random_stack(L, N, K, bits, gen)
+    scales = (torch.rand((L, 1, N), generator=gen, device="cuda") * 2e-3 + 1e-3).to(torch.bfloat16)
+    zeros = torch.randint(0, 2 ** bits, (L, 1, N), generator=gen, device="cuda").to(torch.bfloat16)
+    meta = LayerMeta(scaled_activations=0, W_nbits=bits, group_size=K,
+                     unpack_mask=2 ** bits - 1, elements_per_sample=32 // bits,
+                     input_dtype=DType.BF16.value, output_dtype=DType.BF16.value,
+                     acc_dtype=DType.FP32.value, meta_dtype=DType.BF16.value,
+                     channel_scale_mode=1 if post else 0, W_group_mode=1 if post else 3,
+                     data_contiguous=1, in_features=K, out_features=N, zero_is_scalar=0)
+    return W_q, scales, zeros, meta
+
+
+MODES_STACK_CASES = ((True, 14336, 4096, (1, 8, 64)), (False, 14336, 4096, (8,)),
+                     (True, 4096, 14336, (8,)))
+
+
+def modes_stacked_rows(card: str, peak, timer: Timer) -> list:
+    """The stacked mode 1-3 entry (gl_decode_modes_stacked) over 32-layer
+    channel-wise A16W4 stacks: each checked layer equal to the per-layer
+    mode 1-3 entry (gl_decode_modes) on that layer bit for bit and to its
+    plain version (forward_f32_epilogue) within 5e-3, no host sync around its
+    launches, one device operation a call."""
+    from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan
+    from gemlite_tpu_torch.ops.reference import forward_f32_epilogue
+    from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_matmul_stacked_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    ids = torch.arange(SCAN_LAYERS, dtype=torch.int32, device="cuda")
+    timed = SCAN_CHECKED[1]
+    rows = []
+    for post, N, K, Ms in MODES_STACK_CASES:
+        W_q, scales, zeros, meta = random_cw_stack(SCAN_LAYERS, N, K, 4, post, gen)
+        stack = (W_q, scales, zeros)
+        layer = {l: (W_q[l], scales[l], zeros[l]) for l in SCAN_CHECKED}
+        dense_w = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+        for M in Ms:
+            x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = {l: decode_matmul_stacked(x, *stack, meta, ids[l]) for l in SCAN_CHECKED}
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            per = {l: decode_modes(x, *layer[l], None, meta) for l in SCAN_CHECKED}
+            want = {l: forward_f32_epilogue(x, *layer[l], None, with_f32_out(meta))
+                    for l in SCAN_CHECKED}
+            torch.cuda.synchronize()
+            equal = all(torch.equal(got[l], per[l]) for l in SCAN_CHECKED)
+            err = max(rel_err(got[l], want[l]) for l in SCAN_CHECKED)
+            bound, by = kernel_bound(K * N / 2 + 2 * 2 * N + 2 * M * K + 2 * M * N,
+                                     2.0 * M * N * K, peak)
+            row = {"kernel": "decode_modes_stacked", "form": "a16w4_cw_post" if post
+                   else "a16w4_cw", "mode": meta.W_group_mode, "csm": meta.channel_scale_mode,
+                   "bits": 4, "M": M, "N": N, "K": K, "layers": SCAN_LAYERS,
+                   "layers_checked": list(SCAN_CHECKED), "equals_per_layer_kernel": equal,
+                   "rel_err": err,
+                   "max_abs_err": max(max_abs(got[l], want[l]) for l in SCAN_CHECKED),
+                   "ms": timer.ms(lambda: decode_matmul_stacked(x, *stack, meta, ids[timed])),
+                   "per_layer_ms": timer.ms(lambda: decode_modes(x, *layer[timed], None, meta)),
+                   "plain_ms": timer.ms(lambda: decode_matmul_stacked_plain(
+                       x, *stack, meta, timed), iters=5),
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": timer.ms(lambda: torch.matmul(x, dense_w)),
+                   "library": "dense bf16 matmul of the same shape",
+                   "plan": modes_plan(M, meta)._asdict(),
+                   "device_ops_per_call": device_ops_per_call(
+                       lambda: decode_matmul_stacked(x, *stack, meta, ids[timed])),
+                   "card": card}
+            emit(row)
+            if not equal or not err <= REL_TOL or row["device_ops_per_call"] != 1:
+                raise RuntimeError(f"stacked mode 1-3 decode check failed: {row}")
+            rows.append(row)
+        del W_q, scales, zeros, stack, layer, dense_w
+    return rows
+
+
 def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
     """The stacked decode kernel over 32-layer stacks: at each checked layer
     it must equal the per-layer decode kernel on that layer bit for bit and
-    its plain version within 5e-3, with no host sync around its launches.
-    Returns the rows the kernels line reports."""
+    its plain version within 5e-3, with no host sync around its launches;
+    then its mode 1-3 form (``modes_stacked_rows``). Returns the rows the
+    kernels line reports."""
     from gemlite_tpu_torch.ops.decode import decode_matmul, decode_matmul_plain, plan
     from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_matmul_stacked_plain
 
@@ -2493,9 +2757,12 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
                 raise RuntimeError(f"stacked decode kernel check failed: {row}")
             rows.append(row)
         del W_q, scales, zeros, stack, layer, dense_w, library
-    emit({"phase": "kernels_scan", "ok": True, "checked": len(rows), "card": card})
+    modes = modes_stacked_rows(card, peak, timer)
+    emit({"phase": "kernels_scan", "ok": True, "checked": len(rows) + len(modes), "card": card})
     return {"decode_stacked": next(r for r in rows if (r["bits"], r["M"], r["N"], r["K"])
-                                   == (4, 8, 14336, 4096))}
+                                   == (4, 8, 14336, 4096)),
+            "decode_modes_stacked": next(r for r in modes if (r["form"], r["M"], r["N"], r["K"])
+                                         == ("a16w4_cw_post", 8, 14336, 4096))}
 
 
 def full_depth_llama():
@@ -2869,8 +3136,10 @@ def phase_real_weights(card: str) -> None:
     text = bytes(data[RW_PROMPT_START:RW_PROMPT_START + RW_PROMPT_LENS[0]]).decode(
         "utf-8", "replace")
     # every tiny_en_5m linear folds (K and N multiples of 128), so the general
-    # MX entry cannot run here: serve_mx_unfolded is its path
-    silent = [k for k, v in counts.items() if v < 1 and k != "mx_general"]
+    # MX entry cannot run here: serve_mx_unfolded is its path; no configuration
+    # here is channel-wise A16Wn, whose stacked entry serve_scan_cw runs
+    silent = [k for k, v in counts.items()
+              if v < 1 and k not in ("mx_general", "decode_modes_stacked")]
     ok = not failed and runs_ok and spec["ok"] and not silent
     emit({"phase": "real_weights", "ok": ok,
           "model": "checkpoints/tiny_en_5m (trained byte-level Llama, 6 layers, hidden 256, "
@@ -3524,8 +3793,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch port once on one NVIDIA card.")
     ap.add_argument("--old-mx-source", type=Path, default=None,
-                    help="an earlier tree's gemlite_tpu_torch/csrc: kernels_mx also times its "
-                         "MX prefill, csm-4 and general entries beside the current ones (old_ms)")
+                    help="an earlier tree's gemlite_tpu_torch/csrc (the parent commit's): "
+                         "kernels_mx also times its MX decode, stacked decode, prefill, csm-4 "
+                         "and general entries beside the current ones (old_ms)")
     ap.add_argument("--old-fp8-source", type=Path, default=None,
                     help="an earlier tree's gemlite_tpu_torch/csrc: kernels_fp8 also times its "
                          "fp8 decode and prefill entries beside the current ones (old_ms)")
@@ -3566,6 +3836,7 @@ def main() -> int:
     fp8_counts = phase_serve_fp8(card, cfg, dense)
     picked.update(phase_kernels_modes(card, peak, timer))
     modes_counts = phase_serve_a8w4(card, cfg, dense)
+    scan_cw_counts = phase_serve_scan_cw(card, cfg, dense)
     picked.update(phase_kernels_mx(card, peak, timer, old_mx))
     mx_layer_counts = phase_layer_mx(card)
     mxfp4_counts = phase_serve_mx(card, cfg, dense, "a16w4_mxfp")
@@ -3627,6 +3898,9 @@ def main() -> int:
                "prefill_modes": ("gemlite_tpu_torch/csrc/prefill_gemm.cu",
                                  "gemlite_tpu/ops/pallas_prefill.py:570", modes_counts,
                                  "serve_a8w4", "prefill_modes"),
+               "decode_modes_stacked": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+                                        "gemlite_tpu/ops/pallas_scan.py:70", scan_cw_counts,
+                                        "serve_scan_cw", "decode_modes_stacked"),
                "mx_decode": (mx_src, "gemlite_tpu/ops/pallas_decode.py:619", mxfp4_counts,
                              "serve_mxfp4", "mx_decode"),
                "mx_decode_stacked": (mx_src, "gemlite_tpu/ops/pallas_scan.py:70",

@@ -4,7 +4,7 @@
 // pre-folded zeros, or modes 1-3 with a channel-scale epilogue, one launch a
 // call.
 //
-// Three entries share one body:
+// Four entries share one body:
 //   gl_decode          one layer: replaces the TPU kernel
 //                      gemlite_tpu/ops/pallas_decode.py:pallas_decode_matmul
 //                      on the mode-4 layers the serving path runs;
@@ -24,7 +24,13 @@
 //                      The TPU kernel reads l as a scalar-prefetch operand in
 //                      its index maps; here each block reads l from a device
 //                      pointer and offsets its weight, scale and zero
-//                      pointers by it, so the host never reads the index.
+//                      pointers by it, so the host never reads the index;
+//   gl_decode_modes_stacked  layer l of a stack in W_group_mode 1-3 with csm 0
+//                      or 1 (channel-wise A16Wn): the same TPU kernel on
+//                      those layers, the M3 instances read as
+//                      gl_decode_stacked reads its layer, with the channel
+//                      scales (L, 1, N) offset by it too. It keeps
+//                      gl_decode_modes's plan, so the two agree bit for bit.
 //
 // What bounds it: the packed weights and their metadata (K * N * bits / 8 +
 // 4 * K / gs * N bytes) dwarf x and the output at M <= 64, so the bound is
@@ -277,7 +283,7 @@ __device__ __forceinline__ void compute_stage(const Params& p, const Modes& m,
 // form on the finished sums (md points at its kernel argument).
 template <bool M3>
 __device__ __forceinline__ void finish_body(const Params& p, const Modes* md, const float* tile,
-                                            int* flag) {
+                                            int* flag, int layer) {
     const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
     const size_t MN = (size_t)p.M * p.N;
     const int V = p.N % 4 == 0 ? 4 : 1;
@@ -327,10 +333,14 @@ __device__ __forceinline__ void finish_body(const Params& p, const Modes* md, co
             }
         }
         if constexpr (M3) {
+            // the stacked entry's layer of the (L, N) channel scales
+            const void* cs = md->cs == nullptr ? nullptr
+                                               : static_cast<const char*>(md->cs) +
+                                                     (size_t)layer * p.N * (md->cs_code == gl::kF32 ? 4 : 2);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
                 if (i < V)
-                    v[i] = gl::channel_scale(v[i], md->csm, md->cs, md->cs_code, md->sx, m, n + i);
+                    v[i] = gl::channel_scale(v[i], md->csm, cs, md->cs_code, md->sx, m, n + i);
         }
         if (V == 4) {
             const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
@@ -348,17 +358,17 @@ __device__ __forceinline__ void finish_body(const Params& p, const Modes* md, co
 
 // Not inlined: one copy serves every instance of a form.
 __device__ __noinline__ void finish(const Params p, const float* tile, int* flag) {
-    finish_body<false>(p, nullptr, tile, flag);
+    finish_body<false>(p, nullptr, tile, flag, 0);
 }
 
 __device__ __noinline__ void finish_modes(const Params p, const Modes* md, const float* tile,
-                                          int* flag) {
-    finish_body<true>(p, md, tile, flag);
+                                          int* flag, int layer) {
+    finish_body<true>(p, md, tile, flag, layer);
 }
 
 template <int NT, int BITS, bool M3>
 __device__ __forceinline__ void decode_body(const Params& p, const Modes& md, const uint32_t* wq,
-                                            const bf16* sc, const bf16* ze) {
+                                            const bf16* sc, const bf16* ze, int layer = 0) {
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ int last_flag;
     const int S = p.stages, SB = stage_bytes(BITS, NT, p.mrows);
@@ -410,7 +420,7 @@ __device__ __forceinline__ void decode_body(const Params& p, const Modes& md, co
             }
         }
     __syncthreads();
-    if constexpr (M3) finish_modes(p, &md, tile, &last_flag);
+    if constexpr (M3) finish_modes(p, &md, tile, &last_flag, layer);
     else finish(p, tile, &last_flag);
 }
 
@@ -437,6 +447,19 @@ __global__ void __launch_bounds__(BN, kMinBlocks) decode_mma_stacked_kernel(Para
                                  p.zeros + l * groups);
 }
 
+// layer *layer_idx of the stacks in the mode 1-3 form: the words, and the
+// group scales and zeros where the layer has them, as decode_mma_stacked_kernel
+// offsets them; the channel scales (L, N) in finish_modes
+template <int NT, int BITS>
+__global__ void __launch_bounds__(BN, kMinBlocks)
+decode_modes_stacked_kernel(Params p, const __grid_constant__ Modes md) {
+    const int l = __ldg(p.layer_idx);
+    if (l < 0 || l >= p.L) __trap();
+    const size_t words = (size_t)(p.K / (32 / BITS)) * p.N, groups = (size_t)(p.K / p.gs) * p.N;
+    decode_body<NT, BITS, true>(p, md, p.wq + l * words, md.has_s ? p.scales + l * groups : nullptr,
+                                md.has_z ? p.zeros + l * groups : nullptr, l);
+}
+
 __host__ int smem_bytes(int bits, int nt, int mrows, int stages, int M) {
     const int ring = stages * stage_bytes(bits, nt, mrows), tile = M * BN * 4;
     return ring > tile ? ring : tile;
@@ -452,6 +475,9 @@ cudaError_t launch(const Params& p, const Modes& md, int splits, cudaStream_t st
         if constexpr (M3) {
             err = cudaFuncSetAttribute(decode_modes_kernel<NT, BITS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+            if (err == cudaSuccess)
+                err = cudaFuncSetAttribute(decode_modes_stacked_kernel<NT, BITS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
         } else {
             err = cudaFuncSetAttribute(decode_mma_kernel<NT, BITS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
@@ -466,7 +492,8 @@ cudaError_t launch(const Params& p, const Modes& md, int splits, cudaStream_t st
     if (bytes > kSmemMax) return cudaErrorInvalidValue;
     const dim3 grid((p.N + BN - 1) / BN, splits);
     if constexpr (M3) {
-        decode_modes_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p, md);
+        if (p.layer_idx) decode_modes_stacked_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p, md);
+        else decode_modes_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p, md);
     } else {
         if (p.layer_idx) decode_mma_stacked_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
         else decode_mma_kernel<NT, BITS><<<grid, BN, bytes, stream>>>(p);
@@ -571,5 +598,30 @@ extern "C" int gl_decode_modes(const void* x, const void* wq, const void* scales
                    M, N, K, gs, k_per_split, stages, mrows, 0, 0};
     const Modes md{scales != nullptr, zeros != nullptr, static_cast<const int*>(zscalar),
                    static_cast<const float*>(sx), cs, csm, cs_code};
+    return run<true>(p, md, bits, splits, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// Layer *layer_idx (a device pointer to one int32) of L layers in W_group_mode
+// 1, 2 or 3 with csm 0 or 1, as gl_decode_modes otherwise: wq (L, K / epw,
+// N); `scales` and `zeros` (L, K / gs, N) bf16 or null; `cs` (L, N) channel
+// scales for csm 1, float32 (code 0) or bf16 (code 2). No scalar zero and no
+// per-token scales: the stacked gate refuses both.
+extern "C" int gl_decode_modes_stacked(const void* x, const void* wq, const void* scales,
+                                       const void* zeros, const void* cs, const void* layer_idx,
+                                       void* part, void* counters, void* out, int L, int M, int N,
+                                       int K, int gs, int bits, int splits, int k_per_split,
+                                       int stages, int mrows, int csm, int cs_code,
+                                       void* stream_ptr) {
+    const bool codes_ok = cs_code == gl::kF32 || cs_code == gl::kBF16;
+    if (layer_idx == nullptr || L < 1 || (csm != 0 && csm != 1) || !codes_ok ||
+        (csm == 1 && cs == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Params p{static_cast<const bf16*>(x), static_cast<const uint32_t*>(wq),
+                   static_cast<const bf16*>(scales), static_cast<const bf16*>(zeros),
+                   static_cast<const int*>(layer_idx), L, static_cast<bf16*>(out),
+                   static_cast<float*>(part), static_cast<int*>(counters),
+                   M, N, K, gs, k_per_split, stages, mrows, 0, 0};
+    const Modes md{scales != nullptr, zeros != nullptr, nullptr, nullptr, csm == 1 ? cs : nullptr,
+                   csm, cs_code};
     return run<true>(p, md, bits, splits, static_cast<cudaStream_t>(stream_ptr));
 }

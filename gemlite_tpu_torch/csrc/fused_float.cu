@@ -58,6 +58,15 @@
 
 #include "gl_common.cuh"
 
+// gl_fused_float's arguments, as one value for the parts below
+struct FFCall {
+    const void *x, *W, *scales, *zeros, *zero_scalar, *sx;
+    void *out, *part, *counters;
+    int M, N, K, x_code, W_nbits, elems, w_code, mode, csm, gs_s, gs_z, s_code, z_code, out_code;
+    int nt, splits, k_per_split;
+    cudaStream_t stream;
+};
+
 namespace {
 
 using gl::cp_async16;
@@ -689,8 +698,89 @@ int stage_rows(int gs, int K) {
     return std::min(rows, K / gs);
 }
 
+// One call of weight form F: the checks, the kernel's Params, the launch.
+template <int F>
+int run_form(const FFCall& c) {
+    const int M = c.M, N = c.N, K = c.K, mode = c.mode, csm = c.csm, splits = c.splits;
+    const int k_per_split = c.k_per_split, nt = c.nt, gs_s = c.gs_s, gs_z = c.gs_z;
+    const bool split_ok = splits == 1 ? k_per_split >= K
+                                      : (splits > 1 && k_per_split % BK == 0 &&
+                                         (long long)(splits - 1) * k_per_split < K &&
+                                         (long long)splits * k_per_split >= K && c.part != nullptr &&
+                                         c.counters != nullptr);
+    const bool shape_ok = M >= 1 && N >= 1 && K % 32 == 0 && (nt == 16 || (nt == 1 && M <= 8)) &&
+                          mode >= 0 && mode <= 4 && csm >= 0 && csm <= 3 && gs_s > 0 && gs_z > 0 &&
+                          K % gs_s == 0 && K % gs_z == 0 && reinterpret_cast<uintptr_t>(c.x) % 16 == 0;
+    const bool meta_ok = (mode < 2 || c.scales != nullptr) &&
+                         ((mode != 1 && mode != 3) || c.zeros != nullptr || c.zero_scalar != nullptr) &&
+                         (mode != 4 || c.zeros != nullptr) && (csm == 0 || csm == 2 || c.scales != nullptr) &&
+                         (csm < 2 || c.sx != nullptr);
+    if (!split_ok || !shape_ok || !meta_ok) return static_cast<int>(cudaErrorInvalidValue);
+    Params p{c.x, c.W, c.scales, c.zeros, static_cast<const int*>(c.zero_scalar),
+             static_cast<const float*>(c.sx), c.out, static_cast<float*>(c.part),
+             static_cast<int*>(c.counters), M, N, K, mode, csm, gs_s, gs_z, c.w_code, c.s_code,
+             c.z_code, c.out_code, k_per_split, 0, 8 * std::min(nt, (M + 7) / 8), 0, 0, 0, 0, 0, 0};
+    p.x_fp8 = c.x_code == 3 || c.x_code == 8 ? c.x_code : 0;
+    const bool staged_s = mode >= 2, staged_z = (mode == 1 || mode >= 3) && c.zero_scalar == nullptr;
+    if (staged_s) {
+        p.srows = stage_rows(gs_s, K);
+        p.svec = copy_size(c.scales, (long long)N * (c.s_code == gl::kF32 ? 4 : 2), 2);
+    } else {
+        p.gs_s = K;
+    }
+    if (staged_z) {
+        p.zrows = stage_rows(gs_z, K);
+        p.zvec = copy_size(c.zeros, (long long)N * (c.z_code == gl::kF32 ? 4 : 2), 2);
+    } else {
+        p.gs_z = K;
+    }
+    p.wvec = copy_size(c.W, (long long)N * FF<F>::eb, 1);
+    return static_cast<int>(launch_types<F>(p, c.x_code, nt, splits, c.stream));
+}
+
 }  // namespace
 
+// The instances build in parts, one nvcc each, into one library
+// (ops/build.KERNEL_PARTS): a part compiled with GL_FF_FORMS, a mask of
+// weight forms (bit F of Form), instantiates those forms behind
+// gl_ff_form<F>; the part compiled with GL_FF_ENTRY holds gl_fused_float,
+// which calls the forms of GL_FF_LINKED. Compiled alone, with none of them,
+// the source builds every form and the entry, as one part.
+#ifndef GL_FF_FORMS
+#define GL_FF_FORMS 0x3F
+#define GL_FF_ENTRY 1
+#endif
+#ifndef GL_FF_LINKED
+#define GL_FF_LINKED 0x3F
+#endif
+
+template <int F>
+int gl_ff_form(const FFCall& c);
+
+#define GL_FF_FORM(F)                                              \
+    template <>                                                    \
+    int gl_ff_form<F>(const FFCall& c) { return run_form<F>(c); }
+#if GL_FF_FORMS & 0x01
+GL_FF_FORM(kI8)
+#endif
+#if GL_FF_FORMS & 0x02
+GL_FF_FORM(k16)
+#endif
+#if GL_FF_FORMS & 0x04
+GL_FF_FORM(kW8)
+#endif
+#if GL_FF_FORMS & 0x08
+GL_FF_FORM(kW4)
+#endif
+#if GL_FF_FORMS & 0x10
+GL_FF_FORM(kW2)
+#endif
+#if GL_FF_FORMS & 0x20
+GL_FF_FORM(kW1)
+#endif
+#undef GL_FF_FORM
+
+#ifdef GL_FF_ENTRY
 // Launch on `stream`. x_code / w_code / s_code / z_code / out_code are DType
 // values; x is bf16 or fp16 (the compute dtype), or int8, or fp8 (e4m3 3, e5m2
 // 8) over W4 / W2 codes (both computed in bf16).
@@ -707,47 +797,27 @@ extern "C" int gl_fused_float(const void* x, const void* W, const void* scales, 
                               void* counters, int M, int N, int K, int x_code, int W_nbits, int elems,
                               int w_code, int mode, int csm, int gs_s, int gs_z, int s_code, int z_code,
                               int out_code, int nt, int splits, int k_per_split, void* stream_ptr) {
-    const bool split_ok = splits == 1 ? k_per_split >= K
-                                      : (splits > 1 && k_per_split % BK == 0 &&
-                                         (long long)(splits - 1) * k_per_split < K &&
-                                         (long long)splits * k_per_split >= K && part != nullptr &&
-                                         counters != nullptr);
-    const bool shape_ok = M >= 1 && N >= 1 && K % 32 == 0 && (nt == 16 || (nt == 1 && M <= 8)) &&
-                          mode >= 0 && mode <= 4 && csm >= 0 && csm <= 3 && gs_s > 0 && gs_z > 0 &&
-                          K % gs_s == 0 && K % gs_z == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const bool meta_ok = (mode < 2 || scales != nullptr) &&
-                         ((mode != 1 && mode != 3) || zeros != nullptr || zero_scalar != nullptr) &&
-                         (mode != 4 || zeros != nullptr) && (csm == 0 || csm == 2 || scales != nullptr) &&
-                         (csm < 2 || sx != nullptr);
-    if (!split_ok || !shape_ok || !meta_ok) return static_cast<int>(cudaErrorInvalidValue);
-    Params p{x, W, scales, zeros, static_cast<const int*>(zero_scalar), static_cast<const float*>(sx),
-             out, static_cast<float*>(part), static_cast<int*>(counters),
-             M, N, K, mode, csm, gs_s, gs_z, w_code, s_code, z_code, out_code,
-             k_per_split, 0, 8 * std::min(nt, (M + 7) / 8), 0, 0, 0, 0, 0, 0};
-    p.x_fp8 = x_code == 3 || x_code == 8 ? x_code : 0;
-    const bool staged_s = mode >= 2, staged_z = (mode == 1 || mode >= 3) && zero_scalar == nullptr;
-    if (staged_s) {
-        p.srows = stage_rows(gs_s, K);
-        p.svec = copy_size(scales, (long long)N * (s_code == gl::kF32 ? 4 : 2), 2);
-    } else {
-        p.gs_s = K;
-    }
-    if (staged_z) {
-        p.zrows = stage_rows(gs_z, K);
-        p.zvec = copy_size(zeros, (long long)N * (z_code == gl::kF32 ? 4 : 2), 2);
-    } else {
-        p.gs_z = K;
-    }
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    cudaError_t err = cudaErrorInvalidValue;
-    const long long eb = elems == 1 ? (w_code == gl::kI8 ? 1 : 2) : 4;
-    p.wvec = copy_size(W, N * eb, 1);
-    if (elems == 1 && w_code == gl::kI8) err = launch_types<kI8>(p, x_code, nt, splits, stream);
-    else if (elems == 1 && (w_code == gl::kF16 || w_code == gl::kBF16))
-        err = launch_types<k16>(p, x_code, nt, splits, stream);
-    else if (W_nbits == 8 && elems == 4) err = launch_types<kW8>(p, x_code, nt, splits, stream);
-    else if (W_nbits == 4 && elems == 8) err = launch_types<kW4>(p, x_code, nt, splits, stream);
-    else if (W_nbits == 2 && elems == 16) err = launch_types<kW2>(p, x_code, nt, splits, stream);
-    else if (W_nbits == 1 && elems == 32) err = launch_types<kW1>(p, x_code, nt, splits, stream);
-    return static_cast<int>(err);
+    const FFCall c{x, W, scales, zeros, zero_scalar, sx, out, part, counters, M, N, K, x_code,
+                   W_nbits, elems, w_code, mode, csm, gs_s, gs_z, s_code, z_code, out_code, nt,
+                   splits, k_per_split, static_cast<cudaStream_t>(stream_ptr)};
+#if GL_FF_LINKED & 0x01
+    if (elems == 1 && w_code == gl::kI8) return gl_ff_form<kI8>(c);
+#endif
+#if GL_FF_LINKED & 0x02
+    if (elems == 1 && (w_code == gl::kF16 || w_code == gl::kBF16)) return gl_ff_form<k16>(c);
+#endif
+#if GL_FF_LINKED & 0x04
+    if (W_nbits == 8 && elems == 4) return gl_ff_form<kW8>(c);
+#endif
+#if GL_FF_LINKED & 0x08
+    if (W_nbits == 4 && elems == 8) return gl_ff_form<kW4>(c);
+#endif
+#if GL_FF_LINKED & 0x10
+    if (W_nbits == 2 && elems == 16) return gl_ff_form<kW2>(c);
+#endif
+#if GL_FF_LINKED & 0x20
+    if (W_nbits == 1 && elems == 32) return gl_ff_form<kW1>(c);
+#endif
+    return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif

@@ -58,6 +58,15 @@
 
 #include "gl_common.cuh"
 
+// gl_int8_decode's arguments, as one value for the parts below
+struct I8Call {
+    const void *x, *W, *zeros, *scales, *sx;
+    void *part, *counters, *out;
+    int M, N, K, kind, gs_loop, splits, k_per_split, zero_mode, off8, fgroup, flat_scale, csm;
+    int s_code, z_code, out_code;
+    cudaStream_t stream;
+};
+
 namespace {
 
 using gl::cp_async16;
@@ -528,6 +537,27 @@ cudaError_t launch_kind(const Params& p, int fgroup, int splits, cudaStream_t st
     }
 }
 
+// One call of weight kind KIND: the checks, the kernel's Params, the launch.
+template <int KIND>
+int run_kind(const I8Call& c) {
+    const int M = c.M, N = c.N, K = c.K, splits = c.splits, k_per_split = c.k_per_split;
+    const bool split_ok = splits >= 1 && k_per_split % 16 == 0 &&
+                          (long long)(splits - 1) * k_per_split < K &&
+                          (long long)splits * k_per_split >= K &&
+                          (c.gs_loop == 0 || k_per_split % c.gs_loop == 0) &&
+                          (splits == 1 || (c.counters != nullptr && c.part != nullptr));
+    if (M < 1 || M > 64 || N % 4 || K % 16 || !split_ok || (c.gs_loop && K % c.gs_loop) ||
+        reinterpret_cast<uintptr_t>(c.x) % 16 || reinterpret_cast<uintptr_t>(c.W) % 4)
+        return static_cast<int>(cudaErrorInvalidValue);
+    Params p{static_cast<const int8_t*>(c.x), c.W, c.zeros, c.scales,
+             static_cast<const float*>(c.sx), c.out, c.part, static_cast<int*>(c.counters),
+             M, N, K, c.gs_loop, k_per_split, c.zero_mode, c.off8, c.flat_scale, c.csm, c.s_code,
+             c.z_code, c.out_code, (M + 15) / 16 * 16, 0, 0, c.zero_mode != 0 || c.off8 != 0};
+    const int row_bytes = N * elem_bytes(KIND);
+    p.wvec = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(c.W) % 16 == 0 ? 16 : 4;
+    return static_cast<int>(launch_kind<KIND>(p, c.fgroup, splits, c.stream));
+}
+
 // One 16-column x 8-row x 32-k product through the kernel's own staging
 // (swizzled tiles, ldmatrix, sub_step<SK>, the fragment's (column, row)
 // mapping): out (8, 16) int32 = x (8, 32) . w (32, 16), w stored N-major as
@@ -566,6 +596,38 @@ __global__ void mma_tile_kernel(const int8_t* w, const int8_t* x, int* out) {
 
 }  // namespace
 
+// The instances build in parts, one nvcc each, into one library
+// (ops/build.KERNEL_PARTS): a part compiled with GL_I8_KINDS, a mask of
+// weight kinds (bit KIND of Kind), instantiates those kinds behind
+// gl_i8_kind<KIND>; the part compiled with GL_I8_ENTRY holds the entries,
+// which call every kind. Compiled alone, with neither, the source builds
+// every kind and the entries, as one part.
+#ifndef GL_I8_KINDS
+#define GL_I8_KINDS 0x0F
+#define GL_I8_ENTRY 1
+#endif
+
+template <int KIND>
+int gl_i8_kind(const I8Call& c);
+
+#define GL_I8_KIND(KIND)                                         \
+    template <>                                                  \
+    int gl_i8_kind<KIND>(const I8Call& c) { return run_kind<KIND>(c); }
+#if GL_I8_KINDS & 0x01
+GL_I8_KIND(kDense)
+#endif
+#if GL_I8_KINDS & 0x02
+GL_I8_KIND(kU8)
+#endif
+#if GL_I8_KINDS & 0x04
+GL_I8_KIND(kNib4)
+#endif
+#if GL_I8_KINDS & 0x08
+GL_I8_KIND(kNib2)
+#endif
+#undef GL_I8_KIND
+
+#ifdef GL_I8_ENTRY
 // Launch on `stream`. kind: Kind; s_code / z_code / out_code: DType codes of
 // scales, zeros and the output. K is cut into `splits` ranges of
 // `k_per_split` (none empty); with splits > 1 the call needs `part`,
@@ -577,26 +639,14 @@ extern "C" int gl_int8_decode(const void* x, const void* W, const void* zeros, c
                               int M, int N, int K, int kind, int gs_loop, int splits,
                               int k_per_split, int zero_mode, int off8, int fgroup, int flat_scale,
                               int csm, int s_code, int z_code, int out_code, void* stream_ptr) {
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    const bool split_ok = splits >= 1 && k_per_split % 16 == 0 &&
-                          (long long)(splits - 1) * k_per_split < K &&
-                          (long long)splits * k_per_split >= K &&
-                          (gs_loop == 0 || k_per_split % gs_loop == 0) &&
-                          (splits == 1 || (counters != nullptr && part != nullptr));
-    if (M < 1 || M > 64 || N % 4 || K % 16 || !split_ok || (gs_loop && K % gs_loop) ||
-        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(W) % 4)
-        return static_cast<int>(cudaErrorInvalidValue);
-    Params p{static_cast<const int8_t*>(x), W, zeros, scales, static_cast<const float*>(sx), out,
-             part, static_cast<int*>(counters),
-             M, N, K, gs_loop, k_per_split, zero_mode, off8, flat_scale, csm, s_code, z_code,
-             out_code, (M + 15) / 16 * 16, 0, 0, zero_mode != 0 || off8 != 0};
-    const int row_bytes = N * elem_bytes(kind);
-    p.wvec = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0 ? 16 : 4;
+    const I8Call c{x, W, zeros, scales, sx, part, counters, out, M, N, K, kind, gs_loop, splits,
+                   k_per_split, zero_mode, off8, fgroup, flat_scale, csm, s_code, z_code, out_code,
+                   static_cast<cudaStream_t>(stream_ptr)};
     switch (kind) {
-        case kDense: return static_cast<int>(launch_kind<kDense>(p, fgroup, splits, stream));
-        case kU8: return static_cast<int>(launch_kind<kU8>(p, fgroup, splits, stream));
-        case kNib4: return static_cast<int>(launch_kind<kNib4>(p, fgroup, splits, stream));
-        case kNib2: return static_cast<int>(launch_kind<kNib2>(p, fgroup, splits, stream));
+        case kDense: return gl_i8_kind<kDense>(c);
+        case kU8: return gl_i8_kind<kU8>(c);
+        case kNib4: return gl_i8_kind<kNib4>(c);
+        case kNib2: return gl_i8_kind<kNib2>(c);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -614,3 +664,4 @@ extern "C" int gl_int8_mma_tile(const void* w, const void* x, void* out, int sk,
     else return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
+#endif

@@ -6,14 +6,14 @@
 // per-token scale (csm 2). One launch a call. The plain version is
 // ops/reference.mx_forward_ref.
 //
-// Four entries share two bodies:
+// Four entries share three bodies:
 //   gl_mx_decode          M <= 64, e8m0 layers: replaces gemlite_tpu/ops/
 //                         pallas_decode.py:pallas_decode_matmul on MX layers
 //                         (fp4 codes and fp8 codes with block scales);
 //   gl_mx_decode_stacked  layer l of an L-layer stack, the index read on the
 //                         device: replaces gemlite_tpu/ops/pallas_scan.py:
-//                         pallas_decode_matmul_stacked on them, with the
-//                         per-layer entry's plan, so the two agree bit for bit;
+//                         pallas_decode_matmul_stacked on them, on the same
+//                         kernel and plan, so the two agree bit for bit;
 //   gl_mx_prefill         M < 4096, every MX layer (NVFP4 from M 1, as JAX
 //                         sends NVFP4 decode there): replaces gemlite_tpu/ops/
 //                         pallas_prefill.py:pallas_prefill_matmul on MX
@@ -24,22 +24,19 @@
 //                         off the multiples of 128): replaces the MX codecs of
 //                         gemlite_tpu/ops/pallas_gemm.py:pallas_fused_matmul
 //                         (:53-80, scale codecs :116-120), under the route
-//                         name general_fused, bf16 or per-token e4m3 x, on
-//                         the ragged instances of the two bodies: the decode
-//                         body for M <= 64 with e8m0 scales, the prefill body
-//                         for NVFP4 and above M 64 (ops/mx.general_plan).
+//                         name general_fused, bf16 or per-token e4m3 x: for
+//                         M <= 64 with e8m0 scales on the ragged decode body
+//                         (a cp.async ring of 128 threads), for NVFP4 and
+//                         above M 64 on the prefill body's ragged instance
+//                         (ops/mx.general_plan).
 //
-// Each body is a template whose compile-time flag R makes its ragged
-// instance: the last column tile may hang past N and the last stage past K.
-// The folded instances (R false) compile as they did without it; the ragged
-// ones read what lies past N or K as zeros, words, scales and x alike (so no
-// stale value meets a zero weight), and write no column past N. The real
+// The ragged forms read what lies past N or K as zeros, words, scales and x
+// alike (so no stale value meets a zero weight), and write no column past N.
+// The prefill body's compile-time flag R makes its ragged instance; the real
 // unfolded shapes (N and K among 320, 960, 2560, 2880) keep 16-byte copies
-// and TMA; odd N falls back to narrower copies at the edge only. Like the
-// folded layers, the ragged ones are bound by their weight bytes below M
-// about 300 and by 2 M N K bf16 operations above: the decode body reads each
-// weight once per call and stages x once a stage for 128 columns, the
-// prefill body reuses each decoded weight tile for 128 or 256 rows of x.
+// and TMA there, and odd N falls back to narrower copies at the edge only.
+// Like the folded layers, the ragged ones are bound by their weight bytes
+// below M about 300 and by 2 M N K bf16 operations above.
 //
 // The weights (csrc/mx_common.cuh): fp4 codes become bf16 by byte permutes
 // from a register table, fp8 codes exactly through fp16. The decode kernel
@@ -58,18 +55,37 @@
 // scripts/torch_mx_variants.py).
 //
 // The decode body (what bounds it: the weight bytes, K N / 2 for fp4 plus K N /
-// 32 of scales, 0.0093 ms at 3.35 TB/s for 14336 x 4096) is the W4 decode
-// kernel's design (decode_gemv.cu) with fp8_gemm.cu's rings: operands swapped
-// on mma.sync m16n8k16 bf16 (out^T = W^T . x^T: A a 16-column tile of W,
-// decoded in registers, B the M <= 64 tokens as n8 tiles), a cp.async ring of
-// 128-deep stages (words column-swizzled, the stage's four scale rows, x rows
-// swizzled in 16-byte chunks), K split over gridDim.y so that about four blocks
-// run per SM, the splits merged by the last block of each column tile in split
-// order. Lane t of a 32-deep block takes whole words: fp4 codes 8t .. 8t + 7
-// (product j takes 4j .. 4j + 3), fp8 codes 4t .. 4t + 3 and 16 + 4t ..
-// (product j takes the word of 16 j); x is read to match. Per-token e4m3 x
-// converts exactly to bf16 as it is read. The group sums are scaled per column:
-// a fragment row is a weight column.
+// 32 of scales, 0.0093 ms at 3.35 TB/s for 14336 x 4096; K N + K N / 32 for
+// fp8 codes) streams the weights by TMA into a ring of mbarriers. A block of
+// 128 columns has four consumer warps of 32 columns and one producer warp,
+// whose first lane issues each 128-deep stage (the words as one 3-d box of
+// four 32-column groups in the 128-byte swizzle, the four scale rows, and x:
+// the rows of M rounded up to 8 in 128-byte swizzled boxes, past M zeros) on
+// the stage's "full" mbarrier with its bytes, and waits on the stage's "empty"
+// mbarrier, one arrival a consumer warp, before it reuses it. The consumers
+// issue no copy and meet no __syncthreads in the main loop: each waits for a
+// stage, takes its products and releases it. Operands are swapped on
+// mma.sync m16n8k16 bf16 (out^T = W^T . x^T: A a 16-column tile of W, decoded
+// in registers, B the M <= 64 tokens as n8 tiles). Lane t of a 32-deep block
+// takes whole words: fp4 codes 8t .. 8t + 7 (product j takes 4j .. 4j + 3),
+// fp8 codes 4t .. 4t + 3 and 16 + 4t .. (product j takes the word of 16 j);
+// x is read to match, bf16 x for fp4 codes as one 16-byte piece. A warp's A
+// rows take the columns d_col gives, so that its word reads (lane (g, t) on
+// word row t) hit 32 banks in the swizzle. Per-token e4m3 x converts exactly
+// to bf16 as it is read. Each 32-deep group's products are summed unscaled in
+// a fresh float32 fragment and added times the group's scale by one exact
+// fmaf (scaling every weight instead cost 17%, scripts/torch_mx_variants.py).
+// The grid (ops/mx.decode_plan) fills whole waves of three blocks an SM (the
+// launch bounds'), with K split over gridDim.y into ranges of at least twice
+// the ring's depth where K allows, the ring as deep as a third of the SM's
+// shared memory holds (ops/mx.decode_smem); the splits are merged by the last
+// block of each column tile in split order. The split depends on N and K
+// only, so a row's sum does not depend on the batch and the stacked entry,
+// whose maps span the whole (L, K / per_word, N) and (L, K / 32, N) stacks
+// and whose producer reads the layer on the device as a row offset, equals the
+// per-layer entry. What then bounds it is how many bytes the SMs keep in
+// flight, against the decode chain's instructions in the consumer warps
+// (PERF.md).
 //
 // The prefill body (what bounds it: operations, 2 M N K over 989 TFLOP/s bf16,
 // from M about 300; the weight bytes below) is the W4 prefill kernel's design
@@ -124,16 +140,6 @@ __device__ __forceinline__ uint32_t e4m3x2_bf16x2(uint32_t two) {
     return mx::bf16x2(f.x, f.y);
 }
 
-// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------------------
 // Decode, M <= 64 (per-layer and stacked), e8m0 scales in groups of 32
 // ---------------------------------------------------------------------------
@@ -141,9 +147,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 constexpr int BK = 128;                  // K per ring stage: four groups
 constexpr int BN = 128;                  // output columns per block: 4 warps of 32
 constexpr int SROWS = BK / 32;           // scale rows a stage
-constexpr int kDecodeMinBlocks = 3;
-constexpr int kMaxStages = 6;
+constexpr int kDecodeBlocks = 3;         // blocks an SM (ops/mx.DECODE_BLOCKS)
+constexpr int kDecodeThreads = BN + 32;  // four consumer warps and the producer warp
+constexpr int kDecodeMaxStages = 8;
 constexpr int kDecodeSmemMax = 112 * 1024;
+constexpr int kRaggedMinBlocks = 3;      // the ragged instance: blocks an SM
+constexpr int kMaxStages = 6;            // the ragged decode and the prefill rings
 
 struct DParams {
     const void* x;                       // (M, K) bf16 / e4m3
@@ -158,11 +167,474 @@ struct DParams {
     int M, N, K, k_per_split, stages, wkind;
 };
 
-// a stage: word rows, the scale rows, then x rows (`rows` = M rounded up to 8)
-__host__ __device__ inline int d_words_bytes(int wkind) { return BK / mx::per_word(wkind) * BN * 4; }
-__host__ __device__ inline int d_stage_bytes(int wkind, int rows, int xb) {
-    return d_words_bytes(wkind) + SROWS * BN + rows * BK * xb;
+// The weight, scale and x maps of the TMA body.
+struct DMaps {
+    CUtensorMap x, w, s;
+};
+
+// 2-d map over a contiguous (rows, cols) array, dims innermost first; a box
+// is box_cols x box_rows; what lies past the array reads as zeros
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr, int rows,
+              int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+    const sm90::EncodeTiled encode = sm90::encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t unit[2] = {1, 1};
+    return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// 3-d map over the (rows, cols) int32 words as (32 columns, rows, cols / 32
+// groups of 32 columns): a box of (32, box_rows, 4) lands a block's 128
+// columns as four groups one after another, each box_rows rows of 128 bytes
+// in the 128-byte swizzle (d_word), in one copy
+bool make_word_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+    const sm90::EncodeTiled encode = sm90::encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[3] = {32, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(cols / 32)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 4, 128};
+    const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), BN / 32};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, const_cast<void*>(ptr), dims, strides, box,
+                  unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The TMA body's shared memory from a 1024-byte aligned base: the x ring
+// (a stage: the rows of x, M rounded up to 8, in boxes of 128-byte rows in
+// the 128-byte swizzle, two boxes of 64 k for bf16), the word ring (a stage:
+// four 1024-byte aligned boxes of 32 columns), the scale ring (a stage: four
+// rows of 128 bytes); the epilogue tile over them once they are free. The
+// mbarriers are static. ops/mx.decode_smem mirrors `bytes`.
+struct DLayout {
+    int xb, wb, w, s, bytes;
+    __host__ __device__ DLayout(int wkind, int xbytes, int rows, int stages) {
+        xb = rows * BK * xbytes;
+        wb = BK / mx::per_word(wkind) * BN * 4;
+        w = stages * xb;
+        s = w + stages * wb;
+        const int ring = s + stages * SROWS * BN, tile = rows * BN * 4;
+        bytes = (ring > tile ? ring : tile) + 1024;
+    }
+};
+
+// Column c (0 .. 127) of the block for A row g + 8 h of m16 tile i of warp
+// w: the warp's group of 32 columns, in it 16-byte piece 4 (g / 4) + 2 i + h
+// and word g % 4 of the piece. A lane (g, t) reads word row t (+ a constant)
+// of that piece; the swizzle XORs the piece with the row, so the pieces (g /
+// 4, t) of a read land on 8 distinct pieces and the 32 lanes on 32 banks.
+__device__ __forceinline__ int d_col(int w, int g, int i, int h) {
+    return 32 * w + 16 * (g >> 2) + 8 * i + 4 * h + (g & 3);
+}
+
+// word (r, c) of a stage's word boxes (WR rows a group), as TMA lands it
+template <int WR>
+__device__ __forceinline__ int d_word(int r, int c) {
+    return (c >> 5) * WR * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) + (c & 3);
+}
+
+// byte offset of x (m, k) (k < BK) in a stage of `rows` rows: boxes of 64
+// (bf16) or 128 (e4m3) k, 128-byte rows, 16-byte piece p of row m at p ^ (m % 8)
+template <int XB>
+__device__ __forceinline__ int d_x(int rows, int m, int k) {
+    constexpr int per = 128 / XB;        // k a box row
+    const int kb = k % per * XB;
+    return k / per * rows * 128 + m * 128 + (((kb >> 4) ^ (m & 7)) << 4) + (kb & 15);
+}
+
+// fp4 codes e and e + 4 of a word (e 0..3), unscaled, as bf16x2 (code e
+// low), exact: each code's magnitude bits placed in a bf16's lowest exponent
+// bits and its top mantissa bit, its sign in the sign bit (the two in one
+// multiply by 0x1040 of the pair, masked), then times 2^126 by one bf16x2
+// multiply, which maps the exponents onto e2m1's and the subnormal code
+// (0.5) onto 0.5. Four instructions a pair, against the byte-permute
+// table's nine (mx::fp4x2_bf16x2).
+__device__ __forceinline__ uint32_t fp4_pair_e4(uint32_t word, int e) {
+    const uint32_t u = (word >> (4 * e)) & 0x000F000Fu;
+    return mx::mul_bf16x2((u * 0x1040u) & 0x81C081C0u, 0x7E807E80u);
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 32-deep group's products of one m16 tile into a fresh float32 fragment,
+// then times the group's (power of two) scale, exactly, into the sums
+__device__ __forceinline__ void group_sum(float (&acc)[4], const uint32_t (&a0)[4],
+                                          const uint32_t (&a1)[4], const uint32_t (&b)[2][2],
+                                          const float (&sc)[2]) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(part, a0, b[0][0], b[0][1]);
+    mma_bf16(part, a1, b[1][0], b[1][1]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r] = __fmaf_rn(part[r], sc[r >> 1], acc[r]);
+}
+
+// A consumer lane's byte offsets into a stage, fixed for the kernel, so that
+// the main loop adds only constants: the word of A row (i, h) in word row 4 q
+// + t of the first two k blocks (fp4: q = kb % 2, the rows of kb + 2 lie 1024
+// bytes on; fp8: q = j, the rows of kb lie 1024 kb bytes on); its column's
+// byte in a scale row; x row g's piece of k block kb, product j (row 8 jj + g
+// lies 1024 jj bytes on).
+template <int X, int W>
+struct DLane {
+    int w[2][2][2];                      // [q][i][h]
+    int c;                               // d_col(w, g, 0, 0); (i, h) add 8 i + 4 h
+    int x[4][2];                         // [kb][j]
+    __device__ __forceinline__ DLane(int warp, int lane, int rows) {
+        constexpr bool fp4 = W == mx::kFp4;
+        constexpr int WR = BK / mx::per_word(W), XB = X == kXbf16 ? 2 : 1;
+        const int g = lane >> 2, t = lane & 3;
+        c = d_col(warp, g, 0, 0);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) w[q][i][h] = 4 * d_word<WR>(4 * q + t, d_col(warp, g, i, h));
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+                x[kb][j] = d_x<XB>(rows, g, 32 * kb + (fp4 ? 8 * t : 16 * j + 4 * t));
+    }
+};
+
+// One stage's products for consumer warp w: acc[i][jj][r] is column d_col(w,
+// g, i, r / 2), token 8 jj + 2t + r % 2. In 32-deep block kb, product j, lane
+// (g, t) holds four k in its slots 2t, 2t + 1 and 2t + 8, 2t + 9, for A and B
+// alike: fp4 codes 8t .. 8t + 7 of word row 4 kb + t, product j k 8t + 2j,
+// + 2j + 4 and 8t + 2j + 1, + 2j + 5 (each register a code e and e + 4, as
+// fp4_pair_e4 decodes them; x paired to match by byte permutes); fp8 codes
+// of word row 8 kb + 4 j + t, k 32 kb + 16j + 4t .. + 3 in order.
+template <int NT, int X, int W>
+__device__ __forceinline__ void d_compute(const uint8_t* wst, const uint8_t* sst,
+                                          const uint8_t* xst, const DLane<X, W>& o, int nt,
+                                          float (&acc)[2][NT][4]) {
+    constexpr bool fp4 = W == mx::kFp4;
+#pragma unroll
+    for (int kb = 0; kb < BK / 32; ++kb) {
+        uint32_t a[2][2][4];                         // [product j][m16 tile i][register]
+        float sc[2][2];                              // the group's scale of the column
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                sc[i][h] = mx::scale_f32(sst[kb * BN + o.c + 8 * i + 4 * h], false);
+                if constexpr (fp4) {
+                    const uint32_t word = *reinterpret_cast<const uint32_t*>(
+                        wst + o.w[kb & 1][i][h] + 1024 * (kb >> 1));
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        a[j][i][h] = fp4_pair_e4(word, 2 * j);
+                        a[j][i][2 + h] = fp4_pair_e4(word, 2 * j + 1);
+                    }
+                } else {
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        const uint32_t word =
+                            *reinterpret_cast<const uint32_t*>(wst + o.w[j][i][h] + 1024 * kb);
+                        a[j][i][h] = mx::raw_pair(word, 0, W);
+                        a[j][i][2 + h] = mx::raw_pair(word, 2, W);
+                    }
+                }
+            }
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (jj >= nt) break;
+            const uint8_t* xr = xst + 1024 * jj;     // rows 8 jj .. 8 jj + 7
+            uint32_t b[2][2];
+            if constexpr (X == kXbf16 && fp4) {      // k 8t .. 8t + 7: one 16-byte piece
+                const uint4 xv = *reinterpret_cast<const uint4*>(xr + o.x[kb][0]);
+                b[0][0] = __byte_perm(xv.x, xv.z, 0x5410), b[0][1] = __byte_perm(xv.x, xv.z, 0x7632);
+                b[1][0] = __byte_perm(xv.y, xv.w, 0x5410), b[1][1] = __byte_perm(xv.y, xv.w, 0x7632);
+            } else if constexpr (X == kXbf16) {
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const uint2 xv = *reinterpret_cast<const uint2*>(xr + o.x[kb][j]);
+                    b[j][0] = xv.x, b[j][1] = xv.y;
+                }
+            } else if constexpr (fp4) {              // e4m3 codes 8t .. 8t + 7, byte e with e + 4
+                const uint2 xv = *reinterpret_cast<const uint2*>(xr + o.x[kb][0]);
+                b[0][0] = e4m3x2_bf16x2(__byte_perm(xv.x, xv.y, 0x40));
+                b[0][1] = e4m3x2_bf16x2(__byte_perm(xv.x, xv.y, 0x51));
+                b[1][0] = e4m3x2_bf16x2(__byte_perm(xv.x, xv.y, 0x62));
+                b[1][1] = e4m3x2_bf16x2(__byte_perm(xv.x, xv.y, 0x73));
+            } else {
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const uint32_t xv = *reinterpret_cast<const uint32_t*>(xr + o.x[kb][j]);
+                    b[j][0] = e4m3x2_bf16x2(xv), b[j][1] = e4m3x2_bf16x2(xv >> 16);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) group_sum(acc[i][jj], a[0][i], a[1][i], b, sc[i]);
+        }
+    }
+}
+
+// The block's sums, staged as tile[m][BN]: into the output (times the
+// per-token scale), or with K split the block's partial, and the last block
+// of the column tile adds the partials in split order and leaves its counter
+// at 0. The block's first BN threads (the consumer warps) only. Not inlined:
+// one copy serves the folded instances, one the ragged ones, whose partials
+// have rows of whole tiles and whose columns past N are not written.
+template <bool R>
+__device__ __noinline__ void d_finish(const DParams p, const float* tile, int* flag) {
+    const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
+    const int ld = R ? gridDim.x * BN : p.N;         // a row of the partials
+    const size_t MN = (size_t)p.M * ld;
+    const int total = p.M * BN;
+    if (nsplit > 1) {
+        for (int e = threadIdx.x * 4; e < total; e += BN * 4) {
+            const int m = e / BN, n = n0 + e % BN;
+            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)m * ld + n) =
+                *reinterpret_cast<const float4*>(tile + e);
+        }
+        __threadfence();
+        sm90::named_sync<1, BN>();
+        if (threadIdx.x == 0) *flag = atomicAdd(p.counters + blockIdx.x, 1) == nsplit - 1;
+        sm90::named_sync<1, BN>();
+        if (!*flag) return;
+        __threadfence();
+    }
+    // U groups of four values a thread at a time, the loads of up to eight
+    // partials of each in flight together; each value adds the partials in
+    // split order
+    constexpr int U = 2;
+    for (int e0 = threadIdx.x * 4; e0 < total; e0 += BN * 4 * U) {
+        float v[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[u][i] = 0.f;
+        if (nsplit == 1) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int e = e0 + u * BN * 4;
+                if (e >= total) break;
+                const float4 tv = *reinterpret_cast<const float4*>(tile + e);
+                v[u][0] = tv.x, v[u][1] = tv.y, v[u][2] = tv.z, v[u][3] = tv.w;
+            }
+        } else {
+            for (int s0 = 0; s0 < nsplit; s0 += 8) {
+                float4 r[U][8];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int e = e0 + u * BN * 4;
+                    const size_t idx = (size_t)(e / BN) * ld + n0 + e % BN;
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        const float4* src = reinterpret_cast<const float4*>(p.part + (s0 + j) * MN + idx);
+                        r[u][j] = s0 + j < nsplit && e < total ? __ldcg(src)
+                                                               : make_float4(0.f, 0.f, 0.f, 0.f);
+                    }
+                }
+#pragma unroll
+                for (int u = 0; u < U; ++u)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        if (s0 + j >= nsplit) break;
+                        v[u][0] = __fadd_rn(v[u][0], r[u][j].x);
+                        v[u][1] = __fadd_rn(v[u][1], r[u][j].y);
+                        v[u][2] = __fadd_rn(v[u][2], r[u][j].z);
+                        v[u][3] = __fadd_rn(v[u][3], r[u][j].w);
+                    }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * BN * 4;
+            if (e >= total) break;
+            const int m = e / BN, n = n0 + e % BN;
+            if (R && n >= p.N) continue;
+            if (p.sx != nullptr) {
+                const float s = p.sx[m];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) v[u][i] = __fmul_rn(v[u][i], s);
+            }
+            bf16* o = p.out + (size_t)m * p.N + n;
+            if (R && p.N % 4) {          // rows off 8-byte alignment: one value at a time
+                for (int i = 0; i < 4 && n + i < p.N; ++i) o[i] = __float2bfloat16_rn(v[u][i]);
+                continue;
+            }
+            uint2 pk;
+            pk.x = mx::bf16x2(v[u][0], v[u][1]);
+            pk.y = mx::bf16x2(v[u][2], v[u][3]);
+            *reinterpret_cast<uint2*>(o) = pk;
+        }
+    }
+    if (nsplit > 1 && threadIdx.x == 0) p.counters[blockIdx.x] = 0;
+}
+
+// The producer lane: for layer *layer_idx of a stack (row offsets into the
+// maps, which span all L layers), per stage, once the consumers have
+// released it, the stage's words, scales and x by TMA on its full mbarrier.
+template <int X, int W>
+__device__ __forceinline__ void d_produce(const DMaps& maps, const DParams& p, uint32_t base,
+                                          const DLayout& Ly, uint32_t bars, int rows, int n0,
+                                          int k_begin, int steps) {
+    constexpr int epw = mx::per_word(W);
+    int wrow = 0, srow = 0;
+    if (p.layer_idx != nullptr) {
+        const int l = __ldg(p.layer_idx);
+        if (l < 0 || l >= p.L) __trap();             // the caller's index is out of the stack
+        wrow = l * (p.K / epw);
+        srow = l * (p.K / 32);
+    }
+    const int S = p.stages;
+    const uint32_t bytes = Ly.xb + Ly.wb + SROWS * BN;
+    for (int it = 0; it < steps; ++it) {
+        const int st = it % S, k0 = k_begin + it * BK;
+        const uint32_t full = sm90::bar_addr(bars, st);
+        if (it >= S) sm90::mbar_wait(sm90::bar_addr(bars, S + st), ((it / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(full, bytes);
+        sm90::tma_load_3d(base + Ly.w + st * Ly.wb, &maps.w, full, 0, wrow + k0 / epw, n0 / 32);
+        sm90::tma_load_2d(base + Ly.s + st * SROWS * BN, &maps.s, full, n0, srow + k0 / 32);
+        const uint32_t xs = base + st * Ly.xb;
+        if constexpr (X == kXbf16) {
+            sm90::tma_load_2d(xs, &maps.x, full, k0, 0);
+            sm90::tma_load_2d(xs + rows * 128, &maps.x, full, k0 + 64, 0);
+        } else {
+            sm90::tma_load_2d(xs, &maps.x, full, k0, 0);
+        }
+    }
+}
+
+// The folded layers (N and K multiples of 128), per-layer and stacked alike:
+// four consumer warps of 32 columns and one producer warp whose first lane
+// keeps the ring of `stages` stages in flight by TMA. The consumers wait on a
+// stage's full mbarrier, take its products, and release it on its empty
+// mbarrier, one arrival a warp; nothing else synchronizes the main loop.
+template <int NT, int X, int W>
+__global__ void __launch_bounds__(kDecodeThreads, kDecodeBlocks)
+mx_decode_kernel(const __grid_constant__ DMaps maps, const DParams p) {
+    constexpr int XB = X == kXbf16 ? 2 : 1;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t bar_mem[2 * kDecodeMaxStages];
+    __shared__ int last_flag;
+    const int rows = (p.M + 7) / 8 * 8, S = p.stages;
+    const DLayout Ly(W, XB, rows, S);
+    const uint32_t base = sm90::smem_base(smem_raw), bars = sm90::smem_addr(bar_mem);
+    uint8_t* g = smem_raw + (base - sm90::smem_addr(smem_raw));
+    const int n0 = blockIdx.x * BN, k_begin = blockIdx.y * p.k_per_split;
+    const int steps = (min(p.K, k_begin + p.k_per_split) - k_begin) / BK;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            sm90::mbar_init(sm90::bar_addr(bars, s), 1);              // the producer lane
+            sm90::mbar_init(sm90::bar_addr(bars, S + s), BN / 32);    // one arrival a consumer warp
+        }
+        sm90::mbar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x >= BN) {                         // the producer warp
+        if (threadIdx.x == BN) d_produce<X, W>(maps, p, base, Ly, bars, rows, n0, k_begin, steps);
+        return;
+    }
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+    const int nt = NT == 1 ? 1 : rows / 8;
+    const DLane<X, W> o(w, lane, rows);
+    float acc[2][NT][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+    for (int it = 0, st = 0, phase = 0; it < steps; ++it) {
+        sm90::mbar_wait(sm90::bar_addr(bars, st), phase);
+        d_compute<NT, X, W>(g + Ly.w + st * Ly.wb, g + Ly.s + st * SROWS * BN, g + st * Ly.xb, o,
+                            nt, acc);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(sm90::bar_addr(bars, S + st));
+        if (++st == S) st = 0, phase ^= 1;
+    }
+    sm90::named_sync<1, BN>();                       // every consumer is done with the ring
+    float* tile = reinterpret_cast<float*>(g);       // [M][BN]
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int jj = 0; jj < NT; ++jj) {
+            if (jj >= nt) break;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int m = 8 * jj + 2 * t + (r & 1);
+                if (m < p.M) tile[m * BN + d_col(w, lane >> 2, i, r >> 1)] = acc[i][jj][r];
+            }
+        }
+    sm90::named_sync<1, BN>();
+    d_finish<false>(p, tile, &last_flag);
+}
+
+template <int NT, int X, int W>
+cudaError_t d_launch(const DParams& p, int splits, cudaStream_t stream) {
+    static std::atomic<unsigned> ready{0};
+    constexpr int XB = X == kXbf16 ? 2 : 1, epw = mx::per_word(W);
+    const int rows = (p.M + 7) / 8 * 8;
+    const DLayout Ly(W, XB, rows, p.stages);
+    if (Ly.bytes > kDecodeSmemMax) return cudaErrorInvalidValue;
+    cudaError_t err = sm90::allow_smem(mx_decode_kernel<NT, X, W>, kDecodeSmemMax, ready);
+    if (err != cudaSuccess) return err;
+    // the maps span the whole stack (L layers of rows); x's rows past M read as zeros
+    DMaps maps{};
+    const bool ok =
+        make_map(&maps.x, X == kXbf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                 XB, p.x, p.M, p.K, rows, 128 / XB, CU_TENSOR_MAP_SWIZZLE_128B) &&
+        make_word_map(&maps.w, p.wq, p.L * (p.K / epw), p.N, BK / epw) &&
+        make_map(&maps.s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.scales, p.L * (p.K / 32), p.N, SROWS,
+                 BN, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (!ok) return cudaErrorInvalidValue;
+    const dim3 grid(p.N / BN, splits);
+    mx_decode_kernel<NT, X, W><<<grid, kDecodeThreads, Ly.bytes, stream>>>(maps, p);
+    return cudaGetLastError();
+}
+
+template <int X, int W>
+cudaError_t d_launch_rows(const DParams& p, int splits, cudaStream_t stream) {
+    return p.M <= 8 ? d_launch<1, X, W>(p, splits, stream) : d_launch<8, X, W>(p, splits, stream);
+}
+
+// x_code: DType 2 (bf16) or 3 (e4m3); w_kind: mx::WKind
+int d_run(DParams p, int x_code, int splits, cudaStream_t stream) {
+    const bool shape_ok = p.M >= 1 && p.M <= 64 && p.N >= BN && p.N % BN == 0 && p.K >= BK &&
+                          p.K % BK == 0 && (x_code == gl::kBF16 || x_code == 3) &&
+                          p.wkind >= mx::kFp4 && p.wkind <= mx::kE5m2 && p.L >= 1;
+    const bool split_ok = splits >= 1 && p.k_per_split > 0 && p.k_per_split % BK == 0 &&
+                          (long long)(splits - 1) * p.k_per_split < p.K &&
+                          (long long)splits * p.k_per_split >= p.K &&
+                          (splits == 1 || (p.part != nullptr && p.counters != nullptr));
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.wq) |
+                            reinterpret_cast<uintptr_t>(p.scales);
+    if (!shape_ok || !split_ok || p.scales == nullptr || p.stages < 2 ||
+        p.stages > kDecodeMaxStages || bases % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+    if (x_code == gl::kBF16) {
+        if (p.wkind == mx::kFp4) err = d_launch_rows<kXbf16, mx::kFp4>(p, splits, stream);
+        else if (p.wkind == mx::kE4m3) err = d_launch_rows<kXbf16, mx::kE4m3>(p, splits, stream);
+        else err = d_launch_rows<kXbf16, mx::kE5m2>(p, splits, stream);
+    } else {
+        if (p.wkind == mx::kFp4) err = d_launch_rows<kXe4m3, mx::kFp4>(p, splits, stream);
+        else if (p.wkind == mx::kE4m3) err = d_launch_rows<kXe4m3, mx::kE4m3>(p, splits, stream);
+        else err = d_launch_rows<kXe4m3, mx::kE5m2>(p, splits, stream);
+    }
+    return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// The ragged decode body (the general entry at M <= 64: fp4 layers off the
+// JAX fold rule, any N, K a multiple of 32): 128 threads, a cp.async ring of
+// 128-deep stages, what lies past N or K read as zeros
+// ---------------------------------------------------------------------------
 
 // word (r, c) of a stage: bits 3-4 of c flipped by r, so that a warp's lanes
 // (rows t, columns g and g + 8 of two m16 tiles) hit 32 banks
@@ -171,31 +643,39 @@ __device__ __forceinline__ int w_idx(int r, int c) { return r * BN + (c ^ ((r & 
 template <int XB>
 __device__ __forceinline__ int x_off(int m, int c) { return m * BK * XB + ((c ^ (m & 7)) << 4); }
 
-// The ragged instance's words and scales of a stage: what lies past N or K
-// reads as zeros (cp.async with no source bytes, or a zero stored). 16-byte
-// copies where the rows allow them (N % 4 for the words, N % 16 for the
-// scales), else 4-byte word copies and the scales byte by byte.
-template <int W>
-__device__ __forceinline__ void d_load_edge(const DParams& p, const uint32_t* wq,
-                                            const uint8_t* sc, uint32_t* ws, unsigned char* ss,
-                                            int n0, int k0) {
-    constexpr int epw = mx::per_word(W), wr = BK / epw;
+// a stage: word rows, the scale rows, then x rows (`rows` = M rounded up to 8)
+__host__ __device__ inline int r_words_bytes() { return BK / 8 * BN * 4; }
+__host__ __device__ inline int r_stage_bytes(int rows, int xb) {
+    return r_words_bytes() + SROWS * BN + rows * BK * xb;
+}
+
+// The words, scales and x of a stage: what lies past N or K reads as zeros
+// (cp.async with no source bytes, or a zero stored). 16-byte copies where the
+// rows allow them (N % 4 for the words, N % 16 for the scales), else 4-byte
+// word copies and the scales byte by byte.
+template <int XB>
+__device__ __forceinline__ void r_load_stage(const DParams& p, unsigned char* st, int rows,
+                                             int n0, int k0) {
+    constexpr int wr = BK / 8;
     const int t = threadIdx.x;
-    const int wrows = min(wr, (p.K - k0) / epw), srows = min(SROWS, (p.K - k0) / 32);
+    uint32_t* ws = reinterpret_cast<uint32_t*>(st);
+    unsigned char* ss = st + r_words_bytes();
+    unsigned char* xs = ss + SROWS * BN;
+    const int wrows = min(wr, (p.K - k0) / 8), srows = min(SROWS, (p.K - k0) / 32);
     const int cols = min(BN, p.N - n0);
-    const uint32_t* wg = wq + (size_t)(k0 / epw) * p.N + n0;
-    const uint8_t* sg = sc + (size_t)(k0 / 32) * p.N + n0;
+    const uint32_t* wg = p.wq + (size_t)(k0 / 8) * p.N + n0;
+    const uint8_t* sg = p.scales + (size_t)(k0 / 32) * p.N + n0;
     if (p.N % 4 == 0) {
         for (int i = t; i < wr * (BN / 4); i += BN) {
             const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
             const bool ok = r < wrows && c < cols;
-            cp_async16(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : wq, ok ? 16 : 0);
+            cp_async16(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : p.wq, ok ? 16 : 0);
         }
     } else {
         for (int i = t; i < wr * BN; i += BN) {
             const int r = i / BN, c = i % BN;
             const bool ok = r < wrows && c < cols;
-            gl::cp_async4(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : wq,
+            gl::cp_async4(smem_u32(ws + w_idx(r, c)), ok ? wg + (size_t)r * p.N + c : p.wq,
                           ok ? 4 : 0);
         }
     }
@@ -203,7 +683,8 @@ __device__ __forceinline__ void d_load_edge(const DParams& p, const uint32_t* wq
         if (t < SROWS * (BN / 16)) {
             const int r = t / (BN / 16), c = (t % (BN / 16)) * 16;
             const bool ok = r < srows && c < cols;
-            cp_async16(smem_u32(ss + r * BN + c), ok ? sg + (size_t)r * p.N + c : sc, ok ? 16 : 0);
+            cp_async16(smem_u32(ss + r * BN + c), ok ? sg + (size_t)r * p.N + c : p.scales,
+                       ok ? 16 : 0);
         }
     } else {
         for (int i = t; i < SROWS * BN; i += BN) {
@@ -211,70 +692,40 @@ __device__ __forceinline__ void d_load_edge(const DParams& p, const uint32_t* wq
             ss[i] = r < srows && c < cols ? __ldg(sg + (size_t)r * p.N + c) : 0;
         }
     }
-}
-
-// R: the ragged instance (any N, K a multiple of 32)
-template <int XB, int W, bool R>
-__device__ __forceinline__ void d_load_stage(const DParams& p, const uint32_t* wq,
-                                             const uint8_t* sc, unsigned char* st, int rows,
-                                             int n0, int k0) {
-    constexpr int epw = mx::per_word(W), wr = BK / epw;
-    const int t = threadIdx.x;
-    uint32_t* ws = reinterpret_cast<uint32_t*>(st);
-    unsigned char* ss = st + d_words_bytes(W);
-    unsigned char* xs = ss + SROWS * BN;
-    if constexpr (R) {
-        d_load_edge<W>(p, wq, sc, ws, ss, n0, k0);
-    } else {
-        const uint32_t* wg = wq + (size_t)(k0 / epw) * p.N + n0;
-        for (int i = t; i < wr * (BN / 4); i += BN) {
-            const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
-            cp_async16(smem_u32(ws + w_idx(r, c)), wg + (size_t)r * p.N + c, 16);
-        }
-        if (t < SROWS * (BN / 16)) {
-            const int r = t / (BN / 16), c = (t % (BN / 16)) * 16;
-            cp_async16(smem_u32(ss + r * BN + c), sc + (size_t)(k0 / 32 + r) * p.N + n0 + c, 16);
-        }
-    }
     constexpr int CH = BK * XB / 16;     // 16-byte chunks a row
     const unsigned char* x = static_cast<const unsigned char*>(p.x);
     for (int i = t; i < rows * CH; i += BN) {
         const int m = i / CH, c = i % CH;
-        const bool ok = m < p.M && (!R || k0 + 16 / XB * c < p.K);
+        const bool ok = m < p.M && k0 + 16 / XB * c < p.K;
         cp_async16(smem_u32(xs + x_off<XB>(m, c)),
                    ok ? x + ((size_t)m * p.K + k0) * XB + 16 * c : x, ok ? 16 : 0);
     }
 }
 
-// One stage's products for one warp: columns wn0 + 16 i + (0..15), token tiles
-// jj < nt. acc[i][jj][r]: column wn0 + 16 i + g + 8 (r / 2), token 8 jj + 2t +
-// r % 2. In 32-deep block kb, product j, lane (g, t) holds the four k from
-// k_lane = 32 kb + (fp4 ? 8t + 4j : 16j + 4t) in its slots 2t, 2t + 1 (the
-// first two) and 2t + 8, 2t + 9 (the last two), for A and B alike.
-template <int NT, int X, int W>
-__device__ __forceinline__ void d_compute_stage(const unsigned char* st, int nt, int wn0, int lane,
+// One stage's products for one warp, as d_compute but on this ring's layout:
+// columns wn0 + 16 i + g + 8 h, fp4 codes only.
+template <int NT, int X>
+__device__ __forceinline__ void r_compute_stage(const unsigned char* st, int nt, int wn0, int lane,
                                                 float (&acc)[2][NT][4]) {
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
-    const unsigned char* ss = st + d_words_bytes(W);
+    const unsigned char* ss = st + r_words_bytes();
     const unsigned char* xs = ss + SROWS * BN;
     const int g = lane >> 2, t = lane & 3;
-    constexpr bool fp4 = W == mx::kFp4;
 #pragma unroll
     for (int kb = 0; kb < BK / 32; ++kb) {
-        uint32_t a[2][2][4];                         // [product j][m16 tile i][register]
-        float sc[2][2];                              // the group's scale of column c
+        uint32_t a[2][2][4];
+        float sc[2][2];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int c = wn0 + 16 * i + 8 * h + g;
                 sc[i][h] = mx::scale_f32(ss[kb * BN + c], false);
+                const uint32_t word = ws[w_idx(4 * kb + t, c)];
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
-                    const uint32_t w = fp4 ? ws[w_idx(4 * kb + t, c)] >> (16 * j)
-                                           : ws[w_idx(8 * kb + t + 4 * j, c)];
-                    a[j][i][h] = mx::raw_pair(w, 0, W);
-                    a[j][i][2 + h] = mx::raw_pair(w, 2, W);
+                    a[j][i][h] = mx::raw_pair(word >> (16 * j), 0, mx::kFp4);
+                    a[j][i][2 + h] = mx::raw_pair(word >> (16 * j), 2, mx::kFp4);
                 }
             }
 #pragma unroll
@@ -284,7 +735,7 @@ __device__ __forceinline__ void d_compute_stage(const unsigned char* st, int nt,
             uint32_t b[2][2];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-                const int kl = 32 * kb + (fp4 ? 8 * t + 4 * j : 16 * j + 4 * t);
+                const int kl = 32 * kb + 8 * t + 4 * j;
                 if constexpr (X == kXbf16) {
                     const uint2 xv = *reinterpret_cast<const uint2*>(
                         xs + x_off<2>(m, kl >> 3) + 2 * (kl & 7));
@@ -295,102 +746,24 @@ __device__ __forceinline__ void d_compute_stage(const unsigned char* st, int nt,
                     b[j][0] = e4m3x2_bf16x2(xv), b[j][1] = e4m3x2_bf16x2(xv >> 16);
                 }
             }
-            // the group's sum of unscaled products, then times its (power of
-            // two) scale, exactly, into the float32 sums
 #pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-                for (int j = 0; j < 2; ++j) mma_bf16(part, a[j][i], b[j][0], b[j][1]);
-#pragma unroll
-                for (int r = 0; r < 4; ++r)
-                    acc[i][jj][r] = __fmaf_rn(part[r], sc[i][r >> 1], acc[i][jj][r]);
-            }
+            for (int i = 0; i < 2; ++i) group_sum(acc[i][jj], a[0][i], a[1][i], b, sc[i]);
         }
     }
 }
 
-// The block's sums, staged as tile[m][BN]: into the output (times the
-// per-token scale), or with K split the block's partial, and the last block
-// of the column tile adds the partials in split order and leaves its counter
-// at 0. Not inlined: one copy serves the folded instances, one the ragged
-// ones, whose partials have rows of whole tiles and whose columns past N are
-// not written.
-template <bool R>
-__device__ __noinline__ void d_finish(const DParams p, const float* tile, int* flag) {
-    const int n0 = blockIdx.x * BN, split = blockIdx.y, nsplit = gridDim.y;
-    const int ld = R ? gridDim.x * BN : p.N;         // a row of the partials
-    const size_t MN = (size_t)p.M * ld;
-    if (nsplit > 1) {
-        for (int e = threadIdx.x * 4; e < p.M * BN; e += blockDim.x * 4) {
-            const int m = e / BN, n = n0 + e % BN;
-            *reinterpret_cast<float4*>(p.part + split * MN + (size_t)m * ld + n) =
-                *reinterpret_cast<const float4*>(tile + e);
-        }
-        __threadfence();
-        __syncthreads();
-        if (threadIdx.x == 0) *flag = atomicAdd(p.counters + blockIdx.x, 1) == nsplit - 1;
-        __syncthreads();
-        if (!*flag) return;
-        __threadfence();
-    }
-    for (int e = threadIdx.x * 4; e < p.M * BN; e += blockDim.x * 4) {
-        const int m = e / BN, n = n0 + e % BN;
-        if (R && n >= p.N) continue;
-        const size_t idx = (size_t)m * ld + n;
-        float v[4];
-        if (nsplit == 1) {
-            const float4 tv = *reinterpret_cast<const float4*>(tile + e);
-            v[0] = tv.x, v[1] = tv.y, v[2] = tv.z, v[3] = tv.w;
-        } else {
-            v[0] = v[1] = v[2] = v[3] = 0.f;
-            for (int s0 = 0; s0 < nsplit; s0 += 8) {
-                float4 r[8];
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    const float4* src = reinterpret_cast<const float4*>(p.part + (s0 + j) * MN + idx);
-                    r[j] = s0 + j < nsplit ? __ldcg(src) : make_float4(0.f, 0.f, 0.f, 0.f);
-                }
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    if (s0 + j >= nsplit) break;
-                    v[0] = __fadd_rn(v[0], r[j].x);
-                    v[1] = __fadd_rn(v[1], r[j].y);
-                    v[2] = __fadd_rn(v[2], r[j].z);
-                    v[3] = __fadd_rn(v[3], r[j].w);
-                }
-            }
-        }
-        if (p.sx != nullptr) {
-            const float s = p.sx[m];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) v[i] = __fmul_rn(v[i], s);
-        }
-        bf16* o = p.out + (size_t)m * p.N + n;
-        if (R && p.N % 4) {              // rows off 8-byte alignment: one value at a time
-            for (int i = 0; i < 4 && n + i < p.N; ++i) o[i] = __float2bfloat16_rn(v[i]);
-            continue;
-        }
-        uint2 pk;
-        pk.x = mx::bf16x2(v[0], v[1]);
-        pk.y = mx::bf16x2(v[2], v[3]);
-        *reinterpret_cast<uint2*>(o) = pk;
-    }
-    if (nsplit > 1 && threadIdx.x == 0) p.counters[blockIdx.x] = 0;
-}
-
-template <int NT, int X, int W, bool R>
-__device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, const uint8_t* sc) {
+template <int NT, int X>
+__global__ void __launch_bounds__(BN, kRaggedMinBlocks) mx_ragged_decode_kernel(DParams p) {
     constexpr int XB = X == kXbf16 ? 2 : 1;
     extern __shared__ __align__(128) unsigned char smem[];
     __shared__ int last_flag;
     const int rows = (p.M + 7) / 8 * 8;
-    const int S = p.stages, SB = d_stage_bytes(W, rows, XB);
+    const int S = p.stages, SB = r_stage_bytes(rows, XB);
     const int lane = threadIdx.x & 31, wn0 = (threadIdx.x >> 5) * 32;
     const int g = lane >> 2, t = lane & 3;
     const int n0 = blockIdx.x * BN, k_begin = blockIdx.y * p.k_per_split;
     const int span = min(p.K, k_begin + p.k_per_split) - k_begin;
-    const int steps = R ? (span + BK - 1) / BK : span / BK;   // ragged: the last partly past K
+    const int steps = (span + BK - 1) / BK;          // the last partly past K
     const int nt = rows / 8;
 
     float acc[2][NT][4];
@@ -402,17 +775,16 @@ __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, con
             for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
     for (int s = 0; s < S - 1; ++s) {
-        if (s < steps) d_load_stage<XB, W, R>(p, wq, sc, smem + s * SB, rows, n0, k_begin + s * BK);
+        if (s < steps) r_load_stage<XB>(p, smem + s * SB, rows, n0, k_begin + s * BK);
         cp_async_commit();
     }
     for (int it = 0; it < steps; ++it) {
         cp_async_wait_n(S - 2);          // stage it has landed
         __syncthreads();                 // and every warp is done with stage it - 1
         const int nxt = it + S - 1;
-        if (nxt < steps)
-            d_load_stage<XB, W, R>(p, wq, sc, smem + (nxt % S) * SB, rows, n0, k_begin + nxt * BK);
+        if (nxt < steps) r_load_stage<XB>(p, smem + (nxt % S) * SB, rows, n0, k_begin + nxt * BK);
         cp_async_commit();
-        d_compute_stage<NT, X, W>(smem + (it % S) * SB, nt, wn0, lane, acc);
+        r_compute_stage<NT, X>(smem + (it % S) * SB, nt, wn0, lane, acc);
     }
     cp_async_wait_n(0);
     __syncthreads();                     // the ring is free
@@ -429,81 +801,27 @@ __device__ __forceinline__ void d_body(const DParams& p, const uint32_t* wq, con
             }
         }
     __syncthreads();
-    d_finish<R>(p, tile, &last_flag);
+    d_finish<true>(p, tile, &last_flag);
 }
 
-template <int NT, int X, int W, bool R>
-__global__ void __launch_bounds__(BN, kDecodeMinBlocks) mx_decode_kernel(DParams p) {
-    d_body<NT, X, W, R>(p, p.wq, p.scales);
-}
-
-// wq (L, K / per_word, N), scales (L, K / 32, N); *layer_idx in [0, L)
-template <int NT, int X, int W>
-__global__ void __launch_bounds__(BN, kDecodeMinBlocks) mx_decode_stacked_kernel(DParams p) {
-    const int l = __ldg(p.layer_idx);
-    if (l < 0 || l >= p.L) __trap();     // the caller's index is out of the stack
-    d_body<NT, X, W, false>(p, p.wq + (size_t)l * (p.K / mx::per_word(W)) * p.N,
-                            p.scales + (size_t)l * (p.K / 32) * p.N);
-}
-
-template <int NT, int X, int W, bool R>
-cudaError_t d_launch(const DParams& p, int splits, cudaStream_t stream) {
-    static std::atomic<unsigned> ready{0}, ready_stacked{0};
+template <int NT, int X>
+cudaError_t r_launch(const DParams& p, int splits, cudaStream_t stream) {
+    static std::atomic<unsigned> ready{0};
     constexpr int XB = X == kXbf16 ? 2 : 1;
-    cudaError_t err = sm90::allow_smem(mx_decode_kernel<NT, X, W, R>, kDecodeSmemMax, ready);
+    cudaError_t err = sm90::allow_smem(mx_ragged_decode_kernel<NT, X>, kDecodeSmemMax, ready);
     if (err != cudaSuccess) return err;
-    if constexpr (!R) {
-        err = sm90::allow_smem(mx_decode_stacked_kernel<NT, X, W>, kDecodeSmemMax, ready_stacked);
-        if (err != cudaSuccess) return err;
-    }
     const int rows = (p.M + 7) / 8 * 8;
-    const int ring = p.stages * d_stage_bytes(W, rows, XB), tile = p.M * BN * 4;
+    const int ring = p.stages * r_stage_bytes(rows, XB), tile = p.M * BN * 4;
     const int bytes = ring > tile ? ring : tile;
     if (bytes > kDecodeSmemMax) return cudaErrorInvalidValue;
     const dim3 grid((p.N + BN - 1) / BN, splits);
-    if constexpr (!R) {
-        if (p.layer_idx) {
-            mx_decode_stacked_kernel<NT, X, W><<<grid, BN, bytes, stream>>>(p);
-            return cudaGetLastError();
-        }
-    }
-    mx_decode_kernel<NT, X, W, R><<<grid, BN, bytes, stream>>>(p);
+    mx_ragged_decode_kernel<NT, X><<<grid, BN, bytes, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <int X, int W, bool R>
-cudaError_t d_launch_rows(const DParams& p, int splits, cudaStream_t stream) {
-    return p.M <= 8 ? d_launch<1, X, W, R>(p, splits, stream)
-                    : d_launch<8, X, W, R>(p, splits, stream);
-}
-
-// x_code: DType 2 (bf16) or 3 (e4m3); w_kind: mx::WKind
-int d_run(DParams p, int x_code, int splits, cudaStream_t stream) {
-    const bool shape_ok = p.M >= 1 && p.M <= 64 && p.N >= BN && p.N % BN == 0 && p.K >= BK &&
-                          p.K % BK == 0 && (x_code == gl::kBF16 || x_code == 3) &&
-                          p.wkind >= mx::kFp4 && p.wkind <= mx::kE5m2;
-    const bool split_ok = splits >= 1 && p.k_per_split > 0 && p.k_per_split % BK == 0 &&
-                          (long long)(splits - 1) * p.k_per_split < p.K &&
-                          (long long)splits * p.k_per_split >= p.K &&
-                          (splits == 1 || (p.part != nullptr && p.counters != nullptr));
-    const uintptr_t bases = reinterpret_cast<uintptr_t>(p.x) | reinterpret_cast<uintptr_t>(p.wq) |
-                            reinterpret_cast<uintptr_t>(p.scales);
-    if (!shape_ok || !split_ok || p.scales == nullptr || p.stages < 2 || p.stages > kMaxStages ||
-        bases % 16)
-        return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err;
-    if (x_code == gl::kBF16) {
-        if (p.wkind == mx::kFp4) err = d_launch_rows<kXbf16, mx::kFp4, false>(p, splits, stream);
-        else if (p.wkind == mx::kE4m3)
-            err = d_launch_rows<kXbf16, mx::kE4m3, false>(p, splits, stream);
-        else err = d_launch_rows<kXbf16, mx::kE5m2, false>(p, splits, stream);
-    } else {
-        if (p.wkind == mx::kFp4) err = d_launch_rows<kXe4m3, mx::kFp4, false>(p, splits, stream);
-        else if (p.wkind == mx::kE4m3)
-            err = d_launch_rows<kXe4m3, mx::kE4m3, false>(p, splits, stream);
-        else err = d_launch_rows<kXe4m3, mx::kE5m2, false>(p, splits, stream);
-    }
-    return static_cast<int>(err);
+template <int X>
+cudaError_t r_launch_rows(const DParams& p, int splits, cudaStream_t stream) {
+    return p.M <= 8 ? r_launch<1, X>(p, splits, stream) : r_launch<8, X>(p, splits, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -996,21 +1314,6 @@ mx_prefill_kernel(const __grid_constant__ PMaps maps, const PParams p) {
     }
 }
 
-// 2-d map over a contiguous (rows, cols) array, dims innermost first; a box
-// is box_cols x box_rows; what lies past the array reads as zeros
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr, int rows,
-              int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-    const sm90::EncodeTiled encode = sm90::encode_tiled();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-    const cuuint32_t unit[2] = {1, 1};
-    return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int XC, int W, bool NV, int NB, bool R>
 cudaError_t p_launch(const void* x, const PParams& p, int splits, cudaStream_t stream) {
     static std::atomic<unsigned> ready{0};
@@ -1183,8 +1486,8 @@ extern "C" int gl_mx_general(const void* x, const void* wq, const void* scales, 
         const DParams p{x, w, s, static_cast<const float*>(sx), nullptr, 1,
                         static_cast<bf16*>(out), static_cast<float*>(part),
                         static_cast<int*>(counters), M, N, K, k_per_split, stages, mx::kFp4};
-        err = codes ? d_launch_rows<kXe4m3, mx::kFp4, true>(p, splits, stream)
-                    : d_launch_rows<kXbf16, mx::kFp4, true>(p, splits, stream);
+        err = codes ? r_launch_rows<kXe4m3>(p, splits, stream)
+                    : r_launch_rows<kXbf16>(p, splits, stream);
     } else {
         const PParams p{nullptr, static_cast<const float*>(sx), static_cast<bf16*>(out),
                         static_cast<float*>(part), static_cast<int*>(counters), M, N, K,

@@ -8,8 +8,11 @@ pointers, sizes and a ``cudaStream_t`` and return the ``cudaError_t`` of the
 launch. ``nvcc`` compiles each source into its own shared library under
 ``gemlite_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 the sources and flags, so an edited kernel is rebuilt and an unchanged one is
-reused. Several sources build in parallel, one ``nvcc`` each. The sources
-include no PyTorch header, so a build takes seconds and needs no ninja.
+reused. Several sources build in parallel, one ``nvcc`` each; a source with
+many instances (``KERNEL_PARTS``) is compiled in parts, one ``nvcc -c`` each
+with the defines that pick its instances, all at once, and the objects are
+linked into its one library. The sources include no PyTorch header, so no
+build needs ninja.
 """
 
 import ctypes
@@ -24,8 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "build", "load", "check", "graph_ops", "split_state",
-           "split_tensors"]
+__all__ = ["KERNEL_SOURCES", "KERNEL_PARTS", "build", "load", "check", "graph_ops",
+           "split_state", "split_tensors"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -34,6 +37,22 @@ KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "dequantize", "int8_decode", "f
                   "fused_float", "flash_attention", "paged_attention", "fp8_gemm", "mx_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# sources compiled in parts: (part name, its defines), each part one nvcc, the
+# objects linked into the source's library. fused_float.cu's parts hold its
+# weight forms (GL_FF_FORMS, a mask of the forms) and the entry (GL_FF_ENTRY),
+# int8_decode.cu's its weight kinds (GL_I8_KINDS) and the entries
+# (GL_I8_ENTRY): one nvcc of each whole source took 388 s and 206 s, the
+# longest two of the build (on the machine that holds the H100, PERF.md).
+KERNEL_PARTS = {
+    "fused_float": (("fused_float_i8_16", ("-DGL_FF_FORMS=0x03", "-DGL_FF_ENTRY=1")),
+                    ("fused_float_w8", ("-DGL_FF_FORMS=0x04",)),
+                    ("fused_float_w1", ("-DGL_FF_FORMS=0x20",)),
+                    ("fused_float_w4", ("-DGL_FF_FORMS=0x08",)),
+                    ("fused_float_w2", ("-DGL_FF_FORMS=0x10",))),
+    "int8_decode": (("int8_decode_dense_u8", ("-DGL_I8_KINDS=0x03", "-DGL_I8_ENTRY=1")),
+                    ("int8_decode_nib4", ("-DGL_I8_KINDS=0x04",)),
+                    ("int8_decode_nib2", ("-DGL_I8_KINDS=0x08",))),
+}
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -51,7 +70,7 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(KERNEL_PARTS.get(name))).encode())
     for src in sorted(SRC_DIR.glob("*.cuh")) + [SRC_DIR / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -63,37 +82,70 @@ def build(names=KERNEL_SOURCES, seconds=None) -> dict:
 
     Returns ``{name: ptxas report}`` for the sources compiled by this call
     (registers, shared memory and spills per kernel); with a dict
-    ``seconds``, also fills it with each of them's wall time. Raises on any
-    failure."""
+    ``seconds``, also fills it with each source's wall time and, for a
+    source built in parts, each part's. Raises on any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    procs = {}          # process name -> (process, log, output, library)
+    libs = {}           # library -> (tmp, out, [part objects])
     t0 = time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = tempfile.TemporaryFile(mode="w+")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
-                       log, tmp, out)
-    done = {}
-    while len(done) < len(procs):
-        for name, (proc, *_) in procs.items():
-            if name not in done and proc.poll() is not None:
-                done[name] = time.perf_counter() - t0
-        time.sleep(0.05)
-    reports, failed = {}, []
-    for name, (proc, log, tmp, out) in procs.items():
-        log.seek(0)
-        text = log.read()
-        log.close()
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{text}")
+        src = str(SRC_DIR / f"{name}.cu")
+        parts = KERNEL_PARTS.get(name)
+        if parts is None:
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), src]
+            libs[name] = (tmp, out, [])
+            log = tempfile.TemporaryFile(mode="w+")
+            procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
+                           log, tmp, name)
             continue
-        os.replace(tmp, out)
-        reports[name] = text
+        objs = []
+        for part, defines in parts:
+            obj = tmp.with_suffix(f".{part}.o")
+            objs.append(obj)
+            cmd = [nvcc, *(f for f in NVCC_FLAGS if f != "-shared"), *defines, "-c", "-o",
+                   str(obj), src]
+            log = tempfile.TemporaryFile(mode="w+")
+            procs[part] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
+                           log, obj, name)
+        libs[name] = (tmp, out, objs)
+    done, texts, failed, linked = {}, {}, [], {}
+    while any(key not in done for key in procs):
+        for key, (proc, log, _, lib) in procs.items():
+            if key in done or proc.poll() is None:
+                continue
+            done[key] = time.perf_counter() - t0
+            log.seek(0)
+            text = log.read()
+            log.close()
+            texts[lib] = texts.get(lib, "") + text
+            if proc.returncode != 0:
+                failed.append(f"--- {lib}.cu, {key} (nvcc exit {proc.returncode})\n{text}")
+            tmp, out, objs = libs[lib]
+            if objs and all(k in done for k, v in procs.items() if v[3] == lib):
+                # the last part of a source built in parts: link its objects now
+                ok = all(v[0].returncode == 0 for v in procs.values() if v[3] == lib)
+                if ok:
+                    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                         capture_output=True, text=True)
+                    if res.returncode != 0:
+                        failed.append(f"--- {lib}: link (nvcc exit {res.returncode})\n"
+                                      f"{res.stdout}{res.stderr}")
+                    linked[lib] = res.returncode == 0
+                    done[lib] = time.perf_counter() - t0
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+        time.sleep(0.05)
+    reports = {}
+    for name, (tmp, out, objs) in libs.items():
+        if linked.get(name, not objs) and all(v[0].returncode == 0 for v in procs.values()
+                                              if v[3] == name):
+            os.replace(tmp, out)
+            reports[name] = texts[name]
     if seconds is not None:
         seconds.update(done)
     if failed:

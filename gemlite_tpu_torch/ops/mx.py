@@ -55,16 +55,21 @@ from .prefill import estimate_us, row_tile
 from .reference import mx_forward_ref
 
 __all__ = ["DecodeMxPlan", "PrefillMxPlan", "GeneralMxPlan", "mx_coded", "jax_folds",
-           "mx_refusal", "serves_mx", "decode_plan", "prefill_plan", "prefill_smem",
+           "mx_refusal", "serves_mx", "decode_plan", "decode_smem", "ragged_decode_plan",
+           "prefill_plan", "prefill_smem",
            "general_plan", "mx_decode", "mx_decode_stacked", "mx_prefill", "mx_prefill_csm4",
            "mx_general", "w_kind"]
 
 BK = 128                   # the decode stage
 TILE = 128                 # output columns a block
 SMS = 132                  # H100 SXM streaming multiprocessors
-TARGET_BLOCKS = 4 * SMS    # decode: about four blocks an SM
+DECODE_BLOCKS = 3          # decode: blocks an SM (the kernel's launch bounds, kDecodeBlocks)
+DECODE_RESIDENT = DECODE_BLOCKS * SMS
 DECODE_BUDGET = 72 * 1024  # decode: one block's ring, three blocks an SM
-MAX_STAGES = 6
+DECODE_MAX_STAGES = 8
+RAGGED_TARGET_BLOCKS = 4 * SMS   # the ragged decode body: about four blocks an SM
+RAGGED_BUDGET = 72 * 1024        # its ring, three blocks an SM
+MAX_STAGES = 6             # the ragged decode body's and the prefill's rings
 PREFILL_BK = 64
 PREFILL_STAGES = 5
 PREFILL_SMEM_MAX = 227 * 1024
@@ -167,7 +172,7 @@ def serves_mx(meta, M: Optional[int] = None, route: str = "prefill") -> bool:
 
 class DecodeMxPlan(NamedTuple):
     """The decode kernel's grid: ``tiles`` blocks of 128 columns (the last may
-    hang past N in the ragged instance), each summing
+    hang past N in the ragged body), each summing
     all M rows over ``splits`` K ranges of ``k_per_split`` (the last may be
     shorter), in one launch; a ring of ``stages`` 128-deep stages; ``smem``
     bytes of shared memory."""
@@ -186,21 +191,55 @@ def _words_bytes(kind: int, depth: int) -> int:
     return depth // (8 if kind == 0 else 4) * TILE * 4
 
 
+def decode_smem(kind: int, x_bytes: int, M: int, stages: int) -> int:
+    """Shared memory of a decode block (the kernel's ``DLayout``): a ring of
+    stages, each the rows of x (M rounded up to 8) of 128 k, the word box
+    and four scale rows of 128 bytes; the float32 epilogue tile over it; 1024
+    bytes of slack to align the base."""
+    return max(stages * _decode_stage(kind, x_bytes, M), -(-M // 8) * 8 * TILE * 4) + 1024
+
+
+def _decode_stage(kind: int, x_bytes: int, M: int) -> int:
+    return -(-M // 8) * 8 * BK * x_bytes + _words_bytes(kind, BK) + BK // 32 * TILE
+
+
 def decode_plan(M: int, N: int, K: int, kind: int, x_bytes: int) -> DecodeMxPlan:
-    """K cut in units of 256 so that about ``TARGET_BLOCKS`` blocks run at
-    once (a split is whole stages: the ragged instance's K may end inside
-    one); the split depends on N and K only, so the stacked entry equals
-    the per-layer one. A stage: the word rows, four scale rows and M rounded
-    up to 8 rows of x (the kernel's ``d_stage_bytes``)."""
+    """The folded layers' decode grid: K cut in 128-deep stages, at least two
+    a split, into the most splits that keep the grid within whole waves of
+    ``DECODE_RESIDENT`` blocks (one wave wherever the column tiles fit it): a
+    fractional last wave runs its blocks on an otherwise idle card. The split
+    depends on N and K only, never on M or the form of x, so a row's sum runs
+    in the same order at any batch and the stacked entry equals the
+    per-layer one. The ring is the deepest that fits ``DECODE_BUDGET``
+    (three blocks an SM), at least two stages, and at most half the block's
+    stages (so the prologue is a small share of its life) or, for a block
+    of two or three stages, all of them."""
+    tiles, steps = N // TILE, K // BK
+    waves = -(-tiles // DECODE_RESIDENT)
+    splits = max(1, min(steps // 2, waves * DECODE_RESIDENT // tiles))
+    per = -(-steps // splits)
+    most = per // 2 if per >= 4 else per
+    stages = max(2, min(DECODE_MAX_STAGES, DECODE_BUDGET // _decode_stage(kind, x_bytes, M),
+                        most))
+    return DecodeMxPlan(tiles, -(-steps // per), per * BK, stages,
+                        decode_smem(kind, x_bytes, M, stages))
+
+
+def ragged_decode_plan(M: int, N: int, K: int) -> DecodeMxPlan:
+    """The ragged decode body's grid (fp4 codes, ring sized for bf16 x): K
+    cut in units of 256 so that about ``RAGGED_TARGET_BLOCKS`` blocks run at
+    once (a split is whole stages; K may end inside the last); the split
+    depends on N and K only. A stage: the word rows, four scale rows and M
+    rounded up to 8 rows of x (the kernel's ``r_stage_bytes``)."""
     tiles = -(-N // TILE)
     unit = 2 * BK
     units = -(-K // unit)
-    splits = max(1, min(units, -(-TARGET_BLOCKS // tiles)))
+    splits = max(1, min(units, -(-RAGGED_TARGET_BLOCKS // tiles)))
     per = -(-units // splits)
     splits = -(-units // per)
     rows = -(-M // 8) * 8
-    stage = _words_bytes(kind, BK) + BK // 32 * TILE + rows * BK * x_bytes
-    stages = max(2, min(MAX_STAGES, DECODE_BUDGET // stage))
+    stage = _words_bytes(0, BK) + BK // 32 * TILE + rows * BK * 2
+    stages = max(2, min(MAX_STAGES, RAGGED_BUDGET // stage))
     smem = max(stages * stage, M * TILE * 4)
     return DecodeMxPlan(tiles, splits, min(-(-K // BK) * BK, per * unit), stages, smem)
 
@@ -297,13 +336,13 @@ class GeneralMxPlan(NamedTuple):
 
 
 def general_plan(M: int, N: int, K: int, nvfp4: bool) -> GeneralMxPlan:
-    """M <= 64 with e8m0 scales: the decode body with ``decode_plan``'s split
-    and the ring for bf16 x (e4m3 x needs less). NVFP4 at every M, and e8m0
+    """M <= 64 with e8m0 scales: the ragged decode body with its split and
+    the ring for bf16 x (e4m3 x needs less). NVFP4 at every M, and e8m0
     above M 64: the prefill body with ``prefill_plan``'s rows, split and ring,
     as the folded NVFP4 layers run from M 1. It does not depend on the form
     of x."""
     if M <= 64 and not nvfp4:
-        d = decode_plan(M, N, K, 0, 2)
+        d = ragged_decode_plan(M, N, K)
         return GeneralMxPlan("decode", -(-M // 8) * 8, BK, d.tiles, 1, d.splits, d.k_per_split,
                              d.stages, d.smem)
     p = prefill_plan(M, N, K, 0)

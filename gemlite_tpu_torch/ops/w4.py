@@ -89,27 +89,30 @@ def _scale_vector(t, name, n):
     return t.reshape(n).contiguous()
 
 
-def modes_operands(W_q, scales, zeros, scales_x, meta, M: int):
+def modes_operands(W_q, scales, zeros, scales_x, meta, M: int, layers=None):
     """The operands of a mode 1-3 call, checked: (group scales, zeros,
     scalar zero, float32 per-token scales, float32 or bf16 channel scales),
     each None where the form reads none. Raises unless W_q is what the
-    kernels dereference."""
+    kernels dereference. ``layers``: the stacked entry's L, whose operands
+    carry a leading layer axis (the metadata (L, K / gs, N), the channel
+    scales (L, 1, N)), returned flattened over it."""
     K, N, gs = meta.in_features, meta.out_features, meta.group_size
     mode, csm = meta.W_group_mode, meta.channel_scale_mode
-    shape = (K // meta.elements_per_sample, N)
+    L = layers or 1
+    shape = (() if layers is None else (layers,)) + (K // meta.elements_per_sample, N)
     if not (W_q.is_cuda and W_q.dtype == torch.int32 and tuple(W_q.shape) == shape
             and W_q.is_contiguous()):
         raise ValueError(f"W_q: want a contiguous CUDA int32 tensor of shape {shape}, "
                          f"got {W_q.dtype} {tuple(W_q.shape)} on {W_q.device}")
-    s = _meta_rows(scales, "scales", K // gs, N) if mode in (2, 3) else None
+    s = _meta_rows(scales, "scales", L * (K // gs), N) if mode in (2, 3) else None
     z = zs = None
     if mode in (1, 3):
         if meta.zero_is_scalar:
             zs = torch.as_tensor(zeros, device=W_q.device).to(torch.int32).reshape(())
         else:
-            z = _meta_rows(zeros, "zeros", K // gs, N)
+            z = _meta_rows(zeros, "zeros", L * (K // gs), N)
     sx = _scale_vector(scales_x, "scales_x", M).to(torch.float32) if csm in (2, 3) else None
-    cs = _scale_vector(scales, "scales", N) if csm in (1, 3) else None
+    cs = _scale_vector(scales, "scales", L * N) if csm in (1, 3) else None
     return s, z, zs, sx, cs
 
 

@@ -9,7 +9,8 @@ Each variant is the committed ``gemlite_tpu_torch/csrc/fused_float.cu`` with a
 few lines replaced (the text substitutions in ``VARIANTS``) and the wrapper's
 plan replaced where named, built with the package's nvcc flags into
 ``gemlite_tpu_torch/_build/variants/``. Only the int8-weight, bf16 instances
-are built (the A16W8 layers it times), which keeps each nvcc short. A checked
+are built (the A16W8 layers it times: the source's int8-weight form alone,
+``-DGL_FF_FORMS=0x01``, and its bf16 instances), which keeps each nvcc short. A checked
 variant must equal the plain float32 result within 5e-3 at every case, and
 the committed kernel bit for bit where its plan is the committed one; a
 timing variant (``checked`` False) drops a phase of the kernel on purpose.
@@ -45,19 +46,14 @@ SHAPES = ((14336, 4096), (4096, 14336), (4096, 4096), (1024, 4096))
 CASES = [(M, 14336, 4096) for M in (1, 8, 64, 128, 1024)] + \
         [(M, N, K) for N, K in SHAPES[1:] for M in (8, 128)]
 
-# every variant builds the int8-weight bf16 instances alone
+# every variant builds the int8-weight form alone (ONLY_I8, the source's part
+# defines) and of it the bf16 instances
+ONLY_I8 = ("-DGL_FF_FORMS=0x01", "-DGL_FF_ENTRY=1", "-DGL_FF_LINKED=0x01")
 _ONLY_I8_BF16 = [
     ("    if (x_code == gl::kF16)\n        return nt == 1 ? launch<F, __half, __half, 1>(p, splits, stream)\n"
      "                       : launch<F, __half, __half, 16>(p, splits, stream);\n"
      "    if (x_code == gl::kI8)\n        return nt == 1 ? launch<F, bf16, int8_t, 1>(p, splits, stream)\n"
      "                       : launch<F, bf16, int8_t, 16>(p, splits, stream);\n", ""),
-    ("    else if (elems == 1 && (w_code == gl::kF16 || w_code == gl::kBF16))\n"
-     "        err = launch_types<k16>(p, x_code, nt, splits, stream);\n", ""),
-    ("    else if (W_nbits == 8 && elems == 4) err = launch_types<kW8>(p, x_code, nt, splits, stream);\n"
-     "    else if (W_nbits == 4 && elems == 8) err = launch_types<kW4>(p, x_code, nt, splits, stream);\n"
-     "    else if (W_nbits == 2 && elems == 16) err = launch_types<kW2>(p, x_code, nt, splits, stream);\n"
-     "    else if (W_nbits == 1 && elems == 32) err = launch_types<kW1>(p, x_code, nt, splits, stream);\n",
-     ""),
 ]
 _MMA = ("                mma16816<CT>(acc[0][jj], a[0][0], xb[0], xb[1]);\n"
         "                mma16816<CT>(acc[1][jj], a[0][1], xb[0], xb[1]);\n"
@@ -136,10 +132,10 @@ def variant_source(src: str, subs) -> str:
     return src
 
 
-def _spawn(src_path: Path, so: Path, include: Path):
-    return subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(include), "-o", str(so),
-                             str(src_path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+def _spawn(src_path: Path, so: Path, include: Path, defines=()):
+    return subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, *defines, "-I", str(include),
+                             "-o", str(so), str(src_path)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def build_variants(sources: dict, old_source):
@@ -150,7 +146,7 @@ def build_variants(sources: dict, old_source):
     for name, src in sources.items():
         cu, so = OUT_DIR / f"float_{name}.cu", OUT_DIR / f"float_{name}.so"
         cu.write_text(src)
-        procs[name] = (_spawn(cu, so, build.SRC_DIR), so, "gl_fused_float", 17)
+        procs[name] = (_spawn(cu, so, build.SRC_DIR, ONLY_I8), so, "gl_fused_float", 17)
     if old_source is not None:
         so = OUT_DIR / "float_old.so"
         procs["old"] = (_spawn(old_source / "fused_gemm.cu", so, old_source), so, "gl_fused_gemm", 17)

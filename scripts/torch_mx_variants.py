@@ -3,7 +3,7 @@
 """Time design variants of the port's MX kernels on one NVIDIA card.
 
     python3 scripts/torch_mx_variants.py [--variants committed weight_scale ...]
-                                         [--old-source DIR]
+                                         [--old-source DIR] [--decode-only]
 
 Each variant is the committed ``gemlite_tpu_torch/csrc/mx_gemm.cu``, or with
 ``--old-source DIR`` an earlier tree's (``DIR`` is that tree's
@@ -25,6 +25,24 @@ e8m0 scales of 32, bf16 x):
   no_decode     the raw words handed to the tensor cores as bf16 pairs, with
                 no decode and no prefill scale (the result is wrong): the
                 cost of the decode, against the copies and the products;
+  copies_only   the decode's consumer warps wait for each stage and release
+                it without reading it (the result is zeros): the TMA weight
+                stream alone, whose rate ("copy_tb_s": the weight, scale and
+                x bytes over the time) bounds the decode body;
+  blocks2       the decode kernel's launch bounds and plan for two blocks an
+                SM (``DECODE_BLOCKS`` 2, a ring budget of 108 KB) in place of
+                three (bit for bit where the split is the same);
+  blocks4       for four blocks an SM (a ring budget of 52 KB);
+  split8        the decode plan with 8 K splits (whole stages) in place of
+                its whole-wave rule (bit for bit where the split is the same);
+  deep_ring     3 splits (the rule's at 14336 x 4096) with a ring as deep as
+                the budget allows, past half the block's stages;
+  empty         the decode kernel with no stage: its launch, barriers, tile
+                and split merge alone (the result is zeros);
+  compute_only  the decode's producer fills the ring once and stops; the
+                consumers take every step's products on the stage that step
+                would have used (the result is wrong): the decode and the
+                products alone, against copies_only's stream;
   no_convert    the code form's converting warps wait for each stage and
                 mark its tile ready without writing it (the result is
                 wrong): the cost of the ring's synchronization alone;
@@ -50,16 +68,10 @@ e8m0 scales of 32, bf16 x):
                 a shift and masks, times 2^8 (exact), in place of the e4m3x2
                 -> f16x2 conversion (bit for bit the committed result on codes
                 that are not NaN): the conversion instruction's cost;
-  parent        the earlier tree's source as it is (needs --old-source);
-  tma_first     the earlier tree's prefill producer, which loaded and
-                converted a stage's e4m3 x before it issued the stage's word
-                and scale copies, changed to issue those copies (TMA) first
-                and to arrive on the stage's full mbarrier a second time once
-                the x tile is written (bit for bit the earlier result; needs
-                --old-source): did the x conversion serialize the copies? (It
-                did not: NVIDIA H100 80GB HBM3, 700.00 W, csm 4 at M 128 / 1024
-                on 14336x4096, 0.1351 / 0.8704 ms before, 0.1430 / 0.8647
-                after; PERF.md.)
+  parent        the earlier tree's source as it is, with the plans it took
+                (needs --old-source: the parent commit's csrc, whose entries
+                take the current C signatures; its decode plan is
+                ``chip_smoke.parent_mx_decode_plan``).
 
 The csm-4 cases (A4W4_NVFP_dynamic and A4W4_MXFP_dynamic on 14336x4096 at M
 128 / 256 / 1024 / 2048: e4m3 codes and float32 group scales in,
@@ -84,7 +96,11 @@ compile time took the decode at M 8 on 14336x4096 from 0.0999 to 0.0575 ms
 
 Every case reports max|a-b| / max|b| against the plain float32 result
 (``ops/reference.mx_forward_ref``). Times are medians of 20 launches with the L2 cache
-flushed before each (``chip_smoke.Timer``). One JSON line per variant and
+flushed before each (``chip_smoke.Timer``); the decode cases also under a
+read flush ("read_flush_ms": no dirty line written back while the kernel
+runs). ``--decode-only`` runs the decode cases (M <= 64) and, with
+``--old-source``, the general entry's at M <= 64, and no csm-4 or prefill
+case. One JSON line per variant and
 case, then the card's name and power limit. A substitution that no longer
 matches the source fails the script before anything runs.
 """
@@ -112,10 +128,16 @@ CASES = [(M, N, K) for N, K in SHAPES for M in (1, 8, 64, 128, 1024)]
 GENERAL_SHAPES = ((2560, 960), (2880, 2880), (960, 960), (320, 960), (960, 2560))
 GENERAL_CASES = [(M, N, K) for N, K in GENERAL_SHAPES for M in (1, 8, 64, 128, 1024)]
 
-_DECODE_A = ("                    a[j][i][h] = mx::raw_pair(w, 0, W);\n"
-             "                    a[j][i][2 + h] = mx::raw_pair(w, 2, W);")
-_DECODE_ACC = ("                    acc[i][jj][r] = __fmaf_rn(part[r], sc[i][r >> 1], "
-               "acc[i][jj][r]);")
+_DECODE_A = ("                        a[j][i][h] = fp4_pair_e4(word, 2 * j);\n"
+             "                        a[j][i][2 + h] = fp4_pair_e4(word, 2 * j + 1);")
+_DECODE_ACC = "    for (int r = 0; r < 4; ++r) acc[r] = __fmaf_rn(part[r], sc[r >> 1], acc[r]);"
+_DECODE_COMPUTE = (
+    "        d_compute<NT, X, W>(g + Ly.w + st * Ly.wb, g + Ly.s + st * SROWS * BN, g + st * Ly.xb, o,\n"
+    "                            nt, acc);\n")
+_DECODE_BLOCKS = "constexpr int kDecodeBlocks = 3;"
+_PRODUCER_WAIT = ("        if (it >= S) sm90::mbar_wait(sm90::bar_addr(bars, S + st), ((it / S) & 1) ^ 1);\n"
+                  "        sm90::mbar_expect_tx(full, bytes);")
+_CONSUMER_WAIT = "        sm90::mbar_wait(sm90::bar_addr(bars, st), phase);"
 _PREFILL_A = "                    a[kk][2 * half + h] = mx::decode_e8m0_pair(w, 0, W, sbyte);"
 _CONVERT_PIECE = """            uint32_t o[8];
 #pragma unroll
@@ -160,34 +182,39 @@ _THREE = [
     ("return kConsumers + (xc ? 256 : 128);", "return kConsumers + 128;"),
 ]
 _CONVERT_LOOP = "            if (m0 + kStep * i >= kRows) break;"
-# the earlier tree's producer (before the code form's x came by TMA)
-_OLD_TMA = """        if (tid == 0) {
-            sm90::mbar_expect_tx(full, (XC ? 0 : kXStage) + (w_tma ? wb : 0) + (s_tma ? sb : 0));
-            if constexpr (!XC) sm90::tma_load_2d(base + st * kXStage, &maps.x, full, k0, m0);
-            if (w_tma)
-                sm90::tma_load_2d(base + L.w + st * wb, &maps.w, full, n0, k0 / mx::per_word(W));
-            if (s_tma)
-                sm90::tma_load_2d(base + L.s + st * kSStage, &maps.s, full, n0, k0 / p.gs);
-        }
-"""
-_OLD_CONVERT = "        if constexpr (XC) {\n            // 8 rows of 8 codes a thread"
 # name -> (substitutions, bit for bit the base's result, base: "committed" or "old")
 VARIANTS = {
     "committed": ([], True, "committed"),
     "weight_scale": ([
-        (_DECODE_A, "                    a[j][i][h] = mx::decode_pair(w, 0, W, sc[i][h]);\n"
-                    "                    a[j][i][2 + h] = mx::decode_pair(w, 2, W, sc[i][h]);"),
-        (_DECODE_ACC, "                    acc[i][jj][r] += part[r];"),
+        (_DECODE_A, "                        const uint32_t s2 = mx::e8m0_bf16x2(sst[kb * BN + o.c + 8 * i + 4 * h]);\n"
+                    "                        a[j][i][h] = mx::mul_bf16x2(fp4_pair_e4(word, 2 * j), s2);\n"
+                    "                        a[j][i][2 + h] = mx::mul_bf16x2(fp4_pair_e4(word, 2 * j + 1), s2);"),
+        (_DECODE_ACC, "    for (int r = 0; r < 4; ++r) acc[r] += part[r];"),
     ], False, "committed"),
     "no_scale": ([
-        ("                sc[i][h] = mx::scale_f32(ss[kb * BN + c], false);",
+        ("                sc[i][h] = mx::scale_f32(sst[kb * BN + o.c + 8 * i + 4 * h], false);",
          "                sc[i][h] = 1.f;"),
         (_PREFILL_A, "                    a[kk][2 * half + h] = mx::raw_pair(w, 0, W);"),
     ], False, "committed"),
     "no_decode": ([
-        (_DECODE_A, "                    a[j][i][h] = w;\n                    a[j][i][2 + h] = w >> 8;"),
+        (_DECODE_A, "                        a[j][i][h] = word >> (8 * j);\n"
+                    "                        a[j][i][2 + h] = word >> (8 * j + 4);"),
         (_PREFILL_A, "                    a[kk][2 * half + h] = w;"),
     ], False, "committed"),
+    "copies_only": ([(_DECODE_COMPUTE, "")], False, "committed"),
+    "blocks2": ([(_DECODE_BLOCKS, "constexpr int kDecodeBlocks = 2;")], True, "committed"),
+    "blocks4": ([(_DECODE_BLOCKS, "constexpr int kDecodeBlocks = 4;")], True, "committed"),
+    "split8": ([], True, "committed"),
+    "deep_ring": ([], True, "committed"),
+    "empty": ([("    const int steps = (min(p.K, k_begin + p.k_per_split) - k_begin) / BK;\n"
+                "    if (threadIdx.x == 0) {\n        for (int s = 0; s < S; ++s) {\n"
+                "            sm90::mbar_init(sm90::bar_addr(bars, s), 1);",
+                "    const int steps = 0;\n"
+                "    if (threadIdx.x == 0) {\n        for (int s = 0; s < S; ++s) {\n"
+                "            sm90::mbar_init(sm90::bar_addr(bars, s), 1);")], False, "committed"),
+    "compute_only": ([(_PRODUCER_WAIT, "        if (it >= S) break;\n        sm90::mbar_expect_tx(full, bytes);"),
+                      (_CONSUMER_WAIT, "        if (it < S) sm90::mbar_wait(sm90::bar_addr(bars, st), phase);")],
+                     False, "committed"),
     "no_convert": ([(_CONVERT_LOOP, "            break;")],
                    False, "committed"),
     "convert_copy": ([(_CONVERT_PIECE, """            const uint32_t o[8] = {w[0], w[1], w[2], w[3], w[0], w[1], w[2], w[3]};
@@ -211,22 +238,38 @@ VARIANTS = {
                    False, "committed"),
     "alu_round": ([(_CONVERT_PIECE, _ALU_ROUND)], True, "committed"),
     "parent": ([], True, "old"),
-    "tma_first": ([
-        ("            sm90::mbar_init(sm90::bar_addr(bars, s), 1);",
-         "            sm90::mbar_init(sm90::bar_addr(bars, s), 2);"),
-        (_OLD_TMA, "        if (tid == 0) sm90::mbar_arrive(full);\n"),
-        (_OLD_CONVERT, _OLD_TMA + _OLD_CONVERT),
-    ], True, "old"),
 }
+def _decode_split(n: int, deep: bool = False):
+    """ops/mx.decode_plan with ``n`` K splits of whole stages (fewer where K
+    has fewer stages) in place of its whole-wave rule, its ring rule kept
+    (``deep``: a ring of up to all the block's stages)."""
+    base = mod.decode_plan
+
+    def plan(M, N, K, kind, x_bytes):
+        p = base(M, N, K, kind, x_bytes)
+        steps = K // mod.BK
+        per = -(-steps // min(n, steps))
+        most = per // 2 if per >= 4 and not deep else per
+        stages = max(2, min(mod.DECODE_MAX_STAGES,
+                            mod.DECODE_BUDGET // mod._decode_stage(kind, x_bytes, M), most))
+        return p._replace(splits=-(-steps // per), k_per_split=per * mod.BK, stages=stages,
+                          smem=mod.decode_smem(kind, x_bytes, M, stages))
+    return plan
+
+
 # a variant's plan settings (ops/mx attributes) where its layout differs
-PLAN_ATTRS = {}
+PLAN_ATTRS = {"split8": {"decode_plan": _decode_split(8)},
+              "deep_ring": {"decode_plan": _decode_split(3, deep=True)},"blocks2": {"DECODE_BLOCKS": 2, "DECODE_RESIDENT": 2 * 132,
+                          "DECODE_BUDGET": 108 * 1024},
+              "blocks4": {"DECODE_BLOCKS": 4, "DECODE_RESIDENT": 4 * 132,
+                          "DECODE_BUDGET": 52 * 1024}}
 CSM4_FORMS = ("a4w4_nvfp", "a4w4_mxfp")
 CSM4_MS = (128, 256, 1024, 2048)
 
 
 class Variant(NamedTuple):
     lib: ctypes.CDLL
-    old: bool                # an earlier tree's entries: its prefill signature and plan
+    old: bool                # an earlier tree's entries, with the plans it took
     plan: dict = {}          # ops/mx attributes its plan takes
 
 
@@ -261,7 +304,7 @@ def build_variants(names, old_source: Optional[Path]) -> dict:
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(so))
-        for fn, ptrs, ints in (("gl_mx_decode", 7, 8), ("gl_mx_prefill", 8, 10 if old else 11)):
+        for fn, ptrs, ints in (("gl_mx_decode", 7, 8), ("gl_mx_prefill", 8, 11)):
             f = getattr(lib, fn)
             f.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
             f.restype = ctypes.c_int
@@ -269,32 +312,40 @@ def build_variants(names, old_source: Optional[Path]) -> dict:
     return libs
 
 
+class plan_attrs:
+    """ops/mx's plan settings of a variant, set while open."""
+
+    def __init__(self, v: Variant):
+        self.v = v
+
+    def __enter__(self):
+        self.saved = {a: getattr(mod, a) for a in self.v.plan}
+        for a, value in self.v.plan.items():
+            setattr(mod, a, value)
+
+    def __exit__(self, *exc):
+        for a, value in self.saved.items():
+            setattr(mod, a, value)
+
+
 def call_prefill(v: Variant, layer, x, gscales=None, scaled=True):
     """One launch of a variant's prefill entry: bf16 x, or e4m3 codes with
-    their group scales (csm 4; ``scaled`` False: without them); the committed
-    plan, or an earlier tree's (128 rows a block, the bf16 form's ring)."""
+    their group scales (csm 4; ``scaled`` False: without them), on the
+    committed plan (the parent's prefill plan is the same)."""
     meta = layer.meta
     M, N, K = x.shape[0], meta.out_features, meta.in_features
     codes = gscales is not None
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
-    saved = {a: getattr(mod, a) for a in v.plan}
-    for a, value in v.plan.items():
-        setattr(mod, a, value)
-    try:
-        p = mod.prefill_plan(M, N, K, 0, x_codes=codes and not v.old, bm=128 if v.old else None)
-    finally:
-        for a, value in saved.items():
-            setattr(mod, a, value)
+    with plan_attrs(v):
+        p = mod.prefill_plan(M, N, K, 0, x_codes=codes)
     part, cnt = mod._split("variants_prefill", p.splits * M * N if p.splits > 1 else 0,
                            p.tiles_n * p.tiles_m, x.device, stream)
-    rows = () if v.old else (p.bm,)
     err = v.lib.gl_mx_prefill(x.data_ptr(), gscales.data_ptr() if codes and scaled else None,
                               layer.W_q.data_ptr(), layer.scales.view(torch.uint8).data_ptr(), None,
                               part, cnt, out.data_ptr(), M, N, K, 3 if codes else 2,
                               K // gscales.shape[1] if codes and scaled else 0, 0,
-                              meta.group_size, *rows,
-                              p.splits, p.k_per_split, p.stages, stream)
+                              meta.group_size, p.bm, p.splits, p.k_per_split, p.stages, stream)
     build.check(err, "mx_gemm variant (prefill)")
     return out
 
@@ -332,22 +383,27 @@ def call(v: Variant, layer, x):
     launches the committed one (bf16 x)."""
     if x.shape[0] > 64:
         return call_prefill(v, layer, x)
+    import chip_smoke as smoke
     meta = layer.meta
     M, N, K = x.shape[0], meta.out_features, meta.in_features
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
-    p = mod.decode_plan(M, N, K, 0, 2)
-    part, cnt = mod._split("variants_decode", p.splits * M * N if p.splits > 1 else 0, p.tiles,
+    if v.old:
+        tiles, splits, kps, stages = smoke.parent_mx_decode_plan(M, N, K, 0, 2)
+    else:
+        with plan_attrs(v):
+            p = mod.decode_plan(M, N, K, 0, 2)
+        tiles, splits, kps, stages = p.tiles, p.splits, p.k_per_split, p.stages
+    part, cnt = mod._split("variants_decode", splits * M * N if splits > 1 else 0, tiles,
                            x.device, stream)
     err = v.lib.gl_mx_decode(x.data_ptr(), layer.W_q.data_ptr(),
                              layer.scales.view(torch.uint8).data_ptr(), None, part, cnt,
-                             out.data_ptr(), M, N, K, 2, 0, p.splits, p.k_per_split, p.stages,
-                             stream)
+                             out.data_ptr(), M, N, K, 2, 0, splits, kps, stages, stream)
     build.check(err, "mx_gemm variant (decode)")
     return out
 
 
-def general_rows(timer, old, gen) -> None:
+def general_rows(timer, old, gen, max_m: int = 4096) -> None:
     """The committed general entry against an earlier tree's (``old``), one
     JSON line a case."""
     import chip_smoke as smoke
@@ -358,7 +414,7 @@ def general_rows(timer, old, gen) -> None:
         layer = smoke.mx_layer("a16w4_mxfp", N, K, gen)
         meta = layer.meta
         dense = dequantize_full(layer.W_q, layer.scales, None, meta)
-        for M in (m for m, n, k in GENERAL_CASES if (n, k) == (N, K)):
+        for M in (m for m, n, k in GENERAL_CASES if (n, k) == (N, K) and m <= max_m):
             x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
             want = mx_forward_ref(x, layer.W_q, layer.scales, None, None, smoke.with_f32_out(meta))
             got = mod.mx_general(x, layer.W_q, layer.scales, None, meta)
@@ -383,6 +439,8 @@ def main() -> int:
     ap.add_argument("--old-source", type=Path, default=None,
                     help="an earlier tree's gemlite_tpu_torch/csrc: its general entry beside "
                          "the committed one, and the variants of its source")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="the decode cases alone (and the general entry's at M <= 64)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mx_variants: no CUDA device; this script runs only on the card",
@@ -398,10 +456,13 @@ def main() -> int:
     timer = smoke.Timer()
     gen = torch.Generator(device="cuda").manual_seed(13)
     if old is not None:
-        general_rows(timer, old(), gen)
-    csm4_rows(timer, libs, gen)
+        general_rows(timer, old(), gen, 64 if args.decode_only else 4096)
+    if not args.decode_only:
+        csm4_rows(timer, libs, gen)
     layers = {}
     for M, N, K in CASES if libs else ():
+        if args.decode_only and M > 64:
+            continue
         if (N, K) not in layers:
             layers.clear()
             torch.cuda.empty_cache()
@@ -418,6 +479,10 @@ def main() -> int:
                    "form": "a16w4_mxfp", "M": M, "N": N, "K": K,
                    "rel_err": smoke.rel_err(got, want),
                    "ms": timer.ms(lambda: call(lib, layer, x))}
+            if M <= 64:
+                row["read_flush_ms"] = timer.ms(lambda: call(lib, layer, x), flush="read")
+                # the weight and scale bytes the call streams, over its time
+                row["copy_tb_s"] = (K * N // 2 + K * N // 32) / row["ms"] / 1e9
             if VARIANTS[name][1] and committed is not None:
                 row["equals_committed"] = bool(torch.equal(got, committed))
             print(json.dumps(row), flush=True)

@@ -18,6 +18,12 @@ mode 3 / csm 2 and mode 1 / csm 3; e4m3 and e5m2 x), channel-wise A16W4
 channel scale), and packed by hand: mode 2 (scales, no zeros) and mode 3
 with a scalar zero. Shapes: the 8B ones, ragged N (odd columns take the
 2-byte metadata loads) and a K that ends inside a decode stage.
+
+The stacked form (``ops/scan.decode_modes_stacked``, ``gl_decode_modes_stacked``)
+over stacks of channel-wise A16W4 / A16W2 layers (mode 3 / csm 0, mode 1 /
+csm 1, the channel scales bf16 or float32) and W4 mode 2: each layer equal to
+the per-layer form on it bit for bit at M 1-64, one launch and no
+allocation but the output, a captured replay equal to eager.
 """
 
 import pytest
@@ -31,6 +37,7 @@ from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan
 from gemlite_tpu_torch.ops.fused import fused_gemm_float
 from gemlite_tpu_torch.ops.prefill import prefill_modes
 from gemlite_tpu_torch.ops.reference import forward_f32_epilogue, forward_meta
+from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_modes_stacked
 from gemlite_tpu_torch.quant import quantize_int_weights, scale_activations_per_token
 
 pytestmark = pytest.mark.requires_cuda
@@ -54,7 +61,7 @@ def gen():
 
 
 def _layer(gen, form, N, K):
-    bits, gs, how = FORMS[form]
+    bits, gs, how = FORMS[form] if form in FORMS else STACK_FORMS[form]
     gs = gs or K
     if how == "bitnet":
         w = torch.randint(-1, 2, (N, K), generator=gen, device="cuda").float()
@@ -187,3 +194,76 @@ def test_modes_routes_on_the_card(gen, form):
         assert _rel(out, want) <= REL, (form, M)
     assert routes == ["decode", "decode", "prefill", "prefill", "general_fused"]
     assert counts == [(1, 0, 0), (1, 0, 0), (0, 1, 0), (0, 1, 0), (0, 0, 1)]
+
+
+STACK_FORMS = {"a16w4_cw": (4, 0, "a16"), "a16w4_cw_post": (4, 0, "a16_post"),
+               "a16w2_cw_post": (2, 0, "a16_post"), "w4_mode2_gs64": (4, 64, "mode2")}
+
+
+def _stack(gen, form, N, K, L, f32_cs=False):
+    """L layers of one form (FORMS' packing), stacked as models/scan_llama
+    stacks them: (stacked W_q, scales, zeros, meta, layers)."""
+    layers = [_layer(gen, form, N, K) for _ in range(L)]
+    if f32_cs:
+        for lyr in layers:
+            lyr.scales = lyr.scales.float()
+    st = [None if getattr(layers[0], a) is None else torch.stack([getattr(l, a) for l in layers])
+          for a in ("W_q", "scales", "zeros")]
+    return (*st, layers[0].meta, layers)
+
+
+@pytest.mark.parametrize("form,f32_cs", [("a16w4_cw", False), ("a16w4_cw_post", False),
+                                         ("a16w4_cw_post", True), ("a16w2_cw_post", False),
+                                         ("w4_mode2_gs64", False)])
+@pytest.mark.parametrize("M", [1, 8, 16, 33, 64])
+@pytest.mark.parametrize("N,K", [(14336, 4096), (4096, 14336), (1024, 2048)])
+def test_stacked_modes_equal_per_layer(gen, form, f32_cs, M, N, K):
+    L = 4
+    W_q, scales, zeros, meta, layers = _stack(gen, form, N, K, L, f32_cs)
+    x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    for l in (0, 2, L - 1):
+        idx = torch.tensor([l], dtype=torch.int32, device="cuda")
+        got = decode_matmul_stacked(x, W_q, scales, zeros, meta, idx)
+        lyr = layers[l]
+        want = decode_modes(x, lyr.W_q, lyr.scales, lyr.zeros, None, lyr.meta)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (form, M, N, K, l)
+        plain = forward_f32_epilogue(x, lyr.W_q, lyr.scales, lyr.zeros, None,
+                                     meta._replace(output_dtype=DType.FP32.value))
+        assert _rel(got, plain) <= REL
+
+
+def test_stacked_modes_one_launch_and_replay(gen):
+    """One kernel a call, no allocation but the output, the split state
+    left 0, the launch counted on decode_modes_stacked, and a CUDA graph's
+    replay at another layer index equal to the eager call there."""
+    W_q, scales, zeros, meta, layers = _stack(gen, "a16w4_cw_post", 14336, 4096, 8)
+    x = (torch.randn((8, 4096), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    idx = torch.tensor([3], dtype=torch.int32, device="cuda")
+    call = (lambda: decode_matmul_stacked(x, W_q, scales, zeros, meta, idx))
+    want = call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    n0 = decode_modes_stacked.launches
+    got = [call()]
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    assert decode_modes_stacked.launches == n0 + 1
+    assert build.graph_ops(lambda: got.append(call())) == ["kernel"]
+    assert all(torch.equal(g, want) for g in got)
+    for key, (ints, _) in build._SPLIT_STATE.items():
+        if key[0] == "decode_gemv":
+            assert int(ints.abs().sum()) == 0
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    idx.fill_(6)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    lyr = layers[6]
+    assert torch.equal(out, decode_modes(x, lyr.W_q, lyr.scales, lyr.zeros, None, lyr.meta))

@@ -116,8 +116,8 @@ def test_ring_fits_the_block(form, N, K, M):
 @ms
 def test_one_plan_for_bf16_and_e4m3_x(form, N, K, M):
     """The plan takes no form of x: the decode body's split equals
-    ``decode_plan``'s for 1- and 2-byte x, and its ring (sized for bf16 x)
-    holds either form's stages; the prefill body's rows, split and ring are
+    ``ragged_decode_plan``'s, and its ring (sized for bf16 x) holds the
+    stages of 1- and 2-byte x alike; the prefill body's rows, split and ring are
     ``prefill_plan``'s for bf16 x and for e4m3 codes alike, and its shared
     memory holds either form's layout."""
     p = _plan(M, N, K, form)
@@ -129,19 +129,22 @@ def test_one_plan_for_bf16_and_e4m3_x(form, N, K, M):
             assert q.smem <= p.smem
         return
     rows = -(-M // 8) * 8
+    d = mx.ragged_decode_plan(M, N, K)
+    assert (d.tiles, d.splits, d.k_per_split) == (p.tiles_n, p.splits, p.k_per_split)
     for x_bytes in (1, 2):
-        d = mx.decode_plan(M, N, K, 0, x_bytes)
-        assert (d.tiles, d.splits, d.k_per_split) == (p.tiles_n, p.splits, p.k_per_split)
         stage = mx.BK // 8 * mx.TILE * 4 + mx.BK // 32 * mx.TILE + rows * mx.BK * x_bytes
         assert max(p.stages * stage, M * mx.TILE * 4) <= p.smem
 
 
 def test_folded_shapes_keep_their_plans():
-    """On the folded shapes the general plan's split is the folded kernels'
-    (the ragged instances change nothing where N and K are multiples of 128)."""
+    """On the folded shapes the general plan's prefill split is the folded
+    prefill kernel's (its ragged instance changes nothing where N and K are
+    multiples of 128). Its decode body is the ragged cp.async body, which
+    keeps its own plan (``ragged_decode_plan``: K in units of 256, about four
+    blocks an SM), apart from the folded decode kernel's whole-wave TMA plan."""
     for N, K in [(4096, 4096), (14336, 4096), (4096, 14336)]:
         for M in (1, 8, 64):
-            d = mx.decode_plan(M, N, K, 0, 2)
+            d = mx.ragged_decode_plan(M, N, K)
             assert tuple(mx.general_plan(M, N, K, False))[3:] == (d.tiles, 1, d.splits,
                                                                  d.k_per_split, d.stages, d.smem)
         for M in (65, 1024):

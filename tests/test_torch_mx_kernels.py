@@ -21,6 +21,15 @@ its bodies (``ops/mx.general_plan``: the ragged decode body at M <= 64 with
 e8m0 scales, the ragged prefill body above and for NVFP4), across the switch
 at M 64 / 65, with K split, and replayed from a CUDA graph bit for bit as
 its eager call.
+
+The decode entries (``gl_mx_decode`` / ``gl_mx_decode_stacked``: a TMA
+weight stream into an mbarrier ring, on ``ops/mx.decode_plan``'s whole-wave
+grid) are held at every form, M 1 / 8 / 16 / 33 / 64, the 8B shapes and a K
+whose last split is shorter than the others, against ``mx_forward_ref``; the
+stacked entry equals the per-layer one bit for bit on each of those; a call
+is one kernel with no allocation but the output and leaves the split state
+0; a CUDA graph's replay (at another layer index, for the stacked entry)
+equals the eager call.
 """
 
 import pytest
@@ -31,8 +40,9 @@ from gemlite_tpu_torch.mx import (A16W4_MXFP, A16W8_MXFP, A4W4_MXFP_dynamic, A4W
                                   A8W4_MXFP_dynamic, A8W8_MXFP_dynamic)
 from gemlite_tpu_torch.ops import build, dispatch
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_weights
-from gemlite_tpu_torch.ops.mx import (general_plan, mx_decode, mx_decode_stacked, mx_general,
-                                     mx_prefill, mx_prefill_csm4, prefill_plan, w_kind)
+from gemlite_tpu_torch.ops.mx import (decode_plan, general_plan, mx_decode, mx_decode_stacked,
+                                     mx_general, mx_prefill, mx_prefill_csm4, prefill_plan,
+                                     w_kind)
 from gemlite_tpu_torch.ops.reference import fake_quant_activations, mx_forward_ref
 from gemlite_tpu_torch.quant import scale_activations_mx, scale_activations_per_token
 
@@ -447,3 +457,74 @@ def test_mx_general_captured_replay_equals_eager(gen, M, N, K):
         assert torch.equal(out, mx_general(xi, layer.W_q, layer.scales, None, layer.meta))
     assert mx_general.launches == launches + len(xs)          # the eager calls only
     _split_state_is_zero("mx_general")
+
+
+# (N, K): the 8B shapes and K 4480 (35 stages: its last split is shorter)
+TMA_DECODE_SHAPES = SHAPES_8B + [(1024, 4480)]
+
+
+@pytest.mark.parametrize("N,K", TMA_DECODE_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 16, 33, 64])
+@pytest.mark.parametrize("form", DECODE_FORMS)
+def test_mx_decode_tma_matches_plain_and_stacked(gen, form, M, N, K):
+    """The decode entry against its plain version; the stacked entry over a
+    3-layer stack of the same form equals the per-layer entry bit for bit at
+    each layer."""
+    layers = [_layer(gen, form, N, K) for _ in range(3)]
+    x, sx, meta = _inputs(gen, layers[0], M)
+    if K == 4480:
+        p = decode_plan(M, N, K, w_kind(meta), x.element_size())
+        assert p.splits > 1 and K - (p.splits - 1) * p.k_per_split < p.k_per_split
+    W = torch.stack([lyr.W_q for lyr in layers])
+    S = torch.stack([lyr.scales for lyr in layers])
+    for li, lyr in enumerate(layers):
+        out = mx_decode(x, lyr.W_q, lyr.scales, sx, meta)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+        assert _rel(out, _plain(lyr, x, sx, meta)) <= REL, (form, M, N, K, li)
+        if meta.channel_scale_mode == 0:         # the stacked path takes bf16 x
+            idx = torch.tensor([li], dtype=torch.int32, device="cuda")
+            got = mx_decode_stacked(x, W, S, meta, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(got, out), (form, M, N, K, li)
+
+
+@pytest.mark.parametrize("form", ["a16w4_mxfp", "a16w8_mxfp_e4m3", "a8w8_mxfp"])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_mx_decode_tma_one_launch_and_replay(gen, form, M):
+    """One kernel a call, no allocation but the output, the split state left
+    0, two calls bit-equal, and a CUDA graph's replay equal to the eager
+    call; for the stacked entry the replay at another layer index equals
+    the per-layer call on that layer."""
+    N, K = 14336, 4096
+    layers = [_layer(gen, form, N, K) for _ in range(2)]
+    x, sx, meta = _inputs(gen, layers[0], M)
+    call = (lambda: mx_decode(x, layers[0].W_q, layers[0].scales, sx, meta))
+    want = call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got = [call()]
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    assert build.graph_ops(lambda: got.append(call())) == ["kernel"]
+    assert all(torch.equal(g, want) for g in got)
+    _split_state_is_zero("mx_decode")
+    if meta.channel_scale_mode:
+        return
+    W = torch.stack([lyr.W_q for lyr in layers])
+    S = torch.stack([lyr.scales for lyr in layers])
+    idx = torch.tensor([0], dtype=torch.int32, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        mx_decode_stacked(x, W, S, meta, idx)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = mx_decode_stacked(x, W, S, meta, idx)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    idx.fill_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mx_decode(x, layers[1].W_q, layers[1].scales, None, meta))

@@ -41,7 +41,7 @@ from gemlite_tpu.serving import ContinuousBatchingEngine as JEngine
 from gemlite_tpu_torch import (A8W8_INT8_dynamic, ContinuousBatchingEngine, DType, GemLiteLinear,
                                params_from_jax_numpy)
 from gemlite_tpu_torch.core import tensor_from_numpy
-from gemlite_tpu_torch.helper import A16Wn_HQQ_INT
+from gemlite_tpu_torch.helper import A8Wn_HQQ_INT_dynamic, A16W158_INT, A16Wn_HQQ_INT
 from gemlite_tpu_torch.models import llama as tllama
 from gemlite_tpu_torch.models import scan_llama as tscan
 from gemlite_tpu_torch.ops import dispatch
@@ -270,8 +270,20 @@ def _fused_params():
     return cfg, params
 
 
-@pytest.mark.parametrize("case", ["paged", "mixed_metas", "dense_blocks", "a8w8", "fused",
-                                  "layer_index"])
+def _bitnet_params():
+    """Every block linear A16W158 (ternary codes, a scalar zero)."""
+    cfg = tllama.LlamaConfig.tiny(**TINY)
+    params = tllama.init_llama(cfg, seed=0, device="cpu")
+    proc = A16W158_INT(device="cpu", dtype=torch.bfloat16)
+    for blk in params["blocks"]:
+        for grp in ("attn", "mlp"):
+            for name, w in blk[grp].items():
+                blk[grp][name] = proc.from_weights(torch.sign(w.to(torch.float32)), 0.01)
+    return cfg, params
+
+
+@pytest.mark.parametrize("case", ["paged", "mixed_metas", "dense_blocks", "a8w8", "a8w4",
+                                  "scalar_zeros", "fused", "layer_index"])
 def test_scan_guard_rails(case):
     if case == "paged":
         cfg, params = _port_model()
@@ -289,6 +301,15 @@ def test_scan_guard_rails(case):
         cfg, params = _port_model(processor=A8W8_INT8_dynamic(device="cpu",
                                                               dtype=torch.bfloat16))
         with pytest.raises(ValueError, match="quantized per token"):
+            ContinuousBatchingEngine(params, cfg, scan_layers=True, paged=False, device="cpu")
+    elif case == "a8w4":               # mode 3, per-token fp8 x (csm 2)
+        cfg, params = _port_model(processor=A8Wn_HQQ_INT_dynamic(
+            device="cpu", dtype=torch.bfloat16, W_nbits=4))
+        with pytest.raises(ValueError, match="quantized per token"):
+            ContinuousBatchingEngine(params, cfg, scan_layers=True, paged=False, device="cpu")
+    elif case == "scalar_zeros":       # A16W158: mode 1 with a scalar zero, as JAX refuses
+        cfg, params = _bitnet_params()
+        with pytest.raises(ValueError, match="its zero is a scalar"):
             ContinuousBatchingEngine(params, cfg, scan_layers=True, paged=False, device="cpu")
     elif case == "fused":
         cfg, params = _fused_params()
