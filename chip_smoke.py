@@ -28,13 +28,18 @@ Phases, each printing one JSON line:
   serve    Llama-3-8B widths cut to 4 of 32 layers, random bf16 weights from a
            seeded generator, quantized to W4 gs=128 on the card, served by
            ContinuousBatchingEngine(max_batch=8, paged=False) on 8 greedy
-           requests, its decode step captured in CUDA graphs (the engine's
-           default on the card); tokens must equal a bare prefill/decode
-           loop, launches the schedule with every replay counted, and the
-           first step must match the plain path on the CPU stage by stage
-           (first_step_check); the capture time and the graph pool's memory;
+           requests, its prefill and decode steps captured in CUDA graphs
+           (the engine's default on the card); tokens must equal a bare
+           prefill/decode loop, launches the schedule with every replay
+           counted, every decode step and every prefill after the first of
+           its bucket a replay, and the first step must match the plain path
+           on the CPU stage by stage (first_step_check); the capture time
+           (decode and prefill apart) and the graph pool's memory. Every
+           serve phase below holds the same replay gates;
   profile  device time by kernel over a short serving run, captured and
-           eager (profile_eager);
+           eager (profile_eager): cold (a fresh engine, its captures in the
+           run) and warm (the same requests again on that engine, every step
+           a replay): wall, device time, busy share and TTFT;
   serve_spec  speculative decoding on serve's W4 model, gamma 4, serve's 8
            requests, 32 new tokens: (1) a self-draft, greedy, dense: the
            first burst's verify step against its draft steps block by block
@@ -208,7 +213,9 @@ Phases, each printing one JSON line:
            32 per decode step), routes only decode, prefill and
            decode_stacked. Whether the fused runs' tokens equal the unfused
            ones is reported: their K splits differ (ops/decode.plan depends
-           on N), so their sums round apart. Host-clock throughput, TTFT,
+           on N), so their sums round apart. The warm TTFT of the 128-token
+           prompt sent alone again to the eager and the captured unrolled
+           engines (a replay there) beside its device time. Host-clock throughput, TTFT,
            capture time, graph pool, peak memory, and torch.profiler windows
            of 8 decode steps: eager unrolled and scan (profile_scan_unrolled,
            profile_scan_scan), captured scan, unrolled and fused scan
@@ -703,34 +710,69 @@ def profile_serve(params, cfg, prompts, card: str, phase="profile", groups=W4_GR
     """Where the device time goes in a short serving run: kernel times from
     torch.profiler (CUDA activity only, so no operator is counted twice), and
     the device's busy share against the wall time of the same run made
-    without the profiler; with the decode step captured (``phase``) and
-    eager (``phase``_eager)."""
+    without the profiler; with the prefill and decode steps captured
+    (``phase``) and eager (``phase``_eager). Cold: a fresh engine, its
+    captures inside the run (reported, and subtracted in
+    ``wall_ms_less_capture``). Warm: the same requests a third time on the
+    engine of the cold run (on the paged cache the second pass hits the
+    prefix cache, and its remainders take chunk widths that the cold run
+    did not): its wall, device time, busy share and TTFT. On the captured
+    engine the warm pass captures nothing, and every prefill and decode
+    step of the engine's life after the first of its key is a replay."""
     from torch.profiler import ProfilerActivity, profile
     from gemlite_tpu_torch import ContinuousBatchingEngine
 
-    for graphs, name in ((True, phase), (False, f"{phase}_eager")):
-        def serve():
-            eng = ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda", graphs=graphs,
-                                           **(engine_kw or {"paged": False}))
-            eng.generate(prompts, max_new_tokens=8)
-            torch.cuda.synchronize()
-            return eng
+    def engine(graphs):
+        return ContinuousBatchingEngine(params, cfg, max_batch=8, device="cuda", graphs=graphs,
+                                        **(engine_kw or {"paged": False}))
 
-        serve()
+    def serve(eng):
+        res = serve_requests(eng, prompts, 8)
+        torch.cuda.synchronize()
+        return [r.ttft_s * 1e3 for r in res]
+
+    for graphs, name in ((True, phase), (False, f"{phase}_eager")):
+        serve(engine(graphs))
+        eng = engine(graphs)
         t0 = time.perf_counter()
-        eng = serve()
+        ttft = serve(eng)
         wall_ms = (time.perf_counter() - t0) * 1e3
         stats = eng.stats()
+        serve(eng)
+        before = eng.stats()
+        t0 = time.perf_counter()
+        warm_ttft_ms = serve(eng)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        new_captures = sum(eng.stats()[k] - before[k] for k in ("graph_captures",
+                                                               "prefill_captures"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve(eng)
+        warm_times = device_times(prof, groups)
+        end_stats = eng.stats()
+        replays_ok = not graphs or (new_captures == 0 and captured_throughout(end_stats)
+                                    and prefills_captured(end_stats))
         del eng
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            serve()
+            serve(engine(graphs))
         times = device_times(prof, groups)
-        emit({"phase": name, "ok": True, "what": what, "graphs": graphs,
+        emit({"phase": name, "ok": replays_ok, "what": what, "graphs": graphs,
               "wall_ms_unprofiled": wall_ms, "device_busy_share": times["device_ms"] / wall_ms,
-              "wall_ms_less_capture": wall_ms - stats["capture_s"] * 1e3,
+              "wall_ms_less_capture": wall_ms - (stats["capture_s"]
+                                                 + stats["prefill_capture_s"]) * 1e3,
               **times, "decode_steps": stats["decode_steps"],
-              "graph_captures": stats["graph_captures"], "capture_s": stats["capture_s"],
+              "ttft_ms": {"median": statistics.median(ttft), "max": max(ttft)},
+              "graphs_report": graph_report(stats),
+              "warm": {"wall_ms_unprofiled": warm_ms, "device_ms": warm_times["device_ms"],
+                       "device_busy_share": warm_times["device_ms"] / warm_ms,
+                       "wall_over_device": warm_ms / warm_times["device_ms"],
+                       "ttft_ms": {"median": statistics.median(warm_ttft_ms),
+                                   "max": max(warm_ttft_ms)},
+                       "device_ms_by_group": warm_times["device_ms_by_group"],
+                       "top": warm_times["top"], "captures_in_pass": new_captures},
               "card": card})
+        if not replays_ok:
+            raise RuntimeError(f"{name}: a prefill or decode step of a key seen before was "
+                               f"not a replay: {graph_report(end_stats)}")
 
 
 SERVE_PROMPT_LENS = (17, 31, 48, 64, 80, 96, 112, 128)
@@ -746,11 +788,59 @@ def captured_throughout(stats: dict) -> bool:
             and stats["graph_replays"] == stats["decode_steps"] - stats["graph_captures"])
 
 
+def prefills_captured(stats: dict) -> bool:
+    """True when every prefill and prompt chunk but the first of each key
+    (one-shot bucket or chunk width) was a replay of that key's graph."""
+    return (stats["prefill_captures"] >= 1
+            and stats["prefill_replays"] == (stats["prefills"] + stats["prefill_chunks"]
+                                             - stats["prefill_captures"]))
+
+
 def graph_report(stats: dict) -> dict:
-    """The engine's captures: how many, their time, replays, and the memory
-    of its graph pool."""
+    """The engine's captures: the decode steps' and bursts' (how many, their
+    time, replays), the prefill steps' apart, and the memory of the graph
+    pool they share."""
     return {"captures": stats["graph_captures"], "capture_s": stats["capture_s"],
-            "replays": stats["graph_replays"], "pool_mb": stats.get("graph_pool_bytes", 0) / 2**20}
+            "replays": stats["graph_replays"], "prefill_captures": stats["prefill_captures"],
+            "prefill_capture_s": stats["prefill_capture_s"],
+            "prefill_replays": stats["prefill_replays"],
+            "pool_mb": stats.get("graph_pool_bytes", 0) / 2**20}
+
+
+def prefill_capture_s(eng) -> dict:
+    """Each prefill graph's capture seconds, by its key (one-shot bucket or
+    chunk width)."""
+    return {f"{kind} {width}": g.capture_s for (kind, width), g in eng._prefill_graphs.items()}
+
+
+def serve_requests(eng, prompts, n_new: int) -> list:
+    """Submit greedy requests and run the engine until they finish; returns
+    their results in prompt order."""
+    from gemlite_tpu_torch import Request
+    reqs = [Request(prompt_tokens=p, max_new_tokens=n_new) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    by_id = {r.request_id: r for r in eng.run()}
+    return [by_id[r.request_id] for r in reqs]
+
+
+def warm_ttft(eng, prompt, groups, n: int = 5) -> dict:
+    """TTFT of one prompt sent alone to an engine that has prefilled its
+    bucket before (on a captured engine a replay): the host clock from
+    submit to the first token (one token asked for), n times, and the
+    device time of one more such request from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    before = eng.stats()["prefill_captures"]
+    torch.cuda.synchronize()
+    ttft = [serve_requests(eng, [prompt], 1)[0].ttft_s * 1e3 for _ in range(n)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve_requests(eng, [prompt], 1)
+        torch.cuda.synchronize()
+    device_ms = device_times(prof, groups)["device_ms"]
+    med = statistics.median(ttft)
+    return {"prompt_len": len(prompt), "ttft_ms_median": med, "ttft_ms": ttft,
+            "device_ms": device_ms, "ttft_over_device": med / device_ms,
+            "captures_in_pass": eng.stats()["prefill_captures"] - before}
 
 
 def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_route: str,
@@ -805,7 +895,7 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     first_step = first_step_check(params, cfg, prompts[0], route=short_route)
     gated = linear_step_check(params, cfg, prompts[0], short_route) if linear_stages else first_step
     first_ok = all(v["mean_rel"] <= REL_TOL for k, v in gated.items() if k != "end_to_end")
-    graphs_ok = captured_throughout(stats)
+    graphs_ok = captured_throughout(stats) and prefills_captured(stats)
     ok = same and counts == expect and first_ok and routes_ok and graphs_ok
     ttft = [r.ttft_s for r in results]
     emit({"phase": phase, "ok": ok, "model": model,
@@ -814,6 +904,7 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
           "tokens_out": stats["tokens_out"], "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
           "ttft_s": {"median": statistics.median(ttft), "max": max(ttft)},
           "stats_4_of_32_layers": stats, "graphs": graph_report(stats),
+          "prefill_capture_s_by_key": prefill_capture_s(eng),
           "launches": counts, "launches_expected": expect, "routes": sorted(routes_seen),
           "engine_equals_bare_loop": same, "first_step_kernel_vs_plain": first_step,
           "first_step_gate": "linear by linear" if linear_stages else "block by block",
@@ -828,7 +919,7 @@ def serve_and_check(phase: str, params, cfg, card: str, setup_s: float, short_ro
     if not first_ok:
         raise RuntimeError(f"first step: kernel path vs plain path {gated}")
     if not graphs_ok:
-        raise RuntimeError(f"the decode steps did not run on graphs: {stats}")
+        raise RuntimeError(f"the prefill and decode steps did not run on graphs: {stats}")
     profile_serve(params, cfg, prompts, card, phase=profile_phase, groups=profile_groups)
     return counts, got
 
@@ -1649,7 +1740,8 @@ def phase_serve_scan_cw(card: str, cfg, dense) -> dict:
     counts_ok = all(r["counts"] == r["expect"] for r in runs.values())
     routes_ok = all(r["routes"] == ({"decode", "prefill", "decode_stacked"} if r["scan"]
                                     else {"decode", "prefill"}) for r in runs.values())
-    graphs_ok = all(captured_throughout(r["stats"]) for r in runs.values())
+    graphs_ok = all(captured_throughout(r["stats"]) and prefills_captured(r["stats"])
+                    for r in runs.values())
     ok = same and logits_equal and counts_ok and routes_ok and graphs_ok
     emit({"phase": "serve_scan_cw", "ok": ok,
           "model": "Llama-3-8B widths, 4 of 32 layers (depth cut), channel-wise A16W4 "
@@ -2469,7 +2561,9 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     stage within mean rel 5e-3 (cached_stage_check; the engine's first-token
     logits against the one-shot's are reported beside); (c) the launches of all seven kernels and the
     prefill pieces equal the schedule; (d) the first step of the 300-token
-    prompt in its bucket of 512 (flash) matches the plain path on the CPU."""
+    prompt in its bucket of 512 (flash) matches the plain path on the CPU;
+    (e) the decode steps ran on one graph, and every prefill piece after
+    the first of its key (bucket or chunk width) was a replay."""
     import dataclasses
     from gemlite_tpu_torch import ContinuousBatchingEngine, Request
     from gemlite_tpu_torch.models.llama import llama_forward
@@ -2487,11 +2581,11 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     first_logits, schedule = {}, []
     prefill = eng._prefill
 
-    def recording(tokens, slot, cache_len, true_len):
-        logits = prefill(tokens, slot, cache_len, true_len)
-        first_logits[eng.slot_req[slot].request_id] = logits   # the last piece's are kept
-        schedule.append([int(tokens.shape[1]), "one_shot" if isinstance(cache_len, int)
-                         else "chunk"])
+    def recording(tokens, slot, offset, true_len, chunk):
+        logits = prefill(tokens, slot, offset, true_len, chunk)
+        # the last piece's are kept (a copy: the next replay of the key rewrites them)
+        first_logits[eng.slot_req[slot].request_id] = logits.clone()
+        schedule.append([int(tokens.shape[1]), "chunk" if chunk else "one_shot"])
         return logits
 
     eng._prefill = recording
@@ -2543,7 +2637,8 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     first_step = first_step_check(params, cfg, firsts[4], route="prefill",
                                   bucket=_next_bucket(len(firsts[4]), eng.buckets))
     first_ok = all(v["mean_rel"] <= REL_TOL for k, v in first_step.items() if k != "end_to_end")
-    graphs_ok = captured_throughout(stats) and stats["graph_captures"] == 1
+    graphs_ok = (captured_throughout(stats) and stats["graph_captures"] == 1
+                 and prefills_captured(stats))
     ok = (same and hits == 10 and cached_ok and counts == expect and schedule == want_schedule
           and routes_ok and first_ok and graphs_ok)
     ttft = [r.ttft_s for r in results]
@@ -2555,7 +2650,7 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
           "tokens_per_s_host_clock": stats["tokens_out"] / wall_s,
           "ttft_s": {"median": statistics.median(ttft), "max": max(ttft)},
           "stats_4_of_32_layers": stats, "graphs": graph_report(stats),
-          "prefill_schedule": schedule,
+          "prefill_capture_s_by_key": prefill_capture_s(eng), "prefill_schedule": schedule,
           "launches": counts, "launches_expected": expect,
           "routes": {k: sorted(v) for k, v in seen.items()},
           "engine_equals_bare_paged_loop": same, "prefix_hit_pages": hits,
@@ -2573,9 +2668,10 @@ def phase_serve_paged(card: str, cfg, params) -> dict:
     if not routes_ok:
         raise RuntimeError(f"routes {seen}")
     if not first_ok:
-        raise RuntimeError(f"first step: kernel path vs plain path {gated}")
+        raise RuntimeError(f"first step: kernel path vs plain path {first_step}")
     if not graphs_ok:
-        raise RuntimeError(f"the paged decode steps did not run on one graph: {stats}")
+        raise RuntimeError(f"the paged decode steps did not run on one graph, or a prefill "
+                           f"of a key seen before was not a replay: {stats}")
     profile_serve(params, cfg, firsts + repeats, card, phase="profile_paged", groups=ATTN_GROUPS,
                   what="10 requests (two reuse a 640-token prefix) x 8 new tokens, paged, "
                        "4 of 32 layers", engine_kw=engine_kw)
@@ -2834,7 +2930,9 @@ def fused_packs_apart(params, fused) -> dict:
     return out
 
 
-# the serve_scan runs: (name, fused, scan_layers, graphs)
+# the serve_scan runs: (name, fused, scan_layers, graphs); warm TTFT of the
+# 128-token prompt (bucket 128) on the unrolled runs, eager and captured
+WARM_TTFT_RUNS = ("eager_unrolled", "captured_unrolled")
 SCAN_RUNS = (("eager_unrolled", False, False, False), ("eager_scan", False, True, False),
              ("eager_fused_unrolled", True, False, False), ("eager_fused_scan", True, True, False),
              ("captured_unrolled", False, False, True), ("captured_scan", False, True, True),
@@ -2846,7 +2944,9 @@ def phase_serve_scan(card: str) -> dict:
     served eagerly and captured, unrolled and over stacked layers: equal
     tokens and bit-equal logits of the first two decode steps within the
     unfused runs and within the fused runs, launches and routes as
-    scheduled. Returns the captured scan run's launch counts."""
+    scheduled, the captured runs' prefills replays after the first of each
+    bucket; the warm TTFT of the 128-token prompt on the unrolled runs.
+    Returns the captured scan run's launch counts."""
     from gemlite_tpu_torch import ContinuousBatchingEngine, Request
 
     torch.cuda.empty_cache()
@@ -2885,7 +2985,10 @@ def phase_serve_scan(card: str) -> dict:
                       "logits": logits, "counts": read_counts(), "routes": routes,
                       "stats": eng.stats(), "wall_s": wall_s, "init_s": init_s,
                       "ttft": [r.ttft_s for r in results], "fused": is_fused, "scan": scan,
-                      "graphs": graphs}
+                      "graphs": graphs, "capture_s_by_key": prefill_capture_s(eng)}
+        if name in WARM_TTFT_RUNS:
+            # the 128-token prompt again, alone, into the warm engine
+            runs[name]["warm_ttft"] = warm_ttft(eng, prompts[-1], SCAN_GROUPS)
         del eng
     short = sum(len(p) <= 64 for p in prompts)
     expect = {}
@@ -2909,8 +3012,12 @@ def phase_serve_scan(card: str) -> dict:
     counts_ok = all(runs[n]["counts"] == expect[n] for n in runs)
     routes_ok = all(r["routes"] == ({"decode", "prefill", "decode_stacked"} if r["scan"]
                                     else {"decode", "prefill"}) for r in runs.values())
-    graphs_ok = all(captured_throughout(r["stats"]) if r["graphs"]
-                    else r["stats"]["graph_captures"] == 0 for r in runs.values())
+    graphs_ok = all(captured_throughout(r["stats"]) and prefills_captured(r["stats"])
+                    if r["graphs"] else
+                    r["stats"]["graph_captures"] == r["stats"]["prefill_captures"] == 0
+                    for r in runs.values())
+    graphs_ok = graphs_ok and all(runs[n]["warm_ttft"]["captures_in_pass"] == 0
+                                  for n in WARM_TTFT_RUNS)
     ref, fref = runs["eager_unrolled"], runs["eager_fused_unrolled"]
     fused_vs_unfused = {
         "packed_side_by_side": fused_packs_apart(params, fused),
@@ -2931,7 +3038,9 @@ def phase_serve_scan(card: str) -> dict:
                     "ttft_s": {"median": statistics.median(r["ttft"]), "max": max(r["ttft"])},
                     "decode_steps": r["stats"]["decode_steps"], "graphs": graph_report(r["stats"]),
                     "launches": r["counts"], "launches_expected": expect[name],
-                    "routes": sorted(r["routes"])}
+                    "routes": sorted(r["routes"]),
+                    "prefill_capture_s_by_key": r["capture_s_by_key"],
+                    **({"warm_ttft": r["warm_ttft"]} if "warm_ttft" in r else {})}
              for name, r in runs.items()},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
     if not all(same.values()):
@@ -3043,7 +3152,8 @@ def serve_real(params, cfg, prompts, n_new: int, scan: bool) -> dict:
             want = bare_loop(params, cfg, prompts, n_new, eng.buckets, eng.decode_buckets)
         stats = eng.stats()
         out[name] = {"equal_bare_loop": got == want, "wall_s": wall_s,
-                     "graphs": graph_report(stats), "captured": captured_throughout(stats),
+                     "graphs": graph_report(stats),
+                     "captured": captured_throughout(stats) and prefills_captured(stats),
                      "tokens": got}
     return out
 
@@ -3344,7 +3454,9 @@ def spec_serve(eng, prompts, n_new, temperature=0.0, rejection_gaps=False) -> di
             "tokens_per_engine_step": stats["tokens_out"] / max(stats["steps"], 1),
             "acceptance": accepted / max(proposed, 1),
             "accepted_per_burst": accepted / max(proposed // g, 1),
-            "graphs": graph_report(stats), "rejections": rejections}
+            "graphs": graph_report(stats), "rejections": rejections,
+            "prefills_ok": (prefills_captured(stats) if eng.graphs
+                            else stats["prefill_captures"] == 0)}
 
 
 def spec_schedule(cfg, dcfg, prompts, run: dict, g: int, paged: bool) -> dict:
@@ -3385,7 +3497,9 @@ def phase_serve_spec(card: str, cfg, params) -> dict:
     3. Self-draft at temperature 0.8: two runs from one seed equal, every
        token in the vocabulary.
     Every run: launches equal the schedule (``spec_schedule``), linears only
-    on the decode and prefill kernels, no plain attention. Reported: the
+    on the decode and prefill kernels, no plain attention; on the captured
+    engines every prefill after the first of its bucket a replay of a graph
+    that holds the target's and the draft's prefill. Reported: the
     acceptance, tokens a step, host-clock tokens/s beside the plain captured
     engine, captures, capture time and graph pool. Returns the launch counts
     of the 1B-draft dense run."""
@@ -3432,7 +3546,7 @@ def phase_serve_spec(card: str, cfg, params) -> dict:
                    and not any(a.startswith("plain") for a in log.attention))
         if name.startswith("draft1b") and not name.endswith("eager") and "dense" in name:
             counts_1b = counts
-        if not (run["launches_ok"] and run["routes_ok"]):
+        if not (run["launches_ok"] and run["routes_ok"] and run["prefills_ok"]):
             bad.append(name)
         runs[name] = run
         del eng

@@ -17,7 +17,14 @@ the training step.
 ``cache_len`` tells the attention paths apart as the JAX package's static and
 traced offsets do: a Python int is a static offset, and only offset 0 takes
 the flash kernel; a 0-d tensor is a runtime offset (a prompt chunk), which
-never does; a (B,) tensor holds per-slot offsets (decode, verify).
+never does; a (B,) tensor holds per-slot offsets (decode, verify). A tensor
+offset is read on the device only: positions and cache rows are computed
+from it there, so a step over it can be captured in a CUDA graph.
+
+``slot`` (a (1,) index tensor, dense cache only) names the stripe a
+one-row call writes and reads in the whole cache, as the JAX engine's
+``dynamic_slice_in_dim`` on a device slot does: the rows are written by
+``index_put_`` and masked attention reads the stripe by ``index_select``.
 """
 
 from dataclasses import dataclass
@@ -209,12 +216,13 @@ def _masked_over(k_all, v_all, q, pos):
     return xla_attention(q, k_all, v_all, mask)
 
 
-def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=None):
+def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=None, slot=None):
     """x: (B, S, H). kv: the dense cache (L, 2, B, T, Hkv, D) or a PagedKV,
     either written in place, or None. cache_len: valid cache length before
     this call, an int (static), a 0-d tensor (a prompt chunk's offset) or a
     (B,) tensor of per-slot offsets. t_active: bound on the live cache length
-    that masked attention reads."""
+    that masked attention reads. slot: a (1,) index of the dense cache's
+    stripe that this one-row call writes and reads."""
     B, S, _ = x.shape
     h = _rms_norm(x, blk["ln_attn"], cfg.norm_eps)
     if "wqkv" in blk["attn"]:
@@ -235,6 +243,8 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
     steps = torch.arange(S, device=x.device)
     if per_slot:
         pos = cache_len.to(torch.long)[:, None] + steps[None, :]
+    elif isinstance(cache_len, torch.Tensor):
+        pos = (cache_len.to(torch.long) + steps)[None, :].expand(B, S)
     else:
         pos = (int(cache_len) + steps)[None, :].expand(B, S)
 
@@ -262,12 +272,21 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
             kv[layer_idx, 0].index_put_((bidx, wpos), k.to(kv.dtype))
             kv[layer_idx, 1].index_put_((bidx, wpos), v.to(kv.dtype))
         else:
-            start = int(cache_len)
-            if not 0 <= start <= T - S:
-                raise ValueError(f"cache write [{start}, {start + S}) "
-                                 f"outside the cache of {T} rows")
-            kv[layer_idx, 0, :, start:start + S] = k.to(kv.dtype)
-            kv[layer_idx, 1, :, start:start + S] = v.to(kv.dtype)
+            if not isinstance(cache_len, torch.Tensor):
+                start = int(cache_len)
+                if not 0 <= start <= T - S:
+                    raise ValueError(f"cache write [{start}, {start + S}) "
+                                     f"outside the cache of {T} rows")
+            if isinstance(cache_len, torch.Tensor) or slot is not None:
+                # a device offset or slot: the rows are written at device
+                # indices (the caller keeps them inside the cache)
+                rows = (slot.to(torch.long) if slot is not None
+                        else torch.arange(B, device=x.device))[:, None]
+                kv[layer_idx, 0].index_put_((rows, pos), k.to(kv.dtype))
+                kv[layer_idx, 1].index_put_((rows, pos), v.to(kv.dtype))
+            else:
+                kv[layer_idx, 0, :, start:start + S] = k.to(kv.dtype)
+                kv[layer_idx, 1, :, start:start + S] = v.to(kv.dtype)
         if one_shot and _can_use_flash(q):
             # offset 0: causal over the first S rows is causal over k/v
             attn = _attention_flash_causal(q, k, v)
@@ -275,6 +294,8 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
             k_all, v_all = kv[layer_idx, 0], kv[layer_idx, 1]
             if t_active is not None and t_active < T:
                 k_all, v_all = k_all[:, :t_active], v_all[:, :t_active]
+            if slot is not None:
+                k_all, v_all = k_all.index_select(0, slot), v_all.index_select(0, slot)
             attn = _masked_over(k_all, v_all, q, pos)
     elif _can_use_flash(q):
         attn = _attention_flash_causal(q, k, v)
@@ -294,19 +315,24 @@ def _block_forward(blk, cfg, x, positions, kv, layer_idx, cache_len, t_active=No
 
 
 def llama_forward(params, cfg: LlamaConfig, tokens, kv=None, cache_len=0, positions=None,
-                  t_active=None):
+                  t_active=None, slot=None):
     """tokens (B, S) -> logits (B, S, V). With kv (dense or PagedKV), writes
     the cache at cache_len (in place) and attends over it; returns (logits,
-    kv). cache_len: an int, a 0-d tensor (a prompt chunk) or (B,) offsets."""
+    kv). cache_len: an int, a 0-d tensor (a prompt chunk) or (B,) offsets.
+    slot: a (1,) index tensor naming the dense cache's stripe that a one-row
+    call (B = 1) writes and reads, in place of a view of that stripe."""
     B, S = tokens.shape
     if positions is None:
-        per_slot = isinstance(cache_len, torch.Tensor) and cache_len.ndim == 1
-        off = cache_len[:, None] if per_slot else int(cache_len)
+        if isinstance(cache_len, torch.Tensor):
+            off = cache_len[:, None] if cache_len.ndim == 1 else cache_len.to(torch.int32)
+        else:
+            off = int(cache_len)
         positions = (off + torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :])
         positions = positions.expand(B, S)
     x = params["embed"][tokens]
     for i, blk in enumerate(params["blocks"]):
-        x = _block_forward(blk, cfg, x, positions, kv, i, cache_len, t_active=t_active)
+        x = _block_forward(blk, cfg, x, positions, kv, i, cache_len, t_active=t_active,
+                           slot=slot)
     x = _rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = _apply(params["lm_head"], x)
     return (logits, kv) if kv is not None else logits

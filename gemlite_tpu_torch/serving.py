@@ -20,6 +20,15 @@
   runtime offset, interleaved with decode of the other slots. A one-shot
   prefill of 256 tokens or more attends on the flash kernel; chunks never do,
   as in the JAX engine.
+* The prefill step (``_prefill_step``, the counterpart of the JAX engine's
+  ``_prefill_impl`` / ``_prefill_chunk_impl``, and with a draft of
+  ``_dprefill_impl`` / ``_dprefill_chunk_impl``) reads the padded tokens, the
+  slot, the true length, the chunk offset and the temperature from static
+  device buffers. It writes the slot's cache (the dense stripe through a
+  device index, the paged slot through its table row taken on the device),
+  picks the last valid row's logits by a device index and samples the first
+  token on the device; the host downloads that one int. With a draft, the
+  draft's prefill of the same piece is part of the step.
 * Every engine step runs one batched decode over all slots. Paged decode
   reads each slot's own pages up to its length on the paged decode kernel;
   the dense cache reads the live-KV bucket. Inactive slots write their k/v to
@@ -30,14 +39,18 @@
   next tokens and ``lengths + active`` back into them; the host copies its
   own values in only after an admission or a finish, and reads one (B,)
   tensor a step. The step reads nothing on the host.
-* On the card the engine captures that step in a CUDA graph, as the JAX
-  engine jits it: one graph per live-KV bucket on the dense cache (unrolled
-  or scan) and one on the paged cache, all from one memory pool, each
-  captured at the first step that needs it, right after that step ran
-  eagerly on the capture stream (its result is the step's), and replayed
-  from then on (``graphs.CapturedStep``). ``graphs=False`` runs the same
-  step eagerly; on the CPU there are no graphs and the step runs eagerly.
-  A capture or replay that fails raises.
+* On the card the engine captures those steps in CUDA graphs, as the JAX
+  engine jits them: the decode step in one graph per live-KV bucket on the
+  dense cache (unrolled or scan) and one on the paged cache, the prefill
+  step in one graph per one-shot bucket and one per chunk width, all from
+  one memory pool, each captured at the first step that needs it, right
+  after that step ran eagerly on the capture stream (its result is the
+  step's), and replayed from then on (``graphs.CapturedStep``).
+  ``graphs=False`` runs the same steps eagerly; on the CPU there are no
+  graphs and the steps run eagerly. A capture or replay that fails raises.
+  The decode graphs and bursts count in ``graph_captures`` /
+  ``graph_replays`` / ``capture_s``, the prefill graphs in
+  ``prefill_captures`` / ``prefill_replays`` / ``prefill_capture_s``.
 * ``scan_layers=True`` (dense cache only, as in the JAX engine) stacks the
   block linears once at construction (``models/scan_llama.stack_blocks``) and
   runs every decode step over the stacks: each linear kind through one launch
@@ -62,8 +75,8 @@
   cache end the engine takes plain decode steps, which the draft cache
   misses, as in JAX. Prefix caching is off while a draft is attached;
   ``scan_layers`` refuses a draft.
-* On the card the engine checks after every prefill, eager decode step and
-  eager burst, and at every capture, that each quantized linear ran on a
+* On the card the engine checks after every eager prefill, decode step and
+  burst, and at every capture, that each quantized linear ran on a
   hand-written kernel (``KERNEL_ROUTES``: decode, prefill, dequantize,
   int8_exact, general_fused, decode_stacked or prefill_mx_csm4) and that no
   attention ran a plain version (``ATTENTION_TRACE``).
@@ -178,9 +191,10 @@ def _next_bucket(n: int, buckets) -> int:
 class ContinuousBatchingEngine:
     """Slot-based continuous batching over a quantized Llama param dict.
 
-    ``graphs``: capture the decode step and the speculative burst in CUDA
-    graphs (the default on the card) or run them eagerly (``False``, the
-    counterpart of ``jax.disable_jit``); ``True`` on the CPU raises.
+    ``graphs``: capture the prefill step, the decode step and the
+    speculative burst in CUDA graphs (the default on the card) or run them
+    eagerly (``False``, the counterpart of ``jax.disable_jit``); ``True`` on
+    the CPU raises.
     ``draft=(draft_params, draft_cfg)``: a smaller model of the same
     vocabulary that proposes ``spec_tokens`` tokens a burst."""
 
@@ -281,12 +295,21 @@ class ContinuousBatchingEngine:
             "packed": torch.zeros(max_batch * (self.spec_tokens + 2), dtype=torch.int32,
                                   device=dev)}
         self._dev_dirty = True
+        # the prefill step's static inputs, [slot, true length, chunk offset,
+        # padded tokens] in one int32 row as wide as the largest bucket and
+        # the request's temperature, and the first token it samples
+        self._pf_static = {
+            "ints": torch.zeros(3 + self.buckets[-1], dtype=torch.int32, device=dev),
+            "temp": torch.zeros(1, dtype=torch.float32, device=dev),
+            "token": torch.zeros(1, dtype=torch.int32, device=dev)}
         # decode graphs by t_active bucket, bursts by ("spec", t_active)
         self._graphs: Dict[Any, CapturedStep] = {}
+        # prefill graphs by ("prefill", bucket) and ("chunk", width)
+        self._prefill_graphs: Dict[Any, CapturedStep] = {}
         self._capture_stream = torch.cuda.Stream(dev) if self.graphs else None
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
-        # the last decode step's (B, V) logits, or the last burst's verify
-        # logits (B, g + 1, V)
+        # the last decode step's (B, V) logits, the last burst's verify
+        # logits (B, g + 1, V), or the last prefill's (1, V) logits row
         self.last_logits: Optional[torch.Tensor] = None
 
         self.slot_req: List[Optional[Request]] = [None] * max_batch
@@ -299,7 +322,9 @@ class ContinuousBatchingEngine:
         self._req_times: Dict[int, List[Optional[float]]] = {}
         self._counters = {"steps": 0, "decode_steps": 0, "spec_steps": 0, "prefills": 0,
                           "prefill_chunks": 0, "tokens_out": 0, "graph_captures": 0,
-                          "graph_replays": 0, "capture_s": 0.0, "start": time.monotonic()}
+                          "graph_replays": 0, "capture_s": 0.0, "prefill_captures": 0,
+                          "prefill_replays": 0, "prefill_capture_s": 0.0,
+                          "start": time.monotonic()}
 
         # decode attention reads only the live-KV bucket
         self.decode_buckets = []
@@ -449,25 +474,50 @@ class ContinuousBatchingEngine:
         self._check_routes()
         return out
 
-    def _prefill(self, tokens: np.ndarray, slot: int, cache_len, true_len: int):
-        """One padded prompt piece (1, C) into the slot's cache at cache_len
-        (0 for a one-shot prefill, a 0-d tensor for a chunk); returns the
-        logits (1, V) at its last valid position."""
-        t = torch.as_tensor(tokens, device=self.device)
-        if self.paged:
-            kv = self.kv.with_table(self.kv.table[slot:slot + 1])
-        else:
-            kv = self.kv[:, :, slot:slot + 1]            # a view: written in place
-        logits, _ = self._checked(llama_forward, self.params, self.cfg, t, kv=kv,
-                                  cache_len=cache_len)
-        return logits[:, true_len - 1, :]
+    def _prefill(self, tokens: np.ndarray, slot: int, offset: int, true_len: int, chunk: bool):
+        """One padded prompt piece (1, C) into the slot's cache at ``offset``:
+        a one-shot prefill (offset 0, ``chunk`` False) or a prompt chunk. The
+        host's values go into the static buffers, then the prefill step runs,
+        a graph for each one-shot bucket and each chunk width. Returns the
+        logits (1, V) at the piece's last valid position; the first token
+        the step sampled waits in the static ``token`` for ``_first_token``."""
+        C = tokens.shape[1]
+        if not 0 <= offset <= self.cfg.max_seq_len - C:
+            raise ValueError(f"prefill write [{offset}, {offset + C}) outside the cache of "
+                             f"{self.cfg.max_seq_len} rows")
+        st = self._pf_static
+        host = np.empty(3 + C, np.int32)
+        host[:3] = slot, true_len, offset
+        host[3:] = tokens[0]
+        st["ints"][:3 + C].copy_(torch.from_numpy(host))
+        st["temp"].fill_(self.slot_req[slot].temperature)
+        key = ("chunk" if chunk else "prefill", C)
+        return self._run_step(key, lambda: self._prefill_step(C, chunk), prefill=True)
 
-    def _dprefill(self, tokens: np.ndarray, slot: int, cache_len):
-        """The draft's prefill of the same padded piece into its own dense
-        cache (the logits are discarded)."""
-        t = torch.as_tensor(tokens, device=self.device)
-        self._checked(llama_forward, self.draft[0], self.draft[1], t,
-                      kv=self.draft_kv[:, :, slot:slot + 1], cache_len=cache_len)
+    def _prefill_step(self, width: int, chunk: bool):
+        """The prefill step over the static buffers: the slot's piece of
+        ``width`` tokens through the model at offset 0 (one-shot, flash from
+        256 tokens) or at the device offset (a chunk), its k/v into the
+        slot's stripe or pages, the logits (1, V) of its last valid row by a
+        device index, the first token sampled from them into ``token``, and
+        with a draft the draft's prefill of the same piece. Reads nothing on
+        the host. Returns the logits row."""
+        st = self._pf_static
+        slot, true_len = st["ints"][0:1], st["ints"][1:2]
+        cache_len = st["ints"][2] if chunk else 0
+        tokens = st["ints"][3:3 + width].view(1, width)
+        if self.paged:
+            kv = self.kv.with_table(self.kv.table.index_select(0, slot))
+            logits, _ = llama_forward(self.params, self.cfg, tokens, kv=kv, cache_len=cache_len)
+        else:
+            logits, _ = llama_forward(self.params, self.cfg, tokens, kv=self.kv,
+                                      cache_len=cache_len, slot=slot)
+        last = logits.index_select(1, true_len - 1)[:, 0]
+        st["token"].copy_(sample_tokens(last, st["temp"], self.generator))
+        if self.draft is not None:
+            llama_forward(self.draft[0], self.draft[1], tokens, kv=self.draft_kv,
+                          cache_len=cache_len, slot=slot)
+        return last
 
     def _decode_step(self, t_active):
         """The decode step: every slot advances one token from the static
@@ -528,15 +578,18 @@ class ContinuousBatchingEngine:
         st["packed"].copy_(torch.cat([drafts.reshape(-1), fix, n_acc]))
         return logits
 
-    def _run_step(self, key, fn):
+    def _run_step(self, key, fn, prefill: bool = False):
         """Run one step function: replay its graph; at its first call run it
         eagerly on the capture stream (its result is this call's) and capture
-        it; with graphs off, run it eagerly."""
+        it; with graphs off, run it eagerly. ``prefill``: a prefill step,
+        kept and counted apart from the decode steps and bursts."""
+        graphs = self._prefill_graphs if prefill else self._graphs
+        kind = "prefill" if prefill else "graph"
         if not self.graphs:
             out = self._checked(fn)
-        elif key in self._graphs:
-            out = self._graphs[key].replay()
-            self._counters["graph_replays"] += 1
+        elif key in graphs:
+            out = graphs[key].replay()
+            self._counters[f"{kind}_replays"] += 1
         else:
             main, side = torch.cuda.current_stream(self.device), self._capture_stream
             side.wait_stream(main)
@@ -545,9 +598,9 @@ class ContinuousBatchingEngine:
                 graph = CapturedStep(fn, side, self._pool, self.generator, self._check_routes)
             main.wait_stream(side)
             out.record_stream(main)
-            self._graphs[key] = graph
-            self._counters["graph_captures"] += 1
-            self._counters["capture_s"] += graph.capture_s
+            graphs[key] = graph
+            self._counters[f"{kind}_captures"] += 1
+            self._counters["prefill_capture_s" if prefill else "capture_s"] += graph.capture_s
         self.last_logits = out
         return out
 
@@ -576,10 +629,11 @@ class ContinuousBatchingEngine:
     def num_active(self) -> int:
         return sum(r is not None for r in self.slot_req)
 
-    def _first_token(self, slot: int, logits: torch.Tensor):
+    def _first_token(self, slot: int):
+        """The token that the slot's last prefill step sampled (one int
+        downloaded), then the prefix registration and a finish check."""
         req = self.slot_req[slot]
-        temps = torch.tensor([req.temperature], dtype=torch.float32, device=self.device)
-        tok = int(sample_tokens(logits, temps, self.generator)[0])
+        tok = int(self._pf_static["token"][0])
         self.slot_out[slot] = [tok]
         self.slot_last[slot] = tok
         self._mark_first_token(req)
@@ -626,11 +680,9 @@ class ContinuousBatchingEngine:
             padded = np.zeros((1, Lb), np.int32)
             padded[0, :len(prompt)] = prompt
             self._claim(slot, req, len(prompt), None)
-            logits = self._prefill(padded, slot, 0, len(prompt))
-            if self.draft is not None:
-                self._dprefill(padded, slot, 0)
+            self._prefill(padded, slot, 0, len(prompt), False)
             self._counters["prefills"] += 1
-            self._first_token(slot, logits)
+            self._first_token(slot)
 
     def _remainder_chunk(self, rem: int) -> int:
         C = self.prefill_chunk or _next_bucket(max(rem, 1), self.buckets)
@@ -652,10 +704,7 @@ class ContinuousBatchingEngine:
             padded[0, :len(chunk)] = chunk
             self._ensure_pages(slot, int(self.slot_len[slot]) + C)
             self._sync_table()
-            offset = torch.tensor(int(self.slot_len[slot]), dtype=torch.int32)   # a runtime offset
-            logits = self._prefill(padded, slot, offset, len(chunk))
-            if self.draft is not None:
-                self._dprefill(padded, slot, offset)
+            self._prefill(padded, slot, int(self.slot_len[slot]), len(chunk), True)
             self._counters["prefill_chunks"] += 1
             self.slot_len[slot] += len(chunk)
             # the decode step's lens still hold this slot's offset before the
@@ -666,7 +715,7 @@ class ContinuousBatchingEngine:
                 self.slot_pending[slot] = rest
                 continue
             self.slot_pending[slot] = None
-            self._first_token(slot, logits)
+            self._first_token(slot)
 
     def _mark_first_token(self, req: Request):
         t = self._req_times.get(req.request_id)
