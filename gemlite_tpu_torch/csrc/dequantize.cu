@@ -1,6 +1,8 @@
 // SPDX-License-Identifier: Apache-2.0
 // Dequantize packed words to a dense (K, N) bf16 in one streaming pass:
-// W4 codes of W_group_mode 4 (gl_dequantize_w4), fp8 bit codes
+// W1 / W2 / W4 / W8 integer codes in W_group_mode 1-4 with csm 0-3
+// (gl_dequantize_int: float32 arithmetic in the plain version's order, one
+// rounding to bf16), fp8 bit codes
 // (gl_dequantize_fp8: each value converted exactly, times its column's scale
 // in float32 where the layer has one (mode 2 or csm 1 / 3, the fold of
 // gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul), one rounding to bf16),
@@ -9,42 +11,98 @@
 //
 // Replaces the TPU kernel gemlite_tpu/ops/pallas_prefill.py:pallas_dequantize;
 // the dense product after it stays torch.matmul, as the JAX package leaves it
-// to XLA. Written in CUDA C++ rather than Triton so that all three kernels of
+// to XLA. Written in CUDA C++ rather than Triton so that all the kernels of
 // the path share one build.
 //
-// What bounds it: bytes (K*N/2 read, 2*K*N written), so the bound is HBM
-// bandwidth. One thread reads one word of column n and writes its 8 values
-// down the column; a warp's loads and each of its 8 stores cover contiguous
-// columns, so every access is coalesced.
+// What bounds it: bytes (the words and metadata read, 2*K*N written), so the
+// bound is HBM bandwidth. The integer and fp8 forms' thread reads four
+// columns' words (16 bytes) and writes each row they hold 8 bytes at a time
+// (for W8 codes 1.32x faster than one word a thread down a column on the
+// H100); the MX form's thread one word of a column. Every access of a warp
+// is coalesced.
 #include <cuda_fp8.h>
 
+#include "gl_common.cuh"
 #include "mx_common.cuh"
-#include "w4_common.cuh"
 
 namespace {
 
-// The plain version (dequantize_full) computes q * s + z in float32 and rounds
-// once to bf16. q * s is exact in float32, so a fused multiply-add rounds the
-// same way as a multiply followed by an add.
-__device__ __forceinline__ float dequant_w4_mode4_f32(uint32_t word, int j, float s, float z) {
-    return static_cast<float>((word >> (4 * j)) & 0xFu) * s + z;
+// The metadata of the integer form: group scales and zeros (rows of N, one
+// per `*_kpg` rows of k), a scalar zero, the channel scales (csm 1 / 3), each
+// with its dtype code (gl::DTypeCode), null where the layer has none.
+struct IntMeta {
+    const void* s;
+    const void* z;
+    const void* zs;                       // the scalar zero: int32 (kI32) or float
+    const void* cs;                       // (N) channel scales
+    int s_code, z_code, zs_code, cs_code;
+    int s_kpg, z_kpg;                     // k rows per scale / zero row
+};
+
+// Integer form: one thread reads the words of four columns n .. n + 3 of
+// word row kw (16 bytes, 32 / BITS codes of one group each) and writes the
+// rows they hold, 8 bytes a row, as the fp8 form does, so a warp's loads and
+// stores are contiguous. dequantize_full's order, each op rounded in float32
+// (no contraction): mode 1 q - z, mode 2 q * s, mode 3 (q - z) * s, mode 4
+// q * s + z, then times the channel scale; one rounding to bf16 at the end.
+// A scalar zero enters mode 3 as an int32 (torch's .to(int32) truncates),
+// modes 1 and 4 as float32.
+template <int BITS, int MODE>
+__global__ void dequantize_int_kernel(const uint4* __restrict__ wq,   // (K / epw, N / 4) x 4 words
+                                      const IntMeta m, __nv_bfloat16* __restrict__ out, int N) {
+    constexpr int EPW = 32 / BITS;
+    constexpr uint32_t MASK = (1u << BITS) - 1u;
+    const int q4 = blockIdx.x * blockDim.x + threadIdx.x;   // a quad of columns
+    const int kw = blockIdx.y, n = 4 * q4;
+    if (n >= N) return;
+    const uint4 w4 = __ldg(wq + (size_t)kw * (N / 4) + q4);
+    const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
+    const int k0 = kw * EPW;
+    float s[4], z[4], c[4];
+    float zs = 0.f;
+    if (MODE != 2 && m.z == nullptr && m.zs != nullptr) {
+        zs = m.zs_code == gl::kI32 ? static_cast<float>(*static_cast<const int*>(m.zs))
+                                   : gl::load_meta(m.zs, 0, m.zs_code);
+        if (MODE == 3) zs = static_cast<float>(static_cast<int>(zs));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        s[i] = MODE != 1 ? gl::load_meta(m.s, (size_t)(k0 / m.s_kpg) * N + n + i, m.s_code) : 1.f;
+        z[i] = MODE == 2 ? 0.f
+               : m.z != nullptr ? gl::load_meta(m.z, (size_t)(k0 / m.z_kpg) * N + n + i, m.z_code)
+                                : zs;
+        c[i] = m.cs != nullptr ? gl::load_meta(m.cs, n + i, m.cs_code) : 1.f;
+    }
+#pragma unroll
+    for (int j = 0; j < EPW; ++j) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float q = static_cast<float>((words[i] >> (BITS * j)) & MASK);
+            if (MODE == 1) v[i] = __fsub_rn(q, z[i]);
+            else if (MODE == 2) v[i] = __fmul_rn(q, s[i]);
+            else if (MODE == 3) v[i] = __fmul_rn(__fsub_rn(q, z[i]), s[i]);
+            else v[i] = __fadd_rn(__fmul_rn(q, s[i]), z[i]);
+            if (m.cs != nullptr) v[i] = __fmul_rn(v[i], c[i]);
+        }
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+        uint2 pk;
+        pk.x = *reinterpret_cast<const uint32_t*>(&lo);
+        pk.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(out + (size_t)(k0 + j) * N + n) = pk;
+    }
 }
 
-__global__ void dequantize_w4_kernel(const uint32_t* __restrict__ wq,           // (K / 8, N)
-                                     const __nv_bfloat16* __restrict__ scales,  // (K / gs, N)
-                                     const __nv_bfloat16* __restrict__ zeros,   // (K / gs, N)
-                                     __nv_bfloat16* __restrict__ out,           // (K, N)
-                                     int N, int gs) {
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    const int kw = blockIdx.y;
-    if (n >= N) return;
-    const uint32_t word = __ldg(wq + (size_t)kw * N + n);
-    const size_t g = (size_t)(kw * 8 / gs) * N + n;
-    const float s = __bfloat162float(scales[g]);
-    const float z = __bfloat162float(zeros[g]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-        out[(size_t)(kw * 8 + j) * N + n] = __float2bfloat16_rn(dequant_w4_mode4_f32(word, j, s, z));
+template <int BITS>
+cudaError_t launch_int(const uint4* wq, const IntMeta& m, __nv_bfloat16* out, int N, int K,
+                       int mode, cudaStream_t stream) {
+    const dim3 grid((N / 4 + 127) / 128, K / (32 / BITS));
+    if (mode == 1) dequantize_int_kernel<BITS, 1><<<grid, 128, 0, stream>>>(wq, m, out, N);
+    else if (mode == 2) dequantize_int_kernel<BITS, 2><<<grid, 128, 0, stream>>>(wq, m, out, N);
+    else if (mode == 3) dequantize_int_kernel<BITS, 3><<<grid, 128, 0, stream>>>(wq, m, out, N);
+    else dequantize_int_kernel<BITS, 4><<<grid, 128, 0, stream>>>(wq, m, out, N);
+    return cudaGetLastError();
 }
 
 // fp8 form: one thread reads four words (columns n .. n + 3 of word row kw,
@@ -139,12 +197,39 @@ extern "C" int gl_dequantize_fp8(const void* wq, const void* scales, void* out, 
     return static_cast<int>(cudaGetLastError());
 }
 
-// Launch on `stream`. Returns the cudaError_t of the launch.
-extern "C" int gl_dequantize_w4(const void* wq, const void* scales, const void* zeros,
-                                void* out, int N, int K, int gs, void* stream_ptr) {
-    const dim3 grid((N + 255) / 256, K / 8);
-    dequantize_w4_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-        static_cast<const uint32_t*>(wq), static_cast<const __nv_bfloat16*>(scales),
-        static_cast<const __nv_bfloat16*>(zeros), static_cast<__nv_bfloat16*>(out), N, gs);
-    return static_cast<int>(cudaGetLastError());
+// Launch on `stream`: integer codes of `bits` (1, 2, 4, 8) in (K / epw, N)
+// words, N a multiple of 4, 16-byte aligned (the output 8-byte aligned),
+// W_group_mode `mode` 1-4. `scales` / `zeros`: (K / s_kpg, N) and
+// (K / z_kpg, N) rows, dtype codes s_code / z_code (float32, fp16, bf16), null
+// where the mode reads none (mode 1: no scales; mode 2: no zeros); `zscalar`
+// one zero on the device (int32, or a float code) in place of a zero row;
+// `cs` (N) channel scales (csm 1 / 3) or null. Every k row group must hold
+// whole words (s_kpg and z_kpg multiples of 32 / bits). Returns the
+// cudaError_t of the launch.
+extern "C" int gl_dequantize_int(const void* wq, const void* scales, const void* zeros,
+                                 const void* zscalar, const void* cs, void* out, int N, int K,
+                                 int bits, int mode, int s_code, int z_code, int zs_code,
+                                 int cs_code, int s_kpg, int z_kpg, void* stream_ptr) {
+    const bool bits_ok = bits == 1 || bits == 2 || bits == 4 || bits == 8;
+    const int epw = bits_ok ? 32 / bits : 1;
+    const bool needs_s = mode != 1, needs_z = mode != 2;
+    const auto kpg_ok = [&](int kpg) { return kpg >= epw && kpg % epw == 0 && K % kpg == 0; };
+    if (!bits_ok || mode < 1 || mode > 4 || N < 4 || N % 4 || K < epw || K % epw ||
+        wq == nullptr || reinterpret_cast<uintptr_t>(wq) % 16 || reinterpret_cast<uintptr_t>(out) % 8 ||
+        (needs_s && (scales == nullptr || !kpg_ok(s_kpg))) ||
+        (needs_z && (zeros == nullptr) == (zscalar == nullptr)) ||
+        (zeros != nullptr && !kpg_ok(z_kpg)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const IntMeta m{needs_s ? scales : nullptr, needs_z ? zeros : nullptr,
+                    needs_z ? zscalar : nullptr, cs, s_code, z_code, zs_code, cs_code,
+                    s_kpg > 0 ? s_kpg : 1, z_kpg > 0 ? z_kpg : 1};
+    const uint4* w = static_cast<const uint4*>(wq);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    cudaError_t err;
+    if (bits == 1) err = launch_int<1>(w, m, o, N, K, mode, stream);
+    else if (bits == 2) err = launch_int<2>(w, m, o, N, K, mode, stream);
+    else if (bits == 4) err = launch_int<4>(w, m, o, N, K, mode, stream);
+    else err = launch_int<8>(w, m, o, N, K, mode, stream);
+    return static_cast<int>(err);
 }

@@ -33,17 +33,22 @@ __all__ = ["KERNEL_SOURCES", "KERNEL_PARTS", "build", "load", "check", "graph_op
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "dequantize", "int8_decode", "fused_gemm",
-                  "fused_float", "flash_attention", "paged_attention", "fp8_gemm", "mx_gemm")
+KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "prefill_modes", "dequantize", "int8_decode",
+                  "fused_gemm", "fused_float", "flash_attention", "paged_attention", "fp8_gemm",
+                  "mx_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # sources compiled in parts: (part name, its defines), each part one nvcc, the
-# objects linked into the source's library. fused_float.cu's parts hold its
+# objects linked into the source's library. prefill_modes.cu's parts hold its
+# code widths (GL_PM_BITS) and the entry (GL_PM_ENTRY); fused_float.cu's its
 # weight forms (GL_FF_FORMS, a mask of the forms) and the entry (GL_FF_ENTRY),
 # int8_decode.cu's its weight kinds (GL_I8_KINDS) and the entries
 # (GL_I8_ENTRY): one nvcc of each whole source took 388 s and 206 s, the
 # longest two of the build (on the machine that holds the H100, PERF.md).
 KERNEL_PARTS = {
+    "prefill_modes": (("prefill_modes_w4", ("-DGL_PM_BITS=0x4", "-DGL_PM_ENTRY=1")),
+                      ("prefill_modes_w2", ("-DGL_PM_BITS=0x2",)),
+                      ("prefill_modes_w1", ("-DGL_PM_BITS=0x1",))),
     "fused_float": (("fused_float_i8_16", ("-DGL_FF_FORMS=0x03", "-DGL_FF_ENTRY=1")),
                     ("fused_float_w8", ("-DGL_FF_FORMS=0x04",)),
                     ("fused_float_w1", ("-DGL_FF_FORMS=0x20",)),

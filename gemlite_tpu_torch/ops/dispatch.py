@@ -5,13 +5,16 @@ By the flattened batch size M, in the JAX router's order:
     M <= 64          int8_exact (INT8 layers), decode, prefill, general_fused
     64 < M < 4096    prefill, general_fused
     M >= 4096        dequantize kernel, then a dense ``torch.matmul``; else
-                     general_fused; else (``dense_fallback``) the plain
-                     ``dequantize_full`` and a dense ``torch.matmul``
+                     (``dense_fallback``) the plain ``dequantize_full`` and a
+                     dense ``torch.matmul``; csm 4 off the MX layers:
+                     general_fused
 
 The decode and prefill kernels take bf16 layers of W1, W2 and W4 codes in
 W_group_mode 4, and in modes 1-3 with csm 0-3 (their mode 1-3 form,
 ``w4.serves_modes``), as the JAX decode and prefill kernels do; the
-dequantize kernel takes W4 in mode 4. Layers of fp8 bit codes
+dequantize kernel takes the integer-code layers that JAX's
+``pallas_dequantize`` takes (``ops/dequantize.jax_dequantizes``: W1, W2,
+W4 and W8 codes in modes 1-4, csm 0-3). Layers of fp8 bit codes
 (``A16W8_FP8``, ``A8W8_FP8_dynamic``) take the fp8 kernels under the same
 route names (``ops/fp8.py``): decode at M <= 64, prefill below 4096, the fp8
 form of the dequantize kernel then a dense matmul from 4096, and never the
@@ -20,16 +23,13 @@ general fused kernel, whose JAX gate refuses them
 (``A8Wn_HQQ_INT_dynamic``) takes the mode 1-3 form of decode and prefill
 below 4096, x converted to its bf16 image (exact) beside the per-token
 quantization; so do channel-wise ``A16Wn`` and ``A16W158_INT``. From M 4096
-these run the general fused kernel's float path, where JAX dequantizes and
-runs a dense matmul (a route difference: the same results on another
-kernel). A float layer that the JAX package sends to one of its kernels but
-whose form the port's kernels do not cover yet (W8 codes, fp16 x, groups the
-prefill kernel does not take; modes 1-3 and W1/W2 at M >= 4096) runs on the
-general fused kernel here;
-non-packed int8 weights (A16W8) run on it below M 4096 in both packages,
-on its float path (``fused_gemm_float``). ``dense_fallback``
-is kept for the layers that the JAX package itself dequantizes without a
-Pallas kernel (``_xla_dequantized``).
+these take the dequantize kernel, as in JAX. Below 4096, a float layer that
+the JAX package sends to one of its kernels but whose form the port's decode
+and prefill kernels do not cover yet (W8 codes, fp16 x, groups the prefill
+kernel does not take) runs on the general fused kernel here; non-packed int8
+weights (A16W8) run on it below M 4096 in both packages, on its float path
+(``fused_gemm_float``). ``dense_fallback`` is kept for the layers that the
+JAX package itself dequantizes without a Pallas kernel.
 
 MX layers (``ops/mx.py``) take the MX kernels under the same route names:
 micro-scaled x (csm 4) at 64 < M < 4096 goes in as e4m3 codes and group
@@ -85,20 +85,6 @@ def last_kernel() -> str:
     return KERNEL_TRACE[-1] if KERNEL_TRACE else ""
 
 
-def _xla_dequantized(meta) -> bool:
-    """True for the layers that the JAX package keeps in the reference layout
-    (``gemlite_tpu/core.py:_plane_fold_unit`` is None), which its Pallas
-    dequantize kernel refuses (``pallas_prefill.py:can_use_dequantize``): at
-    M >= 4096 it dequantizes them with plain XLA (``dispatch.py:105-108``)."""
-    K, N, nbits, gs = meta.in_features, meta.out_features, meta.W_nbits, meta.group_size
-    if (meta.input_dtype == DType.INT8.value or meta.W_group_mode not in (1, 2, 3, 4)
-            or nbits not in (1, 2, 4, 8) or meta.elements_per_sample != 32 // nbits):
-        return True
-    F = gs if 1 < gs < K else 512          # the fold unit
-    planes = 4 if nbits == 8 else 16 // nbits
-    return bool(F > 512 or K % F or F % planes or (F // planes) % 8 or N % 128 or K % 128)
-
-
 def _mx_route(meta, M: int):
     """An MX layer's route at M rows, or None: micro-scaled x (csm 4) takes
     ``prefill_mx_csm4`` at 64 < M < 4096 on a layer JAX folds (JAX's gate,
@@ -127,7 +113,7 @@ def _route(meta, M: int):
     if M >= 4096:
         if can_use_dequantize(meta):
             return "dequantize"
-        if meta.channel_scale_mode != 4 and _xla_dequantized(meta):
+        if meta.channel_scale_mode != 4:
             return "dense_fallback"
         return "general_fused" if can_use_fused(meta) else None
     if M <= 64:
@@ -141,20 +127,23 @@ def _route(meta, M: int):
 
 
 def _dense(x, w, meta, scales_x):
-    """x @ w in bf16 on the tensor cores, then the per-token scale (csm 2/3)
-    in float32 (``gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul``). An
-    MX layer with per-token x (csm 2) keeps the sums in float32 before the
-    scale, as JAX's ``preferred_element_type`` does: its e4m3 x spans 448x
-    the bf16 step, and a bf16 product rounded before the scale is 1.4e-3
-    (mean) off the JAX package's."""
-    if mx_coded(meta) and meta.channel_scale_mode == 2 and scales_x is not None:
-        out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-        out = out * scales_x.reshape(-1, 1).to(torch.float32)
-        return out.to(to_torch_dtype(DType(meta.output_dtype)))
-    out = torch.matmul(x.to(torch.bfloat16), w)
-    if meta.channel_scale_mode in (2, 3) and scales_x is not None:
-        out = out.to(torch.float32) * scales_x.reshape(-1, 1).to(torch.float32)
-    return out.to(to_torch_dtype(DType(meta.output_dtype)))
+    """x @ w on the tensor cores, x in bf16, with float32 sums; then the
+    per-token scale (csm 2/3) in float32 and one rounding to the output
+    dtype, as ``gemlite_tpu/ops/dispatch.py:_dense_fallback_matmul`` does
+    with ``preferred_element_type=float32``. Without a per-token scale and
+    with bf16 out, the bf16 product (float32 sums rounded once) is the same
+    function."""
+    x = x.to(torch.bfloat16)
+    out_dtype = to_torch_dtype(DType(meta.output_dtype))
+    scaled = meta.channel_scale_mode in (2, 3) and scales_x is not None
+    if not scaled and out_dtype == torch.bfloat16:
+        return torch.matmul(x, w)
+    # on the CPU in float32, where products of bf16 values are exact
+    acc = (torch.mm(x, w, out_dtype=torch.float32) if x.is_cuda
+           else torch.matmul(x.to(torch.float32), w.to(torch.float32)))
+    if scaled:
+        acc = acc * scales_x.reshape(-1, 1).to(torch.float32)
+    return acc.to(out_dtype)
 
 
 def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> torch.Tensor:

@@ -1,17 +1,23 @@
 # SPDX-License-Identifier: Apache-2.0
 """Prefill kernel: W1/W2/W4 x bf16 for 64 < M < 4096 on Hopper's ``wgmma``,
 one launch a call (``csrc/prefill_gemm.cu``, entries ``gl_prefill`` and
-``gl_prefill_modes``).
+``gl_prefill_modes``; ``csrc/prefill_modes.cu``, entry
+``gl_prefill_modes_persistent``).
 
 Replaces ``gemlite_tpu/ops/pallas_prefill.py:pallas_prefill_matmul`` on the
 bf16 layers of W1, W2 and W4 codes that the JAX router sends to its prefill
 kernel: mode 4 (``prefill_matmul``) and, in the mode 1-3 form
 (``prefill_modes``, the layers of ``w4.serves_modes``), A8Wn, channel-wise
-A16Wn and A16W158. The plain versions are ``ops/reference.forward_meta``
-and, for the mode 1-3 form, ``reference.forward_f32_epilogue``. On a CPU
-tensor a wrapper runs its plain version; on a CUDA tensor it launches the
-kernel or raises. ``plan`` owns the kernel's grid and ring: the CUDA side
-only checks that what it is given fits.
+A16W158. The mode 1-3 form runs the persistent kernel of
+``prefill_modes.cu`` on ``modes_plan`` where ``persistent`` holds (words
+and metadata by TMA), and elsewhere (N not a multiple of 8, or a base not
+16-byte aligned) ``prefill_modes_ragged``, the mode 1-3 instances of
+``prefill_gemm.cu`` on ``plan``, counted apart. The plain versions
+are ``ops/reference.forward_meta`` and, for the mode 1-3 form,
+``reference.forward_f32_epilogue``. On a CPU tensor a wrapper runs its plain
+version; on a CUDA tensor it launches a kernel or raises. ``plan`` and
+``modes_plan`` own the kernels' grids and rings: the CUDA side only checks
+that what it is given fits.
 """
 
 import ctypes
@@ -22,8 +28,10 @@ import torch
 from . import build, w4
 from .reference import forward_f32_epilogue, forward_meta
 
-__all__ = ["PREFILL_BITS", "PrefillPlan", "can_use_prefill", "can_use_prefill_modes", "plan",
+__all__ = ["PREFILL_BITS", "ModesPlan", "PrefillPlan", "can_use_prefill", "can_use_prefill_modes",
+           "modes_plan", "modes_smem_bytes", "modes_workspace", "plan",
            "prefill_matmul", "prefill_matmul_plain", "prefill_modes", "prefill_modes_plain",
+           "prefill_modes_ragged",
            "smem_bytes", "workspace"]
 
 PREFILL_BITS = (1, 2, 4)
@@ -142,6 +150,96 @@ def workspace(M: int, N: int, p: PrefillPlan):
     return p.splits * M * N, p.tiles_n * p.tiles_m
 
 
+MODES_META_ROWS = 8        # group rows of a metadata chunk (the kernel's kMetaRows)
+MODES_MAX_STAGES = 8       # the persistent kernel's most stages (kMaxStages)
+MODES_STAGE_STEPS = 2      # 64-deep steps a stage (the kernel's SUB)
+
+
+class ModesPlan(NamedTuple):
+    """The persistent mode 1-3 kernel's work for one call: ``tiles_n`` x
+    ``tiles_m`` output tiles of 128 weight columns by ``bm`` rows of x, in
+    column-major order of their row tiles; the first ``full`` summed whole,
+    each of the rest cut into ``splits`` K ranges of ``k_per_split``; ``grid``
+    blocks, one an SM at most, block b taking units b, b + grid, ...; a ring
+    of ``stages`` stages of 128 k; ``smem`` bytes of shared memory."""
+    bm: int
+    tiles_n: int
+    tiles_m: int
+    full: int
+    splits: int
+    k_per_split: int
+    stages: int
+    grid: int
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_n * self.tiles_m
+
+    @property
+    def units(self) -> int:
+        return self.full + (self.tiles - self.full) * self.splits
+
+    def unit(self, u: int, K: int):
+        """(tile, split, first k, end k) of unit ``u``, as the kernel takes it."""
+        if u < self.full:
+            return u, 0, 0, K
+        v = u - self.full
+        split = v % self.splits
+        kb = split * self.k_per_split
+        return self.full + v // self.splits, split, kb, min(K, kb + self.k_per_split)
+
+    def tile_origin(self, tile: int):
+        """(first row of x, first weight column) of a tile."""
+        return tile % self.tiles_m * self.bm, tile // self.tiles_m * TILE
+
+
+def modes_smem_bytes(bm: int, bits: int, stages: int) -> int:
+    """Shared memory of a block of the persistent kernel (its Layout): the
+    ring of stages (two x boxes of 64 k by bm rows, then 128 k of word rows),
+    two metadata chunks of scale and zero rows, the mbarriers, the flag and
+    1024 bytes of slack to align the base."""
+    stage = MODES_STAGE_STEPS * (bm * BK * 2 + BK * bits // 32 * TILE * 4)
+    meta = 2 * (2 * MODES_META_ROWS * TILE * 2)
+    return stages * stage + meta + 8 * (2 * stages + 4) + 16 + 1024
+
+
+def modes_plan(M: int, N: int, K: int, gs: int, bits: int) -> ModesPlan:
+    """Row tile, stage depth, ring and work list of the persistent kernel,
+    from the shape alone. Whole waves of tiles run whole; the tiles of the
+    last, partial wave are cut along K into as many ranges as fill the SMs
+    (each range at least two stages deep), so that a block's share of the
+    work differs from another's by at most one range."""
+    bm = row_tile(M)
+    tiles_n, tiles_m = -(-N // TILE), -(-M // bm)
+    tiles = tiles_n * tiles_m
+    steps = K // BK
+    full, splits, per = tiles, 1, steps
+    rem = tiles % SMS
+    if rem:
+        want = min(SMS // rem, max(1, steps // (2 * MODES_STAGE_STEPS)))
+        if want > 1:
+            per = -(-(-(-steps // want)) // MODES_STAGE_STEPS) * MODES_STAGE_STEPS
+            splits = -(-steps // per)
+            if splits > 1:
+                full = tiles - rem
+            else:
+                per = steps
+    units = full + (tiles - full) * splits
+    stages = max(s for s in range(2, MODES_MAX_STAGES + 1)
+                 if modes_smem_bytes(bm, bits, s) <= SMEM_MAX)
+    return ModesPlan(bm, tiles_n, tiles_m, full, splits, per * BK, stages, min(SMS, units),
+                     modes_smem_bytes(bm, bits, stages))
+
+
+def modes_workspace(p: ModesPlan):
+    """(float32 partials, int32 arrival counters) of a persistent call: each
+    split tile's ranges write (bm, 128) partials, one counter a split tile,
+    0 between calls."""
+    split_tiles = p.tiles - p.full
+    return split_tiles * p.splits * p.bm * TILE, split_tiles
+
+
 def prefill_matmul_plain(x, W_q, scales, zeros, meta):
     return forward_meta(x, W_q, scales, zeros, None, meta)
 
@@ -162,6 +260,14 @@ def _lib_modes():
     fn = build.load("prefill_gemm").gl_prefill_modes
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib_persistent():
+    fn = build.load("prefill_modes").gl_prefill_modes_persistent
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -199,11 +305,18 @@ def prefill_matmul(x: torch.Tensor, W_q, scales, zeros, meta) -> torch.Tensor:
 prefill_matmul.launches = 0
 
 
+def persistent(N: int, *operands) -> bool:
+    """True when the persistent kernel takes a call: N a multiple of 8 and
+    every operand (None aside) 16-byte aligned, so that TMA brings them."""
+    return N % 8 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in operands)
+
+
 def prefill_modes(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.Tensor:
     """out (M, N) bf16 = csm(x (M, K) @ dequant(W_q)) for 64 < M < 4096 on a
     layer in W_group_mode 1-3 (``w4.serves_modes``); x in bf16 (on the CPU
-    also fp8, which the plain version reads exactly). The plan is the
-    mode-4 entry's: the split cost model does not depend on the mode."""
+    also fp8, which the plain version reads exactly). The persistent kernel
+    runs ``modes_plan`` where ``persistent`` holds; elsewhere
+    ``prefill_modes_ragged`` runs."""
     if x.device.type == "cpu":
         return prefill_modes_plain(x, W_q, scales, zeros, scales_x, meta)
     M = x.shape[0]
@@ -211,19 +324,47 @@ def prefill_modes(x: torch.Tensor, W_q, scales, zeros, scales_x, meta) -> torch.
         raise NotImplementedError(f"prefill kernel does not take M={M} with {meta}")
     N, K, gs = meta.out_features, meta.in_features, meta.group_size
     x = w4.activations(x, K)
-    s, z, zs, sx, cs = w4.modes_operands(W_q, scales, zeros, scales_x, meta, M)
-    p = plan(M, N, K, gs, meta.W_nbits)
+    operands = w4.modes_operands(W_q, scales, zeros, scales_x, meta, M)
+    s, z, zs, sx, cs = operands
     stream = w4.stream()
-    part, cnt = _split_buffers(M, N, p, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if not persistent(N, x, W_q, s, z):
+        return prefill_modes_ragged(x, W_q, operands, out, meta, stream)
     ptr = w4.pointer
-    err = _lib_modes()(x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(cs),
-                       part, cnt, out.data_ptr(), M, N, K, gs, meta.W_nbits, p.bm, p.splits,
-                       p.k_per_split, p.stages, meta.channel_scale_mode, w4.scale_code(cs),
-                       stream)
-    build.check(err, "prefill_gemm")
+    p = modes_plan(M, N, K, gs, meta.W_nbits)
+    part = cnt = None
+    floats, ints = modes_workspace(p)
+    if floats:
+        cnt, part = build.split_state("prefill_modes", x.device, ints, floats, stream)
+    err = _lib_persistent()(
+        x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(zs), ptr(sx), ptr(cs), ptr(part),
+        ptr(cnt), out.data_ptr(), M, N, K, gs, meta.W_nbits, p.bm, p.stages, p.grid,
+        p.full, p.splits, p.k_per_split, meta.channel_scale_mode, w4.scale_code(cs), stream)
+    build.check(err, "prefill_modes")
     prefill_modes.launches += 1
     return out
 
 
+def prefill_modes_ragged(x, W_q, operands, out, meta, stream) -> torch.Tensor:
+    """prefill_modes' kernel for the layers whose words or metadata TMA
+    cannot read (N not a multiple of 8, or a base not 16-byte aligned), as
+    JAX's prefill kernel takes any N: ``gl_prefill_modes``, the mode 1-3
+    instances of ``prefill_gemm.cu``, on the mode-4 entry's ``plan``.
+    ``operands`` are ``w4.modes_operands``; writes ``out`` and returns it."""
+    M, K = x.shape
+    N, gs = meta.out_features, meta.group_size
+    s, z, zs, sx, cs = operands
+    ptr = w4.pointer
+    p = plan(M, N, K, gs, meta.W_nbits)
+    part, cnt = _split_buffers(M, N, p, x.device, stream)
+    err = _lib_modes()(x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(zs), ptr(sx),
+                       ptr(cs), part, cnt, out.data_ptr(), M, N, K, gs, meta.W_nbits, p.bm,
+                       p.splits, p.k_per_split, p.stages, meta.channel_scale_mode,
+                       w4.scale_code(cs), stream)
+    build.check(err, "prefill_gemm")
+    prefill_modes_ragged.launches += 1
+    return out
+
+
+prefill_modes_ragged.launches = 0
 prefill_modes.launches = 0

@@ -3,6 +3,18 @@
 """Time design variants of the port's W1/W2/W4 prefill kernel on one NVIDIA card.
 
     python3 scripts/torch_prefill_variants.py [--variants committed stages3 ...]
+    python3 scripts/torch_prefill_variants.py --modes [--modes-variants stages_64 ...]
+
+With ``--modes`` it times variants of the mode 1-3 form's persistent kernel
+(``csrc/prefill_modes.cu``): its plan with a name set otherwise (one ring
+stage fewer, no K split of the last wave), text edits (64-deep stages; and,
+timing only, no dequantization, no products, the copies alone), and
+``parent``, prefill_gemm.cu's mode 1-3
+instances on the mode-4 ``plan`` (the kernel the persistent one replaced on
+these shapes), on chip_smoke.py's MODES_FORMS at its MODES_SHAPES and M 128 /
+1024 / 2048; a checked variant within 5e-3 of ``forward_f32_epilogue``; a
+dense bf16 matmul on the dequantized weight beside them; the same L2 flush
+and medians.
 
 Each variant is the committed ``gemlite_tpu_torch/csrc/prefill_gemm.cu`` with a
 few lines replaced (the text substitutions in ``VARIANTS``) and the wrapper's
@@ -158,10 +170,154 @@ def build_variants(sources: dict) -> dict:
     return out
 
 
+def _modes_operands(x, layer, sx):
+    meta = layer.meta
+    out = torch.empty((x.shape[0], meta.out_features), dtype=torch.bfloat16, device=x.device)
+    return mod.w4.modes_operands(layer.W_q, layer.scales, layer.zeros, sx, meta, x.shape[0]), out
+
+
+def _parent_modes(x, layer, sx):
+    """prefill_gemm.cu's mode 1-3 instances on the mode-4 plan."""
+    operands, out = _modes_operands(x, layer, sx)
+    return mod.prefill_modes_ragged(x, layer.W_q, operands, out, layer.meta, mod.w4.stream())
+
+
+def _persistent_modes(lib, x, layer, sx, p):
+    """``lib`` (a gl_prefill_modes_persistent) on plan ``p``, as
+    ops/prefill.prefill_modes launches it."""
+    meta, M = layer.meta, x.shape[0]
+    N, K, gs = meta.out_features, meta.in_features, meta.group_size
+    (s, z, zs, sxx, cs), out = _modes_operands(x, layer, sx)
+    stream = mod.w4.stream()
+    part = cnt = None
+    floats, ints = mod.modes_workspace(p)
+    if floats:
+        cnt, part = build.split_state("prefill_modes", x.device, ints, floats, stream)
+    ptr = mod.w4.pointer
+    build.check(lib(x.data_ptr(), layer.W_q.data_ptr(), ptr(s), ptr(z), ptr(zs), ptr(sxx),
+                    ptr(cs), ptr(part), ptr(cnt), out.data_ptr(), M, N, K, gs, meta.W_nbits,
+                    p.bm, p.stages, p.grid, p.full, p.splits, p.k_per_split,
+                    meta.channel_scale_mode, mod.w4.scale_code(cs), stream), "prefill_modes")
+    return out
+
+
+def _modes_variant(name):
+    """The plan of a persistent-kernel variant, or None for ``parent``."""
+    def plan(M, N, K, gs, bits):
+        p = mod.modes_plan(M, N, K, gs, bits)
+        if name == "no_split":
+            p = p._replace(full=p.tiles, splits=1, k_per_split=K, grid=min(mod.SMS, p.tiles))
+        if name == "stages_less":
+            p = p._replace(stages=max(2, p.stages - 1))
+        return p
+    return None if name == "parent" else plan
+
+
+_MODES_DEQUANT = ("                a[kk][2 * half + h] = dequant_pair_shift(\n"
+                  "                    code_pair<BITS>(ws[kl / EPW * BN + 8 * h], shift, c.sel), "
+                  "s2[h], z2[h]);")
+_MODES_MMA = ("        if constexpr (NB == 2)\n"
+              "            wgmma_rs_n256(reinterpret_cast<float(&)[128]>(acc), a[kk], "
+              "dx + ((kk * 32) >> 4));\n"
+              "        else\n"
+              "            wgmma_rs_n128<0>(acc[0], a[kk], dx + ((kk * 32) >> 4), 1);")
+_NO_DEQUANT = (_MODES_DEQUANT, "                a[kk][2 * half + h] = code_pair<BITS>(ws[kl / EPW * BN "
+                               "+ 8 * h], shift, c.sel) ^ s2[h] ^ z2[h];")
+_NO_MMA = [(_MODES_MMA, "        (void)dx;")]
+# text edits of prefill_modes.cu: stages of 64 k (checked), and timing only
+# (their sums are not the layer's) no dequantization, no products, the copies
+# alone
+MODES_TEXT = {"stages_64": [("constexpr int SUB = 2;", "constexpr int SUB = 1;")],
+              "no_dequant": [_NO_DEQUANT], "no_mma": _NO_MMA,
+              "copies_only": [_NO_DEQUANT] + _NO_MMA}
+MODES_CHECKED_TEXT = ("stages_64",)
+MODES_VARIANTS = ("committed", "no_split", "stages_less", "parent") + tuple(MODES_TEXT)
+
+
+def build_modes_text(names) -> dict:
+    """{name: gl_prefill_modes_persistent of prefill_modes.cu with MODES_TEXT[name]'s edits}."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    src = (build.SRC_DIR / "prefill_modes.cu").read_text()
+    procs = {}
+    for name in names:
+        cu, so = OUT_DIR / f"prefill_modes_{name}.cu", OUT_DIR / f"prefill_modes_{name}.so"
+        cu.write_text(variant_source(src, MODES_TEXT[name]))
+        procs[name] = (subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.SRC_DIR),
+                                         "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), so)
+    out = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        fn = ctypes.CDLL(str(so)).gl_prefill_modes_persistent
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out[name] = fn
+    return out
+
+
+def main_modes(names) -> int:
+    import chip_smoke
+    from gemlite_tpu_torch import DType
+    from gemlite_tpu_torch.dtypes import to_torch_dtype
+    from gemlite_tpu_torch.ops.dequantize import dequantize_full
+    from gemlite_tpu_torch.ops.reference import forward_f32_epilogue
+    from gemlite_tpu_torch.quant import scale_activations_per_token
+    texts = build_modes_text([n for n in names if n in MODES_TEXT])
+    committed_lib = mod._lib_persistent()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = chip_smoke.Timer()
+    for form in chip_smoke.MODES_FORMS:
+        for N, K in chip_smoke.MODES_SHAPES:
+            layer = chip_smoke.modes_layer(form, N, K, gen)
+            meta = layer.meta
+            dense = dequantize_full(layer.W_q, layer.scales, layer.zeros, meta)
+            for M in chip_smoke.MODES_PREFILL_MS:
+                xb = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+                xq, sx = (scale_activations_per_token(xb, to_torch_dtype(meta.input_dtype))
+                          if meta.scaled_activations else (xb, None))
+                x = xq.to(torch.bfloat16)
+                args = (layer.W_q, layer.scales, layer.zeros, sx)
+                want = forward_f32_epilogue(xq, *args, meta._replace(output_dtype=DType.FP32.value))
+                row = {"form": form, "M": M, "N": N, "K": K,
+                       "dense_bf16_matmul_ms": timer.ms(lambda: torch.matmul(x, dense))}
+                for name in names:
+                    plan = _modes_variant(name)
+                    if plan is None:
+                        fn = (lambda: _parent_modes(x, layer, sx))
+                    else:
+                        p = plan(M, N, K, meta.group_size, meta.W_nbits)
+                        fn = (lambda p=p, lib=texts.get(name, committed_lib):
+                              _persistent_modes(lib, x, layer, sx, p))
+                    got = fn()
+                    err = float((got.float() - want).abs().max() / want.abs().max())
+                    checked = name not in texts or name in MODES_CHECKED_TEXT
+                    if err > 5e-3 and checked:
+                        raise RuntimeError(f"{name} is wrong at {(form, M, N, K)}: rel {err}")
+                    row[name] = {"ms": timer.ms(fn), "rel_err": err, "checked": checked,
+                                 "plan": None if plan is None else p._asdict()}
+                print(json.dumps(row), flush=True)
+            del layer, dense
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS))
+    ap.add_argument("--modes", action="store_true",
+                    help="time the mode 1-3 form's plan variants (MODES_VARIANTS) instead")
+    ap.add_argument("--modes-variants", nargs="+", default=list(MODES_VARIANTS),
+                    choices=MODES_VARIANTS)
     args = ap.parse_args()
+    if args.modes:
+        if not torch.cuda.is_available():
+            print("torch_prefill_variants: no CUDA device; this script runs only on the card",
+                  file=sys.stderr)
+            return 2
+        return main_modes(args.modes_variants)
     src = SOURCE.read_text()
     sources = {name: variant_source(src, VARIANTS[name][0]) for name in args.variants}
     if not torch.cuda.is_available():

@@ -178,11 +178,8 @@ def test_forward_matches_jax(name, M):
     dispatch.KERNEL_TRACE.clear()
     got = tl(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
     route = [r.removeprefix("plain_") for r in dispatch.KERNEL_TRACE]
-    if name.startswith("a8w4") and M >= 4096:   # ROADMAP Queue C: the route difference
-        assert route == ["general_fused"] and jroute == ["dequantize"]
-    else:
-        assert route == jroute == [("decode" if M <= 64 else "prefill") if M < 4096
-                                   else "dequantize"]
+    assert route == jroute == [("decode" if M <= 64 else "prefill") if M < 4096
+                               else "dequantize"]
     assert np.abs(got - want).mean() <= MEAN_REL * np.abs(want).mean(), name
 
 

@@ -18,9 +18,11 @@ import torch
 
 from gemlite_tpu import DType as JDType, GemLiteLinear as JLinear
 from gemlite_tpu.ops import dispatch as jdispatch
+from gemlite_tpu.ops.pallas_prefill import can_use_dequantize as jax_can_use_dequantize
 from gemlite_tpu_torch import DType, GemLiteLinear
 from gemlite_tpu_torch.core import tensor_from_numpy
 from gemlite_tpu_torch.ops import dispatch
+from gemlite_tpu_torch.ops.dequantize import jax_folds
 
 REL = 5e-3
 
@@ -95,13 +97,9 @@ def test_forward_matches_jax_dispatch(M, route, fma, W_nbits):
     got, trace = _port_forward(tl, x)
     # the decode and prefill kernels take W1/W2/W4 in mode 4 and, in their
     # mode 1-3 form, mode 3 (fma off), as the JAX decode and prefill kernels
-    # do; the dequantize kernel takes W4 in mode 4; the rest runs on the
-    # general fused kernel (at M >= 4096 the JAX package dequantizes with its
-    # Pallas kernel, which the port's dequantize kernel does not cover)
-    if route in ("decode", "prefill") or (fma and W_nbits == 4):
-        assert trace == [f"plain_{route}"]
-    else:
-        assert trace == ["plain_general_fused"]
+    # do; the dequantize kernel takes every one of them at M >= 4096, where
+    # the JAX package dequantizes with its Pallas kernel
+    assert trace == [f"plain_{route}"]
     if route == "decode":
         assert jtrace == ["decode_plane"]
     assert _rel(got, want) < REL, _rel(got, want)
@@ -114,12 +112,14 @@ def test_forward_matches_jax_dispatch(M, route, fma, W_nbits):
 def test_dense_fallback_only_where_jax_dequantizes_without_pallas(W_nbits, gs, N, K):
     """At M >= 4096 the port takes the plain dequantize (dense_fallback) only
     for the layers the JAX package keeps in the reference layout, which its
-    Pallas dequantize kernel refuses; the rest run on the general fused kernel."""
+    Pallas dequantize kernel refuses; the rest run on the dequantize kernel,
+    as they run on JAX's."""
     rng = np.random.default_rng(W_nbits * 7 + gs)
     jl, tl = _pair(*_hqq(rng, N, K, W_nbits, gs), W_nbits, gs, fma_mode=False)
-    assert dispatch._xla_dequantized(tl.meta) == (jl.w_layout == 0)
+    assert jax_folds(tl.meta) == (jl.w_layout != 0)
+    assert jax_can_use_dequantize(jl.meta, N, K) == (jl.w_layout != 0)
     _, trace = _port_forward(tl, np.zeros((4096, K), np.float32))
-    assert trace == ["plain_dense_fallback" if jl.w_layout == 0 else "plain_general_fused"]
+    assert trace == ["plain_dense_fallback" if jl.w_layout == 0 else "plain_dequantize"]
 
 
 @pytest.mark.parametrize("case", ["symmetric", "channelwise", "channelwise_zero",

@@ -11,10 +11,9 @@ scalar zero, csm 1). The same seeded numpy weights go into both packages:
 
 * the port's route (``ops/dispatch.KERNEL_TRACE``, ``plain_`` dropped)
   equals the JAX router's (``decode_plane`` is the port's ``decode``) at M
-  1, 8, 64, 65, 128 and 4095; at M 4096 JAX dequantizes (``dense_fallback``)
-  where the port keeps the general fused kernel, or for A8W1 has none (the
-  dequantize kernel has no mode 1-3 form yet: a route difference, asserted
-  as such). JAX's route is
+  1, 8, 64, 65, 128 and 4095; at M 4096 JAX dequantizes with its Pallas
+  kernel inside ``dense_fallback``, the port with its dequantize kernel
+  (``dequantize``). JAX's route is
   read from its notes under ``jax.eval_shape``, which runs its router and
   computes nothing;
 * the outputs equal JAX's (eager, its Pallas kernels in interpret mode)
@@ -41,7 +40,7 @@ from gemlite_tpu.quant import quantize_int_weights as jquant
 from gemlite_tpu_torch import helper as th
 from gemlite_tpu_torch.dtypes import to_torch_dtype
 from gemlite_tpu_torch.ops import decode, dispatch, prefill
-from gemlite_tpu_torch.ops.fused import can_use_fused, fused_matmul_plain
+from gemlite_tpu_torch.ops.fused import fused_matmul_plain
 from gemlite_tpu_torch.ops.reference import forward_f32_epilogue
 from gemlite_tpu_torch.quant import scale_activations_per_token
 
@@ -131,10 +130,9 @@ def test_routes_match_jax(name, M):
     if M < 4096:
         assert jroute == ["decode_plane" if M <= 64 else "prefill"]
         assert route == ["decode" if M <= 64 else "prefill"]
-    else:                    # the route difference: no mode 1-3 dequantize kernel yet
+    else:                    # JAX notes its Pallas dequantize under dense_fallback
         assert jroute == ["dense_fallback"]
-        assert route == ["dense_fallback" if dispatch._xla_dequantized(meta) else
-                         "general_fused" if can_use_fused(meta) else "oracle"]
+        assert route == ["dequantize"]
 
 
 @pytest.mark.parametrize("M", OUTPUT_MS)

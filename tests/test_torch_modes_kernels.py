@@ -34,8 +34,10 @@ from gemlite_tpu_torch.dtypes import to_torch_dtype
 from gemlite_tpu_torch.helper import A16W158_INT, A16Wn, A8Wn_HQQ_INT_dynamic
 from gemlite_tpu_torch.ops import build, dispatch
 from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan
+from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_int
 from gemlite_tpu_torch.ops.fused import fused_gemm_float
-from gemlite_tpu_torch.ops.prefill import prefill_modes
+from gemlite_tpu_torch.ops.prefill import (modes_plan as prefill_modes_plan, prefill_modes,
+                                            prefill_modes_ragged)
 from gemlite_tpu_torch.ops.reference import forward_f32_epilogue, forward_meta
 from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_modes_stacked
 from gemlite_tpu_torch.quant import quantize_int_weights, scale_activations_per_token
@@ -134,6 +136,47 @@ def test_modes_ragged_columns(gen, form, N, M):
     _check(gen, form, M, N, 1024)
 
 
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a16w158"])
+@pytest.mark.parametrize("N", [129, 130, 200, 1024])
+def test_prefill_modes_ragged_kernel_only_for_ragged_columns(gen, form, N):
+    """N not a multiple of 8 takes prefill_gemm.cu's mode 1-3 instances
+    (prefill_modes_ragged, counted apart), N 1024 the persistent kernel."""
+    layer = _layer(gen, form, N, 1024)
+    x, _, sx = _inputs(gen, layer, 300)
+    before = (prefill_modes.launches, prefill_modes_ragged.launches)
+    prefill_modes(x, layer.W_q, layer.scales, layer.zeros, sx, layer.meta)
+    got = (prefill_modes.launches - before[0], prefill_modes_ragged.launches - before[1])
+    assert got == ((0, 1) if N % 8 else (1, 0)), (form, N)
+
+
+@pytest.mark.parametrize("form", ["a8w4_mode3", "w4_mode2"])
+@pytest.mark.parametrize("M", [65, 128, 1024])
+@pytest.mark.parametrize("gs,K", [(192, 1344), (192, 4032), (320, 3840)])
+def test_persistent_prefill_groups_not_a_power_of_two(gen, form, M, gs, K):
+    """The persistent kernel at group sizes of 64 times 3 and 5 (a step's
+    group row by multiply-high), K an odd number of 64-deep steps at 1344 /
+    4032: within the bound of forward_f32_epilogue, in its own launch."""
+    N = 1024
+    w = torch.randn((N, K), generator=gen, device="cuda") * 0.02
+    W_q, s, z = quantize_int_weights(w, 4, gs)
+    if form == "a8w4_mode3":
+        layer = A8Wn_HQQ_INT_dynamic(device="cuda", dtype=torch.bfloat16, W_nbits=4).from_weights(
+            W_q, s, z)
+    else:
+        layer = GemLiteLinear(4, gs, K, N, DType.BF16, DType.BF16, device="cuda").pack(
+            W_q.to(torch.uint8), s.to(torch.bfloat16), None)
+    meta = layer.meta
+    assert meta.group_size == gs and meta.W_group_mode in (2, 3)
+    x, xp, sx = _inputs(gen, layer, M)
+    args = (layer.W_q, layer.scales, layer.zeros, sx)
+    before = prefill_modes.launches
+    out = prefill_modes(x, *args, meta)
+    want = forward_f32_epilogue(xp, *args, meta._replace(output_dtype=DType.FP32.value))
+    torch.cuda.synchronize()
+    assert prefill_modes.launches == before + 1
+    assert _rel(out, want) <= REL, (form, M, gs, K)
+
+
 @pytest.mark.parametrize("form", ["a8w4_gs64", "a8w4_cw", "w4_mode2_gs64"])
 @pytest.mark.parametrize("M", [1, 8, 64])
 def test_decode_modes_k_ends_inside_a_stage(gen, form, M):
@@ -160,7 +203,7 @@ def test_modes_one_launch_a_call(gen, form, M, N, K):
     assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
     assert build.graph_ops(lambda: got.append(call())) == ["kernel"]
     assert all(torch.equal(g, want) for g in got)
-    for owner in ("decode_gemv", "prefill_gemm"):
+    for owner in ("decode_gemv", "prefill_gemm", "prefill_modes"):
         for key, (ints, _) in build._SPLIT_STATE.items():
             if key[0] == owner:
                 assert int(ints.abs().sum()) == 0
@@ -172,28 +215,90 @@ def test_modes_one_launch_a_call(gen, form, M, N, K):
                                   "a16w158"])
 def test_modes_routes_on_the_card(gen, form):
     """Through the layer: decode at M 1 / 64, prefill at 65 / 4095, and from
-    4096 the general fused kernel's float path, as scheduled; each output
-    within the bound of its route's plain version."""
+    4096 the dequantize kernel's integer form and a dense matmul, as
+    scheduled (row 5f never); each output within the bound of its route's
+    plain version."""
     layer = _layer(gen, form, 1024, 2048)
     routes, counts = [], []
     for M, route in ((1, "decode"), (64, "decode"), (65, "prefill"), (4095, "prefill"),
-                     (4096, "general_fused")):
+                     (4096, "dequantize")):
         x = (torch.randn((M, 2048), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
-        before = (decode_modes.launches, prefill_modes.launches, fused_gemm_float.launches)
+        launches = (decode_modes, prefill_modes, dequantize_int, fused_gemm_float)
+        before = tuple(f.launches for f in launches)
         dispatch.KERNEL_TRACE.clear()
         out = layer(x)
         torch.cuda.synchronize()
         routes.append(dispatch.KERNEL_TRACE[-1])
-        counts.append(tuple(a - b for a, b in zip((decode_modes.launches, prefill_modes.launches,
-                                                    fused_gemm_float.launches), before)))
+        counts.append(tuple(f.launches - b for f, b in zip(launches, before)))
         xp, sx = x, None
         if layer.scaled_activations:
             xp, sx = scale_activations_per_token(x, to_torch_dtype(layer.input_dtype))
         want = forward_f32_epilogue(xp, layer.W_q, layer.scales, layer.zeros, sx,
                                     layer.meta._replace(output_dtype=DType.FP32.value))
         assert _rel(out, want) <= REL, (form, M)
-    assert routes == ["decode", "decode", "prefill", "prefill", "general_fused"]
-    assert counts == [(1, 0, 0), (1, 0, 0), (0, 1, 0), (0, 1, 0), (0, 0, 1)]
+    assert routes == ["decode", "decode", "prefill", "prefill", "dequantize"]
+    assert counts == [(1, 0, 0, 0), (1, 0, 0, 0), (0, 1, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0)]
+
+
+PERSISTENT_FORMS = ("a8w4_gs64", "a8w2_gs64", "a8w1_gs128", "a8w4_cw_post", "a16w4_cw",
+                    "a16w158", "w4_mode2_gs64", "w2_mode3_scalar_zero_gs128")
+
+
+@pytest.mark.parametrize("form", PERSISTENT_FORMS)
+@pytest.mark.parametrize("M,N,K", [(128, 14336, 4096), (1024, 14336, 4096), (2048, 14336, 4096),
+                                   (128, 4096, 14336), (1024, 4096, 14336), (300, 1024, 4096),
+                                   (65, 768, 256), (4095, 256, 768)])
+def test_persistent_prefill_stages(gen, form, M, N, K):
+    """The persistent kernel (gl_prefill_modes_persistent) on whole tiles and
+    K-split tail waves, at 128 and 256 rows a tile: within the bound of
+    forward_f32_epilogue, its split counters left 0."""
+    layer = _layer(gen, form, N, K)
+    meta = layer.meta
+    x, xp, sx = _inputs(gen, layer, M)
+    args = (layer.W_q, layer.scales, layer.zeros, sx)
+    p = prefill_modes_plan(M, N, K, meta.group_size, meta.W_nbits)
+    out = prefill_modes(x, *args, meta)
+    want = forward_f32_epilogue(xp, *args, meta._replace(output_dtype=DType.FP32.value))
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= REL, (form, M, N, K, p)
+    for key, (ints, _) in build._SPLIT_STATE.items():
+        if key[0] == "prefill_modes":
+            assert int(ints.abs().sum()) == 0
+
+
+DEQUANT_FORMS = ("a8w4_gs64", "a8w2_gs64", "a8w1_gs128", "a8w4_cw_post", "a16w4_cw",
+                 "a16w4_cw_post", "a16w158", "w4_mode2_gs64", "w2_mode3_scalar_zero_gs128",
+                 "w4_gs128_mode4", "w2_gs64_mode4", "w8_gs128_mode4", "w4_gs128_mode3_f32")
+
+
+def _dequant_layer(gen, form, N, K):
+    if form in FORMS:
+        return _layer(gen, form, N, K)
+    bits, gs = {"w4_gs128_mode4": (4, 128), "w2_gs64_mode4": (2, 64), "w8_gs128_mode4": (8, 128),
+                "w4_gs128_mode3_f32": (4, 128)}[form]
+    W_q = torch.randint(0, 2 ** bits, (N, K), generator=gen, device="cuda", dtype=torch.uint8)
+    G = N * K // gs
+    dt = torch.float32 if form.endswith("f32") else torch.bfloat16
+    s = (torch.rand((G, 1), generator=gen, device="cuda") * 2e-3 + 1e-3).to(dt)
+    z = (torch.randint(0, 2 ** bits, (G, 1), generator=gen, device="cuda") + 0.3).to(dt)
+    return GemLiteLinear(bits, gs, K, N, DType.BF16, DType.BF16, device="cuda").pack(
+        W_q, s, z, fma_mode=form.find("mode4") > 0)
+
+
+@pytest.mark.parametrize("form", DEQUANT_FORMS)
+@pytest.mark.parametrize("N,K", [(14336, 4096), (4096, 14336), (768, 256), (1024, 2048)])
+def test_dequantize_int_bit_equal(gen, form, N, K):
+    """The dequantize kernel's integer form (gl_dequantize_int) equals
+    dequantize_full bit for bit, in one launch a call, also on layers the
+    router keeps off it (channel-wise at K 256: the JAX package does not
+    fold them)."""
+    layer = _dequant_layer(gen, form, N, K)
+    args = (layer.W_q, layer.scales, layer.zeros, layer.meta)
+    before = dequantize_int.launches
+    got = dequantize_int(*args)
+    assert dequantize_int.launches == before + 1
+    assert torch.equal(got, dequantize_full(*args)), (form, N, K)
+    assert build.graph_ops(lambda: dequantize_int(*args)) == ["kernel"]
 
 
 STACK_FORMS = {"a16w4_cw": (4, 0, "a16"), "a16w4_cw_post": (4, 0, "a16_post"),
