@@ -3,17 +3,22 @@
 """Drive the PyTorch port (gemlite_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--old-mx-source DIR] [--old-fp8-source DIR] [--old-prefill-source DIR]
+                          [--old-decode-source DIR] [--decode-variants]
 
 Phases, each printing one JSON line:
   device   the card's name and power limit (nvidia-smi);
-  build    compile the eleven CUDA sources from gemlite_tpu_torch/csrc
-           (decode_gemv.cu holds the per-layer and stacked decode, in mode 4
-           and modes 1-3, prefill_modes.cu the persistent mode 1-3 prefill,
-           fp8_gemm.cu the fp8 decode, stacked decode and prefill, mx_gemm.cu
-           the MX decode, stacked decode, prefill and general entries), one
-           nvcc each at once, prefill_modes.cu, fused_float.cu and
-           int8_decode.cu in parts (ops/build.KERNEL_PARTS); the wall and
-           each source's and part's seconds;
+  build    compile the twelve CUDA sources from gemlite_tpu_torch/csrc
+           (decode_gemv.cu holds the per-layer and stacked decode in mode 4
+           and the ragged mode 1-3 instances, decode_modes.cu the mode 1-3
+           TMA decode, per-layer and stacked, prefill_modes.cu the persistent
+           mode 1-3 prefill, fp8_gemm.cu the fp8 decode, stacked decode and
+           prefill, mx_gemm.cu the MX decode, stacked decode, prefill and
+           general entries), one nvcc each at once, decode_modes.cu,
+           prefill_modes.cu, fused_float.cu and int8_decode.cu in parts
+           (ops/build.KERNEL_PARTS); the wall and each source's and part's
+           seconds; then, with --decode-variants, decode_modes.cu's timing
+           variants (DECODE_VARIANTS) for kernels_modes, before any timed
+           phase;
   kernels  each kernel against its plain PyTorch version at Llama-3-8B shapes
            (decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, and W2 /
            W1 prefill at M 128 on 14336x4096): relative error max|a-b| /
@@ -128,17 +133,21 @@ Phases, each printing one JSON line:
            gs 64 (mode 3, csm 2, e4m3 x), A8W4 channel-wise with post_scale
            (mode 1, csm 3), channel-wise A16W4 (mode 3) and A16W158 (mode 1,
            scalar zero) at 14336x4096 and 4096x14336, decode at M 1 / 8 /
-           64, prefill at M 128 / 1024 / 2048: within 5e-3 of the plain
-           version (forward_f32_epilogue, float32 result), one device
-           operation a call, the plan, times under a write and a read flush
-           and bounds beside a dense bf16 matmul and, in the same call, row
-           5f (the route these layers took before), the fp8 x conversion to
-           bf16 and, with --old-prefill-source DIR (an earlier tree's csrc),
-           that tree's gl_prefill_modes (parent_ms; equals_parent where
-           neither cuts K); then the prefill at M 128 / 1024 / 2048 on a
+           64 (e4m3 x read by the kernel, equal bit for bit to the call on
+           its bf16 image), prefill at M 128 / 1024 / 2048: within 5e-3 of
+           the plain version (forward_f32_epilogue, float32 result), one
+           device operation a call, the plan, times under a write and a read
+           flush and bounds beside a dense bf16 matmul and, in the same call,
+           row 5f (the route these layers took before), the fp8 x
+           conversion to bf16, with --decode-variants the W4 decode's timing
+           variants (the copies alone, the consumers alone, no stage) and, with
+           --old-prefill-source / --old-decode-source DIR (an earlier tree's
+           csrc), that tree's gl_prefill_modes / gl_decode_modes (parent_ms;
+           equals_parent where neither cuts K); then decode and prefill on a
            vocabulary head of 32001 x 4096 (A8W4 gs 64; N not a multiple of
-           8, so prefill_gemm.cu's mode 1-3 instances, prefill_modes_ragged,
-           run in place of the persistent kernel), checked and timed alike;
+           8, so decode_gemv.cu's and prefill_gemm.cu's mode 1-3 instances,
+           decode_modes_ragged and prefill_modes_ragged, run in place of the
+           TMA kernels), checked and timed alike;
   kernels_dequantize_int  the dequantize kernel's integer form
            (gl_dequantize_int) on A8W4 / A8W2 gs 64, channel-wise A16W4
            (post_scale), A16W158, W2 gs 64 and W8 gs 128 (mode 4) at both
@@ -214,9 +223,12 @@ Phases, each printing one JSON line:
            one device operation a call, and the per-layer decode kernel at
            W1/W2; then the stacked mode 1-3 entry over 32-layer channel-wise
            A16W4 stacks (post_scale at 14336x4096 M 1 / 8 / 64 and 4096x14336
-           M 8, mode 3 at 14336x4096 M 8), each checked layer equal to the
+           M 8, mode 3 at 14336x4096 M 8; at 14340x4096 M 8, N off 8, the
+           ragged stacked route, decode_modes_ragged_stacked), each launch
+           counted on its own wrapper alone, each checked layer equal to the
            per-layer mode 1-3 entry bit for bit and within 5e-3 of
-           forward_f32_epilogue;
+           forward_f32_epilogue, with --old-decode-source DIR beside that
+           tree's gl_decode_modes_stacked (parent_ms);
   serve_scan    Llama-3-8B at full widths and its full 32 layers, random
            weights drawn and quantized (W4 gs=128) one block at a time on the
            card, apart and fused (wqkv, gate_up), the serve phase's 8
@@ -1646,26 +1658,141 @@ def start_old_prefill_build(src_dir: Path):
     return ready
 
 
-def phase_kernels_modes(card: str, peak, timer: Timer, old_prefill=None) -> dict:
+def start_old_decode_build(src_dir: Path):
+    """Start nvcc on an earlier tree's ``decode_gemv.cu`` (``src_dir`` holds
+    it and its headers, e.g. the parent commit's ``gemlite_tpu_torch/csrc``
+    unpacked under ``_archive/``) into ``gemlite_tpu_torch/_build/old/``.
+    Returns a function that waits for it and returns ``(modes, stacked)``:
+    that tree's ``gl_decode_modes`` and ``gl_decode_modes_stacked`` (the
+    cp.async mode 1-3 instances, x bf16) on their plan
+    (``ops/decode.ragged_modes_plan``), their split scratch apart from the
+    current kernels'. The TMA kernel is timed against them in the same
+    call."""
+    import atexit
+    import ctypes
+    from gemlite_tpu_torch.ops import build
+    out_dir = build.BUILD_DIR / "old"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "decode_gemv_old.so"
+    proc = subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
+                             str(src_dir / "decode_gemv.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)
+
+    def ready():
+        from gemlite_tpu_torch.ops import decode, w4
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"the earlier decode_gemv.cu failed to build:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(so))
+        for name, ptrs, ints in (("gl_decode_modes", 10, 11), ("gl_decode_modes_stacked", 9, 12)):
+            getattr(lib, name).argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                                           + [ctypes.c_void_p])
+            getattr(lib, name).restype = ctypes.c_int
+
+        def call(x, W_q, scales, zeros, scales_x, meta, layer_idx=None):
+            M, N, K, gs = x.shape[0], meta.out_features, meta.in_features, meta.group_size
+            L = None if layer_idx is None else W_q.shape[0]
+            s, z, zs, sx, cs = w4.modes_operands(W_q, scales, zeros, scales_x, meta, M, layers=L)
+            p = decode.ragged_modes_plan(M, meta)
+            stream = w4.stream()
+            part = cnt = None
+            floats, ints = decode.workspace(M, N, p)
+            if floats:
+                cnt, part = build.split_state("decode_gemv_old", x.device, ints, floats, stream)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+            ptr = w4.pointer
+            tail = (p.splits, p.k_per_split, p.stages, p.mrows, meta.channel_scale_mode,
+                    w4.scale_code(cs), stream)
+            if layer_idx is None:
+                err = lib.gl_decode_modes(x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(zs),
+                                          ptr(sx), ptr(cs), ptr(part), ptr(cnt), out.data_ptr(),
+                                          M, N, K, gs, meta.W_nbits, *tail)
+            else:
+                err = lib.gl_decode_modes_stacked(
+                    x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(cs), layer_idx.data_ptr(),
+                    ptr(part), ptr(cnt), out.data_ptr(), L, M, N, K, gs, meta.W_nbits, *tail)
+            build.check(err, "decode_gemv (earlier tree)")
+            return out
+        return call
+    return ready
+
+
+# timing variants of csrc/decode_modes.cu (its GL_DM_VARIANT), timed on W4 rows
+DECODE_VARIANTS = {"copies_only": 1, "consumers_only": 2, "no_stage": 3}
+
+
+def start_decode_variant_build():
+    """Start nvcc on the current ``decode_modes.cu`` once for each timing
+    variant (DECODE_VARIANTS: the copies alone, the consumers alone, a call
+    with no stage) into ``gemlite_tpu_torch/_build/variants/``. Returns a
+    function that waits for them and returns
+    ``{name: fn(x, W_q, scales, zeros, scales_x, meta)}``, each a launch of
+    that variant on the committed kernel's plan (``decode.tma_call``); their
+    outputs are meaningless."""
+    import atexit
+    import ctypes
+    from gemlite_tpu_torch.ops import build
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, v in DECODE_VARIANTS.items():
+        so = out_dir / f"decode_modes_{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, f"-DGL_DM_VARIANT={v}", "-o", str(so),
+             str(build.SRC_DIR / "decode_modes.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        atexit.register(procs[name][1].kill)
+
+    def ready():
+        from gemlite_tpu_torch.ops import decode, w4
+        fns = {}
+        for name, (so, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise RuntimeError(f"decode_modes.cu variant {name} failed to build:\n{log[-4000:]}")
+            fn = ctypes.CDLL(str(so)).gl_decode_modes
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+            def call(x, W_q, scales, zeros, scales_x, meta, fn=fn):
+                xk, code = decode.modes_x(x, meta.in_features)
+                ops = w4.modes_operands(W_q, scales, zeros, scales_x, meta, x.shape[0])
+                out = torch.empty((x.shape[0], meta.out_features), dtype=torch.bfloat16,
+                                  device=x.device)
+                decode.tma_call(fn, xk, code, W_q, ops, out, meta, w4.stream())
+                return out
+            fns[name] = call
+        return fns
+    return ready
+
+
+def phase_kernels_modes(card: str, peak, timer: Timer, old_prefill=None, old_decode=None,
+                        variants=None) -> dict:
     """The decode and prefill kernels' mode 1-3 form (``gl_decode_modes`` /
-    ``gl_prefill_modes``) on MODES_FORMS at 14336x4096 and 4096x14336: decode
-    at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, each within 5e-3 (max
-    form) of its plain version's float32 result (``forward_f32_epilogue``)
-    and reported against ``forward_meta`` (mean form), in one device
-    operation a call; its time beside the bound, a dense bf16 matmul on the
-    dequantized weight (x in bf16) and, in the same call, the general fused
-    kernel's float path on the same layer and x (fp8 codes for A8Wn): the
-    route these layers took before (row 5f). The plain version is timed on
-    the kernels line's rows (A8W4 gs 64, 14336x4096, M 8 and 128). Each row
-    carries its call's plan (the prefill rows ``modes_plan``, the persistent
-    kernel's) and a time under a read flush of the L2 beside the write
+    ``gl_prefill_modes_persistent``) on MODES_FORMS at 14336x4096 and
+    4096x14336: decode at M 1 / 8 / 64, prefill at M 128 / 1024 / 2048, each
+    within 5e-3 (max form) of its plain version's float32 result
+    (``forward_f32_epilogue``) and reported against ``forward_meta`` (mean
+    form), in one device operation a call; its time beside the bound, a dense
+    bf16 matmul on the dequantized weight (x in bf16) and, in the same call,
+    the general fused kernel's float path on the same layer and x (fp8 codes
+    for A8Wn): the route these layers took before (row 5f). The decode rows
+    take fp8 x as e4m3 codes (the kernel converts them) and also time the
+    same call on their bf16 image (``bf16_image_ms``), equal bit for bit
+    (``equals_bf16_image``). The plain version is timed on the kernels
+    line's rows (A8W4 gs 64, 14336x4096, M 8 and 128). Each row carries its
+    call's plan and a time under a read flush of the L2 beside the write
     flush's; with ``old_prefill`` (``start_old_prefill_build``) each prefill
     row also times that tree's ``gl_prefill_modes`` (``parent_ms``), equal
     to the current kernel bit for bit where neither cuts K
-    (``equals_parent``). Then A8W4 gs 64 on RAGGED_SHAPE at the prefill Ms,
-    checked and timed alike: there ``prefill_modes_ragged`` launches
-    (``gl_prefill_modes`` on the mode-4 entry's ``plan``), the persistent
-    kernel does not."""
+    (``equals_parent``); with ``old_decode`` (``start_old_decode_build``)
+    each decode row times that tree's ``gl_decode_modes`` on the bf16 image
+    (``parent_ms``); with ``variants`` (``start_decode_variant_build``) the
+    W4 decode rows time the copies alone, the consumers alone and a call
+    with no stage. Then A8W4 gs 64 on RAGGED_SHAPE at the decode and prefill
+    Ms, checked and timed alike: there ``decode_modes_ragged`` and
+    ``prefill_modes_ragged`` launch, the TMA and persistent kernels do not."""
     from gemlite_tpu_torch.dtypes import to_torch_dtype
     from gemlite_tpu_torch.ops import decode, prefill
     from gemlite_tpu_torch.ops.dequantize import dequantize_full
@@ -1675,11 +1802,13 @@ def phase_kernels_modes(card: str, peak, timer: Timer, old_prefill=None) -> dict
 
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = []
-    picked = {("decode_modes", 8), ("prefill_modes", 128), ("prefill_modes_ragged", 128)}
+    picked = {("decode_modes", 8), ("decode_modes_ragged", 8), ("prefill_modes", 128),
+              ("prefill_modes_ragged", 128)}
     cases = [(form, N, K, MODES_DECODE_MS + MODES_PREFILL_MS)
              for form in MODES_FORMS for N, K in MODES_SHAPES]
-    cases.append(("a8w4_gs64", *RAGGED_SHAPE, MODES_PREFILL_MS))
-    counted = {"decode_modes": decode.decode_modes, "prefill_modes": prefill.prefill_modes,
+    cases.append(("a8w4_gs64", *RAGGED_SHAPE, MODES_DECODE_MS + MODES_PREFILL_MS))
+    counted = {"decode_modes": decode.decode_modes, "decode_modes_ragged": decode.decode_modes_ragged,
+               "prefill_modes": prefill.prefill_modes,
                "prefill_modes_ragged": prefill.prefill_modes_ragged}
     for form, N, K, Ms in cases:
         ragged = (N, K) == RAGGED_SHAPE
@@ -1688,13 +1817,17 @@ def phase_kernels_modes(card: str, peak, timer: Timer, old_prefill=None) -> dict
         dense = dequantize_full(layer.W_q, layer.scales, layer.zeros, meta).to(torch.bfloat16)
         fp8 = meta.scaled_activations
         for M in Ms:
-            kernel = ("decode_modes" if M <= 64 else
+            kernel = (("decode_modes_ragged" if ragged else "decode_modes") if M <= 64 else
                       "prefill_modes_ragged" if ragged else "prefill_modes")
             fn = decode.decode_modes if M <= 64 else prefill.prefill_modes
             xb = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
             xq, sx = (scale_activations_per_token(xb, to_torch_dtype(meta.input_dtype))
                       if fp8 else (xb, None))
-            x = xq.to(torch.bfloat16)
+            x16 = xq.to(torch.bfloat16)
+            # the TMA decode reads e4m3 codes itself; the ragged decode and the
+            # prefill kernels take bf16 x (decode_modes converts fp8 x for the
+            # ragged kernel first: x_to_bf16_ms)
+            x = xq if M <= 64 and not ragged else x16
             args = (layer.W_q, layer.scales, layer.zeros, sx)
             before = {k: f.launches for k, f in counted.items()}
             got = fn(x, *args, meta)
@@ -1710,8 +1843,15 @@ def phase_kernels_modes(card: str, peak, timer: Timer, old_prefill=None) -> dict
                                      2.0 * M * N * K, peak)
             timed_plain = form == "a8w4_gs64" and (N, K) in (MODES_SHAPES[0], RAGGED_SHAPE) \
                 and (kernel, M) in picked
+            if M <= 64:
+                plan_row = (decode.ragged_modes_plan(M, meta) if ragged else
+                            decode.modes_plan(M, meta, 1 if x.dtype != torch.bfloat16 else 2))
+            else:
+                plan_row = (prefill.plan if ragged else prefill.modes_plan)(
+                    M, N, K, meta.group_size, meta.W_nbits)
             row = {"kernel": kernel, "form": form, "mode": meta.W_group_mode,
                    "csm": meta.channel_scale_mode, "M": M, "N": N, "K": K,
+                   "x": str(x.dtype).replace("torch.", ""),
                    "rel_err": err, "max_abs_err": max_abs(got, want),
                    "forward_meta_mean_rel": _mean_max(got, meta_ref)["mean_rel"],
                    "ms": timer.ms(lambda: fn(x, *args, meta)),
@@ -1721,14 +1861,32 @@ def phase_kernels_modes(card: str, peak, timer: Timer, old_prefill=None) -> dict
                    "plain_ms": timer.ms(lambda: forward_f32_epilogue(xq, *args, meta), iters=3)
                    if timed_plain else None,
                    "bound_ms": bound, "bound_by": by,
-                   "library_ms": timer.ms(lambda: torch.matmul(x, dense)),
+                   "library_ms": timer.ms(lambda: torch.matmul(x16, dense)),
                    "library": "dense bf16 matmul on the dequantized weight (x in bf16)",
                    "read_flush_ms": timer.ms(lambda: fn(x, *args, meta), flush="read"),
-                   "plan": (decode.modes_plan(M, meta) if M <= 64 else
-                            (prefill.plan if ragged else prefill.modes_plan)(
-                                M, N, K, meta.group_size, meta.W_nbits))._asdict(),
+                   "plan": plan_row._asdict(),
                    "device_ops_per_call": device_ops_per_call(lambda: fn(x, *args, meta)),
                    "card": card}
+            if M <= 64 and fp8 and not ragged:
+                image = fn(x16, *args, meta)
+                torch.cuda.synchronize()
+                row["equals_bf16_image"] = bool(torch.equal(image, got))
+                row["bf16_image_ms"] = timer.ms(lambda: fn(x16, *args, meta))
+                if not row["equals_bf16_image"]:
+                    raise RuntimeError(f"{kernel} on fp8 codes differs from its bf16 image: {row}")
+            if old_decode is not None and M <= 64:
+                old = old_decode(x16, *args, meta)
+                torch.cuda.synchronize()
+                row["parent_ms"] = timer.ms(lambda: old_decode(x16, *args, meta))
+                row["parent_rel_err"] = rel_err(old, want)
+                row["parent_plan"] = decode.ragged_modes_plan(M, meta)._asdict()
+                # current, parent, current, parent: the first pair's times beside
+                # the second's show the card's drift within the row
+                row["ms_again"] = timer.ms(lambda: fn(x, *args, meta))
+                row["parent_ms_again"] = timer.ms(lambda: old_decode(x16, *args, meta))
+            if variants is not None and M <= 64 and not ragged and meta.W_nbits == 4:
+                for name, var in variants.items():
+                    row[f"{name}_ms"] = timer.ms(lambda: var(x, *args, meta))
             if old_prefill is not None and M > 64 and not ragged:
                 old = old_prefill(x, *args, meta)
                 unsplit = (row["plan"]["full"] == row["plan"]["tiles_n"] * row["plan"]["tiles_m"]
@@ -1866,7 +2024,8 @@ def phase_serve_a8w4(card: str, cfg, dense) -> dict:
     """The 4-layer model quantized with A8W4_HQQ_INT_dynamic(bf16) gs 64
     (mode 3 with bf16 scales and zeros, e4m3 activations per token) served
     as in "serve": every linear on the decode kernel's mode 1-3 form up to M
-    64 and on the prefill kernel's above, fp8 x going in as its bf16 image."""
+    64 (the TMA kernel, which reads the e4m3 codes) and on the prefill
+    kernel's above (fp8 x going in as its bf16 image)."""
     from gemlite_tpu_torch import quantize_llama
     from gemlite_tpu_torch.helper import A8W4_HQQ_INT_dynamic
 
@@ -2940,19 +3099,25 @@ def random_cw_stack(L: int, N: int, K: int, bits: int, post: bool, gen: torch.Ge
     return W_q, scales, zeros, meta
 
 
+# (post_scale, N, K, Ms); N 14340 (off 8) takes the ragged stacked route
 MODES_STACK_CASES = ((True, 14336, 4096, (1, 8, 64)), (False, 14336, 4096, (8,)),
-                     (True, 4096, 14336, (8,)))
+                     (True, 4096, 14336, (8,)), (True, 14340, 4096, (8,)))
 
 
-def modes_stacked_rows(card: str, peak, timer: Timer) -> list:
-    """The stacked mode 1-3 entry (gl_decode_modes_stacked) over 32-layer
-    channel-wise A16W4 stacks: each checked layer equal to the per-layer
-    mode 1-3 entry (gl_decode_modes) on that layer bit for bit and to its
+def modes_stacked_rows(card: str, peak, timer: Timer, old_decode=None) -> list:
+    """The stacked mode 1-3 entry (gl_decode_modes_stacked; at N off 8 its
+    ragged route, gl_decode_modes_ragged_stacked) over 32-layer channel-wise
+    A16W4 stacks, each launch counted on its own wrapper alone: each checked
+    layer equal to the per-layer mode 1-3 entry (gl_decode_modes, or its
+    ragged route) on that layer bit for bit and to its
     plain version (forward_f32_epilogue) within 5e-3, no host sync around its
-    launches, one device operation a call."""
-    from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan
+    launches, one device operation a call; with ``old_decode``
+    (``start_old_decode_build``) that tree's stacked entry timed beside it
+    (``parent_ms``)."""
+    from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan, ragged_modes_plan
     from gemlite_tpu_torch.ops.reference import forward_f32_epilogue
-    from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_matmul_stacked_plain
+    from gemlite_tpu_torch.ops.scan import (decode_matmul_stacked, decode_matmul_stacked_plain,
+                                            decode_modes_ragged_stacked, decode_modes_stacked)
 
     gen = torch.Generator(device="cuda").manual_seed(18)
     ids = torch.arange(SCAN_LAYERS, dtype=torch.int32, device="cuda")
@@ -2963,14 +3128,21 @@ def modes_stacked_rows(card: str, peak, timer: Timer) -> list:
         stack = (W_q, scales, zeros)
         layer = {l: (W_q[l], scales[l], zeros[l]) for l in SCAN_CHECKED}
         dense_w = torch.randn((K, N), generator=gen, device="cuda").to(torch.bfloat16)
+        ragged = N % 8 != 0
+        kernel = "decode_modes_ragged_stacked" if ragged else "decode_modes_stacked"
+        counted = (decode_modes_stacked, decode_modes_ragged_stacked)
         for M in Ms:
             x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
             torch.cuda.synchronize()
+            before = [f.launches for f in counted]
             torch.cuda.set_sync_debug_mode("error")
             try:
                 got = {l: decode_matmul_stacked(x, *stack, meta, ids[l]) for l in SCAN_CHECKED}
             finally:
                 torch.cuda.set_sync_debug_mode(0)
+            launched = [f.launches - b for f, b in zip(counted, before)]
+            if launched != ([0, len(SCAN_CHECKED)] if ragged else [len(SCAN_CHECKED), 0]):
+                raise RuntimeError(f"{kernel} at {(M, N, K)}: launches {launched}")
             per = {l: decode_modes(x, *layer[l], None, meta) for l in SCAN_CHECKED}
             want = {l: forward_f32_epilogue(x, *layer[l], None, with_f32_out(meta))
                     for l in SCAN_CHECKED}
@@ -2979,7 +3151,7 @@ def modes_stacked_rows(card: str, peak, timer: Timer) -> list:
             err = max(rel_err(got[l], want[l]) for l in SCAN_CHECKED)
             bound, by = kernel_bound(K * N / 2 + 2 * 2 * N + 2 * M * K + 2 * M * N,
                                      2.0 * M * N * K, peak)
-            row = {"kernel": "decode_modes_stacked", "form": "a16w4_cw_post" if post
+            row = {"kernel": kernel, "form": "a16w4_cw_post" if post
                    else "a16w4_cw", "mode": meta.W_group_mode, "csm": meta.channel_scale_mode,
                    "bits": 4, "M": M, "N": N, "K": K, "layers": SCAN_LAYERS,
                    "layers_checked": list(SCAN_CHECKED), "equals_per_layer_kernel": equal,
@@ -2992,10 +3164,15 @@ def modes_stacked_rows(card: str, peak, timer: Timer) -> list:
                    "bound_ms": bound, "bound_by": by,
                    "library_ms": timer.ms(lambda: torch.matmul(x, dense_w)),
                    "library": "dense bf16 matmul of the same shape",
-                   "plan": modes_plan(M, meta)._asdict(),
+                   "plan": (ragged_modes_plan if ragged else modes_plan)(M, meta)._asdict(),
                    "device_ops_per_call": device_ops_per_call(
                        lambda: decode_matmul_stacked(x, *stack, meta, ids[timed])),
                    "card": card}
+            if old_decode is not None:
+                old = old_decode(x, *stack, None, meta, ids[timed])
+                torch.cuda.synchronize()
+                row["parent_rel_err"] = rel_err(old, want[timed])
+                row["parent_ms"] = timer.ms(lambda: old_decode(x, *stack, None, meta, ids[timed]))
             emit(row)
             if not equal or not err <= REL_TOL or row["device_ops_per_call"] != 1:
                 raise RuntimeError(f"stacked mode 1-3 decode check failed: {row}")
@@ -3004,7 +3181,7 @@ def modes_stacked_rows(card: str, peak, timer: Timer) -> list:
     return rows
 
 
-def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
+def phase_kernels_scan(card: str, peak, timer: Timer, old_decode=None) -> dict:
     """The stacked decode kernel over 32-layer stacks: at each checked layer
     it must equal the per-layer decode kernel on that layer bit for bit and
     its plain version within 5e-3, with no host sync around its launches;
@@ -3068,12 +3245,14 @@ def phase_kernels_scan(card: str, peak, timer: Timer) -> dict:
                 raise RuntimeError(f"stacked decode kernel check failed: {row}")
             rows.append(row)
         del W_q, scales, zeros, stack, layer, dense_w, library
-    modes = modes_stacked_rows(card, peak, timer)
+    modes = modes_stacked_rows(card, peak, timer, old_decode)
     emit({"phase": "kernels_scan", "ok": True, "checked": len(rows) + len(modes), "card": card})
     return {"decode_stacked": next(r for r in rows if (r["bits"], r["M"], r["N"], r["K"])
                                    == (4, 8, 14336, 4096)),
             "decode_modes_stacked": next(r for r in modes if (r["form"], r["M"], r["N"], r["K"])
-                                         == ("a16w4_cw_post", 8, 14336, 4096))}
+                                         == ("a16w4_cw_post", 8, 14336, 4096)),
+            "decode_modes_ragged_stacked": next(r for r in modes if r["kernel"]
+                                                == "decode_modes_ragged_stacked")}
 
 
 def full_depth_llama():
@@ -3462,11 +3641,13 @@ def phase_real_weights(card: str) -> None:
         "utf-8", "replace")
     # every tiny_en_5m linear folds (K and N multiples of 128), so the general
     # MX entry cannot run here: serve_mx_unfolded is its path, and the mode 1-3
-    # prefill runs only its persistent kernel (prefill_modes_ragged takes N off
-    # 8: kernels_modes runs it); no configuration here is channel-wise A16Wn,
+    # decode and prefill run only their TMA kernels (decode_modes_ragged and
+    # prefill_modes_ragged take N off 8: kernels_modes runs them); no
+    # configuration here is channel-wise A16Wn,
     # whose stacked entry serve_scan_cw runs
     silent = [k for k, v in counts.items()
               if v < 1 and k not in ("mx_general", "decode_modes_stacked",
+                                     "decode_modes_ragged", "decode_modes_ragged_stacked",
                                      "prefill_modes_ragged")]
     ok = not failed and runs_ok and spec["ok"] and not silent
     emit({"phase": "real_weights", "ok": ok,
@@ -4132,6 +4313,14 @@ def main() -> int:
                     help="an earlier tree's gemlite_tpu_torch/csrc (the parent commit's): "
                          "kernels_modes also times its gl_prefill_modes beside the current "
                          "mode 1-3 prefill (parent_ms)")
+    ap.add_argument("--old-decode-source", type=Path, default=None,
+                    help="an earlier tree's gemlite_tpu_torch/csrc (the parent commit's): "
+                         "kernels_modes and kernels_scan also time its gl_decode_modes / "
+                         "gl_decode_modes_stacked beside the mode 1-3 TMA decode (parent_ms)")
+    ap.add_argument("--decode-variants", action="store_true",
+                    help="kernels_modes also times decode_modes.cu's timing variants on the "
+                         "W4 decode rows (copies_only_ms, consumers_only_ms, no_stage_ms), "
+                         "built after the kernels and before the first timed phase")
     ap.add_argument("--old-fp8-source", type=Path, default=None,
                     help="an earlier tree's gemlite_tpu_torch/csrc: kernels_fp8 also times its "
                          "fp8 decode and prefill entries beside the current ones (old_ms)")
@@ -4154,7 +4343,11 @@ def main() -> int:
     old_fp8 = start_old_fp8_build(args.old_fp8_source) if args.old_fp8_source else None
     old_prefill = (start_old_prefill_build(args.old_prefill_source)
                    if args.old_prefill_source else None)
+    old_decode = (start_old_decode_build(args.old_decode_source)
+                  if args.old_decode_source else None)
     phase_build()
+    # built and loaded before the first timed phase, so that no nvcc runs beside it
+    variants = start_decode_variant_build()() if args.decode_variants else None
     timer = Timer()
     picked = phase_kernels(card, peak, timer)
     layer_counts = phase_layer(card)
@@ -4172,7 +4365,9 @@ def main() -> int:
     picked.update(phase_kernels_fp8(card, peak, timer, old_fp8))
     fp8_layer_counts = phase_layer_fp8(card)
     fp8_counts = phase_serve_fp8(card, cfg, dense)
-    picked.update(phase_kernels_modes(card, peak, timer, old_prefill and old_prefill()))
+    old_decode = old_decode and old_decode()
+    picked.update(phase_kernels_modes(card, peak, timer, old_prefill and old_prefill(),
+                                      old_decode, variants))
     picked.update(phase_kernels_dequantize_int(card, peak, timer))
     modes_counts = phase_serve_a8w4(card, cfg, dense)
     scan_cw_counts = phase_serve_scan_cw(card, cfg, dense)
@@ -4182,7 +4377,7 @@ def main() -> int:
     nvfp4_counts = phase_serve_mx(card, cfg, dense, "a4w4_nvfp")
     del dense
     unfolded_counts = phase_serve_mx_unfolded(card)
-    picked.update(phase_kernels_scan(card, peak, timer))
+    picked.update(phase_kernels_scan(card, peak, timer, old_decode))
     scan_counts = phase_serve_scan(card)
     rw_counts = phase_real_weights(card)
     phase_patch_model(card)
@@ -4235,18 +4430,25 @@ def main() -> int:
                                          "gemlite_tpu/ops/pallas_gemm.py:294",
                                          rw_counts["a8w4_gs64"], "real_weights (a8w4_gs64)",
                                          "fused_gemm_float"),
-               "decode_modes": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+               "decode_modes": ("gemlite_tpu_torch/csrc/decode_modes.cu",
                                 "gemlite_tpu/ops/pallas_decode.py:619", modes_counts,
                                 "serve_a8w4", "decode_modes"),
+               "decode_modes_ragged": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+                                       "gemlite_tpu/ops/pallas_decode.py:619", modes_counts,
+                                       "serve_a8w4", "decode_modes_ragged"),
                "prefill_modes": ("gemlite_tpu_torch/csrc/prefill_modes.cu",
                                  "gemlite_tpu/ops/pallas_prefill.py:570", modes_counts,
                                  "serve_a8w4", "prefill_modes"),
                "prefill_modes_ragged": ("gemlite_tpu_torch/csrc/prefill_gemm.cu",
                                         "gemlite_tpu/ops/pallas_prefill.py:570", modes_counts,
                                         "serve_a8w4", "prefill_modes_ragged"),
-               "decode_modes_stacked": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+               "decode_modes_stacked": ("gemlite_tpu_torch/csrc/decode_modes.cu",
                                         "gemlite_tpu/ops/pallas_scan.py:70", scan_cw_counts,
                                         "serve_scan_cw", "decode_modes_stacked"),
+               "decode_modes_ragged_stacked": ("gemlite_tpu_torch/csrc/decode_gemv.cu",
+                                               "gemlite_tpu/ops/pallas_scan.py:70",
+                                               scan_cw_counts, "serve_scan_cw",
+                                               "decode_modes_ragged_stacked"),
                "mx_decode": (mx_src, "gemlite_tpu/ops/pallas_decode.py:619", mxfp4_counts,
                              "serve_mxfp4", "mx_decode"),
                "mx_decode_stacked": (mx_src, "gemlite_tpu/ops/pallas_scan.py:70",
@@ -4263,17 +4465,20 @@ def main() -> int:
                               "serve_mx_unfolded", "mx_general")}
     # row 5f with fp8 x: since the dequantize kernel took A8Wn at M >= 4096,
     # no path that this script drives reaches it (its A8W4 run must show 0);
-    # every layer of the paths has N a multiple of 8, so the mode 1-3 prefill
-    # runs only the persistent kernel there (prefill_modes_ragged: 0)
-    off_path = {"fused_gemm_float_fp8x", "prefill_modes_ragged"}
+    # every layer of the paths has N a multiple of 32, so the mode 1-3 decode
+    # and prefill run only their TMA kernels there (decode_modes_ragged, its
+    # stacked form and prefill_modes_ragged: 0)
+    ragged_kernels = ("decode_modes_ragged", "decode_modes_ragged_stacked", "prefill_modes_ragged")
+    off_path = {"fused_gemm_float_fp8x", *ragged_kernels}
     for path, counts in (("serve_a8w4", modes_counts), ("real_weights (a8w4_gs64)",
                                                         rw_counts["a8w4_gs64"])):
         if counts.get("fused_gemm_float", 0):
             raise RuntimeError(f"row 5f ran in {path}: {counts}")
     for path, counts in [("serve_a8w4", modes_counts), ("serve_scan_cw", scan_cw_counts),
                          *((f"real_weights ({k})", c) for k, c in rw_counts.items())]:
-        if counts.get("prefill_modes_ragged", 0):
-            raise RuntimeError(f"prefill_modes_ragged ran in {path}: {counts}")
+        for ragged in ragged_kernels:
+            if counts.get(ragged, 0):
+                raise RuntimeError(f"{ragged} ran in {path}: {counts}")
     kernels = []
     for name_k, (src, replaces, counts, path, counter) in sources.items():
         r = picked[name_k]

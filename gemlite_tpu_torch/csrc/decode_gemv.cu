@@ -8,12 +8,14 @@
 //   gl_decode          one layer: replaces the TPU kernel
 //                      gemlite_tpu/ops/pallas_decode.py:pallas_decode_matmul
 //                      on the mode-4 layers the serving path runs;
-//   gl_decode_modes    one layer in W_group_mode 1, 2 or 3 (bf16 group
+//   gl_decode_modes_ragged  one layer in W_group_mode 1, 2 or 3 (bf16 group
 //                      scales, grouped bf16 or scalar int32 zeros) with csm
-//                      0-3: the same TPU kernel on the A8Wn, channel-wise
-//                      A16Wn and BitNet layers (fp8 x comes in as its bf16
-//                      image, exact). Its instances (template flag M3) build
-//                      w = (q - z) * s in three bf16x2 fmas a code pair,
+//                      0-3 whose operands TMA cannot read (N off a multiple
+//                      of 8, a base off 16 bytes): the same TPU kernel on
+//                      those A8Wn, channel-wise A16Wn and BitNet layers (x
+//                      in bf16, fp8 x as its bf16 image, exact); the others
+//                      take decode_modes.cu. Its instances (template flag M3)
+//                      build w = (q - z) * s in three bf16x2 fmas a code pair,
 //                      rounded as the plain version rounds, and multiply the
 //                      finished float32 sums by the per-token and channel
 //                      scales; a channel-wise layer (gs = K) reads its one
@@ -25,12 +27,12 @@
 //                      its index maps; here each block reads l from a device
 //                      pointer and offsets its weight, scale and zero
 //                      pointers by it, so the host never reads the index;
-//   gl_decode_modes_stacked  layer l of a stack in W_group_mode 1-3 with csm 0
-//                      or 1 (channel-wise A16Wn): the same TPU kernel on
-//                      those layers, the M3 instances read as
-//                      gl_decode_stacked reads its layer, with the channel
-//                      scales (L, 1, N) offset by it too. It keeps
-//                      gl_decode_modes's plan, so the two agree bit for bit.
+//   gl_decode_modes_ragged_stacked  layer l of such a stack with csm 0 or 1
+//                      (channel-wise A16Wn): the same TPU kernel on those
+//                      layers, the M3 instances read as gl_decode_stacked
+//                      reads its layer, with the channel scales (L, 1, N)
+//                      offset by it too. It keeps gl_decode_modes_ragged's
+//                      plan, so the two agree bit for bit.
 //
 // What bounds it: the packed weights and their metadata (K * N * bits / 8 +
 // 4 * K / gs * N bytes) dwarf x and the output at M <= 64, so the bound is
@@ -583,11 +585,11 @@ extern "C" int gl_decode_stacked(const void* x, const void* wq, const void* scal
 // device or null (no zero row: z = the scalar, or 0); `sx` (M) float32
 // per-token scales for csm 2 / 3 and `cs` (N) channel scales for csm 1 / 3,
 // float32 (code 0) or bf16 (code 2). gs = K (channel-wise) takes any split.
-extern "C" int gl_decode_modes(const void* x, const void* wq, const void* scales,
-                               const void* zeros, const void* zscalar, const void* sx,
-                               const void* cs, void* part, void* counters, void* out, int M, int N,
-                               int K, int gs, int bits, int splits, int k_per_split, int stages,
-                               int mrows, int csm, int cs_code, void* stream_ptr) {
+extern "C" int gl_decode_modes_ragged(const void* x, const void* wq, const void* scales,
+                                      const void* zeros, const void* zscalar, const void* sx,
+                                      const void* cs, void* part, void* counters, void* out, int M,
+                                      int N, int K, int gs, int bits, int splits, int k_per_split,
+                                      int stages, int mrows, int csm, int cs_code, void* stream_ptr) {
     const bool codes_ok = cs_code == gl::kF32 || cs_code == gl::kBF16;
     if (csm < 0 || csm > 3 || !codes_ok || ((csm & 2) && sx == nullptr) ||
         ((csm & 1) && cs == nullptr) || (zeros != nullptr && zscalar != nullptr))
@@ -602,16 +604,16 @@ extern "C" int gl_decode_modes(const void* x, const void* wq, const void* scales
 }
 
 // Layer *layer_idx (a device pointer to one int32) of L layers in W_group_mode
-// 1, 2 or 3 with csm 0 or 1, as gl_decode_modes otherwise: wq (L, K / epw,
+// 1, 2 or 3 with csm 0 or 1, as gl_decode_modes_ragged otherwise: wq (L, K / epw,
 // N); `scales` and `zeros` (L, K / gs, N) bf16 or null; `cs` (L, N) channel
 // scales for csm 1, float32 (code 0) or bf16 (code 2). No scalar zero and no
 // per-token scales: the stacked gate refuses both.
-extern "C" int gl_decode_modes_stacked(const void* x, const void* wq, const void* scales,
-                                       const void* zeros, const void* cs, const void* layer_idx,
-                                       void* part, void* counters, void* out, int L, int M, int N,
-                                       int K, int gs, int bits, int splits, int k_per_split,
-                                       int stages, int mrows, int csm, int cs_code,
-                                       void* stream_ptr) {
+extern "C" int gl_decode_modes_ragged_stacked(const void* x, const void* wq, const void* scales,
+                                              const void* zeros, const void* cs,
+                                              const void* layer_idx, void* part, void* counters,
+                                              void* out, int L, int M, int N, int K, int gs,
+                                              int bits, int splits, int k_per_split, int stages,
+                                              int mrows, int csm, int cs_code, void* stream_ptr) {
     const bool codes_ok = cs_code == gl::kF32 || cs_code == gl::kBF16;
     if (layer_idx == nullptr || L < 1 || (csm != 0 && csm != 1) || !codes_ok ||
         (csm == 1 && cs == nullptr))

@@ -22,7 +22,7 @@ import torch
 
 from .ops import build
 from .ops.attention import ATTENTION_TRACE, flash_attention_causal, paged_decode_attention_kernel
-from .ops.decode import decode_matmul, decode_modes
+from .ops.decode import decode_matmul, decode_modes, decode_modes_ragged
 from .ops.dequantize import dequantize_int, dequantize_weights
 from .ops.dispatch import KERNEL_TRACE
 from .ops.fused import fused_gemm, fused_gemm_float
@@ -30,14 +30,16 @@ from .ops.fp8 import fp8_decode, fp8_decode_stacked, fp8_prefill
 from .ops.int8_decode import int8_decode
 from .ops.mx import mx_decode, mx_decode_stacked, mx_general, mx_prefill, mx_prefill_csm4
 from .ops.prefill import prefill_matmul, prefill_modes, prefill_modes_ragged
-from .ops.scan import decode_matmul_stacked, decode_modes_stacked
+from .ops.scan import decode_matmul_stacked, decode_modes_ragged_stacked, decode_modes_stacked
 
 __all__ = ["COUNTED", "CapturedStep", "pool_bytes"]
 
 # every wrapper that counts the launches of its kernel, by name
 COUNTED = {"decode": decode_matmul, "prefill": prefill_matmul, "decode_modes": decode_modes,
-           "prefill_modes": prefill_modes, "prefill_modes_ragged": prefill_modes_ragged,
-           "decode_stacked": decode_matmul_stacked, "decode_modes_stacked": decode_modes_stacked,
+           "decode_modes_ragged": decode_modes_ragged, "prefill_modes": prefill_modes,
+           "prefill_modes_ragged": prefill_modes_ragged, "decode_stacked": decode_matmul_stacked,
+           "decode_modes_stacked": decode_modes_stacked,
+           "decode_modes_ragged_stacked": decode_modes_ragged_stacked,
            "dequantize": dequantize_weights, "dequantize_int": dequantize_int,
            "int8_decode": int8_decode, "fused_gemm": fused_gemm,
            "fused_gemm_float": fused_gemm_float, "flash": flash_attention_causal,

@@ -33,19 +33,23 @@ __all__ = ["KERNEL_SOURCES", "KERNEL_PARTS", "build", "load", "check", "graph_op
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("decode_gemv", "prefill_gemm", "prefill_modes", "dequantize", "int8_decode",
-                  "fused_gemm", "fused_float", "flash_attention", "paged_attention", "fp8_gemm",
-                  "mx_gemm")
+KERNEL_SOURCES = ("decode_gemv", "decode_modes", "prefill_gemm", "prefill_modes", "dequantize",
+                  "int8_decode", "fused_gemm", "fused_float", "flash_attention", "paged_attention",
+                  "fp8_gemm", "mx_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # sources compiled in parts: (part name, its defines), each part one nvcc, the
-# objects linked into the source's library. prefill_modes.cu's parts hold its
-# code widths (GL_PM_BITS) and the entry (GL_PM_ENTRY); fused_float.cu's its
+# objects linked into the source's library. prefill_modes.cu's and
+# decode_modes.cu's parts hold their code widths (GL_PM_BITS, GL_DM_BITS) and
+# the entries (GL_PM_ENTRY, GL_DM_ENTRY); fused_float.cu's its
 # weight forms (GL_FF_FORMS, a mask of the forms) and the entry (GL_FF_ENTRY),
 # int8_decode.cu's its weight kinds (GL_I8_KINDS) and the entries
 # (GL_I8_ENTRY): one nvcc of each whole source took 388 s and 206 s, the
 # longest two of the build (on the machine that holds the H100, PERF.md).
 KERNEL_PARTS = {
+    "decode_modes": (("decode_modes_w4", ("-DGL_DM_BITS=0x4", "-DGL_DM_ENTRY=1")),
+                     ("decode_modes_w2", ("-DGL_DM_BITS=0x2",)),
+                     ("decode_modes_w1", ("-DGL_DM_BITS=0x1",))),
     "prefill_modes": (("prefill_modes_w4", ("-DGL_PM_BITS=0x4", "-DGL_PM_ENTRY=1")),
                       ("prefill_modes_w2", ("-DGL_PM_BITS=0x2",)),
                       ("prefill_modes_w1", ("-DGL_PM_BITS=0x1",))),

@@ -21,8 +21,9 @@ form of the dequantize kernel then a dense matmul from 4096, and never the
 general fused kernel, whose JAX gate refuses them
 (``pallas_gemm.py:can_use_pallas``). fp8 x over integer codes
 (``A8Wn_HQQ_INT_dynamic``) takes the mode 1-3 form of decode and prefill
-below 4096, x converted to its bf16 image (exact) beside the per-token
-quantization; so do channel-wise ``A16Wn`` and ``A16W158_INT``. From M 4096
+below 4096: the decode kernel reads e4m3 codes itself (e5m2 as its bf16
+image), the prefill kernel takes x converted to its bf16 image (exact)
+beside the per-token quantization; so do channel-wise ``A16Wn`` and ``A16W158_INT``. From M 4096
 these take the dequantize kernel, as in JAX. Below 4096, a float layer that
 the JAX package sends to one of its kernels but whose form the port's decode
 and prefill kernels do not cover yet (W8 codes, fp16 x, groups the prefill
@@ -177,11 +178,12 @@ def fused_matmul(x: torch.Tensor, W_q, scales, zeros, meta, scales_x=None) -> to
         return int8_decode(x, W_q, scales, zeros, scales_x, meta)
     if fp8_coded(meta) and route in ("decode", "prefill"):
         return (fp8_decode if route == "decode" else fp8_prefill)(x, W_q, scales, scales_x, meta)
-    if route in ("decode", "prefill") and meta.W_group_mode != 4:
+    if route == "decode" and meta.W_group_mode != 4:
+        return decode_modes(x, W_q, scales, zeros, scales_x, meta)   # reads e4m3 x itself
+    if route == "prefill" and meta.W_group_mode != 4:
         if x.dtype != torch.bfloat16:
             x = x.to(torch.bfloat16)              # fp8 codes: their exact bf16 image
-        modes = decode_modes if route == "decode" else prefill_modes
-        return modes(x, W_q, scales, zeros, scales_x, meta)
+        return prefill_modes(x, W_q, scales, zeros, scales_x, meta)
     if route == "decode":
         return decode_matmul(x, W_q, scales, zeros, meta)
     if route == "prefill":

@@ -2,8 +2,11 @@
 """Stacked decode kernel: layer ``l`` of an L-layer stack of W1/W2/W4 mode-4
 layers for M <= 64 (``csrc/decode_gemv.cu``, entry ``gl_decode_stacked``),
 of W1/W2/W4 layers in W_group_mode 1-3 with csm 0 or 1 (channel-wise
-``A16Wn``, with or without ``post_scale``; entry ``gl_decode_modes_stacked``,
-wrapper ``decode_modes_stacked``), of fp8-coded layers with unscaled x (``A16W8_FP8``; ``csrc/fp8_gemm.cu``,
+``A16Wn``, with or without ``post_scale``; ``csrc/decode_modes.cu``, entry
+``gl_decode_modes_stacked``, wrapper ``decode_modes_stacked``; where TMA
+cannot read the operands, ``decode_gemv.cu``'s ``gl_decode_modes_ragged_stacked``,
+wrapper ``decode_modes_ragged_stacked``, counted apart), of fp8-coded layers
+with unscaled x (``A16W8_FP8``; ``csrc/fp8_gemm.cu``,
 entry ``gl_fp8_decode_stacked``, wrapper ``ops/fp8.fp8_decode_stacked``), or
 of weight-only MX layers (``A16W4_MXFP``, ``A16W8_MXFP``; ``csrc/mx_gemm.cu``,
 entry ``gl_mx_decode_stacked``, wrapper ``ops/mx.mx_decode_stacked``).
@@ -13,8 +16,9 @@ TPU kernel takes the layer index as a scalar-prefetch operand read by its
 index maps; here the index is a 0-d int32 tensor on the card, and each block
 of the kernel reads it and offsets its weight, scale and zero pointers, so the
 host never reads it and one launch entry serves every layer. The body is the
-per-layer decode kernel's, with the same plan (``ops/decode.plan``) and
-split state, so at layer ``l`` the two agree bit for bit.
+per-layer decode kernel's, with the same plan (``ops/decode.plan``,
+``decode.modes_plan`` for modes 1-3) and split state, so at layer ``l`` the
+two agree bit for bit.
 
 The plain version is ``forward_meta`` on ``W_q[l]``, ``scales[l]`` and
 ``zeros[l]`` (``forward_f32_epilogue`` for modes 1-3, the per-layer mode 1-3
@@ -22,20 +26,20 @@ form's plain version). On a CPU tensor the wrapper runs it; on a CUDA tensor
 it launches the kernel or raises.
 """
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from ..dtypes import DType
 from . import build, w4
-from .decode import can_use_decode, can_use_decode_modes, modes_plan, plan, split_buffers
+from . import decode
+from .decode import can_use_decode, can_use_decode_modes, plan, split_buffers
 from .fp8 import fp8_coded, fp8_decode_stacked, fp8_refusal
 from .mx import mx_coded, mx_decode_stacked, mx_refusal
 from .reference import forward_f32_epilogue, forward_meta
 
 __all__ = ["can_use_stacked_decode", "stacked_decode_refusal", "decode_matmul_stacked",
-           "decode_matmul_stacked_plain", "decode_modes_stacked"]
+           "decode_matmul_stacked_plain", "decode_modes_stacked", "decode_modes_ragged_stacked"]
 
 
 def stacked_decode_refusal(meta, M: int) -> Optional[str]:
@@ -99,14 +103,6 @@ def decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx):
     return forward_meta(x, *layer, None, meta)
 
 
-def _fn(name: str, pointers: int, ints: int):
-    fn = getattr(build.load("decode_gemv"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _layer_index(layer_idx, x):
     if not (isinstance(layer_idx, torch.Tensor) and layer_idx.device == x.device
             and layer_idx.dtype == torch.int32 and layer_idx.numel() == 1):
@@ -119,9 +115,10 @@ def decode_modes_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) -
     """out (M, N) bf16 = csm(x (M, K) @ dequant(W_q[layer_idx])) for M <= 64
     on a stack of layers in W_group_mode 1-3 with csm 0 or 1: ``W_q`` (L, K /
     epw, N) int32, ``scales`` and ``zeros`` (L, K / gs, N) bf16 where the
-    mode has them, the csm-1 channel scales in ``scales`` as (L, 1, N). The
-    per-layer form's plan, so layer ``l`` equals ``decode.decode_modes`` on
-    it bit for bit."""
+    mode has them, the csm-1 channel scales in ``scales`` as (L, 1, N); x
+    bf16. The per-layer form's kernel and plan (``decode.modes_plan``, or on
+    the ragged route ``decode.ragged_modes_plan``), so layer ``l`` equals
+    ``decode.decode_modes`` on it bit for bit."""
     if x.device.type == "cpu":
         return decode_matmul_stacked_plain(x, W_q, scales, zeros, meta, layer_idx)
     M = x.shape[0]
@@ -131,23 +128,30 @@ def decode_modes_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) -
                                   f"{why or f'W_group_mode {meta.W_group_mode}'}")
     layer_idx = _layer_index(layer_idx, x)
     N, K = meta.out_features, meta.in_features
-    L = W_q.shape[0]
     x = w4.activations(x, K)
-    s, z, _, _, cs = w4.modes_operands(W_q, scales, zeros, None, meta, M, layers=L)
-    p = modes_plan(M, meta)
+    operands = w4.modes_operands(W_q, scales, zeros, None, meta, M, layers=W_q.shape[0])
     stream = w4.stream()
-    part, cnt = split_buffers(M, N, p, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ptr = w4.pointer
-    err = _fn("gl_decode_modes_stacked", 9, 12)(
-        x.data_ptr(), W_q.data_ptr(), ptr(s), ptr(z), ptr(cs), layer_idx.data_ptr(), part, cnt,
-        out.data_ptr(), L, M, N, K, meta.group_size, meta.W_nbits, p.splits, p.k_per_split,
-        p.stages, p.mrows, meta.channel_scale_mode, w4.scale_code(cs), stream)
-    build.check(err, "decode_gemv (stacked modes)")
+    if not decode.modes_tma(N, meta.W_nbits, x, W_q, *operands[:2]):
+        return decode_modes_ragged_stacked(x, W_q, operands, out, meta, stream, layer_idx)
+    decode.tma_call(decode._fn("decode_modes", "gl_decode_modes_stacked", 9, 13), x, 2, W_q,
+                    operands, out, meta, stream, layer_idx)
     decode_modes_stacked.launches += 1
     return out
 
 
+def decode_modes_ragged_stacked(x, W_q, operands, out, meta, stream, layer_idx) -> torch.Tensor:
+    """decode_modes_stacked's kernel where TMA cannot read the stacks
+    (``decode.modes_tma``): ``gl_decode_modes_ragged_stacked``, the stacked
+    mode 1-3 instance of ``decode_gemv.cu``, on ``decode.ragged_modes_plan``,
+    so layer ``l`` equals ``decode.decode_modes_ragged`` on it bit for bit;
+    counted apart from it. Writes ``out`` and returns it."""
+    decode.ragged_call(x, W_q, operands, out, meta, stream, layer_idx)
+    decode_modes_ragged_stacked.launches += 1
+    return out
+
+
+decode_modes_ragged_stacked.launches = 0
 decode_modes_stacked.launches = 0
 
 
@@ -182,9 +186,10 @@ def decode_matmul_stacked(x: torch.Tensor, W_q, scales, zeros, meta, layer_idx) 
     stream = w4.stream()
     part, cnt = split_buffers(M, N, p, x.device, stream)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    err = _fn("gl_decode_stacked", 8, 10)(x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-                 layer_idx.data_ptr(), part, cnt, out.data_ptr(), L, M, N, K, gs, meta.W_nbits,
-                 p.splits, p.k_per_split, p.stages, p.mrows, stream)
+    err = decode._fn("decode_gemv", "gl_decode_stacked", 8, 10)(
+        x.data_ptr(), W_q.data_ptr(), scales.data_ptr(), zeros.data_ptr(), layer_idx.data_ptr(),
+        part, cnt, out.data_ptr(), L, M, N, K, gs, meta.W_nbits, p.splits, p.k_per_split,
+        p.stages, p.mrows, stream)
     build.check(err, "decode_gemv (stacked)")
     decode_matmul_stacked.launches += 1
     return out

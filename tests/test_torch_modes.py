@@ -186,18 +186,27 @@ def test_refused_forms_keep_the_general_kernel():
 
 @pytest.mark.parametrize("N_,K_", [(4096, 4096), (14336, 4096), (4096, 14336), (1024, 4096)])
 def test_channelwise_decode_plan_splits_k(N_, K_):
-    """A channel-wise mode 1-3 layer's decode plan cuts K in 256-deep units
-    (more than one split at the 8B shapes, one wave of about four blocks an
-    SM), each stage holding the one metadata row; the mode-4 plan of the same
-    shape at gs 128 is unchanged by the flag's default."""
+    """A channel-wise mode 1-3 layer's decode plan (the TMA kernel's
+    ``modes_plan``) cuts K in whole 128-deep stages, at least two a split,
+    into more than one split at the 8B shapes within whole waves of three
+    blocks an SM, and loads its one metadata row once a block; the ragged
+    route's plan keeps 256-deep units and about four blocks an SM; the mode-4
+    plan of the same shape at gs 128 is unchanged by the flag's default."""
     meta = _layers("a8w4_cw_post")[1].meta._replace(in_features=K_, out_features=N_,
                                                      group_size=K_)
     for M in (1, 8, 64):
         p = decode.modes_plan(M, meta)
-        assert p.splits > 1 and p.mrows == 1 and p.k_per_split % 256 == 0
+        assert p.splits > 1 and p.mrows == 1 and p.once
+        assert p.k_per_split % decode.BK == 0 and p.k_per_split >= 2 * decode.BK
         assert p.splits * p.k_per_split >= K_ > (p.splits - 1) * p.k_per_split
-        assert p.tiles * p.splits <= decode.TARGET_BLOCKS + p.tiles
-        assert p.smem <= decode.SMEM_MAX
+        waves = -(-p.tiles // decode.MODES_RESIDENT)
+        assert p.tiles * p.splits <= waves * decode.MODES_RESIDENT
+        assert p.smem - 1024 <= decode.MODES_BUDGET
+        r = decode.ragged_modes_plan(M, meta)
+        assert r.splits > 1 and r.mrows == 1 and r.k_per_split % 256 == 0
+        assert r.splits * r.k_per_split >= K_ > (r.splits - 1) * r.k_per_split
+        assert r.tiles * r.splits <= decode.TARGET_BLOCKS + r.tiles
+        assert r.smem <= decode.SMEM_MAX
         assert decode.plan(M, N_, K_, 128, 4) == decode.plan(M, N_, K_, 128, 4, one_group=False)
     one = decode.plan(8, N_, K_, K_, 4)
     assert one.splits == 1                     # a mode-4 gs = K plan: as before

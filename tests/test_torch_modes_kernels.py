@@ -19,6 +19,13 @@ channel scale), and packed by hand: mode 2 (scales, no zeros) and mode 3
 with a scalar zero. Shapes: the 8B ones, ragged N (odd columns take the
 2-byte metadata loads) and a K that ends inside a decode stage.
 
+The decode form's TMA kernel (``gl_decode_modes``, ``csrc/decode_modes.cu``)
+reads e4m3 x itself: equal bit for bit to the same call on its bf16 image, at
+every form and M 1-64; N off 32 takes its four 2-d word boxes (W2 / W4); N
+off 8 and W1 off 32 take the ragged route (``decode_modes_ragged``, counted
+apart), also on the 32001 x 4096 vocabulary head; a captured replay equals
+the eager call, and the split counters stay 0.
+
 The stacked form (``ops/scan.decode_modes_stacked``, ``gl_decode_modes_stacked``)
 over stacks of channel-wise A16W4 / A16W2 layers (mode 3 / csm 0, mode 1 /
 csm 1, the channel scales bf16 or float32) and W4 mode 2: each layer equal to
@@ -33,13 +40,14 @@ from gemlite_tpu_torch import DType, GemLiteLinear
 from gemlite_tpu_torch.dtypes import to_torch_dtype
 from gemlite_tpu_torch.helper import A16W158_INT, A16Wn, A8Wn_HQQ_INT_dynamic
 from gemlite_tpu_torch.ops import build, dispatch
-from gemlite_tpu_torch.ops.decode import decode_modes, modes_plan
+from gemlite_tpu_torch.ops.decode import decode_modes, decode_modes_ragged, modes_plan
 from gemlite_tpu_torch.ops.dequantize import dequantize_full, dequantize_int
 from gemlite_tpu_torch.ops.fused import fused_gemm_float
 from gemlite_tpu_torch.ops.prefill import (modes_plan as prefill_modes_plan, prefill_modes,
                                             prefill_modes_ragged)
 from gemlite_tpu_torch.ops.reference import forward_f32_epilogue, forward_meta
-from gemlite_tpu_torch.ops.scan import decode_matmul_stacked, decode_modes_stacked
+from gemlite_tpu_torch.ops.scan import (decode_matmul_stacked, decode_modes_ragged_stacked,
+                                        decode_modes_stacked)
 from gemlite_tpu_torch.quant import quantize_int_weights, scale_activations_per_token
 
 pytestmark = pytest.mark.requires_cuda
@@ -184,6 +192,104 @@ def test_decode_modes_k_ends_inside_a_stage(gen, form, M):
     _check(gen, form, M, 512, 2112)
 
 
+A8_FORMS = ("a8w4_gs64", "a8w4_gs128_e5m2", "a8w2_gs64", "a8w1_gs128", "a8w4_cw",
+            "a8w4_cw_post")
+
+
+# the 8B shapes, and K 2112 (16.5 stages) where the group divides it, else 2176
+FP8_X_CASES = [(form, N, K) for form in A8_FORMS
+               for N, K in ((14336, 4096), (4096, 14336),
+                            (1024, 2176 if FORMS[form][1] == 128 else 2112))]
+
+
+@pytest.mark.parametrize("form,N,K", FP8_X_CASES)
+@pytest.mark.parametrize("M", [1, 8, 16, 33, 64])
+def test_decode_modes_fp8_x_equals_its_bf16_image(gen, form, N, K, M):
+    """The TMA kernel on the fp8 codes (e4m3 read in the kernel, e5m2 as its
+    bf16 image) equals the same call on the codes' bf16 image bit for bit,
+    in one launch of decode_modes, and is within the bound of the plain
+    version."""
+    layer = _layer(gen, form, N, K)
+    meta = layer.meta
+    x, xq, sx = _inputs(gen, layer, M)
+    assert xq.dtype in (E4M3, E5M2)
+    args = (layer.W_q, layer.scales, layer.zeros, sx)
+    before = (decode_modes.launches, decode_modes_ragged.launches)
+    got = decode_modes(xq, *args, meta)
+    assert (decode_modes.launches - before[0], decode_modes_ragged.launches - before[1]) == (1, 0)
+    want = decode_modes(x, *args, meta)
+    plain = forward_f32_epilogue(xq, *args, meta._replace(output_dtype=DType.FP32.value))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (form, M, N, K)
+    assert _rel(got, plain) <= REL
+
+
+@pytest.mark.parametrize("form,N", [("a8w4_gs64", 129), ("a8w4_gs64", 200), ("a8w4_gs64", 1000),
+                                    ("a8w2_gs64", 1000), ("a8w1_gs128", 1000),
+                                    ("a8w1_gs128", 1024), ("a16w158", 130), ("a16w158", 1000),
+                                    ("a16w4_cw_post", 1024)])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_decode_modes_ragged_kernel_only_where_tma_cannot_read(gen, form, N, M):
+    """N off 8, and W1 codes with N off 32, take decode_gemv.cu's mode 1-3
+    instances (decode_modes_ragged, counted apart); N 1000 at W2 / W4 the TMA
+    kernel's four 2-d word boxes; each within the bound of the plain version."""
+    layer = _layer(gen, form, N, 1024)
+    meta = layer.meta
+    x, xp, sx = _inputs(gen, layer, M)
+    args = (layer.W_q, layer.scales, layer.zeros, sx)
+    before = (decode_modes.launches, decode_modes_ragged.launches)
+    out = decode_modes(x, *args, meta)
+    got = (decode_modes.launches - before[0], decode_modes_ragged.launches - before[1])
+    ragged = N % 8 or (meta.W_nbits == 1 and N % 32)
+    assert got == ((0, 1) if ragged else (1, 0)), (form, N)
+    want = forward_f32_epilogue(xp, *args, meta._replace(output_dtype=DType.FP32.value))
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= REL, (form, N, M)
+
+
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a16w158"])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_decode_modes_ragged_vocabulary_head(gen, form, M):
+    """A 32001 x 4096 vocabulary head (N off 8) on the ragged route."""
+    N, K = 32001, 4096
+    layer = _layer(gen, form, N, K)
+    x, xp, sx = _inputs(gen, layer, M)
+    args = (layer.W_q, layer.scales, layer.zeros, sx)
+    before = decode_modes_ragged.launches
+    out = decode_modes(x, *args, layer.meta)
+    want = forward_f32_epilogue(xp, *args, layer.meta._replace(output_dtype=DType.FP32.value))
+    torch.cuda.synchronize()
+    assert decode_modes_ragged.launches == before + 1
+    assert _rel(out, want) <= REL
+
+
+@pytest.mark.parametrize("form", ["a8w4_gs64", "a8w4_cw_post", "a16w158"])
+def test_decode_modes_captured_replay_equals_eager(gen, form):
+    """A CUDA graph of the TMA kernel's call, replayed on new x, equals the
+    eager call on that x bit for bit; the split counters stay 0."""
+    layer = _layer(gen, form, 14336, 4096)
+    x, xq, sx = _inputs(gen, layer, 8)
+    xin = xq.clone()
+    args = (layer.W_q, layer.scales, layer.zeros)
+    call = (lambda: decode_modes(xin, *args, sx, layer.meta))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = call()
+    _, xq2, _ = _inputs(gen, layer, 8)
+    xin.copy_(xq2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    for key, (ints, _) in build._SPLIT_STATE.items():
+        if key[0] == "decode_modes":
+            assert int(ints.abs().sum()) == 0
+
+
 @pytest.mark.parametrize("form,M,N,K", [
     ("a8w4_gs64", 8, 14336, 4096), ("a8w4_cw_post", 8, 4096, 14336), ("a16w158", 1, 4096, 4096),
     ("a8w4_gs64", 128, 14336, 4096), ("a8w2_gs64", 1024, 4096, 14336),
@@ -203,7 +309,7 @@ def test_modes_one_launch_a_call(gen, form, M, N, K):
     assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
     assert build.graph_ops(lambda: got.append(call())) == ["kernel"]
     assert all(torch.equal(g, want) for g in got)
-    for owner in ("decode_gemv", "prefill_gemm", "prefill_modes"):
+    for owner in ("decode_gemv", "decode_modes", "prefill_gemm", "prefill_modes"):
         for key, (ints, _) in build._SPLIT_STATE.items():
             if key[0] == owner:
                 assert int(ints.abs().sum()) == 0
@@ -338,6 +444,27 @@ def test_stacked_modes_equal_per_layer(gen, form, f32_cs, M, N, K):
         assert _rel(got, plain) <= REL
 
 
+@pytest.mark.parametrize("form", ["a16w4_cw_post", "w4_mode2_gs64"])
+@pytest.mark.parametrize("N", [1001, 1004])
+def test_stacked_modes_ragged_counted_apart(gen, form, N):
+    """Where TMA cannot read the stacks (N off 8) the stacked entry runs
+    gl_decode_modes_ragged_stacked, counted on decode_modes_ragged_stacked
+    alone, and layer l equals the per-layer ragged route on it bit for bit."""
+    L, M, K = 3, 8, 2048
+    W_q, scales, zeros, meta, layers = _stack(gen, form, N, K, L)
+    x = (torch.randn((M, K), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    idx = torch.tensor([1], dtype=torch.int32, device="cuda")
+    counters = (decode_modes_stacked, decode_modes_ragged_stacked, decode_modes_ragged)
+    before = [c.launches for c in counters]
+    got = decode_matmul_stacked(x, W_q, scales, zeros, meta, idx)
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 1, 0]
+    lyr = layers[1]
+    want = decode_modes(x, lyr.W_q, lyr.scales, lyr.zeros, None, lyr.meta)
+    torch.cuda.synchronize()
+    assert decode_modes_ragged.launches == before[2] + 1
+    assert torch.equal(got, want), (form, N)
+
+
 def test_stacked_modes_one_launch_and_replay(gen):
     """One kernel a call, no allocation but the output, the split state
     left 0, the launch counted on decode_modes_stacked, and a CUDA graph's
@@ -356,7 +483,7 @@ def test_stacked_modes_one_launch_and_replay(gen):
     assert build.graph_ops(lambda: got.append(call())) == ["kernel"]
     assert all(torch.equal(g, want) for g in got)
     for key, (ints, _) in build._SPLIT_STATE.items():
-        if key[0] == "decode_gemv":
+        if key[0] in ("decode_gemv", "decode_modes"):
             assert int(ints.abs().sum()) == 0
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
